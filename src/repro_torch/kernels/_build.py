@@ -1,0 +1,75 @@
+"""Builds the port's CUDA sources at first use and loads them with ctypes.
+
+Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, in ``build/``
+at the repository root (listed in ``.gitignore``).  The library's name
+carries a hash of the source and the flags, so an edited source is
+rebuilt and a built one is reused.  Nothing here runs when the module is
+imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+@dataclass
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float          # 0.0 when an earlier build was reused
+    log: str                # nvcc's output (ptxas registers/spills)
+
+
+_LOADED: dict[str, Built] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` (once per process) and load it."""
+    if name in _LOADED:
+        return _LOADED[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}_{digest}.so"
+    log_path = out.with_suffix(".log")
+    seconds = 0.0
+    if not out.exists():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(src)], capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, out)
+    built = Built(ctypes.CDLL(str(out)), out, seconds,
+                  log_path.read_text() if log_path.exists() else "")
+    _LOADED[name] = built
+    return built

@@ -1,0 +1,216 @@
+"""Decoder-only LM: specs, forward, prefill and decode.
+
+Counterpart of ``repro/models/transformer.py`` for the families whose
+layers are attention + MLP (``dense``).  Layers are grouped as in the JAX
+package: a group is a period of sub-layers whose parameters are stacked
+over the number of repeats (the ``layers`` axis); a Python loop over that
+axis takes the place of ``lax.scan``.  Mamba and MoE sub-layers arrive with
+later slices (ROADMAP.md, A7) and raise ``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.types import ArchConfig
+from repro_torch.models import attention as att
+from repro_torch.models import common as cm
+from repro_torch.models import mlp as mlpm
+from repro_torch.models.common import ParamSpec, torch_dtype
+
+
+# --------------------------------------------------------------------------- #
+# Norm helpers
+# --------------------------------------------------------------------------- #
+def norm_specs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    if cfg.norm_type == "ln":
+        return {"scale": ParamSpec((d,), ("embed_nosplit",), "ones"),
+                "bias": ParamSpec((d,), ("embed_nosplit",), "zeros")}
+    return {"scale": ParamSpec((d,), ("embed_nosplit",), "ones")}
+
+
+def apply_norm(p, x, cfg: ArchConfig):
+    if cfg.norm_type == "ln":
+        return cm.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return cm.rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+# --------------------------------------------------------------------------- #
+# Layer-kind layout
+# --------------------------------------------------------------------------- #
+def layer_kinds(cfg: ArchConfig) -> list:
+    """Per layer: (mixer, ffn) with mixer in {attn, mamba}, ffn in {mlp, moe,
+    None}."""
+    kinds = []
+    for i in range(cfg.num_layers):
+        mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+        if cfg.is_moe_layer(i):
+            ffn = "moe"
+        elif cfg.d_ff > 0:
+            ffn = "mlp"
+        else:
+            ffn = None
+        kinds.append((mixer, ffn))
+    return kinds
+
+
+def group_layout(cfg: ArchConfig) -> Tuple[list, int]:
+    """Returns (period_kinds, repeats). The whole stack is `repeats` copies
+    of `period_kinds`."""
+    kinds = layer_kinds(cfg)
+    period = cfg.attn_period if cfg.attn_period else 1
+    if cfg.moe_period:
+        period = math.lcm(period, cfg.moe_period)
+    if cfg.num_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not divide "
+                         f"into periods of {period}")
+    reps = cfg.num_layers // period
+    pk = kinds[:period]
+    if any(kinds[r * period:(r + 1) * period] != pk for r in range(reps)):
+        raise ValueError(f"{cfg.name}: layer kinds are not periodic")
+    return pk, reps
+
+
+def _check_kind(mixer: str, ffn: Optional[str]) -> None:
+    if mixer != "attn" or ffn not in ("mlp", None):
+        raise NotImplementedError(
+            f"sub-layer ({mixer}, {ffn}) is not ported yet; see ROADMAP.md, "
+            "A7")
+
+
+def _sublayer_specs(cfg: ArchConfig, mixer: str, ffn: Optional[str]) -> dict:
+    _check_kind(mixer, ffn)
+    s: dict = {"norm1": norm_specs(cfg), "attn": att.attn_specs(cfg)}
+    if ffn is not None:
+        s["norm2"] = norm_specs(cfg)
+        s[ffn] = mlpm.mlp_specs(cfg)
+    return s
+
+
+def lm_specs(cfg: ArchConfig) -> dict:
+    dt = torch_dtype(cfg.dtype)
+    pk, reps = group_layout(cfg)
+    period = {f"sub{j}": _sublayer_specs(cfg, mixer, ffn)
+              for j, (mixer, ffn) in enumerate(pk)}
+    specs = {
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                           ("vocab", "embed"), "embed", dt),
+        "final_norm": norm_specs(cfg),
+        "layers": cm.stack_specs(period, reps),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                     ("embed", "vocab"), "normal", dt, (0,))
+    return specs
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree stacked over the layers axis (views)."""
+    return cm.tree_map(lambda x: x[i], tree)
+
+
+# --------------------------------------------------------------------------- #
+# Forward passes
+# --------------------------------------------------------------------------- #
+def _ffn(lp, x, cfg: ArchConfig, ffn: Optional[str]):
+    if ffn is None:
+        return x
+    return x + mlpm.mlp(lp[ffn], apply_norm(lp["norm2"], x, cfg), cfg)
+
+
+def embed_tokens(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    return p["embed"][batch["tokens"]]
+
+
+def lm_forward(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Full-sequence causal forward. Returns logits [B, S, V]."""
+    pk, reps = group_layout(cfg)
+    x = cm.shard_act(embed_tokens(p, cfg, batch), "hidden")
+    segment_ids = batch.get("segment_ids")
+    for r in range(reps):
+        period = _layer(p["layers"], r)
+        for j, (mixer, ffn) in enumerate(pk):
+            _check_kind(mixer, ffn)
+            lp = period[f"sub{j}"]
+            h = apply_norm(lp["norm1"], x, cfg)
+            x = x + att.attention(lp["attn"], h, cfg,
+                                  segment_ids=segment_ids)
+            x = cm.shard_act(_ffn(lp, x, cfg, ffn), "hidden")
+    x = apply_norm(p["final_norm"], x, cfg)
+    return unembed(p, cfg, x)
+
+
+def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ p["embed"].T
+    else:
+        logits = x @ p["unembed"]
+    if cfg.vocab_pad:
+        # mask padded vocab slots: exact lse/softmax of the unpadded model
+        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        logits = logits.masked_fill(~valid, -1e30)
+    return cm.shard_act(logits, "logits")
+
+
+def lm_loss(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    logits = lm_forward(p, cfg, batch)
+    return cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+
+
+# --------------------------------------------------------------------------- #
+# Prefill / decode (serving)
+# --------------------------------------------------------------------------- #
+def kv_cache_len(cfg: ArchConfig, total_len: int) -> int:
+    if cfg.sliding_window > 0:
+        return min(cfg.sliding_window, total_len)
+    return total_len
+
+
+def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
+    """Prompt processing. Returns (last-token logits [B, V], cache).
+
+    The cache is ``{"sub<j>": {"k", "v": [repeats, B, C, KV, hd]}}`` with
+    C = ``kv_cache_len(cfg, S + extra_cache)``, allocated once here and
+    written in place by :func:`lm_decode`."""
+    pk, reps = group_layout(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    clen = kv_cache_len(cfg, S + extra_cache)
+    x = embed_tokens(p, cfg, batch)
+    caches = {f"sub{j}": att.new_cache(B, clen, cfg, x.dtype, x.device,
+                                       layers=reps)
+              for j in range(len(pk))}
+    for r in range(reps):
+        period = _layer(p["layers"], r)
+        for j, (mixer, ffn) in enumerate(pk):
+            _check_kind(mixer, ffn)
+            lp = period[f"sub{j}"]
+            h, _ = att.attention_prefill(
+                lp["attn"], apply_norm(lp["norm1"], x, cfg), cfg,
+                cache_len=clen, cache=_layer(caches[f"sub{j}"], r))
+            x = _ffn(lp, x + h, cfg, ffn)
+    x = apply_norm(p["final_norm"], x, cfg)
+    logits = unembed(p, cfg, x[:, -1:])[:, 0]
+    return logits, caches
+
+
+def lm_decode(p, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos: int):
+    """One decode step. token [B, 1] int; pos: absolute position (int).
+    Writes into ``cache`` in place; returns (logits [B, V], cache)."""
+    pk, reps = group_layout(cfg)
+    x = p["embed"][token]
+    for r in range(reps):
+        period = _layer(p["layers"], r)
+        for j, (mixer, ffn) in enumerate(pk):
+            _check_kind(mixer, ffn)
+            lp = period[f"sub{j}"]
+            h, _ = att.attention_decode(
+                lp["attn"], apply_norm(lp["norm1"], x, cfg),
+                _layer(cache[f"sub{j}"], r), cfg, pos=pos)
+            x = _ffn(lp, x + h, cfg, ffn)
+    x = apply_norm(p["final_norm"], x, cfg)
+    logits = unembed(p, cfg, x)[:, 0]
+    return logits, cache
