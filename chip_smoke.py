@@ -7,22 +7,43 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it builds the port's
 CUDA kernels from the sources in this checkout.  Phases:
 
 1. Card and build: the card's name and power limit from ``nvidia-smi``;
-   the flash-attention kernel built from ``kernels/csrc/flash_fwd.cu``.
-2. The kernel against its plain version (``kernels/ref.py``) on the card,
-   over a sweep of shapes, masks and dtypes, and at the serving prefill
-   shape, where the kernel, the plain version and PyTorch's
-   ``scaled_dot_product_attention`` are timed.
-3. The main path: ``repro_torch.launch.serve.serve`` runs granite-3-8b at
-   full width in bf16 (random weights from a seed), batch 4, prompt 2048,
-   32 generated tokens; the kernel must be launched once per layer in
-   prefill, every token in the vocabulary and every logit finite.
-   Then a warm run of the same model and shapes is timed, and traced with
-   ``torch.profiler`` for device busy time by kernel.
-4. Consistency at full width: granite-3-8b cut to 4 layers, float32;
-   prefill of S-2 tokens then 2 decode steps must give ``forward``'s
-   logits.  Decode attends with plain PyTorch and forward with the kernel.
-5. A ``{"kernels": [...]}`` line with each kernel's launches on the main
-   path, error and times, then the ``{"ok": true, ...}`` line.
+   ``kernels/csrc/flash_fwd.cu`` and ``distill_kl_fwd.cu`` built by one
+   ``nvcc`` each, started together.
+2. The flash kernel against its plain version (``kernels/ref.py``) on the
+   card, over a sweep of shapes, masks and dtypes, and at the two
+   main-path shapes, granite-3-8b's serving prefill and qwen1.5-0.5b's
+   training and distillation attention, where the kernel, the plain
+   version and PyTorch's ``scaled_dot_product_attention`` are timed.  Then
+   its gradients: autograd through ``ops.flash_attention[_lse]`` (kernel
+   forward, blockwise backward) against autograd through the plain
+   version, over a sweep and at the training shape.
+3. The distillation-KL kernel against its plain version over a sweep
+   (ragged N and V, Ds != Dt, T in {1, 2}, f32 and bf16, with and without
+   a mask, W contiguous and W as ``embed.T``), then at the main-path shape
+   (N = 8192, D = 1024, V = 151936, bf16), where the kernel, the plain
+   version and the materialised form in PyTorch calls are timed.
+4. Serving: ``launch.serve.serve`` runs granite-3-8b at full width in bf16
+   (random weights from a seed), batch 4, prompt 2048, 32 generated
+   tokens; the flash kernel must be launched once per layer in prefill.
+   A warm run is timed and traced with ``torch.profiler``; prefill of S-2
+   tokens then 2 decode steps must give ``forward``'s logits (4 layers,
+   float32).
+5. Training: ``launch.train.run`` trains qwen1.5-0.5b at full width in
+   bf16, batch 4 x seq 2048; losses and grad norms finite, weights
+   changed, the flash kernel launched twice per layer and step (forward
+   and the recompute of the checkpointed layer).  One warm step of the
+   same model is traced.
+6. Distillation: ``distill.workload.build_colocated_step``, teacher
+   qwen1.5-0.5b (seed 1, frozen) and student qwen1.5-0.5b (seed 0) at full
+   width in bf16, batch 4 x seq 2048, alpha 0.5, T 2, 3 steps; the KL
+   kernel launched once per step; one warm step traced.  Then one
+   distillation step's gradients at full width (2 layers, float32) on the
+   kernels against the same step on CPU copies, which take the plain
+   versions.
+7. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+   paths, error and times (the flash kernel's at each of its main-path
+   shapes under ``at``; its top-level times are the serving prefill's),
+   then the ``{"ok": true, ...}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero without a CUDA card, and when run from a
@@ -30,6 +51,7 @@ directory that holds no ``src/repro_torch``.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import subprocess
@@ -52,7 +74,30 @@ SWEEP = [(2, 128, 128, 4, 2, 16), (1, 256, 256, 8, 8, 32),
          (2, 200, 200, 4, 2, 64)]
 MODES = [(True, 0), (False, 0), (True, 32)]
 PREFILL = (4, 2048, 2048, 32, 8, 128)    # granite-3-8b serving prefill
+TRAIN_ATTN = (4, 2048, 2048, 16, 16, 64)  # qwen1.5-0.5b train and distill
 ARCH = "granite-3-8b"
+# flash gradients: f32 (TF32 off) within 1e-4; bf16 within 2e-2, about one
+# bf16 step at the gradients' magnitude (up to ~4): both sides compute in
+# f32, the kernel's o is rounded to bf16 before the backward reads it
+GRAD_SWEEP = [(2, 128, 128, 4, 2, 16), (1, 256, 256, 8, 8, 32),
+              (2, 200, 200, 4, 2, 64)]
+GRAD_MODES = [(True, 0), (False, 0), (True, 32)]
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# distill_kl statistics and KL: both sides sum f32 products of the same
+# inputs in other orders, over D <= 1024 and V <= 151936, on values up to
+# ~15 (lse); 2e-4 is far below what a wrong max, scale or tile moves
+KL_TOL = 2e-4
+# N, Ds, Dt, V, dtype, T, W layout, masked
+KL_SWEEP = [(200, 64, 96, 1000, torch.float32, 1.0, "rows", False),
+            (333, 128, 64, 5003, torch.bfloat16, 2.0, "embed_t", True),
+            (64, 256, 256, 64, torch.float32, 2.0, "embed_t", True),
+            (1000, 1024, 1024, 4099, torch.bfloat16, 1.0, "embed_t", False),
+            (129, 96, 160, 2000, torch.float32, 1.0, "rows", True),
+            (77, 1024, 512, 30000, torch.bfloat16, 2.0, "rows", False)]
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_B, TRAIN_S = 4, 2048
+TRAIN_STEPS = 4
+DISTILL_STEPS = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -93,11 +138,15 @@ def phase_build() -> None:
     print(f"card: {card()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    built = _build.build("flash_fwd")
-    print(f"build flash_fwd: {built.seconds:.1f} s -> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    builds = _build.build_all(["flash_fwd", "distill_kl_fwd"])
+    print(f"build: {time.perf_counter() - t0:.1f} s wall for "
+          f"{len(builds)} sources in parallel")
+    for name, built in builds.items():
+        print(f"build {name}: {built.seconds:.1f} s -> {built.path.name}")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
     # the float32 plain versions must not round through TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -165,11 +214,14 @@ def phase_sweep(rng) -> None:
         run_case(rng, (2, 200, 200, 4, 2, 64), dtype, True, 0, strided=True)
 
 
-def phase_prefill_shape(rng) -> dict:
+def phase_flash_shape(rng, shape) -> dict:
+    """The kernel at one main-path shape (bf16, causal, S == T): checked
+    against its plain version, then timed beside the plain version and
+    PyTorch's ``scaled_dot_product_attention``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
-    B, S, T, H, KV, D = PREFILL
-    q, k, v, o, err = run_case(rng, PREFILL, torch.bfloat16, True, 0)
+    B, S, T, H, KV, D = shape
+    q, k, v, o, err = run_case(rng, shape, torch.bfloat16, True, 0)
     ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=True), iters=10)
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
                        iters=3, warmup=1)
@@ -187,32 +239,54 @@ def phase_prefill_shape(rng) -> dict:
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
-    print(f"prefill shape {PREFILL} bf16 causal: kernel {ms:.3f} ms "
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"flash at {shape} bf16 causal: kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
           f"sdpa {library_ms:.3f} ms (|sdpa-kernel| {lib_err:.3e}), "
-          f"bound {bound_ms:.4f} ms "
-          f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
-          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:51",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)")
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
-def phase_serve() -> int:
+def flash_entry(at: dict) -> dict:
+    """The flash kernel's line: the serving prefill shape's numbers at the
+    top, each main-path shape's under ``at``, the worst error of all."""
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:51",
+            "launches": None,
+            **{k: v for k, v in at["serve"].items() if k != "shape"},
+            "max_abs_err": max(a["max_abs_err"] for a in at.values()),
+            "at": at}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
+    fa.flash_fwd.launches = 0
+    dk.distill_kl_fwd.launches = 0
+
+
+def read_counts() -> tuple[int, int]:
+    """(flash_fwd launches, distill_kl_fwd launches) since reset_counts."""
+    from repro_torch.kernels import distill_kl as dk
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_fwd.launches, dk.distill_kl_fwd.launches
+
+
+def phase_serve() -> int:
     from repro_torch.launch import serve as serve_mod
     torch.cuda.reset_peak_memory_stats()
     B, S, _, _, _, _ = PREFILL
-    fa.flash_fwd.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = serve_mod.serve(ARCH, batch=B, prompt_len=S, gen=32,
                           dtype="bfloat16", device="cuda", seed=0)
     wall = time.perf_counter() - t0
-    launches = fa.flash_fwd.launches
+    launches, kl_launches = read_counts()
+    check(kl_launches == 0, "serving launched the distill_kl kernel")
     cfg = res.cfg
     print(res.summary())
     print(f"serve wall (init + prefill + decode): {wall:.1f} s; peak device "
@@ -307,6 +381,383 @@ def phase_consistency(rng) -> None:
     check(max(errs) <= tol, "prefill + decode disagrees with forward")
 
 
+def _grad_case(rng, shape, dtype, causal, window) -> float:
+    """Worst relative gradient error of one case, with and without an lse
+    cotangent; fails the run past GRAD_TOL."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    B, S, T, H, KV, D = shape
+    leaves = [_randn(rng, s, dtype).requires_grad_()
+              for s in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+    do = _randn(rng, (B, S, H, D), torch.float32)
+    dlse = _randn(rng, (B, S, H), torch.float32)
+    kw = dict(causal=causal, window=window)
+    worst = 0.0
+    for with_lse in (False, True):
+        if with_lse:
+            o, lse = ops.flash_attention_lse(*leaves, **kw)
+            loss = (o.float() * do).sum() + (lse * dlse).sum()
+        else:
+            o = ops.flash_attention(*leaves, **kw)
+            loss = (o.float() * do).sum()
+        check("FlashAttention" in type(o.grad_fn).__name__,
+              f"CUDA attention output has grad_fn {o.grad_fn}")
+        got = torch.autograd.grad(loss, leaves)
+        o_r, lse_r = flash_attention_ref(*leaves, **kw)
+        loss_r = (o_r.float() * do).sum()
+        if with_lse:
+            loss_r = loss_r + (lse_r * dlse).sum()
+        want = torch.autograd.grad(loss_r, leaves)
+        torch.cuda.synchronize()
+        for name, g, w in zip("qkv", got, want):
+            err = ((g.float() - w.float()).abs()
+                   / (1 + w.float().abs())).max().item()
+            worst = max(worst, err)
+            check(err <= GRAD_TOL[dtype],
+                  f"d{name} {shape} {dtype} causal={causal} window={window} "
+                  f"lse={with_lse}: {err:.3e} > {GRAD_TOL[dtype]}")
+    return worst
+
+
+def phase_flash_grads(rng) -> None:
+    """Gradients through the kernel's autograd Functions against autograd
+    through the plain version, with and without an lse cotangent, over a
+    sweep and at the training shape."""
+    print("flash gradients: ops.flash_attention[_lse] (kernel forward, "
+          "blockwise backward) vs autograd through the plain version "
+          f"(f32 tol {GRAD_TOL[torch.float32]:.0e}, bf16 tol "
+          f"{GRAD_TOL[torch.bfloat16]:.0e})")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in GRAD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal, window in GRAD_MODES:
+                worst[dtype] = max(worst[dtype], _grad_case(
+                    rng, shape, dtype, causal, window))
+    print(f"  worst |grad - ref| / (1 + |ref|): f32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} "
+          f"over {len(GRAD_SWEEP) * 2 * len(GRAD_MODES) * 2} cases")
+    err = _grad_case(rng, TRAIN_ATTN, torch.bfloat16, True, 0)
+    print(f"  at the training shape {TRAIN_ATTN} bf16 causal: "
+          f"worst |grad - ref| / (1 + |ref|) {err:.3e} over 2 cases")
+
+
+def _kl_inputs(rng, N, Ds, Dt, V, dtype, layout):
+    h_s = _randn(rng, (N, Ds), dtype)
+    h_t = _randn(rng, (N, Dt), dtype)
+    ws, wt = ((_randn(rng, (V, D), torch.float32) * D ** -0.5).to(dtype).T
+              if layout == "embed_t" else
+              (_randn(rng, (D, V), torch.float32) * D ** -0.5).to(dtype)
+              for D in (Ds, Dt))
+    return h_s, ws, h_t, wt
+
+
+def phase_kl_sweep(rng) -> None:
+    from repro_torch.kernels import distill_kl as dk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import distill_kl_stats_ref
+    print(f"distill_kl kernel vs plain version (stats and KL, tol {KL_TOL})")
+    for N, Ds, Dt, V, dtype, T, layout, masked in KL_SWEEP:
+        h_s, w_s, h_t, w_t = _kl_inputs(rng, N, Ds, Dt, V, dtype, layout)
+        mask = (torch.from_numpy(rng.random(N) < 0.7).cuda()
+                if masked else None)
+        got = dk.distill_kl_fwd(h_s, w_s, h_t, w_t, T)
+        want = distill_kl_stats_ref(h_s, w_s, h_t, w_t, T)
+        kl = ops.distill_kl(h_s, w_s, h_t, w_t, mask=mask, temperature=T)
+        kl_ref = dk._kl_from_stats(*want, mask)
+        torch.cuda.synchronize()
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        kl_err = abs(kl.item() - kl_ref.item())
+        print(f"  distill_kl N={N} Ds={Ds} Dt={Dt} V={V} {str(dtype)[6:]} "
+              f"T={T} {layout} mask={masked}: stats max err "
+              f"{max(errs):.3e}, KL {kl.item():.5f} err {kl_err:.3e}")
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              "distill_kl stats not finite")
+        check(max(errs) <= KL_TOL and kl_err <= KL_TOL,
+              f"distill_kl disagrees with its plain version: {errs}, "
+              f"{kl_err}")
+
+
+def phase_kl_main(rng) -> dict:
+    """The kernel at the distillation step's shape: qwen1.5-0.5b's
+    vocabulary and width, batch 4 x seq 2048, tied W as embed.T, T = 2."""
+    from repro_torch.kernels import distill_kl as dk
+    from repro_torch.kernels.ref import distill_kl_stats_ref
+    N, D, V, T = TRAIN_B * TRAIN_S, 1024, 151936, 2.0
+    h_s, w_s, h_t, w_t = _kl_inputs(rng, N, D, D, V, torch.bfloat16,
+                                    "embed_t")
+    got = dk.distill_kl_fwd(h_s, w_s, h_t, w_t, T)
+    want = distill_kl_stats_ref(h_s, w_s, h_t, w_t, T)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    check(err <= KL_TOL, f"distill_kl at the main shape: err {err:.3e}")
+    kl = dk._kl_from_stats(*got).item()
+    ms = time_ms(lambda: dk.distill_kl_fwd(h_s, w_s, h_t, w_t, T), iters=3,
+                 warmup=1)
+    plain_ms = time_ms(lambda: distill_kl_stats_ref(h_s, w_s, h_t, w_t, T),
+                       iters=3, warmup=1)
+
+    def library():
+        # the materialised form: both [N, V] logits in bf16, then f32
+        ls = torch.log_softmax((h_s @ w_s).float() / T, dim=-1)
+        lt = torch.log_softmax((h_t @ w_t).float() / T, dim=-1)
+        return (lt.exp() * (lt - ls)).sum(-1).mean()
+
+    lib_err = abs(library().item() - kl)
+    library_ms = time_ms(library, iters=3, warmup=1)
+    flops = 2 * N * V * (D + D)
+    nbytes = 2 * (2 * N * D + 2 * D * V) + 4 * 4 * N
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    print(f"distill_kl main shape N={N} D={D} V={V} bf16 embed.T T={T}: "
+          f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.3f} ms, materialised {library_ms:.3f} ms "
+          f"(|KL diff| {lib_err:.3e}), bound {bound_ms:.4f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+          f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB); stats max err "
+          f"{err:.3e}, KL {kl:.5f}")
+    return {"name": "distill_kl_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/distill_kl_fwd.cu",
+            "replaces": "src/repro/kernels/distill_kl_pallas.py:34",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+def _finite(xs) -> bool:
+    return all(np.isfinite(x) for x in xs)
+
+
+def phase_train() -> int:
+    """The training entry point at full width; returns flash launches."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train_mod.run(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_B,
+                        seq=TRAIN_S, dtype="bfloat16", device="cuda",
+                        seed=0, log_every=1)
+    launches, kl_launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(run.summary())
+    print(f"train peak device memory {peak:.2f} GiB; loop {run.seconds:.2f} s")
+    res, cfg = run.result, run.cfg
+    check(_finite(res.losses) and _finite(res.grad_norms),
+          f"non-finite loss or grad norm: {res.losses}, {res.grad_norms}")
+    # remat: each layer's forward runs once, and again in the backward
+    want = TRAIN_STEPS * cfg.num_layers * 2
+    check(launches == run.flash_launches == want,
+          f"flash launched {launches} times in training, expected "
+          f"steps x layers x 2 = {want}")
+    check(kl_launches == 0, "training launched the distill_kl kernel")
+    init = build_model(cfg, device="cuda", seed=0).param_tree()
+    names = ("embed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    changed = {}
+
+    def visit(new, old, path=""):
+        if isinstance(new, dict):
+            for k in new:
+                visit(new[k], old[k], f"{path}/{k}")
+        else:
+            changed[path] = bool((new.detach() != old).any())
+    visit(res.params, init)
+    print(f"train: {sum(changed.values())} of {len(changed)} parameter "
+          f"leaves changed")
+    for path, moved in changed.items():
+        if path.rsplit("/", 1)[-1] in names:
+            check(moved, f"parameter {path} did not change in training")
+    return launches
+
+
+def phase_train_trace() -> None:
+    """One warm train step of the same model and shapes, traced."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.train import step as step_mod
+    cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+    model = build_model(cfg, device="cuda", seed=0)
+    step = step_mod.build_train_step(
+        model, ParallelConfig(mbs=TRAIN_B),
+        ShapeConfig("train", "train", TRAIN_S, TRAIN_B),
+        lr_schedule=functools.partial(schedules.constant, peak_lr=1e-4))
+    params = model.param_tree()
+    opt = adamw.init(params)
+    batches = lm_batches(batch=TRAIN_B, seq_len=TRAIN_S,
+                         vocab=cfg.vocab_size, seed=0, device="cuda")
+    params, opt, met = step(params, opt, next(batches), 0)     # warm-up
+    float(met["loss"])
+    batch = next(batches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch, 1)
+        float(met["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    _kernel_report(prof, wall, "warm train step")
+
+
+def _kernel_report(prof, wall_ms: float, what: str) -> None:
+    """Device busy against wall time, time by part, and the top kernels."""
+    busy, per = _device_ms(prof)
+    check(busy > 0, f"the profiler saw no device time in {what}")
+    ranges = {}
+    for evt in prof.key_averages():
+        for label, key in (("flash backward (plain torch)",
+                            "evaluate_function: FlashAttentionBackward"),
+                           ("KL backward (plain torch)",
+                            "evaluate_function: DistillKLBackward"),
+                           ("AdamW update", "adamw.update")):
+            if evt.key.endswith(key) or evt.key == key:
+                ranges[label] = ranges.get(label, 0.0) + \
+                    evt.device_time_total / 1e3
+    kinds = {"flash forward kernel": lambda k: "flash_fwd_kernel" in k,
+             "distill_kl kernels": lambda k: "distill_kl_" in k,
+             "GEMMs": lambda k: any(x in k.lower() for x in
+                                    ("gemm", "xmma", "cutlass"))}
+    print(f"traced {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.0f}%, idle "
+          f"{100 * (1 - busy / wall_ms):.0f}%), {len(per)} kernel kinds")
+    for label, pick in kinds.items():
+        ms = sum(v for k, v in per.items() if pick(k))
+        print(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {label}")
+    for label, ms in ranges.items():
+        print(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {label} "
+              f"(device time under its range)")
+    for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
+    # host side: the CUDA runtime calls, where a synchronising call (a
+    # free, a copy from pageable memory) drains the queue the host built
+    runtime = [e for e in prof.key_averages()
+               if e.key.startswith("cuda") and e.cpu_time_total > 0]
+    for e in sorted(runtime, key=lambda e: -e.cpu_time_total)[:6]:
+        print(f"  host {e.cpu_time_total / 1e3:8.2f} ms in {e.count:6d} x "
+              f"{e.key}")
+
+
+def phase_distill() -> tuple[int, int]:
+    """Colocated self-distillation at full width; returns (flash, KL)
+    launches of the 3 main-path steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.distill import workload as dw
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedules
+    torch.cuda.reset_peak_memory_stats()
+    cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+    teacher = tree_map(lambda p: p.detach(),
+                       build_model(cfg, device="cuda", seed=1).param_tree())
+    params = build_model(cfg, device="cuda", seed=0).param_tree()
+    step = dw.build_colocated_step(
+        cfg, cfg, ShapeConfig("distill", "train", TRAIN_S, TRAIN_B),
+        ParallelConfig(mbs=TRAIN_B), alpha=0.5, temperature=2.0,
+        lr_schedule=functools.partial(schedules.constant, peak_lr=1e-4))
+    opt = adamw.init(params)
+    batches = lm_batches(batch=TRAIN_B, seq_len=TRAIN_S,
+                         vocab=cfg.vocab_size, seed=0, device="cuda")
+    toks = TRAIN_B * TRAIN_S
+    times, mets = [], []
+    reset_counts()
+    for i in range(DISTILL_STEPS):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, teacher, batch, i)
+        met = {k: float(v) for k, v in met.items()}
+        times.append(time.perf_counter() - t0)
+        mets.append(met)
+        print(f"distill step {i}: loss {met['loss']:.4f} ce {met['ce']:.4f} "
+              f"kl {met['kl']:.5f} gnorm {met['grad_norm']:.3f} "
+              f"{times[-1] * 1e3:.1f} ms")
+    launches, kl_launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm = float(np.mean(times[1:]))
+    print(f"distill {cfg.name} teacher seed 1 -> student seed 0, batch "
+          f"{TRAIN_B} x seq {TRAIN_S} bf16: cold {times[0] * 1e3:.1f} ms, "
+          f"warm {warm * 1e3:.1f} ms/step ({toks / warm:.0f} tok/s); peak "
+          f"device memory {peak:.2f} GiB")
+    check(kl_launches == DISTILL_STEPS,
+          f"distill_kl launched {kl_launches} times in {DISTILL_STEPS} steps")
+    # teacher forward once per layer; student forward plus its recompute
+    want = DISTILL_STEPS * cfg.num_layers * 3
+    check(launches == want, f"flash launched {launches} times in "
+          f"distillation, expected steps x layers x (1 + 2) = {want}")
+    for met in mets:
+        check(_finite([met["loss"], met["ce"], met["kl"],
+                       met["grad_norm"]]), f"non-finite metrics {met}")
+        check(met["kl"] >= -1e-4, f"negative KL {met['kl']}")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    batch = next(batches)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, teacher, batch, DISTILL_STEPS)
+        float(met["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    _kernel_report(prof, wall, "warm distill step")
+    return launches, kl_launches
+
+
+def phase_grad_consistency(rng) -> None:
+    """One distillation step's gradients at full width on the kernels
+    against the same step on CPU copies (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distill import workload as dw
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=2, dtype="float32")
+    # every leaf in float32: norm scales are bf16 by spec (as in the JAX
+    # package), and a bf16 gradient would round by up to 2**-8 of itself
+    gpu_t, gpu_s = (tree_map(lambda p: p.detach().float(),
+                             build_model(cfg, device="cuda", seed=seed)
+                             .param_tree()) for seed in (1, 0))
+    B, S = 2, 64
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:]),
+             "loss_mask": torch.from_numpy(
+                 (rng.random((B, S)) < 0.9).astype(np.float32))}
+
+    def grads(device):
+        ps = tree_map(lambda p: p.detach().to(device).requires_grad_(),
+                      gpu_s)
+        pt = tree_map(lambda p: p.to(device), gpu_t)
+        b = {k: v.to(device) for k, v in batch.items()}
+        h_t = dw.teacher_hidden(pt, cfg, b["tokens"])
+        loss, met = dw.distill_loss(ps, cfg, b, h_t,
+                                    dw.teacher_unembedding(pt, cfg),
+                                    alpha=0.5, temperature=2.0)
+        return loss, met, torch.autograd.grad(loss, tree_leaves(ps))
+
+    reset_counts()
+    loss_g, met_g, g_gpu = grads("cuda")
+    launches = read_counts()
+    check(launches == (cfg.num_layers * 3, 1),
+          f"the CUDA step launched (flash, KL) = {launches}")
+    loss_c, met_c, g_cpu = grads("cpu")
+    check(read_counts() == launches, "the CPU step launched a kernel")
+    rel = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              .item() for a, b in zip(g_gpu, g_cpu))
+    # float32 with TF32 off on both; sums in other orders over d_model 1024
+    # and V = 151936: 1e-3 relative per leaf is far above that and far
+    # below a wrong term of the KL backward or of attention's
+    tol = 1e-3
+    print(f"gradient consistency {cfg.name} 2 layers f32 B={B} S={S}: "
+          f"loss {loss_g.item():.6f} (CUDA) vs {loss_c.item():.6f} (CPU), "
+          f"kl {met_g['kl'].item():.6f} vs {met_c['kl'].item():.6f}; "
+          f"max per-leaf |dg| / max|g| {rel:.3e} (tol {tol:.0e}) over "
+          f"{len(g_cpu)} leaves")
+    check(abs(loss_g.item() - loss_c.item()) <= 1e-4 * abs(loss_c.item()),
+          "distillation loss differs between the card and the CPU")
+    check(rel <= tol, "distillation gradients differ between the card and "
+          "the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -314,25 +765,46 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
     phase_build()
     phase_sweep(rng)
-    entry = phase_prefill_shape(rng)
-    gc.collect()
-    torch.cuda.empty_cache()
-    entry["launches"] = phase_serve()
-    gc.collect()
-    torch.cuda.empty_cache()
+    flash_at = {"serve": phase_flash_shape(rng, PREFILL),
+                "train_distill": phase_flash_shape(rng, TRAIN_ATTN)}
+    phase_flash_grads(rng)
+    phase_kl_sweep(rng)
+    kl = phase_kl_main(rng)
+    free()
+    serve_launches = phase_serve()
+    free()
     phase_profile(rng)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     phase_consistency(rng)
+    free()
+    train_launches = phase_train()
+    free()
+    phase_train_trace()
+    free()
+    distill_launches, kl_launches = phase_distill()
+    free()
+    phase_grad_consistency(rng)
+    flash = flash_entry(flash_at)
+    flash["launches"] = serve_launches + train_launches + distill_launches
+    flash["launches_per_path"] = {"serve": serve_launches,
+                                  "train": train_launches,
+                                  "distill": distill_launches}
+    kl["launches"] = kl_launches
+    kl["launches_per_path"] = {"serve": 0, "train": 0,
+                               "distill": kl_launches}
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [flash, kl]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

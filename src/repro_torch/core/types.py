@@ -2,8 +2,10 @@
 
 ``ArchConfig`` describes a model architecture with the same fields and
 derived properties as the JAX package, so a config built on either side
-names the same model.  Only what the port uses is kept: the parallel,
-section and hardware types arrive with the slices that need them.
+names the same model; ``ShapeConfig`` carries the JAX package's fields
+and ``ParallelConfig`` those of its fields that the port reads.  Only what
+the port uses is kept: the section and hardware types arrive with the
+slices that need them.
 """
 from __future__ import annotations
 
@@ -92,3 +94,26 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str              # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Per-section training configuration C^s (paper §3.2): the fields of
+    the JAX package's that the port reads so far.  Its train steps run
+    dp = tp = pp = cp = 1 and raise on anything else (ROADMAP.md, A6),
+    which adds the remaining fields."""
+    dp: int = 1
+    tp: int = 1
+    pp: int = 1
+    cp: int = 1
+    mbs: int = 1            # micro-batch size per DP shard
+    remat: bool = True
+    grad_compress: str = "none"   # "none" | "bf16" | "int8"

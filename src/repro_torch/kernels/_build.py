@@ -4,8 +4,9 @@ Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, in ``build/``
 at the repository root (listed in ``.gitignore``).  The library's name
 carries a hash of the source and the flags, so an edited source is
-rebuilt and a built one is reused.  Nothing here runs when the module is
-imported.
+rebuilt and a built one is reused.  ``build_all`` runs ``build`` for
+several sources on threads, so their ``nvcc`` runs overlap.  Nothing
+here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -73,3 +75,11 @@ def build(name: str) -> Built:
                   log_path.read_text() if log_path.exists() else "")
     _LOADED[name] = built
     return built
+
+
+def build_all(names) -> dict[str, Built]:
+    """``build`` each name on a thread of its own, so each source's ``nvcc``
+    starts at once; raises the first failure after all have ended."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))

@@ -1,15 +1,25 @@
-"""Flash attention forward: the CUDA kernel's wrapper.
+"""Flash attention on the card: the CUDA forward's wrapper and the
+autograd Functions around it.
 
 The kernel (``csrc/flash_fwd.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention.py::_fwd_kernel``; its source says what
-bounds it on an H100 and what its design does about that.  This wrapper
-checks what it is given, allocates ``o`` and ``lse``, launches on the
-current stream and raises if the launch was refused.  It counts its
-launches in ``flash_fwd.launches``.
+bounds it on an H100 and what its design does about that.
+:func:`flash_fwd` checks what it is given, allocates ``o`` and ``lse``,
+launches on the current stream and raises if the launch was refused.  It
+counts its launches in ``flash_fwd.launches``.
 
-The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`;
+:class:`FlashAttention` (-> o) and :class:`FlashAttentionLse`
+(-> (o, lse)) give the kernel a gradient.  Their backward,
+:func:`flash_bwd`, is a port of ``repro/kernels/ref.py::_flash_bwd_core``
+in torch ops: the JAX package computes this backward in jnp outside any
+Pallas kernel (``repro/kernels/flash_attention.py:203-235``), so plain
+PyTorch here is its counterpart, not a fallback.  A hand-written backward
+kernel is later work (ROADMAP.md, B2).
+
+The plain version of the forward is
+:func:`repro_torch.kernels.ref.flash_attention_ref`;
 :mod:`repro_torch.kernels.ops` routes CPU tensors there and CUDA tensors
-here.
+through the Functions here.
 """
 from __future__ import annotations
 
@@ -76,7 +86,18 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: Optional[float] = None, q_offset: int = 0,
               kv_positions: Optional[torch.Tensor] = None):
     """q [B,S,H,D], k/v [B,T,KV,D] on one CUDA device
-    -> (o [B,S,H,D] in q's dtype, lse [B,S,H] float32)."""
+    -> (o [B,S,H,D] in q's dtype, lse [B,S,H] float32).
+
+    The result carries no gradient: a call that autograd would record
+    raises, so that a training step cannot lose attention's gradient
+    silently.  Differentiable callers go through :class:`FlashAttention`
+    or :class:`FlashAttentionLse` (``kernels.ops`` does)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_fwd has no gradient of its own: differentiate through "
+            "kernels.ops.flash_attention[_lse] (the FlashAttention "
+            "Functions)")
     _check(q, k, v, kv_positions)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -105,3 +126,129 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_fwd.launches = 0     # type: ignore[attr-defined]
+
+
+# --------------------------------------------------------------------------- #
+# Backward (blockwise recompute) and the autograd Functions
+# --------------------------------------------------------------------------- #
+BWD_BLOCK = 512
+
+
+def flash_bwd(q, k, v, o, lse, do, dlse=None, *, causal: bool = True,
+              window: int = 0, scale: Optional[float] = None,
+              q_offset: int = 0, kv_positions: Optional[torch.Tensor] = None,
+              block: int = BWD_BLOCK):
+    """Blockwise-recompute flash backward -> (dq, dk, dv) in the inputs'
+    dtypes; port of ``repro/kernels/ref.py::_flash_bwd_core``.
+
+    float32 throughout.  ``delta = sum(do * o) - dlse`` per row (``dlse``
+    is the cotangent of lse, None when only o was used); per (q block,
+    kv block) the probabilities are recomputed from lse with the
+    difference-based masks, ``ds = p (dp - delta) scale``, and dk/dv are
+    summed over the G query heads of each KV head.  Masked probabilities
+    are exactly 0, so rows with no visible key give zero gradient
+    (ROADMAP.md, C1).  Blocks that no row can see are skipped when the key
+    positions are implicit."""
+    B, S, H, D = q.shape
+    _, T, KV, _ = k.shape
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+
+    def heads_first(x):                        # [B,S,H,.] -> [B,KV,G,S,.]
+        return x.float().reshape(B, S, KV, G, -1).permute(0, 2, 3, 1, 4)
+
+    qf, dof = heads_first(q), heads_first(do)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # [B,KV,1,T,D]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    delta = (do.float() * o.float()).sum(-1)                # [B,S,H]
+    if dlse is not None:
+        delta = delta - dlse.float()
+    lse_r = heads_first(lse[..., None])                     # [B,KV,G,S,1]
+    delta_r = heads_first(delta[..., None])
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, KV, T, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    kv_pos = (kv_positions.to(device=dev, dtype=torch.int64)
+              if kv_positions is not None else None)
+    for q0 in range(0, S, block):
+        q1 = min(q0 + block, S)
+        q_pos = torch.arange(q0, q1, device=dev) + q_offset
+        for k0 in range(0, T, block):
+            k1 = min(k0 + block, T)
+            if kv_pos is None:
+                if causal and k0 > q1 - 1 + q_offset:
+                    continue
+                if window > 0 and q0 + q_offset - (k1 - 1) >= window:
+                    continue
+                kp = torch.arange(k0, k1, device=dev)
+            else:
+                kp = kv_pos[k0:k1]
+            diff = q_pos[:, None] - kp[None, :]
+            vis = torch.ones_like(diff, dtype=torch.bool)
+            if causal:
+                vis &= diff >= 0
+            if window > 0:
+                vis &= diff < window
+            qb, dob = qf[:, :, :, q0:q1], dof[:, :, :, q0:q1]
+            kb, vb = kf[:, :, :, k0:k1], vf[:, :, :, k0:k1]
+            s = (qb * scale) @ kb.transpose(-1, -2)          # [B,KV,G,bq,bk]
+            p = torch.exp(s - lse_r[:, :, :, q0:q1]).masked_fill(~vis, 0.0)
+            dp = dob @ vb.transpose(-1, -2)
+            ds = p * (dp - delta_r[:, :, :, q0:q1]) * scale
+            dq[:, :, :, q0:q1] += ds @ kb
+            dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qb).sum(2)
+            dv[:, :, k0:k1] += (p.transpose(-1, -2) @ dob).sum(2)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def _save(ctx, q, k, v, o, lse, kv_positions, causal, window, scale,
+          q_offset):
+    ctx.save_for_backward(q, k, v, o, lse, kv_positions)
+    ctx.kw = dict(causal=causal, window=window, scale=scale,
+                  q_offset=q_offset)
+
+
+def _grads(ctx, do, dlse):
+    q, k, v, o, lse, kv_positions = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do, dlse,
+                           kv_positions=kv_positions, **ctx.kw)
+    return dq, dk, dv, None, None, None, None, None
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = flash attention of (q, k, v): the CUDA forward, the blockwise
+    backward :func:`flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_positions, causal, window, scale, q_offset):
+        o, lse = flash_fwd(q, k, v, causal=causal, window=window,
+                           scale=scale, q_offset=q_offset,
+                           kv_positions=kv_positions)
+        _save(ctx, q, k, v, o, lse, kv_positions, causal, window, scale,
+              q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return _grads(ctx, do, None)
+
+
+class FlashAttentionLse(torch.autograd.Function):
+    """(o, lse) of flash attention; the backward takes the lse cotangent
+    too (``delta = sum(do * o) - dlse``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_positions, causal, window, scale, q_offset):
+        o, lse = flash_fwd(q, k, v, causal=causal, window=window,
+                           scale=scale, q_offset=q_offset,
+                           kv_positions=kv_positions)
+        _save(ctx, q, k, v, o, lse, kv_positions, causal, window, scale,
+              q_offset)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return _grads(ctx, do, dlse)

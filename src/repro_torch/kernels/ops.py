@@ -3,15 +3,20 @@
 CUDA tensors go to the hand-written kernel, or raise; CPU tensors go to
 the plain version in :mod:`repro_torch.kernels.ref`.  There is no
 environment switch and no fallback: a CUDA tensor never reaches the plain
-version through here.  (The JAX package's ``repro/kernels/ops.py`` picks
+version through here.  On the card, attention goes through the autograd
+Functions of :mod:`repro_torch.kernels.flash_attention`, so a CUDA q/k/v
+that requires grad gets its gradient; on the CPU autograd differentiates
+the plain version.  (The JAX package's ``repro/kernels/ops.py`` picks
 its tier with an ``impl`` argument; the port has one kernel per device.)
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import distill_kl as dk
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 
@@ -25,9 +30,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_positions`` [T] int32 replaces the implicit ``arange(T)`` key
     positions; ``q_offset`` is the absolute position of ``q[:, 0]``."""
     if q.is_cuda:
-        return fa.flash_fwd(q, k, v, causal=causal, window=window,
-                            scale=scale, q_offset=q_offset,
-                            kv_positions=kv_positions)
+        return fa.FlashAttentionLse.apply(q, k, v, kv_positions, causal,
+                                          window, scale, q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset,
                                    kv_positions=kv_positions)
@@ -44,6 +48,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "segment ids (packed sequences) are not ported yet; see "
             "ROADMAP.md, B1")
-    return flash_attention_lse(q, k, v, causal=causal, window=window,
-                               scale=scale, q_offset=q_offset,
-                               kv_positions=kv_positions)[0]
+    if q.is_cuda:
+        return fa.FlashAttention.apply(q, k, v, kv_positions, causal, window,
+                                       scale, q_offset)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale, q_offset=q_offset,
+                                   kv_positions=kv_positions)[0]
+
+
+def distill_kl(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,
+               w_t: torch.Tensor, *, mask: Optional[torch.Tensor] = None,
+               temperature: float = 1.0, block_v: int = 2048
+               ) -> torch.Tensor:
+    """Chunked-vocab KL(p_t || p_s), masked token mean, from hidden states
+    h [N, D] and unembeddings w [D, V]; never forms the [N, V] logits.
+
+    The per-token statistics come from the CUDA kernel for CUDA tensors
+    and from ``ref.distill_kl_stats_ref`` for CPU tensors; both go through
+    the same :class:`~repro_torch.kernels.distill_kl.DistillKL` Function,
+    whose backward is chunked by ``block_v``."""
+    if h_s.is_cuda:
+        stats = dk.distill_kl_fwd
+    else:
+        stats = functools.partial(ref.distill_kl_stats_ref, block_v=block_v)
+    return dk.DistillKL.apply(h_s, w_s, h_t, w_t, mask, float(temperature),
+                              int(block_v), stats)

@@ -1,5 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
+``flash_attention_ref`` is the plain version of ``csrc/flash_fwd.cu``,
+``distill_kl_stats_ref`` that of ``csrc/distill_kl_fwd.cu``;
+``distill_kl_reference`` is the full-materialisation oracle of the KL,
+for tests only.
+
 ``flash_attention_ref`` is the direct formula for what
 ``kernels/csrc/flash_fwd.cu`` computes, in float32, with the JAX package's
 difference-based masks (``repro/kernels/ref.py::_mask``), ``NEG_INF =
@@ -63,3 +68,59 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = (m + torch.log(l))[..., 0]                     # [B, KV, G, S]
     return (o.reshape(B, S, H, D).to(q.dtype),
             lse.permute(0, 3, 1, 2).reshape(B, S, H))
+
+
+# --------------------------------------------------------------------------- #
+# Distillation KL
+# --------------------------------------------------------------------------- #
+def distill_kl_stats_ref(h_s: torch.Tensor, w_s: torch.Tensor,
+                         h_t: torch.Tensor, w_t: torch.Tensor,
+                         T: float = 1.0, block_v: int = 2048):
+    """Per-token statistics of KL(p_t || p_s), streamed over vocab blocks.
+
+    h_s [N, Ds], w_s [Ds, V], h_t [N, Dt], w_t [Dt, V]; ``z = h W / T``.
+    Returns float32 [N] each: ``lse_s``, ``lse_t``, ``e_t = sum p_t z_t``
+    and ``e_s = sum p_t z_s``.  Port of
+    ``repro/kernels/distill_kl.py::_fwd_pass`` in float32, with the
+    ``max(l, 1e-30)`` clamps of the Pallas kernel
+    (``distill_kl_pallas.py:73-79``); the last block may be ragged.  Each
+    block of W is cast to float32 on its own, so no [N, V] logits and no
+    float32 copy of W exist at once."""
+    N = h_s.shape[0]
+    V = w_s.shape[1]
+    hs, ht = h_s.float(), h_t.float()
+    dev = h_s.device
+    ms = torch.full((N,), NEG_INF, dtype=torch.float32, device=dev)
+    mt = ms.clone()
+    ls, lt, ut, us = (torch.zeros(N, dtype=torch.float32, device=dev)
+                      for _ in range(4))
+    for v0 in range(0, V, block_v):
+        zs = (hs @ w_s[:, v0:v0 + block_v].float()) / T
+        zt = (ht @ w_t[:, v0:v0 + block_v].float()) / T
+        ms_n = torch.maximum(ms, zs.amax(-1))
+        ls = ls * torch.exp(ms - ms_n) + torch.exp(zs - ms_n[:, None]).sum(-1)
+        mt_n = torch.maximum(mt, zt.amax(-1))
+        corr = torch.exp(mt - mt_n)
+        pt = torch.exp(zt - mt_n[:, None])
+        lt = lt * corr + pt.sum(-1)
+        ut = ut * corr + (pt * zt).sum(-1)
+        us = us * corr + (pt * zs).sum(-1)
+        ms, mt = ms_n, mt_n
+    lt = lt.clamp_min(1e-30)
+    return (ms + torch.log(ls.clamp_min(1e-30)), mt + torch.log(lt),
+            ut / lt, us / lt)
+
+
+def distill_kl_reference(h_s, w_s, h_t, w_t, *, mask=None,
+                         temperature: float = 1.0) -> torch.Tensor:
+    """KL(p_t || p_s), token mean, from the materialised [N, V] logits
+    (``repro/kernels/ref.py::distill_kl_reference``).  Tests only."""
+    zs = (h_s.float() @ w_s.float()) / temperature
+    zt = (h_t.float() @ w_t.float()) / temperature
+    ls = torch.log_softmax(zs, dim=-1)
+    lt = torch.log_softmax(zt, dim=-1)
+    kl = (torch.exp(lt) * (lt - ls)).sum(-1)
+    if mask is not None:
+        m = mask.float()
+        return (kl * m).sum() / m.sum().clamp_min(1.0)
+    return kl.mean()

@@ -36,6 +36,21 @@ def tree_map(fn: Callable[[Any], Any], tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in the order :func:`tree_map` visits
+    them."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves) -> dict:
+    """A tree shaped like ``like`` whose leaves are ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
     """Prepend a stacked `layers` dim to every spec."""
     return tree_map(

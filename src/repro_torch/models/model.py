@@ -6,7 +6,7 @@ shapes and stacked ``layers`` axis), so its methods take no ``params``
 argument:
 
 * ``forward(batch)``            -- logits [B, S, V]
-* ``loss(batch)``               -- masked-mean cross-entropy
+* ``loss(batch, params=None)``  -- (loss, {"ce", "aux"}), differentiable
 * ``prefill(batch, extra_cache)``-- (last logits [B, V], cache)
 * ``decode(cache, token, pos)`` -- one serving step (writes the cache in place)
 
@@ -35,7 +35,8 @@ _LATER = {
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors held as non-trainable parameters."""
+    """A nested dict of tensors held as parameters (leaves that require
+    grad)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -43,7 +44,7 @@ class ParamTree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def tree(self) -> dict:
         out: dict = {k: p for k, p in self.named_parameters(recurse=False)}
@@ -63,11 +64,14 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def forward(self, batch: dict) -> torch.Tensor:
-        return tf.lm_forward(self.param_tree(), self.cfg, batch)
+        return tf.lm_forward(self.param_tree(), self.cfg, batch)[0]
 
-    @torch.inference_mode()
-    def loss(self, batch: dict) -> torch.Tensor:
-        return tf.lm_loss(self.param_tree(), self.cfg, batch)
+    def loss(self, batch: dict, params: Optional[dict] = None,
+             *, remat: bool = True):
+        """(loss, {"ce", "aux"}) on ``params`` (default: the model's own),
+        recorded by autograd; ``repro``'s ``Model.loss(p, batch)``."""
+        p = self.param_tree() if params is None else params
+        return tf.lm_loss(p, self.cfg, batch, remat=remat)
 
     @torch.inference_mode()
     def prefill(self, batch: dict, extra_cache: int = 0):

@@ -13,6 +13,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.types import ArchConfig
 from repro_torch.models import attention as att
@@ -125,22 +126,49 @@ def embed_tokens(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     return p["embed"][batch["tokens"]]
 
 
-def lm_forward(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Full-sequence causal forward. Returns logits [B, S, V]."""
+def _sublayer_fwd(lp, x, cfg: ArchConfig, ffn: Optional[str], segment_ids):
+    """One (attention, ffn) sub-layer; ``repro`` returns (x, aux) and its
+    aux is 0 for every sub-layer the port has."""
+    h = apply_norm(lp["norm1"], x, cfg)
+    x = x + att.attention(lp["attn"], h, cfg, segment_ids=segment_ids)
+    return _ffn(lp, x, cfg, ffn)
+
+
+def lm_forward(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
+               logits_out: bool = True):
+    """Full-sequence causal forward. Returns (logits [B, S, V] or, with
+    ``logits_out=False``, the final-normed hidden states [B, S, D]; aux).
+
+    With ``remat`` each sub-layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant) in place of
+    ``jax.checkpoint``: its activations are recomputed in the backward,
+    so the flash kernel runs twice per layer in a training step.  Without
+    autograd recording (serving, the frozen teacher) nothing is saved and
+    ``remat`` changes nothing."""
     pk, reps = group_layout(cfg)
     x = cm.shard_act(embed_tokens(p, cfg, batch), "hidden")
     segment_ids = batch.get("segment_ids")
+    checkpoint = remat and torch.is_grad_enabled()
+    # one unbind per leaf: its backward stacks the layers' gradients once,
+    # where indexing would add a zero-filled full-size gradient per layer
+    layers = cm.tree_map(lambda x: x.unbind(0), p["layers"])
     for r in range(reps):
-        period = _layer(p["layers"], r)
+        period = cm.tree_map(lambda xs: xs[r], layers)
         for j, (mixer, ffn) in enumerate(pk):
             _check_kind(mixer, ffn)
             lp = period[f"sub{j}"]
-            h = apply_norm(lp["norm1"], x, cfg)
-            x = x + att.attention(lp["attn"], h, cfg,
-                                  segment_ids=segment_ids)
-            x = cm.shard_act(_ffn(lp, x, cfg, ffn), "hidden")
+            if checkpoint:
+                x = torch.utils.checkpoint.checkpoint(
+                    _sublayer_fwd, lp, x, cfg, ffn, segment_ids,
+                    use_reentrant=False)
+            else:
+                x = _sublayer_fwd(lp, x, cfg, ffn, segment_ids)
+            x = cm.shard_act(x, "hidden")
     x = apply_norm(p["final_norm"], x, cfg)
-    return unembed(p, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not logits_out:
+        return x, aux
+    return unembed(p, cfg, x), aux
 
 
 def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -155,9 +183,13 @@ def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return cm.shard_act(logits, "logits")
 
 
-def lm_loss(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    logits = lm_forward(p, cfg, batch)
-    return cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+def lm_loss(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
+            aux_weight: float = 0.01):
+    """-> (loss, {"ce", "aux"}): masked-mean cross-entropy plus the
+    weighted aux loss (0 for the dense family)."""
+    logits, aux = lm_forward(p, cfg, batch, remat=remat)
+    loss = cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #

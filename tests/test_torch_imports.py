@@ -31,6 +31,17 @@ def _modules():
         yield ".".join(parts)
 
 
+TRAINING_SLICE = ["repro_torch.kernels.distill_kl",
+                  "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+                  "repro_torch.data.synthetic", "repro_torch.train.step",
+                  "repro_torch.train.loop", "repro_torch.distill.workload",
+                  "repro_torch.launch.train"]
+
+
+def test_module_list_covers_the_training_slice():
+    assert set(TRAINING_SLICE) <= set(_modules())
+
+
 def test_port_imports_no_jax_and_no_repro():
     code = (
         "import importlib, json, sys\n"

@@ -204,9 +204,10 @@ def test_forward_and_loss_match_jax(name):
     jloss, _ = jm.loss(jparams, {"tokens": jnp.asarray(tokens, jnp.int32),
                                  "labels": jnp.asarray(labels, jnp.int32),
                                  "loss_mask": jnp.ones((B, S))})
-    tloss = tm.loss({"tokens": _t(tokens), "labels": _t(labels),
-                     "loss_mask": torch.ones(B, S)})
-    _close(tloss, jloss)
+    tloss, tmet = tm.loss({"tokens": _t(tokens), "labels": _t(labels),
+                           "loss_mask": torch.ones(B, S)})
+    _close(tloss.detach(), jloss)
+    _close(tmet["ce"].detach(), jloss)
 
 
 def test_forward_with_padded_heads_and_vocab():
