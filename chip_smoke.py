@@ -7,8 +7,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it builds the port's
 CUDA kernels from the sources in this checkout.  Phases:
 
 1. Card and build: the card's name and power limit from ``nvidia-smi``;
-   ``kernels/csrc/flash_fwd.cu`` and ``distill_kl_fwd.cu`` built by one
-   ``nvcc`` each, started together.
+   ``kernels/csrc/flash_fwd.cu``, ``distill_kl_fwd.cu`` and ``ssd_fwd.cu``
+   built by one ``nvcc`` each, started together.
 2. The flash kernel against its plain version (``kernels/ref.py``) on the
    card, over a sweep of shapes, masks and dtypes, and at the two
    main-path shapes, granite-3-8b's serving prefill and qwen1.5-0.5b's
@@ -40,7 +40,23 @@ CUDA kernels from the sources in this checkout.  Phases:
    distillation step's gradients at full width (2 layers, float32) on the
    kernels against the same step on CPU copies, which take the plain
    versions.
-7. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+7. The SSD scan kernel against its plain version (``ssd_scan_ref``) over
+   a sweep (lengths below, at and above its 64-token chunk, ragged, f32
+   and bf16, with and without the final state, x/B/C as strided slices of
+   one tensor), then at mamba2-130m's shape (b=4, s=4096, h=24, p=64,
+   n=128, bf16), where the kernel and the plain version are timed.  Its
+   gradients: autograd through ``ops.ssd_scan`` (kernel forward,
+   ``ssd_chunked`` backward) against autograd through the sequential
+   ``ssd_reference``, over a sweep and in ROADMAP C3's case (chunk 128,
+   A = -1), where every gradient must be finite.
+8. mamba2-130m at full width in bf16: ``launch.train.run``, batch 4 x seq
+   4096, 4 steps (SSD kernel launched twice per layer and step, flash
+   never), one warm step traced; ``launch.serve.serve``, batch 4, prompt
+   4096, 32 tokens (SSD launched once per layer in prefill, never in
+   decode), then timed warm.  Prefill of S-2 tokens and 2 decode steps
+   against ``forward`` (4 layers, float32), and one train step's
+   gradients (2 layers, float32) against the same step on the CPU.
+9. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash kernel's at each of its main-path
    shapes under ``at``; its top-level times are the serving prefill's),
    then the ``{"ok": true, ...}`` line.
@@ -98,6 +114,28 @@ TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_B, TRAIN_S = 4, 2048
 TRAIN_STEPS = 4
 DISTILL_STEPS = 3
+# SSD scan kernel against ssd_scan_ref, both f32 inside: f32 inputs (TF32
+# off) within 1e-4 of 1 + |ref| (sums in other orders over n <= 128 and
+# 64-token chunks); bf16 within 1e-2, past the one bf16 step (at most
+# 2**-7 relative) by which two roundings of nearly equal f32 sums differ.
+# The final state is f32 on both sides: 1e-4 in both dtypes.
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_STATE_TOL = 1e-4
+# (b, s, h, p, n): tests/test_kernels_ssd.py's sweep, a ragged length, one
+# chunk's, mamba2-130m's p and n at the consistency check's ragged 4094
+SSD_SWEEP = [(2, 64, 3, 8, 16), (1, 128, 2, 16, 8), (2, 48, 4, 8, 4),
+             (1, 200, 2, 16, 8), (2, 4094, 4, 64, 128), (1, 130, 3, 80, 72)]
+SSD_MAIN = (4, 4096, 24, 64, 128)       # mamba2-130m training and prefill
+# SSD gradients through ops.ssd_scan against autograd through the
+# sequential oracle, relative to the leaf's largest gradient: f32 within
+# 1e-3 (the backward sums over up to 256 tokens in other orders); bf16
+# within 2e-2, a few bf16 steps (x, B, C and their gradients are bf16)
+SSD_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+SSD_GRAD_SWEEP = [((2, 64, 3, 8, 16), 16), ((2, 64, 3, 8, 16), 128),
+                  ((1, 128, 2, 16, 8), 32), ((2, 48, 4, 8, 4), 16),
+                  ((1, 200, 2, 16, 8), 64)]
+MAMBA = "mamba2-130m"
+MAMBA_B, MAMBA_S = 4, 4096
 
 
 def check(cond: bool, msg: str) -> None:
@@ -139,7 +177,7 @@ def phase_build() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    builds = _build.build_all(["flash_fwd", "distill_kl_fwd"])
+    builds = _build.build_all(["flash_fwd", "distill_kl_fwd", "ssd_fwd"])
     print(f"build: {time.perf_counter() - t0:.1f} s wall for "
           f"{len(builds)} sources in parallel")
     for name, built in builds.items():
@@ -265,15 +303,19 @@ def flash_entry(at: dict) -> dict:
 def reset_counts() -> None:
     from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     fa.flash_fwd.launches = 0
     dk.distill_kl_fwd.launches = 0
+    ssd.ssd_fwd.launches = 0
 
 
-def read_counts() -> tuple[int, int]:
-    """(flash_fwd launches, distill_kl_fwd launches) since reset_counts."""
+def read_counts() -> tuple[int, int, int]:
+    """(flash_fwd, distill_kl_fwd, ssd_fwd) launches since reset_counts."""
     from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
-    return fa.flash_fwd.launches, dk.distill_kl_fwd.launches
+    from repro_torch.kernels import ssd_scan as ssd
+    return (fa.flash_fwd.launches, dk.distill_kl_fwd.launches,
+            ssd.ssd_fwd.launches)
 
 
 def phase_serve() -> int:
@@ -285,8 +327,9 @@ def phase_serve() -> int:
     res = serve_mod.serve(ARCH, batch=B, prompt_len=S, gen=32,
                           dtype="bfloat16", device="cuda", seed=0)
     wall = time.perf_counter() - t0
-    launches, kl_launches = read_counts()
-    check(kl_launches == 0, "serving launched the distill_kl kernel")
+    launches, kl_launches, ssd_launches = read_counts()
+    check(kl_launches == ssd_launches == 0,
+          "serving granite launched the distill_kl or the SSD kernel")
     cfg = res.cfg
     print(res.summary())
     print(f"serve wall (init + prefill + decode): {wall:.1f} s; peak device "
@@ -528,6 +571,19 @@ def _finite(xs) -> bool:
     return all(np.isfinite(x) for x in xs)
 
 
+def _changed_leaves(new, old) -> dict:
+    changed = {}
+
+    def visit(a, b, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                visit(a[k], b[k], f"{path}/{k}")
+        else:
+            changed[path] = bool((a.detach() != b).any())
+    visit(new, old)
+    return changed
+
+
 def phase_train() -> int:
     """The training entry point at full width; returns flash launches."""
     from repro_torch.launch import train as train_mod
@@ -538,7 +594,7 @@ def phase_train() -> int:
     run = train_mod.run(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_B,
                         seq=TRAIN_S, dtype="bfloat16", device="cuda",
                         seed=0, log_every=1)
-    launches, kl_launches = read_counts()
+    launches, kl_launches, ssd_launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(run.summary())
     print(f"train peak device memory {peak:.2f} GiB; loop {run.seconds:.2f} s")
@@ -550,18 +606,12 @@ def phase_train() -> int:
     check(launches == run.flash_launches == want,
           f"flash launched {launches} times in training, expected "
           f"steps x layers x 2 = {want}")
-    check(kl_launches == 0, "training launched the distill_kl kernel")
-    init = build_model(cfg, device="cuda", seed=0).param_tree()
+    check(kl_launches == ssd_launches == 0,
+          "training qwen launched the distill_kl or the SSD kernel")
     names = ("embed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-    changed = {}
-
-    def visit(new, old, path=""):
-        if isinstance(new, dict):
-            for k in new:
-                visit(new[k], old[k], f"{path}/{k}")
-        else:
-            changed[path] = bool((new.detach() != old).any())
-    visit(res.params, init)
+    changed = _changed_leaves(res.params,
+                              build_model(cfg, device="cuda", seed=0)
+                              .param_tree())
     print(f"train: {sum(changed.values())} of {len(changed)} parameter "
           f"leaves changed")
     for path, moved in changed.items():
@@ -570,8 +620,9 @@ def phase_train() -> int:
     return launches
 
 
-def phase_train_trace() -> None:
-    """One warm train step of the same model and shapes, traced."""
+def phase_train_trace(arch: str = TRAIN_ARCH, B: int = TRAIN_B,
+                      S: int = TRAIN_S) -> None:
+    """One warm train step of a main path's model and shapes, traced."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.types import ParallelConfig, ShapeConfig
     from repro_torch.data.synthetic import lm_batches
@@ -579,16 +630,15 @@ def phase_train_trace() -> None:
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw, schedules
     from repro_torch.train import step as step_mod
-    cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+    cfg = resolve_config(arch, dtype="bfloat16")
     model = build_model(cfg, device="cuda", seed=0)
     step = step_mod.build_train_step(
-        model, ParallelConfig(mbs=TRAIN_B),
-        ShapeConfig("train", "train", TRAIN_S, TRAIN_B),
+        model, ParallelConfig(mbs=B), ShapeConfig("train", "train", S, B),
         lr_schedule=functools.partial(schedules.constant, peak_lr=1e-4))
     params = model.param_tree()
     opt = adamw.init(params)
-    batches = lm_batches(batch=TRAIN_B, seq_len=TRAIN_S,
-                         vocab=cfg.vocab_size, seed=0, device="cuda")
+    batches = lm_batches(batch=B, seq_len=S, vocab=cfg.vocab_size, seed=0,
+                         device="cuda")
     params, opt, met = step(params, opt, next(batches), 0)     # warm-up
     float(met["loss"])
     batch = next(batches)
@@ -598,7 +648,7 @@ def phase_train_trace() -> None:
         params, opt, met = step(params, opt, batch, 1)
         float(met["loss"])
         wall = (time.perf_counter() - t0) * 1e3
-    _kernel_report(prof, wall, "warm train step")
+    _kernel_report(prof, wall, f"warm train step ({cfg.name})")
 
 
 def _kernel_report(prof, wall_ms: float, what: str) -> None:
@@ -611,12 +661,15 @@ def _kernel_report(prof, wall_ms: float, what: str) -> None:
                             "evaluate_function: FlashAttentionBackward"),
                            ("KL backward (plain torch)",
                             "evaluate_function: DistillKLBackward"),
+                           ("SSD backward (plain torch)",
+                            "evaluate_function: SSDScanBackward"),
                            ("AdamW update", "adamw.update")):
             if evt.key.endswith(key) or evt.key == key:
                 ranges[label] = ranges.get(label, 0.0) + \
                     evt.device_time_total / 1e3
     kinds = {"flash forward kernel": lambda k: "flash_fwd_kernel" in k,
              "distill_kl kernels": lambda k: "distill_kl_" in k,
+             "SSD forward kernels": lambda k: "ssd_" in k,
              "GEMMs": lambda k: any(x in k.lower() for x in
                                     ("gemm", "xmma", "cutlass"))}
     print(f"traced {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
@@ -675,7 +728,8 @@ def phase_distill() -> tuple[int, int]:
         print(f"distill step {i}: loss {met['loss']:.4f} ce {met['ce']:.4f} "
               f"kl {met['kl']:.5f} gnorm {met['grad_norm']:.3f} "
               f"{times[-1] * 1e3:.1f} ms")
-    launches, kl_launches = read_counts()
+    launches, kl_launches, ssd_launches = read_counts()
+    check(ssd_launches == 0, "distillation launched the SSD kernel")
     peak = torch.cuda.max_memory_allocated() / 2**30
     warm = float(np.mean(times[1:]))
     print(f"distill {cfg.name} teacher seed 1 -> student seed 0, batch "
@@ -737,8 +791,8 @@ def phase_grad_consistency(rng) -> None:
     reset_counts()
     loss_g, met_g, g_gpu = grads("cuda")
     launches = read_counts()
-    check(launches == (cfg.num_layers * 3, 1),
-          f"the CUDA step launched (flash, KL) = {launches}")
+    check(launches == (cfg.num_layers * 3, 1, 0),
+          f"the CUDA step launched (flash, KL, SSD) = {launches}")
     loss_c, met_c, g_cpu = grads("cpu")
     check(read_counts() == launches, "the CPU step launched a kernel")
     rel = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -756,6 +810,300 @@ def phase_grad_consistency(rng) -> None:
           "distillation loss differs between the card and the CPU")
     check(rel <= tol, "distillation gradients differ between the card and "
           "the CPU")
+
+
+# --------------------------------------------------------------------------- #
+# SSD scan kernel and mamba2-130m
+# --------------------------------------------------------------------------- #
+def _ssd_inputs(rng, b, s, h, p, n, dtype, packed=False, A=None):
+    """Inputs of the SSD scan on the card: dt = softplus(N(0,1)), A =
+    -exp(N(0,1)) (or the constant given), x, B, C, D ~ N(0,1).  With
+    ``packed``, x, B and C are slices of one [b, s, h*p + 2n] tensor, as the
+    model passes them."""
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), torch.float32))
+    A = (-torch.exp(_randn(rng, (h,), torch.float32)) if A is None
+         else torch.full((h,), A, device="cuda"))
+    D = _randn(rng, (h,), torch.float32)
+    if packed:
+        xbc = _randn(rng, (b, s, h * p + 2 * n), dtype)
+        x = xbc[..., :h * p].unflatten(-1, (h, p))
+        B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    else:
+        x = _randn(rng, (b, s, h, p), dtype)
+        B, C = _randn(rng, (b, s, n), dtype), _randn(rng, (b, s, n), dtype)
+    return x, dt, A, B, C, D
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs()
+            / (1 + want.float().abs())).max().item()
+
+
+def ssd_case(rng, shape, dtype, return_state, packed) -> float:
+    """One sweep case of the SSD kernel against its plain version."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_scan_ref
+    x, dt, A, B, C, D = _ssd_inputs(rng, *shape, dtype, packed)
+    out = ssd.ssd_fwd(x, dt, A, B, C, D, return_state=return_state)
+    want = ssd_scan_ref(x, dt, A, B, C, D, return_state=return_state)
+    torch.cuda.synchronize()
+    y, y_ref = (out[0], want[0]) if return_state else (out, want)
+    check(bool(torch.isfinite(y).all()), f"SSD kernel output not finite "
+          f"at {shape}")
+    err = _rel(y, y_ref)
+    check(err <= SSD_TOL[dtype], f"SSD y at {shape} {dtype}: {err:.3e} > "
+          f"{SSD_TOL[dtype]}")
+    serr = 0.0
+    if return_state:
+        serr = _rel(out[1], want[1])
+        check(serr <= SSD_STATE_TOL, f"SSD final state at {shape} {dtype}: "
+              f"{serr:.3e} > {SSD_STATE_TOL}")
+    print(f"  ssd {shape} {str(dtype)[6:]} state={return_state} "
+          f"packed={packed}: |y-ref|/(1+|ref|) {err:.3e}"
+          + (f", state {serr:.3e}" if return_state else ""))
+    return err
+
+
+def phase_ssd_sweep(rng) -> None:
+    print("SSD kernel vs plain version (relative to 1 + |ref|: f32 tol "
+          f"{SSD_TOL[torch.float32]:.0e}, bf16 tol "
+          f"{SSD_TOL[torch.bfloat16]:.0e}, state tol {SSD_STATE_TOL:.0e})")
+    for i, shape in enumerate(SSD_SWEEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            for return_state in (False, True):
+                # every other shape with x, B, C sliced from one tensor
+                ssd_case(rng, shape, dtype, return_state, packed=i % 2 == 1)
+
+
+def phase_ssd_main(rng) -> dict:
+    """The kernel at mamba2-130m's training and prefill shape, with x, B
+    and C sliced from one tensor as the model passes them."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_scan_ref
+    b, s, h, p, n = SSD_MAIN
+    x, dt, A, B, C, D = _ssd_inputs(rng, b, s, h, p, n, torch.bfloat16,
+                                    packed=True)
+    y, state = ssd.ssd_fwd(x, dt, A, B, C, D, return_state=True)
+    y_ref, state_ref = ssd_scan_ref(x, dt, A, B, C, D, return_state=True)
+    err = (y.float() - y_ref.float()).abs().max().item()
+    rel = _rel(y, y_ref)
+    serr = _rel(state, state_ref)
+    check(rel <= SSD_TOL[torch.bfloat16] and serr <= SSD_STATE_TOL,
+          f"SSD at the main shape: y {rel:.3e}, state {serr:.3e}")
+    ms = time_ms(lambda: ssd.ssd_fwd(x, dt, A, B, C, D), iters=20)
+    plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, D), iters=3,
+                       warmup=1)
+    Q, nc = ssd.CHUNK, -(-s // ssd.CHUNK)
+    # C B^T once per (b, chunk), the intra-chunk product, the inter-chunk
+    # product and the chunk states
+    flops = (2 * b * nc * Q * Q * n + 2 * b * h * nc * Q * Q * p
+             + 2 * 2 * b * h * s * p * n)
+    nbytes = (2 * (2 * b * s * h * p) + 4 * b * s * h + 2 * (2 * b * s * n)
+              + 2 * 4 * h)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"ssd main shape {SSD_MAIN} bf16: kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); max|y-ref| "
+          f"{err:.3e} (relative {rel:.3e}), state {serr:.3e}; no single "
+          "PyTorch call computes the scan")
+    return {"name": "ssd_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_fwd.cu",
+            "replaces": "src/repro/kernels/ssd_pallas.py:30",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def _ssd_grad_case(rng, shape, chunk, dtype, A=None) -> float:
+    """Worst per-leaf gradient error of ops.ssd_scan on CUDA tensors
+    against autograd through the sequential oracle; every gradient must
+    be finite."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_reference
+    leaves = [t.detach().requires_grad_()
+              for t in _ssd_inputs(rng, *shape, dtype, A=A)]
+    g = _randn(rng, shape[:4], torch.float32)
+    y = ops.ssd_scan(*leaves, chunk=chunk)
+    check("SSDScan" in type(y.grad_fn).__name__,
+          f"CUDA SSD output has grad_fn {y.grad_fn}")
+    got = torch.autograd.grad((y.float() * g).sum(), leaves)
+    want = torch.autograd.grad((ssd_reference(*leaves).float() * g).sum(),
+                               leaves)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, w in zip(("x", "dt", "A", "B", "C", "D"), got, want):
+        check(bool(torch.isfinite(a).all()), f"d{name} not finite at "
+              f"{shape} chunk {chunk} {dtype}")
+        err = ((a.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, err)
+        check(err <= SSD_GRAD_TOL[dtype], f"d{name} {shape} chunk {chunk} "
+              f"{dtype}: {err:.3e} > {SSD_GRAD_TOL[dtype]}")
+    return worst
+
+
+def phase_ssd_grads(rng) -> None:
+    print("SSD gradients: ops.ssd_scan (kernel forward, ssd_chunked "
+          "backward) vs autograd through ssd_reference (max |dg| / max|g| "
+          f"per leaf, f32 tol {SSD_GRAD_TOL[torch.float32]:.0e}, bf16 tol "
+          f"{SSD_GRAD_TOL[torch.bfloat16]:.0e})")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape, chunk in SSD_GRAD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            worst[dtype] = max(worst[dtype],
+                               _ssd_grad_case(rng, shape, chunk, dtype))
+    print(f"  worst: f32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e} over {2 * len(SSD_GRAD_SWEEP)} cases")
+    # ROADMAP C3: chunk 128 at the model's init (A_log = 0, so A = -1),
+    # where the JAX package's chunked gradients are NaN
+    err = _ssd_grad_case(rng, (1, 256, 2, 8, 16), 128, torch.float32, A=-1.0)
+    print(f"  C3 case (1, 256, 2, 8, 16) chunk 128 A=-1 f32: all gradients "
+          f"finite, worst {err:.3e}")
+
+
+def phase_mamba_train() -> int:
+    """mamba2-130m's training entry point at full width; returns SSD
+    launches."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model import build_model
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train_mod.run(MAMBA, steps=TRAIN_STEPS, batch=MAMBA_B,
+                        seq=MAMBA_S, dtype="bfloat16", device="cuda", seed=0,
+                        log_every=1)
+    flash, kl, launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(run.summary())
+    print(f"train {MAMBA} peak device memory {peak:.2f} GiB; loop "
+          f"{run.seconds:.2f} s; {run.n_params / 1e6:.1f}M parameters")
+    res, cfg = run.result, run.cfg
+    check(_finite(res.losses) and _finite(res.grad_norms),
+          f"non-finite loss or grad norm: {res.losses}, {res.grad_norms}")
+    want = TRAIN_STEPS * cfg.num_layers * 2
+    check(launches == run.ssd_launches == want,
+          f"SSD launched {launches} times in training, expected steps x "
+          f"layers x 2 = {want}")
+    check(flash == kl == 0, "training mamba launched flash or distill_kl")
+    changed = _changed_leaves(res.params,
+                              build_model(cfg, device="cuda", seed=0)
+                              .param_tree())
+    print(f"train {MAMBA}: {sum(changed.values())} of {len(changed)} "
+          f"parameter leaves changed")
+    check(all(changed.values()), "parameters that did not change: "
+          f"{[k for k, v in changed.items() if not v]}")
+    return launches
+
+
+def phase_mamba_serve(rng) -> int:
+    """mamba2-130m's serving entry point at full width (counted), then the
+    same batch warm; returns SSD launches."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve_mod.serve(MAMBA, batch=MAMBA_B, prompt_len=MAMBA_S, gen=32,
+                          dtype="bfloat16", device="cuda", seed=0)
+    flash, kl, launches = read_counts()
+    cfg = res.cfg
+    print(res.summary())
+    print(f"serve {MAMBA} peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(res.prefill_ssd_launches == launches == cfg.num_layers,
+          f"prefill launched SSD {res.prefill_ssd_launches} times, "
+          f"expected {cfg.num_layers}")
+    check(res.decode_ssd_launches == 0 and flash == kl == 0,
+          "decode launched the SSD kernel, or serving launched another")
+    check(res.logits_finite, "non-finite logits")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "generated token outside the vocabulary")
+    model = build_model(cfg, device="cuda", seed=0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (MAMBA_B, MAMBA_S))).cuda()
+    serve_mod.generate(model, prompts, 2)                      # warm-up
+    print("warm " + serve_mod.generate(model, prompts, 32).summary())
+    return launches
+
+
+def phase_mamba_consistency(rng) -> None:
+    """Prefill of S-2 tokens (a ragged last chunk) and 2 decode steps
+    against forward, at full width, 4 layers, float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(MAMBA).replace(num_layers=4, dtype="float32")
+    model = build_model(cfg, device="cuda", seed=1)
+    B, S = 2, MAMBA_S
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S))).cuda()
+    full = model({"tokens": tokens})
+    logits, cache = model.prefill({"tokens": tokens[:, :S - 2]},
+                                  extra_cache=2)
+    errs = [(logits - full[:, S - 3]).abs().max().item()]
+    for pos in (S - 2, S - 1):
+        logits, cache = model.decode(cache, tokens[:, pos:pos + 1], pos)
+        errs.append((logits - full[:, pos]).abs().max().item())
+    scale = full.abs().max().item()
+    # float32 with TF32 off: the kernel's chunked sums and decode's
+    # recurrence add the same terms in other orders; 1e-3 is far above
+    # that and far below what a wrong state, decay or conv window moves
+    tol = 1e-3
+    print(f"consistency {cfg.name} d_model={cfg.d_model} layers=4 f32, "
+          f"S={S}: prefill/decode vs forward max|diff| "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol:.0e}; max "
+          f"|logit| {scale:.2f})")
+    check(max(errs) <= tol, "prefill + decode disagrees with forward")
+
+
+def phase_mamba_grad_consistency(rng) -> None:
+    """One mamba2-130m train step's gradients at full width (2 layers,
+    float32) on the kernel against the same step on CPU copies, at chunk
+    128 from the model's init (A = -1): ROADMAP C3's case."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    cfg = get_config(MAMBA).replace(num_layers=2, dtype="float32")
+    # every leaf in float32 (norm scales are bf16 by spec)
+    init = tree_map(lambda p: p.detach().float(),
+                    build_model(cfg, device="cuda", seed=0).param_tree())
+    B, S = 2, 256
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:]),
+             "loss_mask": torch.from_numpy(
+                 (rng.random((B, S)) < 0.9).astype(np.float32))}
+
+    def grads(device):
+        ps = tree_map(lambda p: p.to(device).requires_grad_(), init)
+        model = build_model(cfg, ps, device=device)
+        loss, _ = model.loss({k: v.to(device) for k, v in batch.items()},
+                             params=ps)
+        return loss, torch.autograd.grad(loss, tree_leaves(ps))
+
+    reset_counts()
+    loss_g, g_gpu = grads("cuda")
+    launches = read_counts()
+    check(launches == (0, 0, cfg.num_layers * 2),
+          f"the CUDA step launched (flash, KL, SSD) = {launches}")
+    loss_c, g_cpu = grads("cpu")
+    check(read_counts() == launches, "the CPU step launched a kernel")
+    check(all(bool(torch.isfinite(g).all()) for g in g_gpu),
+          "non-finite gradient on the card")
+    rel = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              .item() for a, b in zip(g_gpu, g_cpu))
+    # float32 with TF32 off on both; the card's forward is the kernel's
+    # 64-token chunks, the CPU's ssd_chunked at 128: 1e-3 relative per
+    # leaf is far above their rounding and far below a wrong term
+    tol = 1e-3
+    print(f"gradient consistency {cfg.name} 2 layers f32 B={B} S={S}: loss "
+          f"{loss_g.item():.6f} (CUDA) vs {loss_c.item():.6f} (CPU); max "
+          f"per-leaf |dg| / max|g| {rel:.3e} (tol {tol:.0e}) over "
+          f"{len(g_cpu)} leaves, all finite")
+    check(abs(loss_g.item() - loss_c.item()) <= 1e-4 * abs(loss_c.item()),
+          "mamba loss differs between the card and the CPU")
+    check(rel <= tol, "mamba gradients differ between the card and the CPU")
 
 
 def main() -> int:
@@ -777,6 +1125,9 @@ def main() -> int:
     phase_flash_grads(rng)
     phase_kl_sweep(rng)
     kl = phase_kl_main(rng)
+    phase_ssd_sweep(rng)
+    ssd = phase_ssd_main(rng)
+    phase_ssd_grads(rng)
     free()
     serve_launches = phase_serve()
     free()
@@ -791,16 +1142,28 @@ def main() -> int:
     distill_launches, kl_launches = phase_distill()
     free()
     phase_grad_consistency(rng)
+    free()
+    mamba_train_launches = phase_mamba_train()
+    free()
+    phase_train_trace(MAMBA, MAMBA_B, MAMBA_S)
+    free()
+    mamba_serve_launches = phase_mamba_serve(rng)
+    free()
+    phase_mamba_consistency(rng)
+    free()
+    phase_mamba_grad_consistency(rng)
+    paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}", f"distill {TRAIN_ARCH}",
+             f"train {MAMBA}", f"serve {MAMBA}")
+    per_path = {
+        "flash": (serve_launches, train_launches, distill_launches, 0, 0),
+        "kl": (0, 0, kl_launches, 0, 0),
+        "ssd": (0, 0, 0, mamba_train_launches, mamba_serve_launches)}
     flash = flash_entry(flash_at)
-    flash["launches"] = serve_launches + train_launches + distill_launches
-    flash["launches_per_path"] = {"serve": serve_launches,
-                                  "train": train_launches,
-                                  "distill": distill_launches}
-    kl["launches"] = kl_launches
-    kl["launches_per_path"] = {"serve": 0, "train": 0,
-                               "distill": kl_launches}
+    for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
+        entry["launches"] = sum(per_path[name])
+        entry["launches_per_path"] = dict(zip(paths, per_path[name]))
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [flash, kl]}))
+    print(json.dumps({"kernels": [flash, kl, ssd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import distill_kl as dk
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,3 +74,21 @@ def distill_kl(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,
         stats = functools.partial(ref.distill_kl_stats_ref, block_v=block_v)
     return dk.DistillKL.apply(h_s, w_s, h_t, w_t, mask, float(temperature),
                               int(block_v), stats)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 128, return_state: bool = False):
+    """Mamba-2 SSD over a full sequence -> y [b, s, h, p] (and with
+    ``return_state`` the final state [b, h, p, n] float32); shapes as in
+    :mod:`repro_torch.kernels.ssd_scan`.
+
+    CUDA tensors go through :class:`~repro_torch.kernels.ssd_scan.SSDScan`
+    with the kernel's forward (its fixed 64-token chunk) and a backward
+    recomputed by ``ssd_chunked`` at ``chunk``; CPU tensors go to
+    ``ssd_chunked`` at ``chunk``, which autograd differentiates."""
+    if x.is_cuda:
+        return ssd.SSDScan.apply(x, dt, A, B, C, D, int(chunk),
+                                 bool(return_state), ssd.ssd_fwd)
+    return ssd.ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
+                           return_state=return_state)

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
 ``flash_attention_ref`` is the plain version of ``csrc/flash_fwd.cu``,
-``distill_kl_stats_ref`` that of ``csrc/distill_kl_fwd.cu``;
-``distill_kl_reference`` is the full-materialisation oracle of the KL,
-for tests only.
+``distill_kl_stats_ref`` that of ``csrc/distill_kl_fwd.cu`` and
+``ssd_scan_ref`` that of ``csrc/ssd_fwd.cu``; ``distill_kl_reference``
+(the full-materialisation KL) and ``ssd_reference`` (the sequential SSD
+scan) are oracles, for tests only.
 
 ``flash_attention_ref`` is the direct formula for what
 ``kernels/csrc/flash_fwd.cu`` computes, in float32, with the JAX package's
@@ -25,6 +26,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import ssd_scan
 
 NEG_INF = -1e30
 
@@ -124,3 +127,47 @@ def distill_kl_reference(h_s, w_s, h_t, w_t, *, mask=None,
         m = mask.float()
         return (kl * m).sum() / m.sum().clamp_min(1.0)
     return kl.mean()
+
+
+# --------------------------------------------------------------------------- #
+# Mamba-2 SSD scan
+# --------------------------------------------------------------------------- #
+def ssd_reference(x, dt, A, B, C, D):
+    """Sequential SSD scan, the oracle (``repro/kernels/ref.py::
+    ssd_reference``): one token at a time, so no ``exp`` of a positive sum
+    is ever formed and its gradients are finite at any length.
+
+    x [b, s, h, p], dt [b, s, h] (softplus'ed), A [h] (< 0), B and C
+    [b, s, n] (one group), D [h] -> y [b, s, h, p] in x's dtype."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(A[None] * dtf[:, t])                     # [b, h]
+        dBx = torch.einsum("bh,bn,bhp->bhpn", dtf[:, t], Bf[:, t], xf[:, t])
+        state = state * decay[..., None, None] + dBx
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * D[None, None, :, None]
+    return y.to(x.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C, D, *, return_state: bool = False):
+    """The plain version of ``csrc/ssd_fwd.cu``: the chunked scan at the
+    kernel's fixed chunk (``ssd_scan.CHUNK``), with a ragged last chunk
+    padded by tokens of ``dt = 0``, ``x = B = C = 0``, which leave the state
+    as it is.  -> y [b, s, h, p] in x's dtype (the D·x skip added in float32
+    before the one rounding), and with ``return_state`` the final state
+    [b, h, p, n] float32."""
+    s = x.shape[1]
+    pad = -s % ssd_scan.CHUNK
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+    y, state = ssd_scan.ssd_chunked(padded(x), padded(dt), A, padded(B),
+                                    padded(C), D, chunk=ssd_scan.CHUNK,
+                                    return_state=True)
+    y = y[:, :s]
+    return (y, state) if return_state else y

@@ -7,7 +7,7 @@ Counterpart of ``repro/launch/serve.py`` with the same options, plus
 ``--device`` (``cuda`` by default) and ``--seed`` (weights from a seeded
 ``torch.Generator``, prompts from ``np.random.default_rng(seed)``).  It
 prints prefill time and tokens/s, decode time per token, and how many
-times the flash-attention kernel was launched.
+times the flash-attention and SSD-scan kernels were launched.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
 from repro_torch.core.types import ArchConfig
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models.model import Model, build_model
 
 # the JAX package's presets (repro/launch/train.py)
@@ -44,6 +45,8 @@ class ServeResult:
     decode_s: float
     prefill_launches: int           # flash kernel launches during prefill
     decode_launches: int            # ... and during decode
+    prefill_ssd_launches: int       # SSD kernel launches during prefill
+    decode_ssd_launches: int        # ... and during decode
 
     def summary(self) -> str:
         B, S = self.prompts.shape
@@ -56,7 +59,9 @@ class ServeResult:
                 f"decode:  {self.decode_s * 1e3 / steps:.2f} ms/token "
                 f"({B * (gen - 1) / max(self.decode_s, 1e-9):.0f} tok/s)\n"
                 f"flash kernel launches: prefill {self.prefill_launches}, "
-                f"decode {self.decode_launches}")
+                f"decode {self.decode_launches}\n"
+                f"ssd kernel launches: prefill {self.prefill_ssd_launches}, "
+                f"decode {self.decode_ssd_launches}")
 
 
 def resolve_config(arch: str, *, reduced: bool = False,
@@ -82,14 +87,14 @@ def generate(model: Model, prompts: torch.Tensor, gen: int) -> ServeResult:
     device = prompts.device
     S = prompts.shape[1]
     _sync(device)
-    n0 = fa.flash_fwd.launches
+    n0, m0 = fa.flash_fwd.launches, ssd.ssd_fwd.launches
     t0 = time.perf_counter()
     logits, cache = model.prefill({"tokens": prompts}, extra_cache=gen)
     out = [logits.argmax(-1)[:, None]]
     finite = torch.isfinite(logits).all()
     _sync(device)
     t_prefill = time.perf_counter() - t0
-    n1 = fa.flash_fwd.launches
+    n1, m1 = fa.flash_fwd.launches, ssd.ssd_fwd.launches
     t0 = time.perf_counter()
     for i in range(gen - 1):
         logits, cache = model.decode(cache, out[-1], S + i)
@@ -99,7 +104,8 @@ def generate(model: Model, prompts: torch.Tensor, gen: int) -> ServeResult:
     t_decode = time.perf_counter() - t0
     return ServeResult(model.cfg, prompts, torch.cat(out, dim=1),
                        bool(finite), t_prefill, t_decode,
-                       n1 - n0, fa.flash_fwd.launches - n1)
+                       n1 - n0, fa.flash_fwd.launches - n1,
+                       m1 - m0, ssd.ssd_fwd.launches - m1)
 
 
 def serve(arch: str = "lm-20m", *, reduced: bool = False, batch: int = 4,

@@ -10,7 +10,8 @@ seed).  ``--arch <id> --reduced --device cpu`` runs the reduced config on
 the CPU.  One device only: ``--data``/``--model`` above 1 raise (ROADMAP.md,
 A6), and so does ``--ckpt-dir`` until the checkpointer is ported (A9).
 It prints each logged step, the cold (first) and warm step times,
-tokens/s, and how many times the flash-attention kernel was launched.
+tokens/s, and how many times the flash-attention and SSD-scan kernels were
+launched.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.configs import ARCH_NAMES
 from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.serve import PRESETS, resolve_config
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.model import build_model
@@ -42,6 +44,7 @@ class TrainRun:
     result: TrainResult
     seconds: float               # the whole loop, first step included
     flash_launches: int          # flash kernel launches during the loop
+    ssd_launches: int            # SSD kernel launches during the loop
 
     def summary(self) -> str:
         r = self.result
@@ -53,7 +56,8 @@ class TrainRun:
                 f" tok/s, stragglers={r.stragglers}\n"
                 f"step: cold {r.step_times[0] * 1e3:.1f} ms, warm "
                 f"{warm_s * 1e3:.1f} ms ({toks / warm_s:.0f} tok/s)\n"
-                f"flash kernel launches: {self.flash_launches}")
+                f"flash kernel launches: {self.flash_launches}, ssd kernel "
+                f"launches: {self.ssd_launches}")
 
 
 def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
@@ -78,7 +82,7 @@ def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device} "
            f"mbs={mbs}")
     opt = adamw.init(params)
-    n0 = fa.flash_fwd.launches
+    n0, m0 = fa.flash_fwd.launches, ssd.ssd_fwd.launches
     t0 = time.perf_counter()
     res = train(step, params=params, opt_state=opt,
                 batches=lm_batches(batch=batch, seq_len=seq,
@@ -87,7 +91,7 @@ def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
                 num_steps=steps, log_every=log_every)
     seconds = time.perf_counter() - t0
     return TrainRun(cfg, n_params, mbs, batch, seq, res, seconds,
-                    fa.flash_fwd.launches - n0)
+                    fa.flash_fwd.launches - n0, ssd.ssd_fwd.launches - m0)
 
 
 def main(argv=None) -> TrainRun:

@@ -10,8 +10,9 @@ argument:
 * ``prefill(batch, extra_cache)``-- (last logits [B, V], cache)
 * ``decode(cache, token, pos)`` -- one serving step (writes the cache in place)
 
-Only the ``dense`` family is ported; every other family raises
-``NotImplementedError`` naming its slice in ROADMAP.md.
+The ``dense`` (attention + MLP) and ``ssm`` (Mamba-2) families are
+ported; every other family raises ``NotImplementedError`` naming its
+slice in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -24,10 +25,10 @@ from repro_torch.core.types import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 
+_PORTED = ("dense", "ssm")
 _LATER = {
     "moe": "A7 (MoE)",
-    "ssm": "A7 (Mamba-2 and the SSD scan kernel, B4)",
-    "hybrid": "A7 (jamba: Mamba-2 + MoE)",
+    "hybrid": "A7 (jamba: its Mamba-2 layers run, its MoE is not ported)",
     "audio": "A7 (whisper encoder-decoder)",
     "vlm": "A5 (MLLM)",
     "vit": "A5 (MLLM)",
@@ -88,7 +89,7 @@ def build_model(cfg: ArchConfig, params: Optional[dict] = None, *,
     """A :class:`Model` for ``cfg`` on ``device``: with ``params`` (e.g. from
     :func:`repro_torch.convert.params_from_numpy`) or initialised from a
     ``torch.Generator`` seeded with ``seed``."""
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED:
         later = _LATER.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; see "

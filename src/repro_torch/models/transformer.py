@@ -1,11 +1,12 @@
 """Decoder-only LM: specs, forward, prefill and decode.
 
 Counterpart of ``repro/models/transformer.py`` for the families whose
-layers are attention + MLP (``dense``).  Layers are grouped as in the JAX
-package: a group is a period of sub-layers whose parameters are stacked
-over the number of repeats (the ``layers`` axis); a Python loop over that
-axis takes the place of ``lax.scan``.  Mamba and MoE sub-layers arrive with
-later slices (ROADMAP.md, A7) and raise ``NotImplementedError`` here.
+sub-layers are attention + MLP (``dense``) or Mamba-2 with no FFN
+(``ssm``).  Layers are grouped as in the JAX package: a group is a period
+of sub-layers whose parameters are stacked over the number of repeats (the
+``layers`` axis); a Python loop over that axis takes the place of
+``lax.scan``.  MoE sub-layers arrive with a later slice (ROADMAP.md, A7)
+and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch.utils.checkpoint
 from repro_torch.core.types import ArchConfig
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
+from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
 from repro_torch.models.common import ParamSpec, torch_dtype
 
@@ -76,7 +78,7 @@ def group_layout(cfg: ArchConfig) -> Tuple[list, int]:
 
 
 def _check_kind(mixer: str, ffn: Optional[str]) -> None:
-    if mixer != "attn" or ffn not in ("mlp", None):
+    if mixer not in ("attn", "mamba") or ffn not in ("mlp", None):
         raise NotImplementedError(
             f"sub-layer ({mixer}, {ffn}) is not ported yet; see ROADMAP.md, "
             "A7")
@@ -84,7 +86,11 @@ def _check_kind(mixer: str, ffn: Optional[str]) -> None:
 
 def _sublayer_specs(cfg: ArchConfig, mixer: str, ffn: Optional[str]) -> dict:
     _check_kind(mixer, ffn)
-    s: dict = {"norm1": norm_specs(cfg), "attn": att.attn_specs(cfg)}
+    s: dict = {"norm1": norm_specs(cfg)}
+    if mixer == "attn":
+        s["attn"] = att.attn_specs(cfg)
+    else:
+        s["mamba"] = mb.mamba_specs(cfg)
     if ffn is not None:
         s["norm2"] = norm_specs(cfg)
         s[ffn] = mlpm.mlp_specs(cfg)
@@ -126,12 +132,16 @@ def embed_tokens(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     return p["embed"][batch["tokens"]]
 
 
-def _sublayer_fwd(lp, x, cfg: ArchConfig, ffn: Optional[str], segment_ids):
-    """One (attention, ffn) sub-layer; ``repro`` returns (x, aux) and its
-    aux is 0 for every sub-layer the port has."""
+def _sublayer_fwd(lp, x, cfg: ArchConfig, mixer: str, ffn: Optional[str],
+                  segment_ids):
+    """One (mixer, ffn) sub-layer; ``repro`` returns (x, aux) and its aux
+    is 0 for every sub-layer the port has."""
     h = apply_norm(lp["norm1"], x, cfg)
-    x = x + att.attention(lp["attn"], h, cfg, segment_ids=segment_ids)
-    return _ffn(lp, x, cfg, ffn)
+    if mixer == "attn":
+        h = att.attention(lp["attn"], h, cfg, segment_ids=segment_ids)
+    else:
+        h = mb.mamba(lp["mamba"], h, cfg)
+    return _ffn(lp, x + h, cfg, ffn)
 
 
 def lm_forward(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
@@ -142,9 +152,9 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
     With ``remat`` each sub-layer runs under
     ``torch.utils.checkpoint`` (non-reentrant) in place of
     ``jax.checkpoint``: its activations are recomputed in the backward,
-    so the flash kernel runs twice per layer in a training step.  Without
-    autograd recording (serving, the frozen teacher) nothing is saved and
-    ``remat`` changes nothing."""
+    so the flash or SSD kernel runs twice per layer in a training step.
+    Without autograd recording (serving, the frozen teacher) nothing is
+    saved and ``remat`` changes nothing."""
     pk, reps = group_layout(cfg)
     x = cm.shard_act(embed_tokens(p, cfg, batch), "hidden")
     segment_ids = batch.get("segment_ids")
@@ -159,10 +169,10 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             lp = period[f"sub{j}"]
             if checkpoint:
                 x = torch.utils.checkpoint.checkpoint(
-                    _sublayer_fwd, lp, x, cfg, ffn, segment_ids,
+                    _sublayer_fwd, lp, x, cfg, mixer, ffn, segment_ids,
                     use_reentrant=False)
             else:
-                x = _sublayer_fwd(lp, x, cfg, ffn, segment_ids)
+                x = _sublayer_fwd(lp, x, cfg, mixer, ffn, segment_ids)
             x = cm.shard_act(x, "hidden")
     x = apply_norm(p["final_norm"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -204,25 +214,34 @@ def kv_cache_len(cfg: ArchConfig, total_len: int) -> int:
 def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
     """Prompt processing. Returns (last-token logits [B, V], cache).
 
-    The cache is ``{"sub<j>": {"k", "v": [repeats, B, C, KV, hd]}}`` with
-    C = ``kv_cache_len(cfg, S + extra_cache)``, allocated once here and
-    written in place by :func:`lm_decode`."""
+    The cache holds, per sub-layer, ``{"k", "v": [repeats, B, C, KV, hd]}``
+    for attention, with C = ``kv_cache_len(cfg, S + extra_cache)``, or
+    ``{"conv": [repeats, B, W-1, Ch], "ssm": [repeats, B, h, p, n]}`` for
+    Mamba-2; it is allocated once here and written in place by
+    :func:`lm_decode`."""
     pk, reps = group_layout(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     clen = kv_cache_len(cfg, S + extra_cache)
     x = embed_tokens(p, cfg, batch)
-    caches = {f"sub{j}": att.new_cache(B, clen, cfg, x.dtype, x.device,
-                                       layers=reps)
-              for j in range(len(pk))}
+    caches = {}
+    for j, (mixer, ffn) in enumerate(pk):
+        _check_kind(mixer, ffn)
+        caches[f"sub{j}"] = (
+            att.new_cache(B, clen, cfg, x.dtype, x.device, layers=reps)
+            if mixer == "attn" else
+            mb.new_cache(B, cfg, x.dtype, x.device, layers=reps))
     for r in range(reps):
         period = _layer(p["layers"], r)
         for j, (mixer, ffn) in enumerate(pk):
-            _check_kind(mixer, ffn)
             lp = period[f"sub{j}"]
-            h, _ = att.attention_prefill(
-                lp["attn"], apply_norm(lp["norm1"], x, cfg), cfg,
-                cache_len=clen, cache=_layer(caches[f"sub{j}"], r))
+            h = apply_norm(lp["norm1"], x, cfg)
+            cache = _layer(caches[f"sub{j}"], r)
+            if mixer == "attn":
+                h, _ = att.attention_prefill(lp["attn"], h, cfg,
+                                             cache_len=clen, cache=cache)
+            else:
+                h = mb.mamba(lp["mamba"], h, cfg, cache=cache)
             x = _ffn(lp, x + h, cfg, ffn)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, x[:, -1:])[:, 0]
@@ -239,9 +258,13 @@ def lm_decode(p, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos: int):
         for j, (mixer, ffn) in enumerate(pk):
             _check_kind(mixer, ffn)
             lp = period[f"sub{j}"]
-            h, _ = att.attention_decode(
-                lp["attn"], apply_norm(lp["norm1"], x, cfg),
-                _layer(cache[f"sub{j}"], r), cfg, pos=pos)
+            h = apply_norm(lp["norm1"], x, cfg)
+            layer_cache = _layer(cache[f"sub{j}"], r)
+            if mixer == "attn":
+                h, _ = att.attention_decode(lp["attn"], h, layer_cache, cfg,
+                                            pos=pos)
+            else:
+                h, _ = mb.mamba_decode(lp["mamba"], h, layer_cache, cfg)
             x = _ffn(lp, x + h, cfg, ffn)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, x)[:, 0]

@@ -38,8 +38,15 @@ TRAINING_SLICE = ["repro_torch.kernels.distill_kl",
                   "repro_torch.launch.train"]
 
 
+MAMBA_SLICE = ["repro_torch.kernels.ssd_scan", "repro_torch.models.mamba"]
+
+
 def test_module_list_covers_the_training_slice():
     assert set(TRAINING_SLICE) <= set(_modules())
+
+
+def test_module_list_covers_the_mamba_slice():
+    assert set(MAMBA_SLICE) <= set(_modules())
 
 
 def test_port_imports_no_jax_and_no_repro():
