@@ -8,9 +8,14 @@ CUDA kernels from the sources in this checkout.  Phases:
 
 1. Card and build: the card's name and power limit from ``nvidia-smi``;
    ``kernels/csrc/flash_fwd.cu``, ``distill_kl_fwd.cu`` and ``ssd_fwd.cu``
-   built by one ``nvcc`` each, started together.
+   built by one ``nvcc`` each, started together; the counts of ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
+   flash and KL libraries, each of which must have both: their bf16 paths
+   run on the tensor cores from TMA-fed shared memory, their float32
+   paths on the CUDA cores.
 2. The flash kernel against its plain version (``kernels/ref.py``) on the
-   card, over a sweep of shapes, masks and dtypes, and at the two
+   card, over a sweep of shapes, masks and dtypes (bf16 through the
+   tensor-core path, float32 through the CUDA-core path), and at the two
    main-path shapes, granite-3-8b's serving prefill and qwen1.5-0.5b's
    training and distillation attention, where the kernel, the plain
    version and PyTorch's ``scaled_dot_product_attention`` are timed.  Then
@@ -70,6 +75,7 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -82,6 +88,10 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data sheet (dense): bf16 tensor-core peak and HBM bandwidth
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+# the libraries whose bf16 path runs wgmma on TMA-fed shared memory, and the
+# SASS instructions that show it
+TENSOR_CORE_LIBS = ("flash_fwd", "distill_kl_fwd")
+SASS_OPS = ("HGMMA", "UTMALDG")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
 # tests/test_kernels_flash.py's sweep (B, S, T, H, KV, D), plus a ragged length
@@ -171,6 +181,16 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sass_counts(lib: Path) -> dict:
+    """Counts of HGMMA and UTMALDG instructions in a library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "--dump-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed on {lib}: {out.stderr}")
+    return {op: sum(1 for line in out.stdout.splitlines() if op in line)
+            for op in SASS_OPS}
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     print(f"card: {card()}")
@@ -185,6 +205,14 @@ def phase_build() -> None:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+    # the bf16 paths must run on the tensor cores (HGMMA) from TMA loads
+    # (UTMALDG): count both in the SASS of each library that has them
+    for name in TENSOR_CORE_LIBS:
+        counts = sass_counts(builds[name].path)
+        print(f"sass {name}: " + ", ".join(f"{k} {v}"
+                                          for k, v in counts.items()))
+        check(all(counts.values()),
+              f"{name}'s SASS lacks one of {SASS_OPS}: {counts}")
     # the float32 plain versions must not round through TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

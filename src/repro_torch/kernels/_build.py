@@ -3,16 +3,18 @@
 Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, in ``build/``
 at the repository root (listed in ``.gitignore``).  The library's name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and a built one is reused.  ``build_all`` runs ``build`` for
-several sources on threads, so their ``nvcc`` runs overlap.  Nothing
-here runs when the module is imported.
+carries a hash of the source, of every ``csrc/*.cuh`` header it includes
+(``#include "..."``, followed through headers) and of the flags, so an
+edited source or header is rebuilt and a built one is reused.
+``build_all`` runs ``build`` for several sources on threads, so their
+``nvcc`` runs overlap.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,6 +37,22 @@ class Built:
 
 
 _LOADED: dict[str, Built] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _key_sources(src: Path) -> list[Path]:
+    """``src`` and the ``csrc`` headers it includes, directly or through
+    another header, each once, in the order first met."""
+    seen: list[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / name for name in _INCLUDE.findall(path.read_text())
+                 if (CSRC / name).is_file()]
+    return seen
 
 
 def _nvcc() -> str:
@@ -53,8 +71,10 @@ def build(name: str) -> Built:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _key_sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest = h.hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"{name}_{digest}.so"
     log_path = out.with_suffix(".log")

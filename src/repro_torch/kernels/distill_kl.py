@@ -5,10 +5,13 @@ Counterpart of ``repro/kernels/distill_kl.py`` and
 ``repro/kernels/distill_kl_pallas.py``.  The kernel
 (``csrc/distill_kl_fwd.cu``) replaces the TPU kernel
 ``distill_kl_pallas.py::_kernel``; its source says what bounds it on an
-H100 and what its design does about that.  :func:`distill_kl_fwd` checks
-what it is given, allocates the four [N] float32 outputs and the split
-scratch, launches on the current stream and raises if the launch was
-refused.  It counts its launches in ``distill_kl_fwd.launches``.
+H100 and what its design does about that.  bf16 inputs go to its
+tensor-core path (wgmma on TMA-fed shared memory), which needs what
+:mod:`repro_torch.kernels.tma` checks; float32 inputs to its CUDA-core
+path.  :func:`distill_kl_fwd` checks what it is given, allocates the four
+[N] float32 outputs and the split scratch, launches on the current stream
+and raises if the launch was refused.  It counts its launches in
+``distill_kl_fwd.launches``.
 
 :class:`DistillKL` is the KL as an autograd Function: its forward takes
 the per-token statistics from the function :mod:`repro_torch.kernels.ops`
@@ -26,8 +29,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.tma import check_tma
 
-BT, BV = 64, 64             # the kernel's token block and vocabulary tile
+# (token block, vocabulary tile, blocks per SM to aim for) of each path: the
+# tensor-core kernel runs one block per SM, so it splits the vocabulary
+# finer to even out the last wave
+TILES = {torch.bfloat16: (128, 128, 8), torch.float32: (64, 64, 4)}
+BT, BV = TILES[torch.bfloat16][:2]   # the tensor-core kernel's tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 6
@@ -67,13 +75,21 @@ def _check(h_s, w_s, h_t, w_t):
     for name, x in (("h_s", h_s), ("h_t", h_t)):
         if x.stride(1) != 1:
             raise ValueError(f"{name} must be contiguous in its hidden dim")
+    if h_s.dtype == torch.bfloat16:      # the tensor-core kernel's TMA
+        for name, x in xs:
+            # W in whichever orientation has the contiguous dim last
+            check_tma(name, x.T if name[0] == "w" and x.stride(0) == 1
+                      and x.stride(1) != 1 else x)
 
 
-def splits(N: int, V: int, sms: int) -> tuple[int, int]:
-    """(nsplit, tiles_per_split): split the vocabulary tiles so that about
-    four blocks per SM are in flight, and no split is empty."""
-    ntiles = -(-V // BV)
-    nsplit = max(1, min(ntiles, -(-4 * sms // -(-N // BT))))
+def splits(N: int, V: int, sms: int,
+           dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
+    """(nsplit, tiles_per_split) for the path that ``dtype`` takes: split
+    the vocabulary tiles so that about the path's blocks per SM (``TILES``)
+    are launched, and no split is empty."""
+    bt, bv, per_sm = TILES[dtype]
+    ntiles = -(-V // bv)
+    nsplit = max(1, min(ntiles, -(-per_sm * sms // -(-N // bt))))
     per = -(-ntiles // nsplit)
     return -(-ntiles // per), per
 
@@ -89,7 +105,7 @@ def distill_kl_fwd(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,
     dev = h_s.device
     nsplit, per = splits(N, V,
                          torch.cuda.get_device_properties(dev)
-                         .multi_processor_count)
+                         .multi_processor_count, h_s.dtype)
     part = torch.empty((6, nsplit, N), dtype=torch.float32, device=dev)
     out = torch.empty((4, N), dtype=torch.float32, device=dev)
     lib = _lib()

@@ -3,7 +3,10 @@ autograd Functions around it.
 
 The kernel (``csrc/flash_fwd.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention.py::_fwd_kernel``; its source says what
-bounds it on an H100 and what its design does about that.
+bounds it on an H100 and what its design does about that.  bf16 inputs go
+to its tensor-core path (wgmma on TMA-fed shared memory), which needs
+what :mod:`repro_torch.kernels.tma` checks; float32 inputs to its
+CUDA-core path.
 :func:`flash_fwd` checks what it is given, allocates ``o`` and ``lse``,
 launches on the current stream and raises if the launch was refused.  It
 counts its launches in ``flash_fwd.launches``.
@@ -29,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.tma import check_tma
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,6 +77,8 @@ def _check(q, k, v, kv_positions):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
+        if x.dtype == torch.bfloat16:    # the tensor-core kernel's TMA
+            check_tma(name, x)
     if kv_positions is not None:
         if (kv_positions.shape != (T,) or kv_positions.dtype != torch.int32
                 or kv_positions.device != q.device

@@ -1,7 +1,8 @@
 """The kernel builder (``repro_torch.kernels._build``) with a stand-in
 ``nvcc`` that links an empty shared library: every source starts its own
-compiler at once, a built library is reused, and a failed build raises
-with the compiler's output."""
+compiler at once, a built library is reused, an edited header rebuilds
+the sources that include it, and a failed build raises with the
+compiler's output."""
 import os
 import shutil
 import stat
@@ -61,3 +62,17 @@ def test_build_failure_raises_with_the_compiler_output(fake):
     with pytest.raises(RuntimeError, match="broken source"):
         _build.build_all(["a", "broken"])
     assert not list((fake / "build").glob("broken_*.so"))
+
+
+def test_editing_a_header_rebuilds_the_sources_that_include_it(fake):
+    csrc = fake / "csrc"
+    (csrc / "prims.cuh").write_text("// v1\n")
+    (csrc / "wrap.cuh").write_text('#include "prims.cuh"\n')
+    (csrc / "a.cu").write_text('#include "wrap.cuh"\n#include <cstdint>\n')
+    first = _build.build_all(["a", "b"])
+    _build._LOADED.clear()
+    (csrc / "prims.cuh").write_text("// v2\n")   # included through wrap.cuh
+    again = _build.build_all(["a", "b"])
+    assert again["a"].seconds > 0 and again["a"].path != first["a"].path
+    assert again["b"].seconds == 0.0 and again["b"].path == first["b"].path
+    assert (fake / "starts").read_text().count("start") == 3

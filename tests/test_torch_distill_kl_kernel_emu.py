@@ -6,7 +6,9 @@ the per-split partial statistics and their merge) is compiled with
 and called with CPU tensors through the wrapper's own C signature and its
 split rule.  The four statistics are held against the plain version,
 ``distill_kl_stats_ref``: ragged N and V, Ds != Dt, W transposed as a
-tied ``embed.T`` is, several vocabulary splits, f32 and bf16.
+tied ``embed.T`` is, several vocabulary splits, f32 and bf16.  float32
+runs the CUDA-core kernel; bfloat16 runs the tensor-core kernel (TMA,
+mbarriers, wgmma) under the stand-in for ``hopper.cuh``.
 """
 import ctypes
 
@@ -30,6 +32,11 @@ CASES = [
     (70, 40, 24, 300, torch.float32, 2.0, "rows", 4),     # ragged N, V
     (33, 16, 48, 200, torch.bfloat16, 1.0, "embed_t", 3),
     (96, 64, 64, 129, torch.float32, 2.0, "embed_t", 8),  # 1 column tile
+    # the tensor-core path: D a multiple of 64 in both W layouts, ragged N
+    # and V, several splits; then D not a multiple of 64, Ds != Dt
+    (130, 64, 128, 520, torch.bfloat16, 2.0, "rows", 2),
+    (130, 128, 64, 520, torch.bfloat16, 1.0, "embed_t", 2),
+    (200, 96, 160, 1000, torch.bfloat16, 2.0, "rows", 1),
 ]
 
 
@@ -62,8 +69,9 @@ def test_kernel_source_matches_plain_version(lib, case):
                                                dtype=np.float32)).to(dtype)
     w_s = _w(rng, Ds, V, dtype, layout)
     w_t = _w(rng, Dt, V, dtype, layout)
-    nsplit, per = dk.splits(N, V, sms)
-    assert nsplit * per * dk.BV >= V > (nsplit - 1) * per * dk.BV
+    nsplit, per = dk.splits(N, V, sms, dtype)
+    bv = dk.TILES[dtype][1]
+    assert nsplit * per * bv >= V > (nsplit - 1) * per * bv
     part = torch.full((6, nsplit, N), float("nan"))
     out = torch.full((4, N), float("nan"))
     err = lib.distill_kl_fwd(

@@ -4,10 +4,13 @@
 against the stand-in CUDA headers of ``tests/torch_cuda_emu.py`` (one
 ``std::thread`` per CUDA thread, ``__syncthreads`` as a barrier), loaded
 with ctypes and called with CPU tensors through the wrapper's own C
-signature.  Its output is held against the plain version, ``flash_attention_ref``, with the card's
-tolerances.  This checks the kernel's indexing, masking, tile skipping and
-online softmax on every CPU run; the build, the launch and the speed on
-the card are ``chip_smoke.py``'s.
+signature.  float32 runs the CUDA-core kernel; bfloat16 runs the
+tensor-core kernel (TMA, mbarriers, wgmma) under the stand-in for
+``hopper.cuh``.  Its output is held against the plain version,
+``flash_attention_ref``, with the card's tolerances.  This checks the
+kernel's indexing, masking, tile skipping, online softmax and pipeline
+phases on every CPU run; the build, the launch, the fragment layouts on
+the real tensor cores and the speed on the card are ``chip_smoke.py``'s.
 """
 import ctypes
 
@@ -34,6 +37,13 @@ CASES = [
     ((1, 64, 128, 4, 2, 32), torch.bfloat16, True, 24, 32, "perm"),
     ((1, 32, 64, 2, 2, 8), torch.float32, True, 0, 0, "future"),  # all hidden
     ((2, 96, 96, 4, 2, 32), torch.float32, True, 0, 0, "strided"),
+    # the tensor-core path at the models' head dims: a full 128-row q tile
+    # and ragged T, causal and not, a window, a strided view
+    ((1, 128, 200, 2, 1, 64), torch.bfloat16, True, 0, 72, None),
+    ((1, 128, 136, 2, 2, 128), torch.bfloat16, False, 0, 0, None),
+    ((1, 256, 256, 2, 1, 64), torch.bfloat16, True, 48, 0, None),
+    ((2, 130, 130, 2, 1, 128), torch.bfloat16, True, 0, 0, "strided"),
+    ((1, 96, 96, 2, 1, 16), torch.bfloat16, True, 0, 0, None),
 ]
 
 

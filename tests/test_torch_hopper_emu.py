@@ -1,0 +1,221 @@
+"""The CPU stand-in for ``hopper.cuh`` (``tests/torch_cuda_emu.py``) held
+against ``torch.matmul``.
+
+``WGMMA_SRC`` is a one-tile kernel written against ``hopper.cuh`` alone:
+one warpgroup loads A [64, K] and B by TMA into 128B/64B/32B-swizzled
+shared memory under an mbarrier, then runs ``wgmma`` m64nNk16 over K with A
+from shared memory or from registers and B K-major ([N, K]) or MN-major
+([K, N], split into column blocks at LBO), and writes D from the
+accumulator fragment.  Run under the stand-in, D must equal A @ B: this
+pins the stand-in's swizzle, descriptor decoding and fragment layouts to
+one another.  The same source compiled by ``nvcc`` is the on-card probe of
+the real instructions.  The stand-in's TMA preconditions are checked too.
+"""
+import ctypes
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch_cuda_emu  # noqa: E402
+
+WGMMA_SRC = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+struct ProbeArgs {
+  hopper::TensorMap amap, bmap;
+  const __nv_bfloat16* a;          // A [64, K] in global memory (register A)
+  float* d;                        // D [64, N]
+  int reg_a;
+};
+
+template <int N, int K, int TB>
+__global__ void __launch_bounds__(128)
+    wgmma_probe_kernel(const __grid_constant__ ProbeArgs p) {
+  using namespace hopper;
+  constexpr int SWA = 2 * K;
+  constexpr int SWB = TB ? (2 * N < 128 ? 2 * N : 128) : 2 * K;
+  constexpr int ABYTES = 64 * SWA;
+  constexpr int BBYTES = 2 * N * K;
+  extern __shared__ float smem[];
+  const uint32_t s0 = smem_addr(smem);
+  char* base = reinterpret_cast<char*>(smem) + ((1024 - (s0 & 1023)) & 1023);
+  char* As = base;
+  char* Bs = base + ABYTES;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Bs + BBYTES);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, ABYTES + BBYTES);
+    tma_load_2d(As, &p.amap, bar, 0, 0);
+    if (TB == 0) {
+      tma_load_2d(Bs, &p.bmap, bar, 0, 0);
+    } else {
+      for (int blk = 0; blk < N / (SWB / 2); ++blk)
+        tma_load_2d(Bs + blk * K * SWB, &p.bmap, bar, blk * (SWB / 2), 0);
+    }
+  }
+  mbar_wait(bar, 0);
+  const int w = tid / 32, l = tid % 32;
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  uint32_t fr[K / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = 16 * w + l / 4 + 8 * (j % 2);
+      const int k = 16 * kk + 2 * (l % 4) + 8 * (j / 2);
+      fr[kk][j] = pack_bf16x2(__bfloat162float(p.a[row * K + k]),
+                              __bfloat162float(p.a[row * K + k + 1]));
+    }
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db =
+        TB == 0 ? smem_desc(smem_addr(Bs) + 32 * kk, SWB, 0, 8 * SWB)
+                : smem_desc(smem_addr(Bs) + 16 * SWB * kk, SWB, K * SWB,
+                            8 * SWB);
+    if (p.reg_a) {
+      Wgmma<N>::template rs<TB>(d, fr[kk], db, 1);
+    } else {
+      const uint64_t da = smem_desc(smem_addr(As) + 32 * kk, SWA, 0, 8 * SWA);
+      Wgmma<N>::template ss<TB>(d, da, db, kk > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int row = 16 * w + l / 4 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (l % 4) + i % 2;
+    p.d[row * N + col] = d[i];
+  }
+}
+
+template <int N, int K, int TB>
+cudaError_t launch(const void* A, const void* B, float* D, int reg_a,
+                   cudaStream_t stream) {
+  constexpr int SWB = TB ? (2 * N < 128 ? 2 * N : 128) : 2 * K;
+  ProbeArgs p;
+  p.a = static_cast<const __nv_bfloat16*>(A);
+  p.d = D;
+  p.reg_a = reg_a;
+  const uint64_t adims[2] = {K, 64}, astr[1] = {2 * K};
+  const uint32_t abox[2] = {K, 64};
+  cudaError_t err =
+      hopper::make_tensor_map(&p.amap, A, 2, adims, astr, abox, 2 * K);
+  if (err != cudaSuccess) return err;
+  if (TB == 0) {      // B [N, K]
+    const uint64_t dims[2] = {K, N}, str[1] = {2 * K};
+    const uint32_t box[2] = {K, N};
+    err = hopper::make_tensor_map(&p.bmap, B, 2, dims, str, box, SWB);
+  } else {            // B [K, N]
+    const uint64_t dims[2] = {N, K}, str[1] = {2 * N};
+    const uint32_t box[2] = {SWB / 2, K};
+    err = hopper::make_tensor_map(&p.bmap, B, 2, dims, str, box, SWB);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t smem = 1024 + 64 * 2 * K + 2 * N * K + 8;
+  auto kernel = wgmma_probe_kernel<N, K, TB>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, 128, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int N, int K>
+cudaError_t by_major(const void* A, const void* B, float* D, int mn_major,
+                     int reg_a, cudaStream_t s) {
+  return mn_major ? launch<N, K, 1>(A, B, D, reg_a, s)
+                  : launch<N, K, 0>(A, B, D, reg_a, s);
+}
+
+template <int N>
+cudaError_t by_k(const void* A, const void* B, float* D, int K, int mn_major,
+                 int reg_a, cudaStream_t s) {
+  switch (K) {
+    case 16: return by_major<N, 16>(A, B, D, mn_major, reg_a, s);
+    case 32: return by_major<N, 32>(A, B, D, mn_major, reg_a, s);
+    case 64: return by_major<N, 64>(A, B, D, mn_major, reg_a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int wgmma_probe(const void* A, const void* B, float* D, int N,
+                           int K, int mn_major, int reg_a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 16: return by_k<16>(A, B, D, K, mn_major, reg_a, s);
+    case 32: return by_k<32>(A, B, D, K, mn_major, reg_a, s);
+    case 64: return by_k<64>(A, B, D, K, mn_major, reg_a, s);
+    case 128: return by_k<128>(A, B, D, K, mn_major, reg_a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+"""
+
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+# (N, K, B MN-major, A from registers): every swizzle width for A and for
+# B in both majors (K = 16/32/64 -> 32/64/128 bytes; MN-major N = 16/32/64),
+# N = 128 MN-major across two column blocks (LBO), and register A
+CASES = [(16, 16, 0, 0), (32, 32, 0, 0), (64, 64, 0, 0), (128, 64, 0, 0),
+         (16, 32, 1, 0), (32, 16, 1, 0), (64, 64, 1, 0), (128, 64, 1, 0),
+         (64, 64, 0, 1), (128, 32, 1, 1), (16, 64, 1, 1)]
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    lib = torch_cuda_emu.build("wgmma_probe",
+                               tmp_path_factory.mktemp("hopper_emu"),
+                               WGMMA_SRC)
+    lib.wgmma_probe.argtypes = ARGTYPES
+    lib.wgmma_probe.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"n{c[0]}-k{c[1]}-"
+                         f"{'mn' if c[2] else 'k'}major-"
+                         f"{'regA' if c[3] else 'smemA'}")
+def test_stand_in_wgmma_matches_matmul(lib, case):
+    N, K, mn_major, reg_a = case
+    rng = np.random.default_rng(N * 1000 + K)
+    a = torch.from_numpy(rng.standard_normal((64, K), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    b_store = b.contiguous() if mn_major else b.T.contiguous()
+    d = torch.full((64, N), float("nan"))
+    err = lib.wgmma_probe(a.data_ptr(), b_store.data_ptr(), d.data_ptr(), N,
+                          K, mn_major, reg_a, None)
+    assert err == 0
+    # bf16 products are exact in float32; only the summation order differs
+    torch.testing.assert_close(d, a.float() @ b.float(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_stand_in_refuses_a_misaligned_tensor_map(lib):
+    a = torch.zeros(64 * 16 + 8, dtype=torch.bfloat16)
+    b = torch.zeros(16 * 16, dtype=torch.bfloat16)
+    d = torch.zeros(64, 16)
+    # base 2 bytes past a 16-byte boundary: make_tensor_map refuses it
+    err = lib.wgmma_probe(a.data_ptr() + 2, b.data_ptr(), d.data_ptr(), 16,
+                          16, 0, 0, None)
+    assert err != 0
