@@ -10,8 +10,8 @@ CUDA kernels from the sources in this checkout.  Phases:
    ``kernels/csrc/flash_fwd.cu``, ``distill_kl_fwd.cu`` and ``ssd_fwd.cu``
    built by one ``nvcc`` each, started together; the counts of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
-   flash and KL libraries, each of which must have both: their bf16 paths
-   run on the tensor cores from TMA-fed shared memory, their float32
+   flash, KL and SSD libraries, each of which must have both: their bf16
+   paths run on the tensor cores from TMA-fed shared memory, their float32
    paths on the CUDA cores.
 2. The flash kernel against its plain version (``kernels/ref.py``) on the
    card, over a sweep of shapes, masks and dtypes (bf16 through the
@@ -48,8 +48,11 @@ CUDA kernels from the sources in this checkout.  Phases:
 7. The SSD scan kernel against its plain version (``ssd_scan_ref``) over
    a sweep (lengths below, at and above its 64-token chunk, ragged, f32
    and bf16, with and without the final state, x/B/C as strided slices of
-   one tensor), then at mamba2-130m's shape (b=4, s=4096, h=24, p=64,
-   n=128, bf16), where the kernel and the plain version are timed.  Its
+   one tensor; each case prints its route: CUDA cores for f32, tensor
+   cores with TMA or threads' loads for bf16) and 1024 chunks (bf16, the
+   final state), then at mamba2-130m's shape (b=4, s=4096, h=24, p=64,
+   n=128, bf16, by TMA), where the kernel and the plain version are timed
+   and its kernels' device times traced.  Its
    gradients: autograd through ``ops.ssd_scan`` (kernel forward,
    ``ssd_chunked`` backward) against autograd through the sequential
    ``ssd_reference``, over a sweep and in ROADMAP C3's case (chunk 128,
@@ -90,7 +93,7 @@ PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # the libraries whose bf16 path runs wgmma on TMA-fed shared memory, and the
 # SASS instructions that show it
-TENSOR_CORE_LIBS = ("flash_fwd", "distill_kl_fwd")
+TENSOR_CORE_LIBS = ("flash_fwd", "distill_kl_fwd", "ssd_fwd")
 SASS_OPS = ("HGMMA", "UTMALDG")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
@@ -136,6 +139,10 @@ SSD_STATE_TOL = 1e-4
 SSD_SWEEP = [(2, 64, 3, 8, 16), (1, 128, 2, 16, 8), (2, 48, 4, 8, 4),
              (1, 200, 2, 16, 8), (2, 4094, 4, 64, 128), (1, 130, 3, 80, 72)]
 SSD_MAIN = (4, 4096, 24, 64, 128)       # mamba2-130m training and prefill
+# 1024 chunks: 2048 blocks of the bf16 output kernel, far more than the
+# card holds at once, each reading a state the state kernel carried
+# through up to 1023 chunks
+SSD_LONG = (2, 65536, 8, 64, 128)
 # SSD gradients through ops.ssd_scan against autograd through the
 # sequential oracle, relative to the leaf's largest gradient: f32 within
 # 1e-3 (the backward sums over up to 256 tokens in other orders); bf16
@@ -205,6 +212,9 @@ def phase_build() -> None:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+            elif ("Compiling entry function" in line
+                  or "Performance Loss" in line):
+                print("  ptxas:", line.strip()[:200])
     # the bf16 paths must run on the tensor cores (HGMMA) from TMA loads
     # (UTMALDG): count both in the SASS of each library that has them
     for name in TENSOR_CORE_LIBS:
@@ -872,6 +882,8 @@ def ssd_case(rng, shape, dtype, return_state, packed) -> float:
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_scan_ref
     x, dt, A, B, C, D = _ssd_inputs(rng, *shape, dtype, packed)
+    route = ("cuda cores" if dtype == torch.float32 else "tensor cores, "
+             + ("TMA" if ssd.tma_route(x, B, C) else "threads' loads"))
     out = ssd.ssd_fwd(x, dt, A, B, C, D, return_state=return_state)
     want = ssd_scan_ref(x, dt, A, B, C, D, return_state=return_state)
     torch.cuda.synchronize()
@@ -887,7 +899,7 @@ def ssd_case(rng, shape, dtype, return_state, packed) -> float:
         check(serr <= SSD_STATE_TOL, f"SSD final state at {shape} {dtype}: "
               f"{serr:.3e} > {SSD_STATE_TOL}")
     print(f"  ssd {shape} {str(dtype)[6:]} state={return_state} "
-          f"packed={packed}: |y-ref|/(1+|ref|) {err:.3e}"
+          f"packed={packed} ({route}): |y-ref|/(1+|ref|) {err:.3e}"
           + (f", state {serr:.3e}" if return_state else ""))
     return err
 
@@ -901,6 +913,23 @@ def phase_ssd_sweep(rng) -> None:
             for return_state in (False, True):
                 # every other shape with x, B, C sliced from one tensor
                 ssd_case(rng, shape, dtype, return_state, packed=i % 2 == 1)
+    ssd_case(rng, SSD_LONG, torch.bfloat16, True, packed=True)
+
+
+def _ssd_split(fn, iters: int) -> dict:
+    """Device ms a call of ``fn`` by the name of each SSD kernel it
+    launches, from ``torch.profiler`` over ``iters`` warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    _, per = _device_ms(prof)
+    split = {k: v / iters for k, v in per.items() if "ssd_" in k}
+    check(bool(split), "the profiler saw no SSD kernel")
+    return split
 
 
 def phase_ssd_main(rng) -> dict:
@@ -911,6 +940,7 @@ def phase_ssd_main(rng) -> dict:
     b, s, h, p, n = SSD_MAIN
     x, dt, A, B, C, D = _ssd_inputs(rng, b, s, h, p, n, torch.bfloat16,
                                     packed=True)
+    check(ssd.tma_route(x, B, C), "the main shape does not take TMA")
     y, state = ssd.ssd_fwd(x, dt, A, B, C, D, return_state=True)
     y_ref, state_ref = ssd_scan_ref(x, dt, A, B, C, D, return_state=True)
     err = (y.float() - y_ref.float()).abs().max().item()
@@ -919,6 +949,7 @@ def phase_ssd_main(rng) -> dict:
     check(rel <= SSD_TOL[torch.bfloat16] and serr <= SSD_STATE_TOL,
           f"SSD at the main shape: y {rel:.3e}, state {serr:.3e}")
     ms = time_ms(lambda: ssd.ssd_fwd(x, dt, A, B, C, D), iters=20)
+    split = _ssd_split(lambda: ssd.ssd_fwd(x, dt, A, B, C, D), iters=10)
     plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, D), iters=3,
                        warmup=1)
     Q, nc = ssd.CHUNK, -(-s // ssd.CHUNK)
@@ -938,6 +969,11 @@ def phase_ssd_main(rng) -> dict:
           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); max|y-ref| "
           f"{err:.3e} (relative {rel:.3e}), state {serr:.3e}; no single "
           "PyTorch call computes the scan")
+    for name, k_ms in split.items():
+        print(f"  ssd split: {k_ms:.4f} ms ({100 * k_ms / ms:.1f}% of the "
+              f"event-timed call)  {name[:90]}")
+    print(f"  ssd split: {sum(split.values()):.4f} ms in {len(split)} "
+          "kernels (torch.profiler, device time a call)")
     return {"name": "ssd_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_fwd.cu",
             "replaces": "src/repro/kernels/ssd_pallas.py:30",

@@ -3,14 +3,15 @@
 // Thin wrappers around hand-written inline PTX, with a narrow interface:
 //   * mbarriers: init, arrive, arrive with an expected byte count, wait on
 //     a phase parity;
-//   * TMA: a tiled tensor load (cp.async.bulk.tensor, 2-d and 4-d) into
-//     shared memory that completes on an mbarrier, and the host-side
+//   * TMA: a tiled tensor load (cp.async.bulk.tensor, 2-d, 3-d and 4-d)
+//     into shared memory that completes on an mbarrier, and the host-side
 //     encoding of its CUtensorMap (cuTensorMapEncodeTiled, taken through
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda);
 //   * wgmma: the shared-memory matrix descriptor, fence / commit / wait,
 //     and m64nNk16 bf16 x bf16 -> f32 for N in {16, 32, 64, 128}, with A
 //     from shared memory (K-major) or from registers, and B K-major or
 //     MN-major (the transpose bit);
+//   * the proxy fence that lets wgmma read a tile that threads wrote;
 //   * setmaxnreg, to move registers from a producer warpgroup to the
 //     consumers.
 // No CuTe or CUTLASS type appears here: tests/torch_cuda_emu.py replaces
@@ -159,6 +160,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const TensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const TensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const TensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -168,6 +180,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const TensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Makes this thread's writes to shared memory (generic proxy) visible to
+// wgmma and TMA (the async proxy): after a thread writes an operand tile
+// itself, before the barrier arrival that releases it to a wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Shared-memory matrix descriptor: start address, leading and stride byte

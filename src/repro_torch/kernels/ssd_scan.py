@@ -18,7 +18,8 @@ Counterpart of ``repro/kernels/ssd_scan.py`` and
 * :func:`ssd_fwd` is the ctypes wrapper of ``csrc/ssd_fwd.cu``, which
   replaces the TPU kernel ``ssd_pallas.py::_kernel``; the source says what
   bounds it on an H100 and what its design does about that.  It counts its
-  launches in ``ssd_fwd.launches``.
+  launches in ``ssd_fwd.launches``; :func:`tma_route` is its choice of how
+  bf16 tiles are loaded and :func:`scratch` its scratch sizes.
 * :class:`SSDScan` gives a forward a gradient: its backward recomputes
   through :func:`ssd_chunked` and returns the VJP, as
   ``ssd_pallas.py::_bwd`` does through ``ssd_chunked_jnp``.  A hand-written
@@ -32,12 +33,14 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.tma import tma_violation
 
 CHUNK = 64                  # the kernel's fixed chunk length
 MAX_P, MAX_N = 128, 128     # the largest head and state dims it takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-             + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
 
 
 # --------------------------------------------------------------------------- #
@@ -142,13 +145,36 @@ def _check(x, dt, A, B, C, D):
         raise ValueError("A and D must be contiguous")
 
 
+def tma_route(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> bool:
+    """Whether the bf16 kernels read x, B and C by TMA (all three meet its
+    preconditions, ``kernels/tma.py``) or load their tiles by threads."""
+    return all(tma_violation(t.shape, t.stride(), t.data_ptr(),
+                             t.element_size()) is None for t in (x, B, C))
+
+
+def scratch(b: int, s: int, h: int, p: int, n: int,
+            dtype: torch.dtype) -> tuple[int, int]:
+    """Float32 elements of the kernel's two scratch buffers (cum, states)
+    for these dims: float32 inputs keep cum [b,h,nc,64] and the chunk
+    states [b,h,nc,p,n]; bf16 inputs need no cum and keep the entering
+    states as bf16 hi and lo parts [b,h,nc,2,PP,NP], p and n rounded up
+    to 64 or 128 (the same bytes as [b,h,nc,PP,NP] in f32)."""
+    nc = -(-s // CHUNK)
+    if dtype == torch.float32:
+        return b * h * nc * CHUNK, b * h * nc * p * n
+    pp, np_ = (64 if p <= 64 else 128), (64 if n <= 64 else 128)
+    return 0, b * h * nc * pp * np_
+
+
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
             return_state: bool = False):
     """The SSD scan on one CUDA device -> y [b, s, h, p] in x's dtype
     (D·x skip included), and with ``return_state`` the final state
     [b, h, p, n] float32.  x, dt, B and C are read through their strides
-    (the model hands in slices of the convolution's output).
+    (the model hands in slices of the convolution's output).  bf16 runs
+    on the tensor cores, x, B and C by TMA where :func:`tma_route` allows
+    and by threads elsewhere; float32 on the CUDA cores.
 
     The result carries no gradient: a call that autograd would record
     raises.  Differentiable callers go through :class:`SSDScan`
@@ -161,13 +187,14 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, B, C, D)
     b, s, h, p = x.shape
     n = B.shape[-1]
-    nc = -(-s // CHUNK)
     dev = x.device
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     state = (torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
              if return_state else None)
-    cum = torch.empty((b, h, nc, CHUNK), dtype=torch.float32, device=dev)
-    states = torch.empty((b, h, nc, p, n), dtype=torch.float32, device=dev)
+    n_cum, n_states = scratch(b, s, h, p, n, x.dtype)
+    cum = torch.empty(n_cum, dtype=torch.float32, device=dev)
+    states = torch.empty(n_states, dtype=torch.float32, device=dev)
+    tma = x.dtype == torch.bfloat16 and tma_route(x, B, C)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -178,7 +205,7 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             state.data_ptr() if state is not None else None,
             b, s, h, p, n, x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
-            C.stride(0), C.stride(1), _DTYPES[x.dtype], stream)
+            C.stride(0), C.stride(1), _DTYPES[x.dtype], int(tma), stream)
     if err != 0:
         raise RuntimeError("ssd_fwd launch failed: "
                            + lib.ssd_fwd_error_string(err).decode())

@@ -2,8 +2,10 @@
 against ``torch.matmul``.
 
 ``WGMMA_SRC`` is a one-tile kernel written against ``hopper.cuh`` alone:
-one warpgroup loads A [64, K] and B by TMA into 128B/64B/32B-swizzled
-shared memory under an mbarrier, then runs ``wgmma`` m64nNk16 over K with A
+one warpgroup loads A [64, K] (through a 2-d or a 3-d tensor map) and B
+by TMA into 128B/64B/32B-swizzled shared memory under an mbarrier, or
+writes B itself into the same layout and fences it for the async proxy,
+then runs ``wgmma`` m64nNk16 over K with A
 from shared memory or from registers and B K-major ([N, K]) or MN-major
 ([K, N], split into column blocks at LBO), and writes D from the
 accumulator fragment.  Run under the stand-in, D must equal A @ B: this
@@ -31,9 +33,15 @@ namespace {
 struct ProbeArgs {
   hopper::TensorMap amap, bmap;
   const __nv_bfloat16* a;          // A [64, K] in global memory (register A)
+  const __nv_bfloat16* b;          // B as stored (threads' loads)
   float* d;                        // D [64, N]
-  int reg_a;
+  int reg_a, a_3d, b_threads;
 };
+
+// The byte address a TMA load with this swizzle gives offset a.
+__device__ __forceinline__ uint32_t swizzled(uint32_t a, int sw) {
+  return a ^ (((a >> 7) & uint32_t(sw / 16 - 1)) << 4);
+}
 
 template <int N, int K, int TB>
 __global__ void __launch_bounds__(128)
@@ -55,10 +63,27 @@ __global__ void __launch_bounds__(128)
     fence_barrier_init();
   }
   __syncthreads();
+  if (p.b_threads) {
+    // B written by the threads into the layout TMA gives, then made
+    // visible to wgmma
+    for (int i = tid; i < N * K; i += 128) {
+      const int n = TB ? i % N : i / K, k = TB ? i / N : i % K;
+      const uint32_t off =
+          TB ? (n / (SWB / 2)) * K * SWB + k * SWB + (n % (SWB / 2)) * 2
+             : n * SWB + k * 2;
+      *reinterpret_cast<__nv_bfloat16*>(Bs + swizzled(off, SWB)) = p.b[i];
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
   if (tid == 0) {
-    mbar_arrive_expect_tx(bar, ABYTES + BBYTES);
-    tma_load_2d(As, &p.amap, bar, 0, 0);
-    if (TB == 0) {
+    mbar_arrive_expect_tx(bar, ABYTES + (p.b_threads ? 0 : BBYTES));
+    if (p.a_3d)
+      tma_load_3d(As, &p.amap, bar, 0, 0, 0);
+    else
+      tma_load_2d(As, &p.amap, bar, 0, 0);
+    if (p.b_threads) {
+    } else if (TB == 0) {
       tma_load_2d(Bs, &p.bmap, bar, 0, 0);
     } else {
       for (int blk = 0; blk < N / (SWB / 2); ++blk)
@@ -107,17 +132,21 @@ __global__ void __launch_bounds__(128)
 }
 
 template <int N, int K, int TB>
-cudaError_t launch(const void* A, const void* B, float* D, int reg_a,
+cudaError_t launch(const void* A, const void* B, float* D, int mode,
                    cudaStream_t stream) {
   constexpr int SWB = TB ? (2 * N < 128 ? 2 * N : 128) : 2 * K;
   ProbeArgs p;
   p.a = static_cast<const __nv_bfloat16*>(A);
+  p.b = static_cast<const __nv_bfloat16*>(B);
   p.d = D;
-  p.reg_a = reg_a;
-  const uint64_t adims[2] = {K, 64}, astr[1] = {2 * K};
-  const uint32_t abox[2] = {K, 64};
-  cudaError_t err =
-      hopper::make_tensor_map(&p.amap, A, 2, adims, astr, abox, 2 * K);
+  p.reg_a = mode & 1;
+  p.a_3d = (mode >> 1) & 1;
+  p.b_threads = (mode >> 2) & 1;
+  // A [64, K] as a 2-d map, or as a 3-d one with a leading dim of 1
+  const uint64_t adims[3] = {K, 64, 1}, astr[2] = {2 * K, 2 * K * 64};
+  const uint32_t abox[3] = {K, 64, 1};
+  cudaError_t err = hopper::make_tensor_map(&p.amap, A, p.a_3d ? 3 : 2,
+                                            adims, astr, abox, 2 * K);
   if (err != cudaSuccess) return err;
   if (TB == 0) {      // B [N, K]
     const uint64_t dims[2] = {K, N}, str[1] = {2 * K};
@@ -140,18 +169,18 @@ cudaError_t launch(const void* A, const void* B, float* D, int reg_a,
 
 template <int N, int K>
 cudaError_t by_major(const void* A, const void* B, float* D, int mn_major,
-                     int reg_a, cudaStream_t s) {
-  return mn_major ? launch<N, K, 1>(A, B, D, reg_a, s)
-                  : launch<N, K, 0>(A, B, D, reg_a, s);
+                     int mode, cudaStream_t s) {
+  return mn_major ? launch<N, K, 1>(A, B, D, mode, s)
+                  : launch<N, K, 0>(A, B, D, mode, s);
 }
 
 template <int N>
 cudaError_t by_k(const void* A, const void* B, float* D, int K, int mn_major,
-                 int reg_a, cudaStream_t s) {
+                 int mode, cudaStream_t s) {
   switch (K) {
-    case 16: return by_major<N, 16>(A, B, D, mn_major, reg_a, s);
-    case 32: return by_major<N, 32>(A, B, D, mn_major, reg_a, s);
-    case 64: return by_major<N, 64>(A, B, D, mn_major, reg_a, s);
+    case 16: return by_major<N, 16>(A, B, D, mn_major, mode, s);
+    case 32: return by_major<N, 32>(A, B, D, mn_major, mode, s);
+    case 64: return by_major<N, 64>(A, B, D, mn_major, mode, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -159,13 +188,13 @@ cudaError_t by_k(const void* A, const void* B, float* D, int K, int mn_major,
 }  // namespace
 
 extern "C" int wgmma_probe(const void* A, const void* B, float* D, int N,
-                           int K, int mn_major, int reg_a, void* stream) {
+                           int K, int mn_major, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 16: return by_k<16>(A, B, D, K, mn_major, reg_a, s);
-    case 32: return by_k<32>(A, B, D, K, mn_major, reg_a, s);
-    case 64: return by_k<64>(A, B, D, K, mn_major, reg_a, s);
-    case 128: return by_k<128>(A, B, D, K, mn_major, reg_a, s);
+    case 16: return by_k<16>(A, B, D, K, mn_major, mode, s);
+    case 32: return by_k<32>(A, B, D, K, mn_major, mode, s);
+    case 64: return by_k<64>(A, B, D, K, mn_major, mode, s);
+    case 128: return by_k<128>(A, B, D, K, mn_major, mode, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -173,12 +202,17 @@ extern "C" int wgmma_probe(const void* A, const void* B, float* D, int N,
 
 ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
-# (N, K, B MN-major, A from registers): every swizzle width for A and for
-# B in both majors (K = 16/32/64 -> 32/64/128 bytes; MN-major N = 16/32/64),
-# N = 128 MN-major across two column blocks (LBO), and register A
+# (N, K, B MN-major, mode): every swizzle width for A and for B in both
+# majors (K = 16/32/64 -> 32/64/128 bytes; MN-major N = 16/32/64), N = 128
+# MN-major across two column blocks (LBO); mode bits: 1 A from registers,
+# 2 A through a 3-d tensor map, 4 B written by the threads (and the proxy
+# fence) instead of TMA
+REG_A, A_3D, B_THREADS = 1, 2, 4
 CASES = [(16, 16, 0, 0), (32, 32, 0, 0), (64, 64, 0, 0), (128, 64, 0, 0),
          (16, 32, 1, 0), (32, 16, 1, 0), (64, 64, 1, 0), (128, 64, 1, 0),
-         (64, 64, 0, 1), (128, 32, 1, 1), (16, 64, 1, 1)]
+         (64, 64, 0, REG_A), (128, 32, 1, REG_A), (16, 64, 1, REG_A),
+         (64, 64, 0, A_3D), (64, 64, 1, B_THREADS),
+         (128, 64, 1, REG_A | B_THREADS), (32, 32, 0, A_3D | B_THREADS)]
 
 
 @pytest.fixture(scope="module")
@@ -193,9 +227,11 @@ def lib(tmp_path_factory):
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"n{c[0]}-k{c[1]}-"
                          f"{'mn' if c[2] else 'k'}major-"
-                         f"{'regA' if c[3] else 'smemA'}")
+                         f"{'regA' if c[3] & REG_A else 'smemA'}"
+                         + ("-A3d" if c[3] & A_3D else "")
+                         + ("-Bthreads" if c[3] & B_THREADS else ""))
 def test_stand_in_wgmma_matches_matmul(lib, case):
-    N, K, mn_major, reg_a = case
+    N, K, mn_major, mode = case
     rng = np.random.default_rng(N * 1000 + K)
     a = torch.from_numpy(rng.standard_normal((64, K), dtype=np.float32)
                          ).to(torch.bfloat16)
@@ -204,7 +240,7 @@ def test_stand_in_wgmma_matches_matmul(lib, case):
     b_store = b.contiguous() if mn_major else b.T.contiguous()
     d = torch.full((64, N), float("nan"))
     err = lib.wgmma_probe(a.data_ptr(), b_store.data_ptr(), d.data_ptr(), N,
-                          K, mn_major, reg_a, None)
+                          K, mn_major, mode, None)
     assert err == 0
     # bf16 products are exact in float32; only the summation order differs
     torch.testing.assert_close(d, a.float() @ b.float(), atol=1e-5,

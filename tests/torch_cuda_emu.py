@@ -75,6 +75,10 @@ enum {
   cudaErrorEmulatedFault = 999
 };
 
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -118,6 +122,29 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   __syncwarp();
   T r;
   std::memcpy(&r, &g_shfl[threadIdx.x ^ lane_mask], 4);
+  __syncwarp();
+  return r;
+}
+
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  std::memcpy(&g_shfl[threadIdx.x], &v, 4);
+  __syncwarp();
+  T r;
+  std::memcpy(&r, &g_shfl[threadIdx.x / 32 * 32 + src_lane % 32], 4);
+  __syncwarp();
+  return r;
+}
+
+template <typename T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  std::memcpy(&g_shfl[threadIdx.x], &v, 4);
+  __syncwarp();
+  T r = v;
+  if (threadIdx.x % 32 >= delta)
+    std::memcpy(&r, &g_shfl[threadIdx.x - delta], 4);
   __syncwarp();
   return r;
 }
@@ -204,6 +231,7 @@ HOPPER_CUH = r"""// CPU stand-in for src/repro_torch/kernels/csrc/hopper.cuh, wi
 //     swizzle) with PTX's fragment layouts, and all meet again.  The
 //     products are exact in f32 and summed over k in order; fence, commit
 //     and wait are no-ops, as the result exists once the call returns;
+//   * the proxy fence is a no-op: the CPU has one view of memory;
 //   * setmaxnreg is a no-op: registers are not modelled.
 #pragma once
 #include <cuda_bf16.h>
@@ -338,6 +366,12 @@ inline void tma_load_2d(void* dst, const TensorMap* map, uint64_t* bar,
   tma_load(dst, map, bar, c);
 }
 
+inline void tma_load_3d(void* dst, const TensorMap* map, uint64_t* bar,
+                        int c0, int c1, int c2) {
+  const int c[3] = {c0, c1, c2};
+  tma_load(dst, map, bar, c);
+}
+
 inline void tma_load_4d(void* dst, const TensorMap* map, uint64_t* bar,
                         int c0, int c1, int c2, int c3) {
   const int c[4] = {c0, c1, c2, c3};
@@ -351,6 +385,8 @@ inline uint64_t smem_desc(uint32_t addr, int swizzle, uint32_t lbo,
          (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
          (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
+
+inline void fence_proxy_async() {}
 
 template <int R>
 inline void setmaxnreg_dec() {}
