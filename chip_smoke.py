@@ -64,7 +64,23 @@ CUDA kernels from the sources in this checkout.  Phases:
    decode), then timed warm.  Prefill of S-2 tokens and 2 decode steps
    against ``forward`` (4 layers, float32), and one train step's
    gradients (2 layers, float32) against the same step on the CPU.
-9. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+9. The section-centric compound runtime at full width in bf16, each
+   section on its own worker thread and CUDA stream, all on the one card.
+   qwen1.5-0.5b self-distillation (teacher seed 1, student seed 0, batch
+   4 x 2048, 3 iterations): (a) the colocated step, (b)
+   ``DistillRuntime.train_iteration``, (c) ``CompoundRuntime(distill_spec,
+   lookahead=1)`` streamed; (b) against (a) and (c) against (b) within one
+   bf16 step, launches checked for (b) and (c), cold and warm times, each
+   section's busy time and utilization, the queue's stats, and two warm
+   streamed iterations traced: device busy against wall and the time the
+   teacher's and the student's streams both ran kernels.  Then routed
+   multi-teacher distillation (``CompoundRuntime(multi_teacher_spec)``,
+   three qwen1.5-0.5b sections, batch 8 x 2048 in microbatches of 2,
+   specialist ratio 0.3, wavefront order): the specialist's dispatches
+   equal the plan's active microbatches (printed beside FIFO's count), the
+   launches the formula, the losses the colocated oracle's on the same
+   microbatches.
+10. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash kernel's at each of its main-path
    shapes under ``at``; its top-level times are the serving prefill's),
    then the ``{"ok": true, ...}`` line.
@@ -288,6 +304,18 @@ def phase_sweep(rng) -> None:
             run_case(rng, (1, 64, 128, 4, 2, 32), dtype, causal, window,
                      q_offset=32, positions=perm)
         run_case(rng, (2, 200, 200, 4, 2, 64), dtype, True, 0, strided=True)
+    # segment ids (packed sequences): the kernel has no segment operand, so
+    # CUDA tensors with segment ids must raise, not reach the plain version
+    from repro_torch.kernels import ops
+    q = torch.zeros((1, 64, 2, 16), device="cuda")
+    seg = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+    try:
+        ops.flash_attention(q, q, q, segment_q=seg, segment_kv=seg)
+    except ValueError as e:
+        check("B5" in str(e), f"segment-id refusal names no ROADMAP item: {e}")
+    else:
+        check(False, "CUDA tensors with segment ids did not raise")
+    print("  flash with segment ids on CUDA tensors: ValueError (B5)")
 
 
 def phase_flash_shape(rng, shape) -> dict:
@@ -558,12 +586,14 @@ def phase_kl_sweep(rng) -> None:
               f"{kl_err}")
 
 
-def phase_kl_main(rng) -> dict:
-    """The kernel at the distillation step's shape: qwen1.5-0.5b's
-    vocabulary and width, batch 4 x seq 2048, tied W as embed.T, T = 2."""
+def phase_kl_main(rng, N: int) -> dict:
+    """The kernel at one main-path shape: qwen1.5-0.5b's vocabulary and
+    width, N tokens (a step's or a microbatch's), tied W as embed.T, T = 2;
+    checked against its plain version, then timed beside it and the
+    materialised form."""
     from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels.ref import distill_kl_stats_ref
-    N, D, V, T = TRAIN_B * TRAIN_S, 1024, 151936, 2.0
+    D, V, T = 1024, 151936, 2.0
     h_s, w_s, h_t, w_t = _kl_inputs(rng, N, D, D, V, torch.bfloat16,
                                     "embed_t")
     got = dk.distill_kl_fwd(h_s, w_s, h_t, w_t, T)
@@ -596,13 +626,22 @@ def phase_kl_main(rng) -> dict:
           f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
           f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB); stats max err "
           f"{err:.3e}, KL {kl:.5f}")
+    return {"N": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+def kl_entry(at: dict) -> dict:
+    """The KL kernel's line: the distillation step's numbers at the top,
+    each main-path shape's under ``at``, the worst error of all."""
     return {"name": "distill_kl_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/distill_kl_fwd.cu",
             "replaces": "src/repro/kernels/distill_kl_pallas.py:34",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+            "launches": None,
+            **{k: v for k, v in at["train_distill"].items() if k != "N"},
+            "max_abs_err": max(a["max_abs_err"] for a in at.values()),
+            "at": at}
 
 
 def _finite(xs) -> bool:
@@ -848,6 +887,433 @@ def phase_grad_consistency(rng) -> None:
           "distillation loss differs between the card and the CPU")
     check(rel <= tol, "distillation gradients differ between the card and "
           "the CPU")
+
+
+# --------------------------------------------------------------------------- #
+# The section-centric compound runtime: sections sharing the card
+# --------------------------------------------------------------------------- #
+RT_ITERS = 3
+# multi-teacher distillation: batch 8 x 2048 in microbatches of 2
+MT_B, MT_MBS, MT_ITERS, MT_RATIO = 8, 2, 3, 0.3
+MT_ATTN = (MT_MBS, TRAIN_S, TRAIN_S, 16, 16, 64)   # a microbatch's attention
+# the runtime against the colocated step (and the streamed runtime against
+# the serialized one), in bf16 at full width: both run the same bf16
+# arithmetic and differ only in the order of float sums (cuBLAS on other
+# streams, atomics in the embedding backward, the joint grad-norm summed on
+# the host against the device), which moves a bf16-rounded activation by
+# at most one bf16 step, and moves the losses, f32 means over 8192 tokens
+# of values made from those activations, by far less: one bf16 step of the
+# value itself (2**-8 relative, 2**-8 absolute below 1) bounds them, where
+# a wrong hidden state, parameter or step moves them by far more
+RT_TOL = 2.0 ** -8
+# the student's f32 master weights after RT_ITERS iterations, compared as
+# updates from the common start, per leaf: |new - ref| / |ref - start| (L2
+# norms).  AdamW's first steps are close to lr * sign(g); where two
+# gradients agree to rounding, the updates agree to ~RT_TOL relative, and
+# only elements whose gradient lies within rounding of zero can flip sign,
+# each by at most 2 lr a step, giving about 2 sqrt(f) for a share f of such
+# elements.  A skipped or lost update of a leaf reads 1, and the update of
+# a different gradient about sqrt(2); 1/4 admits flips on up to 1/64 of a
+# leaf's elements and fails both.  The attention key bias is left out: its
+# gradient is zero in exact arithmetic (a row's scores all shift by q.bk,
+# which the softmax ignores), so its update follows the rounding alone
+UPD_TOL = 0.25
+NOISE_LEAVES = ("bk",)
+
+
+def _rt_close(a: float, b: float) -> bool:
+    return abs(a - b) <= RT_TOL * max(1.0, abs(b))
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _named_leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def _update_gap(new, ref, start) -> tuple[float, str, float, float]:
+    """The worst leaf's |new - ref| / |ref - start| over f32 weight trees,
+    its name, the largest |new - ref| of any element, and the worst gap of
+    the NOISE_LEAVES, which the first leaves out."""
+    worst, name, most, noise = 0.0, "", 0.0, 0.0
+    for (path, n), (_, r), (_, s0) in zip(_named_leaves(new),
+                                          _named_leaves(ref),
+                                          _named_leaves(start)):
+        step = (r - s0.float()).norm().item()
+        gap = (n - r).norm().item() / max(step, 1e-30)
+        most = max(most, (n - r).abs().max().item())
+        if path.rsplit("/", 1)[-1] in NOISE_LEAVES:
+            noise = max(noise, gap)
+        elif gap > worst:
+            worst, name = gap, path
+    return worst, name, most, noise
+
+
+def _intervals_ms(spans) -> float:
+    """Total length of the union of (start, end) spans, in ms."""
+    total, cur = 0.0, None
+    for s, e in sorted(spans):
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total / 1e3
+
+
+def _stream_report(prof, wall_ms: float, what: str) -> dict:
+    """Device busy and each stream's kernel time in a trace, and the time
+    during which the streams of two sections both ran kernels.  Streams are
+    named by a kernel only one section launches: distill_kl (the student)
+    and flash_fwd without distill_kl (the teachers)."""
+    spans, names = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        sid = e.device_resource_id
+        spans.setdefault(sid, []).append((e.time_range.start,
+                                          e.time_range.end))
+        names.setdefault(sid, set()).add(e.name)
+    check(bool(spans), f"the profiler saw no device time in {what}")
+    busy = _intervals_ms([x for v in spans.values() for x in v])
+    student = [s for s, n in names.items()
+               if any("distill_kl" in k for k in n)]
+    teachers = [s for s, n in names.items() if s not in student
+                and any("flash_fwd" in k for k in n)]
+    per = {s: _intervals_ms(v) for s, v in spans.items()}
+    print(f"traced {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.0f}%, idle "
+          f"{100 * (1 - busy / wall_ms):.0f}%), {len(spans)} streams")
+    for sid, ms in sorted(per.items(), key=lambda kv: -kv[1]):
+        role = ("student" if sid in student else
+                "teacher" if sid in teachers else "other")
+        print(f"  stream {sid} ({role}): kernels {ms:.1f} ms")
+    overlaps = {}
+    for t in teachers:
+        for st in student:
+            both = per[t] + per[st] - _intervals_ms(spans[t] + spans[st])
+            overlaps[f"{t}&{st}"] = both
+            print(f"  teacher stream {t} and student stream {st} both ran "
+                  f"kernels for {both:.1f} ms ({100 * both / busy:.1f}% of "
+                  "device busy)")
+    check(len(student) == 1 and teachers,
+          f"expected one student stream and teacher streams, got {names}")
+    return {"busy_ms": busy, "overlap_ms": overlaps}
+
+
+def _section_report(ex, q) -> None:
+    for name in sorted(ex.dispatch_order):
+        print(f"  section {name}: {ex.task_counts[name]} tasks, busy "
+              f"{ex.busy(name) * 1e3:.1f} ms, utilization "
+              f"{ex.utilization(name):.3f} of its span; iteration makespan "
+              f"{ex.makespan * 1e3:.1f} ms")
+    st = q.stats()
+    print(f"  queue: {st['pushes']} pushes, {st['bytes_pushed'] / 1e6:.1f} "
+          f"MB pushed, edges {st['edges']}")
+
+
+def _worker_streams(rt) -> dict:
+    """The current stream each section's worker thread sees."""
+    from repro_torch.core.executor import Dispatch
+    res = rt.executor.run([Dispatch(n, "probe", lambda: torch.cuda
+                                    .current_stream().cuda_stream)
+                           for n in rt.rt.workers])
+    return {n: v for (n, _), v in res.results.items()}
+
+
+def phase_distill_runtime() -> tuple[int, int]:
+    """qwen1.5-0.5b self-distillation through the compound runtime, teacher
+    and student sections sharing the card (each on its own worker thread
+    and stream), against the colocated step: (a) the colocated step, (b)
+    ``DistillRuntime.train_iteration`` (serialized), (c) the same spec on a
+    ``CompoundRuntime`` with lookahead 1, streamed.  Returns the (flash,
+    KL) launches of (c), the streamed run; (b)'s are checked here."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import workload as wl
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.distill import workload as dw
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedules
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda", 0)
+    cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+    L = cfg.num_layers
+    teacher = tree_map(lambda p: p.detach(),
+                       build_model(cfg, device=dev, seed=1).param_tree())
+    student0 = tree_map(lambda p: p.detach(),
+                        build_model(cfg, device=dev, seed=0).param_tree())
+    lr = functools.partial(schedules.constant, peak_lr=1e-4)
+    gen = lm_batches(batch=TRAIN_B, seq_len=TRAIN_S, vocab=cfg.vocab_size,
+                     seed=0, device="cpu")
+    batches = [next(gen) for _ in range(RT_ITERS + 2)]
+    toks = TRAIN_B * TRAIN_S
+    w_t = dw.teacher_unembedding(teacher, cfg)
+    keys = ("loss", "ce", "kl", "grad_norm")
+    runs = {}
+
+    def record(mode, i, met, ms):
+        runs.setdefault(mode, []).append((met, ms))
+        print(f"distill-runtime ({mode}) iteration {i}: loss "
+              f"{met['loss']:.4f} ce {met['ce']:.4f} kl {met['kl']:.5f} "
+              f"gnorm {met['grad_norm']:.3f} {ms:.1f} ms")
+
+    # (a) the colocated step
+    step = dw.build_colocated_step(
+        cfg, cfg, ShapeConfig("distill", "train", TRAIN_S, TRAIN_B),
+        ParallelConfig(mbs=TRAIN_B), alpha=0.5, temperature=2.0,
+        lr_schedule=lr)
+    params = tree_map(lambda p: p.clone().requires_grad_(), student0)
+    opt = adamw.init(params)
+    for i, b in enumerate(batches[:RT_ITERS]):
+        b = {k: v.to(dev) for k, v in b.items()}
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, teacher, b, i)
+        met = {k: float(met[k]) for k in keys}
+        record("a colocated", i, met, (time.perf_counter() - t0) * 1e3)
+    masters_a = opt.master
+    del params, opt, step
+    gc.collect()
+
+    # (b) DistillRuntime.train_iteration, serialized
+    parallel = ParallelConfig()
+    with dw.DistillRuntime(cfg, cfg, teacher_parallel=parallel,
+                           student_parallel=parallel, devices=[dev, dev],
+                           alpha=0.5, temperature=2.0, lr=1e-4) as drt:
+        streams = _worker_streams(drt.runtime)
+        main = torch.cuda.current_stream(dev).cuda_stream
+        print(f"distill-runtime section streams {streams} (main thread's "
+              f"{main})")
+        check(len(set(streams.values())) == 2
+              and main not in streams.values(),
+              "the two sections must each run on a stream of their own")
+        ps = tree_map(torch.clone, student0)
+        opt = adamw.init(ps)
+        reset_counts()
+        for i, b in enumerate(batches[:RT_ITERS]):
+            t0 = time.perf_counter()
+            ps, opt, m = drt.train_iteration(teacher, ps, opt, b, i,
+                                             w_t=w_t)
+            met = {k: float(m[k]) for k in keys}
+            record("b serialized", i, met, (time.perf_counter() - t0) * 1e3)
+        counts_b = read_counts()
+        moved = any(bool((a != c).any()) for a, c in
+                    zip(tree_leaves(ps), tree_leaves(student0)))
+        check(moved, "the runtime's student weights did not move")
+        print("distill-runtime (b) sections of the last iteration:")
+        _section_report(m["execution"], drt.rt.queue)
+        params_b, masters_b = ps, opt.master
+        del opt
+    gc.collect()
+
+    # (c) CompoundRuntime(distill_spec, lookahead=1), streamed
+    spec = dw.distill_spec(cfg, cfg, teacher_parallel=parallel,
+                           student_parallel=parallel, alpha=0.5,
+                           temperature=2.0)
+    with wl.CompoundRuntime(spec, devices=[dev, dev], lr_schedule=lr,
+                            lookahead=1) as crt:
+        ps = tree_map(torch.clone, student0)
+        crt.install({"teacher": teacher, "student": ps},
+                    {"student": adamw.init(ps)})
+        consts = {"student": {"w_t": w_t}}
+        reset_counts()
+        t_start = time.perf_counter()
+        for i, b in enumerate(batches[:RT_ITERS]):
+            crt.submit_iteration(b, i, consts=consts)
+        ms = crt.drain()
+        counts_c = read_counts()
+        ends = [m["execution"].t0 + max(e.end for e in
+                                        m["execution"].timeline)
+                for m in ms]
+        prev = t_start
+        for i, (m, end) in enumerate(zip(ms, ends)):
+            met = {k: float(m[k]) for k in keys}
+            record("c streamed", i, met, (end - prev) * 1e3)
+            prev = end
+        params_c = crt.state()[0]["student"]
+        # AdamW writes its state in place: keep these before tracing more
+        masters_c = tree_map(torch.clone, crt.state()[1]["student"].master)
+        print("distill-runtime (c) sections of the last iteration:")
+        _section_report(ms[-1]["execution"], crt.rt.queue)
+        # two more warm streamed iterations, traced: the teacher's forward
+        # of the second may run beside the student's work on the first
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in (RT_ITERS, RT_ITERS + 1):
+                crt.submit_iteration(batches[i], i, consts=consts)
+            traced = crt.drain()
+            check(all(np.isfinite(float(m["loss"])) for m in traced),
+                  "non-finite loss in the traced iterations")
+            wall = (time.perf_counter() - t0) * 1e3
+        _kernel_report(prof, wall, "2 warm streamed distill-runtime "
+                       "iterations")
+        _stream_report(prof, wall, "2 warm streamed distill-runtime "
+                       "iterations (streams)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    want_flash, want_kl = RT_ITERS * L * 3, RT_ITERS
+    for mode, counts in (("b", counts_b), ("c", counts_c)):
+        # per iteration: the teacher's forward (L), the student's forward
+        # and its remat recompute (2L); one KL per iteration (one microbatch)
+        check(counts == (want_flash, want_kl, 0),
+              f"({mode}) launched (flash, KL, SSD) = {counts}, expected "
+              f"({want_flash}, {want_kl}, 0)")
+    for i in range(RT_ITERS):
+        (ma, _), (mb, _), (mc, _) = (runs[k][i] for k in sorted(runs))
+        for k in keys:
+            check(all(np.isfinite([ma[k], mb[k], mc[k]])),
+                  f"non-finite {k} at iteration {i}")
+        check(mb["kl"] >= -1e-4 and mc["kl"] >= -1e-4, "negative KL")
+        for k in keys:
+            check(_rt_close(mb[k], ma[k]), f"(b) {k} {mb[k]} vs colocated "
+                  f"{ma[k]} at iteration {i} (tol {RT_TOL} relative)")
+            check(_rt_close(mc[k], mb[k]), f"(c) {k} {mc[k]} vs (b) {mb[k]} "
+                  f"at iteration {i} (tol {RT_TOL} relative)")
+    for what, new, ref in (("(b) vs (a)", masters_b, masters_a),
+                           ("(c) vs (b)", masters_c, masters_b)):
+        gap, leaf, most, noise = _update_gap(new, ref, student0)
+        print(f"distill-runtime {what}: student master weights after "
+              f"{RT_ITERS} iterations, worst leaf {leaf} |new - ref| / "
+              f"|ref - start| {gap:.3e} (tol {UPD_TOL}), max |new - ref| "
+              f"{most:.3e}; key biases (not checked) {noise:.3e}")
+        check(gap <= UPD_TOL, f"{what}: the student's updates differ at "
+              f"{leaf}: {gap:.3e} > {UPD_TOL}")
+    # printed, not checked: bitwise equality needs every reduction to sum
+    # in the same order on both runs, which CUDA does not promise for
+    # kernels queued from other threads and streams (atomics in the
+    # embedding backward); the checks above are the contract
+    bitwise = all(torch.equal(a, c) for a, c in
+                  zip(tree_leaves(params_b), tree_leaves(params_c)))
+    same_losses = all(runs["b serialized"][i][0] == runs["c streamed"][i][0]
+                      for i in range(RT_ITERS))
+    print(f"distill-runtime: (c) streamed vs (b) serialized bitwise equal: "
+          f"metrics {same_losses}, student params {bitwise}")
+    card_ = card()
+    for mode, rows in sorted(runs.items()):
+        times = [t for _, t in rows]
+        warm = float(np.mean(times[1:]))
+        print(f"distill-runtime {cfg.name} ({mode}), batch {TRAIN_B} x seq "
+              f"{TRAIN_S} bf16 on {card_}: cold {times[0]:.1f} ms, warm "
+              f"{warm:.1f} ms/iteration ({toks / warm * 1e3:.0f} tok/s)")
+    print(f"distill-runtime peak device memory {peak:.2f} GiB")
+    return counts_c[0], counts_c[1]
+
+
+def phase_multi_teacher() -> tuple[int, int]:
+    """Routed multi-teacher distillation of qwen1.5-0.5b through
+    ``CompoundRuntime(multi_teacher_spec)``, three sections sharing the
+    card, wavefront order on, against the colocated oracle on the same
+    microbatch composition.  Returns the (flash, KL) launches."""
+    from repro_torch.core import cost_model as cmdl
+    from repro_torch.core import workload as wl
+    from repro_torch.core.types import H100, ParallelConfig
+    from repro_torch.data.synthetic import routed_lm_batches
+    from repro_torch.distill import multi_teacher as mt
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedules
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda", 0)
+    cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+    L = cfg.num_layers
+    seeds = {"teacher_a": 1, "teacher_b": 2, "student": 0}
+    init = {n: tree_map(lambda p: p.detach(),
+                        build_model(cfg, device=dev, seed=s).param_tree())
+            for n, s in seeds.items()}
+    lr = functools.partial(schedules.constant, peak_lr=1e-4)
+    par = ParallelConfig()
+    spec = mt.multi_teacher_spec(cfg, cfg, cfg, ta_parallel=par,
+                                 tb_parallel=par, s_parallel=par,
+                                 global_batch=MT_B, seq_len=TRAIN_S,
+                                 mbs=MT_MBS, alpha=0.5, temperature=2.0)
+    gen = routed_lm_batches(batch=MT_B, seq_len=TRAIN_S,
+                            vocab=cfg.vocab_size,
+                            specialist_ratio=MT_RATIO, seed=0, device="cpu")
+    batches = [next(gen) for _ in range(MT_ITERS)]
+    w_a = mt.teacher_unembed(init["teacher_a"], cfg, dev)
+    w_b = mt.teacher_unembed(init["teacher_b"], cfg, dev)
+    consts = {"student": {"w_a": w_a, "w_b": w_b}}
+    n_mb = MT_B // MT_MBS
+    # what the planner believes: the cost model's per-sample seconds
+    for role, trainable in (("student", True), ("teacher", False)):
+        c = cmdl.section_cost(cfg, par, TRAIN_S, trainable=trainable,
+                              hw=H100)
+        print(f"multi-teacher cost model ({role}, {H100.name}): forward "
+              f"{c.t_fwd_sample * 1e3:.2f} ms, backward "
+              f"{c.t_bwd_sample * 1e3:.2f} ms per sample")
+    rows, plans = [], []
+    with wl.CompoundRuntime(spec, devices=[dev] * 3, lr_schedule=lr) as crt:
+        streams = _worker_streams(crt)
+        check(len(set(streams.values())) == 3,
+              f"three sections, three streams: {streams}")
+        params = {n: (tree_map(torch.clone, p) if n == "student" else p)
+                  for n, p in init.items()}
+        opts = {"student": adamw.init(params["student"])}
+        reset_counts()
+        for i, b in enumerate(batches):
+            plan = crt.plan_iteration(b)
+            fifo = crt.plan_iteration(b, reorder=False)
+            t0 = time.perf_counter()
+            params, opts, m = crt.train_iteration(params, opts, b, i,
+                                                  plan=plan, consts=consts)
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            n_b = len(plan.activation["teacher_b"].active_mbs)
+            n_fifo = len(fifo.activation["teacher_b"].active_mbs)
+            check(m["n_tasks"].get("teacher_b", 0) == n_b,
+                  f"teacher_b ran {m['n_tasks']} against the plan's {n_b}")
+            print(f"multi-teacher iteration {i}: {int(b['domain'].sum())} of "
+                  f"{MT_B} samples specialist; teacher_b on {n_b} of {n_mb} "
+                  f"microbatches (wavefront order; FIFO order: {n_fifo}); "
+                  f"loss {loss:.4f} kl_a {float(m['kl_a']):.5f} kl_b "
+                  f"{float(m['kl_b']):.5f} {ms:.1f} ms")
+            check(n_b <= n_fifo, "the wavefront order ran the specialist "
+                  "on more microbatches than FIFO")
+            print(f"  planned order {list(plan.order)}: modeled makespan "
+                  f"{plan.schedule.makespan * 1e3:.1f} ms (FIFO "
+                  f"{plan.schedule.fifo_makespan * 1e3:.1f} ms)")
+            rows.append((loss, ms, n_b))
+            plans.append(plan)
+            _section_report(m["execution"], crt.rt.queue)
+        flash, kl, ssd = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # per microbatch: teacher_a's forward (L), the student's forward and its
+    # remat recompute (2L), and teacher_b's forward (L) on its active
+    # microbatches only; two KLs (against each teacher) per microbatch
+    want_flash = sum(L * (3 * n_mb + n_b) for _, _, n_b in rows)
+    want_kl = 2 * n_mb * MT_ITERS
+    check((flash, kl, ssd) == (want_flash, want_kl, 0),
+          f"multi-teacher launched (flash, KL, SSD) = {(flash, kl, ssd)}, "
+          f"expected ({want_flash}, {want_kl}, 0)")
+    # the colocated oracle on the same microbatch composition
+    step = mt.build_colocated_step(cfg, cfg, cfg, alpha=0.5, temperature=2.0,
+                                   lr_schedule=lr)
+    ps = tree_map(torch.clone, init["student"])
+    opt = adamw.init(ps)
+    for i, b in enumerate(batches):
+        ps, opt, om = step(ps, opt, init["teacher_a"], init["teacher_b"],
+                           w_a, w_b, mt.colocated_batch(b, plans[i], dev), i)
+        got, want = rows[i][0], float(om["loss"])
+        print(f"multi-teacher iteration {i}: runtime loss {got:.6f}, "
+              f"colocated oracle {want:.6f} (tol {RT_TOL} relative)")
+        check(np.isfinite(got) and _rt_close(got, want),
+              "multi-teacher runtime disagrees with the colocated oracle")
+    warm = float(np.mean([ms for _, ms, _ in rows[1:]]))
+    print(f"multi-teacher {cfg.name} x3 sections, batch {MT_B} x seq "
+          f"{TRAIN_S} (mbs {MT_MBS}) bf16 on {card()}: cold "
+          f"{rows[0][1]:.1f} ms, warm {warm:.1f} ms/iteration "
+          f"({MT_B * TRAIN_S / warm * 1e3:.0f} tok/s); peak device memory "
+          f"{peak:.2f} GiB")
+    return flash, kl
 
 
 # --------------------------------------------------------------------------- #
@@ -1185,10 +1651,12 @@ def main() -> int:
     phase_build()
     phase_sweep(rng)
     flash_at = {"serve": phase_flash_shape(rng, PREFILL),
-                "train_distill": phase_flash_shape(rng, TRAIN_ATTN)}
+                "train_distill": phase_flash_shape(rng, TRAIN_ATTN),
+                "multi_teacher": phase_flash_shape(rng, MT_ATTN)}
     phase_flash_grads(rng)
     phase_kl_sweep(rng)
-    kl = phase_kl_main(rng)
+    kl = kl_entry({"train_distill": phase_kl_main(rng, TRAIN_B * TRAIN_S),
+                   "multi_teacher": phase_kl_main(rng, MT_MBS * TRAIN_S)})
     phase_ssd_sweep(rng)
     ssd = phase_ssd_main(rng)
     phase_ssd_grads(rng)
@@ -1216,12 +1684,18 @@ def main() -> int:
     phase_mamba_consistency(rng)
     free()
     phase_mamba_grad_consistency(rng)
+    free()
+    rt_launches, rt_kl_launches = phase_distill_runtime()
+    free()
+    mt_launches, mt_kl_launches = phase_multi_teacher()
     paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}", f"distill {TRAIN_ARCH}",
-             f"train {MAMBA}", f"serve {MAMBA}")
+             f"train {MAMBA}", f"serve {MAMBA}",
+             f"distill-runtime {TRAIN_ARCH}", f"multi-teacher {TRAIN_ARCH}")
     per_path = {
-        "flash": (serve_launches, train_launches, distill_launches, 0, 0),
-        "kl": (0, 0, kl_launches, 0, 0),
-        "ssd": (0, 0, 0, mamba_train_launches, mamba_serve_launches)}
+        "flash": (serve_launches, train_launches, distill_launches, 0, 0,
+                  rt_launches, mt_launches),
+        "kl": (0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches),
+        "ssd": (0, 0, 0, mamba_train_launches, mamba_serve_launches, 0, 0)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

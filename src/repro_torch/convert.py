@@ -35,3 +35,13 @@ def params_from_numpy(tree, *, device, dtype: Optional[torch.dtype] = None):
         return {k: params_from_numpy(v, device=device, dtype=dtype)
                 for k, v in tree.items()}
     return _leaf(tree, device, dtype)
+
+
+def section_params_from_numpy(trees, devices):
+    """Per-section form: ``{section: numpy tree}`` -> ``{section: tensor
+    tree on devices[section]}``, the layout ``CompoundRuntime.place`` and
+    ``install`` take.  The JAX ``CompoundRuntime.init`` draws one PRNG key
+    per section, so parity runs carry the JAX run's trees across rather
+    than re-deriving either side's initialisation."""
+    return {name: params_from_numpy(tree, device=devices[name])
+            for name, tree in trees.items()}

@@ -1,0 +1,1120 @@
+"""Declarative section-centric workload API (paper §3 end to end).
+Counterpart of ``repro/core/workload.py``.
+
+A compound workload *is* its section graph: each section carries its own
+parallelism ``C^s``, execution mode and data-dependent activation, and
+everything else — section devices, per-section workers and streams,
+AdamW with a shared joint grad-norm, wavefront-ordered dispatch, the
+realized timeline — is generic machinery:
+
+* :class:`SectionSpec` — one section: arch + param specs + a plain
+  ``fn(params, inputs) -> {port: tensor}`` (producer) or ``-> loss``
+  (the critical loss section), a :class:`ParallelConfig`, mode
+  (``fwd_bwd`` / ``fwd_only``), an optional per-sample activation
+  predicate, and typed emit/consume ports.
+* :class:`WorkloadSpec` — the sections plus the cross-section edges
+  (implied by ``consumes``); validated at spec-compile time (port-type
+  mismatches, cycles, cotangent routing, the dispatch-graph deadlock
+  proof) before any device work.
+* :class:`CompoundRuntime` — ONE generic runtime that runs any
+  ``WorkloadSpec`` disaggregated; ``DistillRuntime`` and multi-teacher
+  distillation are declarations on it.
+
+Execution model (the JAX package's, in PyTorch):
+
+* per microbatch, producer sections run ``fwd`` tasks on their own
+  devices, recorded by no autograd (emitted ports pushed through the
+  MessageQueue); the critical section computes loss + grads w.r.t. its
+  params and any consumed ports from trainable producers with
+  ``torch.autograd.grad`` (cotangents pushed back); trainable producers
+  run ``bwd`` tasks that recompute their forward under autograd on their
+  own worker and take the vector-Jacobian product with the pulled
+  cotangent (the JAX package recomputes too);
+* gradients accumulate into float32 zero-seeded lists in microbatch
+  dispatch order, are divided by ``n_mb`` once, and per-section AdamW
+  updates share one joint grad-norm across all trainable sections (the
+  colocated clipping semantics — ``adamw.update(gnorm=)``);
+* each trainable section's grad-finalize + AdamW update runs as an
+  ``upd`` Dispatch on *that section's own worker*: the joint grad-norm is
+  a small cross-worker rendezvous of per-leaf sum-of-squares vectors
+  through the MessageQueue (pushed to every peer before any is pulled),
+  reduced on the host in sorted section order, and per-section worker
+  FIFO serializes ``upd(i)`` before that section's ``fwd(i+1)`` with no
+  global barrier between iterations;
+* iterations stream: ``install()`` adopts params/opts as runtime state,
+  ``submit_iteration()`` enqueues one global batch onto the section
+  streams (traffic scoped under a monotonic ``s<i>/`` namespace, evicted
+  at retirement), ``retire()`` drains the oldest; ``lookahead`` bounds
+  how many iterations may be in flight (0 ⇒ fully serialized);
+  ``train_iteration()`` is the serialized wrapper;
+* a section with an activation predicate simply emits no Dispatch for a
+  microbatch none of whose samples activate it, and its consumers
+  substitute the port's exact-zero fill.
+
+Devices and streams (ROADMAP.md, port conventions): sections run on the
+devices carved from ``devices=`` (one card named once per section shares
+it; ``["cpu"] * n`` runs on the host), each from its own worker thread
+and, on a card, its own CUDA stream.  What the main thread writes for an
+iteration — its batch slices, consts, installed state — is ordered
+before every section stream that reads it by an event recorded at
+submit; cross-section tensors carry their producer stream's event
+through the queue.  The optimizer updates in place (``optim/adamw.py``),
+so ``train_iteration(params, opts, ...)`` advances the caller's
+optimizer-state tensors.  DP/TP/PP/CP sections and gradient compression
+are the multi-device regimes, not ported yet (ROADMAP.md, A6).
+"""
+from __future__ import annotations
+
+import collections
+import functools
+import logging
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.analysis import deadlock as _deadlock
+from repro_torch.core import cost_model as cmdl
+from repro_torch.core.executor import Dispatch, mark_start, order_samples
+from repro_torch.core.graph import SectionGraph
+from repro_torch.core.messages import adopt
+from repro_torch.core.runtime import MaestroRuntime
+from repro_torch.core.scheduler import ScheduleResult
+from repro_torch.core.types import (H100, ArchConfig, ParallelConfig,
+                                    SectionConfig)
+from repro_torch.models import common as cm
+from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim import adamw, schedules
+
+#: symbolic sequence-length dim in Field / Port shapes, resolved to the
+#: workload's seq_len at build time (static dims stay ints)
+SEQ = "S"
+
+_log = logging.getLogger("repro_torch.workload")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int32": torch.int32,
+           "int64": torch.int64}
+
+
+def _torch_dtype(dt) -> torch.dtype:
+    return _DTYPES[dt] if isinstance(dt, str) else dt
+
+
+def _resolve_shape(shape: Tuple, seq_len: Optional[int]) -> Tuple[int, ...]:
+    out = []
+    for d in shape:
+        if d == SEQ:
+            assert seq_len is not None, \
+                "symbolic 'S' dim used but no seq_len bound yet"
+            out.append(int(seq_len))
+        else:
+            out.append(int(d))
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class Field:
+    """One per-sample batch input of a section: shape WITHOUT the batch
+    dim (entries int or the symbol :data:`SEQ`)."""
+    shape: Tuple
+    dtype: Any = "float32"
+
+
+@dataclass(frozen=True)
+class Port:
+    """A typed cross-section tensor: per-sample shape + dtype.  The same
+    ``Port`` object (or an equal one) must appear in the producer's
+    ``emits`` and the consumer's ``consumes`` — a mismatch raises at
+    spec-compile time."""
+    name: str
+    shape: Tuple
+    dtype: Any = "float32"
+
+
+@dataclass(frozen=True)
+class Consume:
+    """Consumer-side declaration of a cross-section edge: the producing
+    section plus the *expected* :class:`Port` type."""
+    section: str
+    port: Port
+
+    @property
+    def key(self) -> str:
+        return f"{self.section}.{self.port.name}"
+
+
+@dataclass(frozen=True)
+class SectionSpec:
+    """One section of a compound workload.
+
+    ``fn(params, inputs) -> {port_name: tensor}`` for producers, or a
+    scalar loss (``loss=True``; ``(loss, aux_scalars)`` with
+    ``loss_aux=True``) for the critical section.  ``inputs`` holds, per
+    microbatch of capacity ``mbs``, on the section's device:
+
+    * every declared batch :class:`Field` ``[mbs, ...]`` — gathered to
+      the activated samples (capacity layout, padded with sample 0) when
+      the section has an ``activation`` predicate, sliced contiguously
+      otherwise;
+    * ``"act_valid"`` ``[mbs]`` float32 when the section has a predicate;
+    * each consumed port under ``"<section>.<port>"``, plus
+      ``"<section>.act_idx"`` (int64) / ``"<section>.act_valid"`` when
+      that producer has a predicate (for scattering capacity rows back to
+      sample slots);
+    * every declared const under its name.
+    """
+    name: str
+    arch: ArchConfig
+    parallel: ParallelConfig
+    fn: Callable[..., Any]
+    params: Any                               # tree of ParamSpec
+    inputs: Mapping[str, Field] = field(default_factory=dict)
+    emits: Tuple[Port, ...] = ()
+    consumes: Tuple[Consume, ...] = ()
+    mode: str = "fwd_bwd"                     # "fwd_bwd" | "fwd_only"
+    loss: bool = False
+    loss_aux: bool = False
+    activation: Optional[Callable[[Dict[str, np.ndarray]], np.ndarray]] = None
+    critical: bool = False
+    seq_len: Optional[int] = None             # section sequence length
+    consts: Mapping[str, Field] = field(default_factory=dict)
+
+    @property
+    def trainable(self) -> bool:
+        return self.mode == "fwd_bwd"
+
+
+@dataclass(frozen=True)
+class WorkloadSpec:
+    """A compound workload: sections + the edges implied by their
+    ``consumes``.  ``global_batch`` / ``seq_len`` / ``mbs`` may be left
+    ``None`` for shape-polymorphic workloads — the runtime then binds
+    them from the first batch (``mbs=None`` ⇒ one microbatch per
+    iteration)."""
+    name: str
+    sections: Tuple[SectionSpec, ...]
+    seq_len: Optional[int] = None
+    global_batch: Optional[int] = None
+    mbs: Optional[int] = None
+
+    def section(self, name: str) -> SectionSpec:
+        for s in self.sections:
+            if s.name == name:
+                return s
+        raise KeyError(name)
+
+    @property
+    def critical(self) -> SectionSpec:
+        crits = [s for s in self.sections if s.critical]
+        assert len(crits) == 1
+        return crits[0]
+
+    # ------------------------------------------------------------------ #
+    def consumers_of(self, section: str, port: str) -> List[str]:
+        return [s.name for s in self.sections
+                if any(c.section == section and c.port.name == port
+                       for c in s.consumes)]
+
+    def topo_order(self) -> List[str]:
+        """Section names, producers before consumers (Kahn)."""
+        indeg = {s.name: 0 for s in self.sections}
+        for s in self.sections:
+            indeg[s.name] = len(s.consumes)
+        order, ready = [], [n for n, d in sorted(indeg.items())
+                            if d == 0]
+        while ready:
+            n = ready.pop(0)
+            order.append(n)
+            for s in self.sections:
+                if any(c.section == n for c in s.consumes):
+                    indeg[s.name] -= sum(
+                        1 for c in s.consumes if c.section == n)
+                    if indeg[s.name] == 0:
+                        ready.append(s.name)
+        if len(order) != len(self.sections):
+            raise ValueError(
+                f"workload {self.name!r}: section graph has a cycle "
+                f"(resolved {order} of {[s.name for s in self.sections]})")
+        return order
+
+    # ------------------------------------------------------------------ #
+    def validate(self) -> None:
+        """Spec-compile-time checks: raise here, before any device is
+        carved or any tensor made."""
+        names = [s.name for s in self.sections]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate section names: {names}")
+        crits = [s for s in self.sections if s.critical]
+        if len(crits) != 1:
+            raise ValueError(
+                f"workload {self.name!r}: exactly one critical section "
+                f"required, got {[s.name for s in crits]}")
+        crit = crits[0]
+        if not crit.loss or crit.mode != "fwd_bwd":
+            raise ValueError(
+                f"critical section {crit.name!r} must be a fwd_bwd loss "
+                "section (loss=True)")
+        if crit.activation is not None:
+            raise ValueError(
+                f"critical section {crit.name!r} cannot carry an "
+                "activation predicate: the loss runs on every microbatch")
+        by_name = {s.name: s for s in self.sections}
+        for s in self.sections:
+            if s.mode not in ("fwd_bwd", "fwd_only"):
+                raise ValueError(
+                    f"section {s.name!r}: unknown mode {s.mode!r}")
+            if s.loss and s.mode == "fwd_only":
+                raise ValueError(
+                    f"section {s.name!r}: a loss section cannot be "
+                    "fwd_only")
+            if s.loss and not s.critical:
+                raise ValueError(
+                    f"section {s.name!r}: loss sections must be the "
+                    "critical section")
+            if not s.loss and not s.emits:
+                raise ValueError(
+                    f"section {s.name!r}: a non-loss section must emit "
+                    "at least one port")
+            pnames = [p.name for p in s.emits]
+            if len(set(pnames)) != len(pnames):
+                raise ValueError(
+                    f"section {s.name!r}: duplicate emitted port names "
+                    f"{pnames}")
+            for c in s.consumes:
+                if c.section == s.name:
+                    raise ValueError(
+                        f"section {s.name!r} consumes its own port "
+                        f"{c.port.name!r}")
+                src = by_name.get(c.section)
+                if src is None:
+                    raise ValueError(
+                        f"section {s.name!r} consumes from unknown "
+                        f"section {c.section!r}")
+                emitted = {p.name: p for p in src.emits}
+                if c.port.name not in emitted:
+                    raise ValueError(
+                        f"section {s.name!r} consumes port "
+                        f"{c.port.name!r} which {c.section!r} does not "
+                        f"emit (emits {sorted(emitted)})")
+                got = emitted[c.port.name]
+                if (tuple(got.shape) != tuple(c.port.shape)
+                        or _torch_dtype(got.dtype)
+                        != _torch_dtype(c.port.dtype)):
+                    raise ValueError(
+                        f"port type mismatch on edge {c.section!r} -> "
+                        f"{s.name!r}: producer emits "
+                        f"{c.port.name!r}{tuple(got.shape)}:{got.dtype} "
+                        f"but consumer expects "
+                        f"{tuple(c.port.shape)}:{c.port.dtype}")
+        # cotangent routing: a trainable producer's port must have exactly
+        # one consumer (the bwd task pulls ONE cotangent per port), and
+        # that consumer must itself be fwd_bwd — a fwd_only consumer
+        # never pushes a cotangent back, so the producer's bwd task would
+        # deadlock waiting on it
+        for s in self.sections:
+            if not s.trainable or s.critical:
+                continue
+            for p in s.emits:
+                cons = self.consumers_of(s.name, p.name)
+                if len(cons) != 1:
+                    raise ValueError(
+                        f"trainable section {s.name!r} port {p.name!r} "
+                        f"must have exactly one consumer (cotangent "
+                        f"routing), got {cons}")
+                if by_name[cons[0]].mode != "fwd_bwd":
+                    raise ValueError(
+                        f"trainable section {s.name!r} port {p.name!r} "
+                        f"is consumed by fwd_only section {cons[0]!r}, "
+                        "which can never return a cotangent — the "
+                        "producer's bwd task would deadlock; make the "
+                        "consumer fwd_bwd or freeze the producer")
+        if (self.global_batch is not None and self.mbs is not None
+                and self.global_batch % self.mbs):
+            raise ValueError(
+                f"global_batch={self.global_batch} is not a multiple of "
+                f"mbs={self.mbs}")
+        self.topo_order()
+        # dispatch-graph deadlock proof (repro_torch.analysis.deadlock):
+        # the blocking-pull order submit_iteration will emit — incl. the
+        # grad-norm rendezvous and lookahead cross-iteration FIFO
+        # coupling — must be acyclic with every pull satisfiable
+        _deadlock.check_spec(self, n_mb=2, lookahead=1).raise_on_error(
+            ValueError,
+            f"workload {self.name!r}: dispatch-graph deadlock analysis "
+            "failed")
+
+    # ------------------------------------------------------------------ #
+    def to_graph(self) -> SectionGraph:
+        """The cost-model / carving view of this workload."""
+        g = SectionGraph()
+        base_seq = self.seq_len
+        for s in self.sections:
+            scale = 1.0
+            if s.seq_len is not None and base_seq:
+                scale = s.seq_len / max(base_seq, 1)
+            g.add(SectionConfig(s.name, s.arch, s.parallel,
+                                trainable=s.trainable, critical=s.critical,
+                                seq_scale=scale))
+        for s in self.sections:
+            for c in s.consumes:
+                port = c.port
+                width = int(port.shape[-1]) if port.shape and \
+                    port.shape[-1] != SEQ else 1
+                bpt = width * _torch_dtype(port.dtype).itemsize
+                src_dp = self.section(c.section).parallel.dp
+                fanout = (s.parallel.dp // src_dp
+                          if src_dp and s.parallel.dp % src_dp == 0 else 1)
+                g.connect(c.section, s.name, bytes_per_token=bpt,
+                          fanout=fanout)
+        g.validate()
+        return g
+
+
+# --------------------------------------------------------------------------- #
+# Per-section parallelism validation
+# --------------------------------------------------------------------------- #
+#: ParallelConfig knob -> the JAX package's section-mesh axis it sizes
+_AXES = (("dp", "data"), ("pp", "pipe"), ("cp", "seq"), ("tp", "model"))
+
+
+def validate_section_parallel(name: str, arch: ArchConfig,
+                              parallel: ParallelConfig) -> str:
+    """ONE validation path for a section's ``C^s``: the port runs each
+    section on one device (the plain regime) and raises for every knob
+    that needs the multi-device regimes, naming the section and the mesh
+    axis it would size.  Returns the regime (``"plain"``)."""
+    multi = [f"{k}={getattr(parallel, k)} (mesh axis {axis!r})"
+             for k, axis in _AXES if getattr(parallel, k) != 1]
+    if multi:
+        raise NotImplementedError(
+            f"section {name!r} ({arch.name}): {', '.join(multi)} needs the "
+            "multi-device regimes (data, pipeline, context and tensor "
+            "parallel sections), which are not ported yet; see "
+            "ROADMAP.md, A6")
+    if (parallel.grad_compress or "none") != "none":
+        raise NotImplementedError(
+            f"section {name!r}: grad_compress={parallel.grad_compress!r} "
+            "compresses the data-parallel all-reduce, which is not ported "
+            "yet; see ROADMAP.md, A6")
+    return "plain"
+
+
+# --------------------------------------------------------------------------- #
+# Iteration plan: wavefront order + per-section data-dependent activation
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class SectionActivation:
+    """Which microbatches activate a section, and per-microbatch local
+    indices/validity of the activating samples (capacity layout)."""
+    active_mbs: Tuple[int, ...]
+    idx: np.ndarray                   # [n_mb, mbs] int32 local indices
+    valid: np.ndarray                 # [n_mb, mbs] f32, 1.0 = real sample
+
+
+def build_activation(order: Sequence[int], flags: np.ndarray,
+                     mbs: int) -> SectionActivation:
+    """Per-microbatch activation layout of one section given the sample
+    dispatch ``order`` and per-sample ``flags`` (original indexing)."""
+    n = len(order)
+    assert n % mbs == 0, (n, mbs)
+    n_mb = n // mbs
+    ordered = np.asarray(flags).astype(bool)[list(order)]
+    idx = np.zeros((n_mb, mbs), np.int32)
+    valid = np.zeros((n_mb, mbs), np.float32)
+    active: List[int] = []
+    for i in range(n_mb):
+        loc = np.where(ordered[i * mbs:(i + 1) * mbs])[0]
+        idx[i, :len(loc)] = loc
+        valid[i, :len(loc)] = 1.0
+        if len(loc):
+            active.append(i)
+    return SectionActivation(tuple(active), idx, valid)
+
+
+@dataclass(frozen=True)
+class IterationPlan:
+    """Host-side dispatch plan for one global batch."""
+    order: Tuple[int, ...]
+    mbs: int
+    n_mb: int
+    activation: Dict[str, SectionActivation]
+    schedule: Optional[ScheduleResult] = None
+
+
+# --------------------------------------------------------------------------- #
+# The one generic compound runtime
+# --------------------------------------------------------------------------- #
+def _host_batch(batch) -> Dict[str, torch.Tensor]:
+    """The batch as CPU tensors (numpy arrays and device tensors alike)."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.detach().cpu()
+        else:
+            out[k] = torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+    return out
+
+
+def _numpy_view(host: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """numpy views of the host batch, for activation predicates."""
+    return {k: v.numpy() for k, v in host.items()
+            if v.dtype != torch.bfloat16}
+
+
+def _grad_leaves(tree):
+    """Leaves of ``tree`` as fresh autograd leaves sharing its storage."""
+    return tree_map(lambda x: x.detach().requires_grad_(), tree)
+
+
+def _grads(outputs, inputs, grad_outputs=None):
+    """``torch.autograd.grad`` with a zero gradient (not None) for every
+    input the outputs do not depend on."""
+    pairs = [(o, g) for o, g in zip(outputs, grad_outputs or
+                                    [None] * len(outputs))
+             if o.requires_grad]
+    got = [None] * len(inputs)
+    if pairs:
+        got = torch.autograd.grad(
+            [o for o, _ in pairs], inputs,
+            None if grad_outputs is None else [g for _, g in pairs],
+            allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(got, inputs)]
+
+
+def _accumulate(acc: Optional[List[torch.Tensor]], grads):
+    """f32 zero-seeded accumulation in dispatch order (seeding with the
+    raw param-dtype grad would double-round)."""
+    with torch.no_grad():
+        if acc is None:
+            acc = [torch.zeros(g.shape, dtype=torch.float32,
+                               device=g.device) for g in grads]
+        for a, g in zip(acc, grads):
+            a.add_(g.float())
+    return acc
+
+
+class _Inflight:
+    """Host-side record of one submitted-not-yet-retired iteration."""
+
+    __slots__ = ("seq", "scope", "step_idx", "plan", "return_grads",
+                 "ctx", "acc", "crit_acc", "ready")
+
+    def __init__(self, seq: int, scope: str, step_idx, plan: IterationPlan,
+                 return_grads: bool, trainable: Sequence[str]):
+        self.seq = seq
+        self.scope = scope
+        self.step_idx = step_idx
+        self.plan = plan
+        self.return_grads = return_grads
+        self.ctx: Dict[Tuple[str, int], Any] = {}
+        self.acc: Dict[str, Dict[str, Any]] = {n: {"g": None}
+                                               for n in trainable}
+        self.crit_acc: Dict[str, Any] = {"loss": None, "aux": None}
+        # device -> event on the main thread's stream after everything it
+        # wrote for this iteration
+        self.ready: Dict[torch.device, Any] = {}
+
+
+class CompoundRuntime:
+    """Run a :class:`WorkloadSpec` disaggregated on the compound executor.
+    See the module docstring for the execution model.
+
+    ``devices``: the device list the sections are carved from, in spec
+    order (default: every visible card; name one card once per section
+    to share it).  The cost model plans the wavefront order for the
+    H100."""
+
+    def __init__(self, spec: WorkloadSpec, *, devices=None,
+                 lr_schedule=None,
+                 opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                 lookahead: int = 0):
+        spec.validate()
+        for s in spec.sections:
+            validate_section_parallel(s.name, s.arch, s.parallel)
+        self.spec = spec
+        self.opt_cfg = opt_cfg
+        self.lr_fn = lr_schedule or functools.partial(schedules.constant,
+                                                      peak_lr=1e-3)
+        self.graph = spec.to_graph()
+        self.rt = MaestroRuntime(self.graph, devices)
+        self.executor = self.rt.executor()
+        self.last_execution = None
+        #: cross-iteration pipelining depth: how many iterations beyond
+        #: the oldest may be in flight at once (0 ⇒ serialized)
+        self.lookahead = int(lookahead)
+        self._session = self.executor.session()
+        self._it_seq = 0
+        self._inflight: "collections.deque[_Inflight]" = collections.deque()
+        self._retired: "collections.deque[dict]" = collections.deque()
+        self._params: Dict[str, Any] = {}
+        self._opts: Dict[str, Any] = {}
+        self._installed = False
+        self._topo = spec.topo_order()
+        self._crit = spec.critical.name
+        self._trainable = [s.name for s in spec.sections if s.trainable]
+        self._device = {s.name: self.rt.device(s.name)
+                        for s in spec.sections}
+        self._built: Optional[Tuple[int, int, int]] = None
+        if spec.global_batch is not None and spec.seq_len is not None:
+            self._build(spec.global_batch, spec.seq_len,
+                        spec.mbs or spec.global_batch)
+
+    # ------------------------------------------------------------------ #
+    # params / optimizer state
+    # ------------------------------------------------------------------ #
+    def init(self, seed: int = 0):
+        """Init + place every section's params (section ``i`` of the spec
+        from a ``torch.Generator`` seeded ``seed + i`` on its device) and
+        matching optimizer states for the trainable sections."""
+        params = {}
+        for i, s in enumerate(self.spec.sections):
+            dev = self._device[s.name]
+            gen = torch.Generator(device=dev).manual_seed(seed + i)
+            params[s.name] = cm.init_params(s.params, gen, dev)
+        return self.place(params)
+
+    def place(self, params: Dict[str, Any]):
+        """Move per-section param trees onto their sections' devices (a
+        tree already there is taken as it is, not copied) and build
+        matching optimizer states."""
+        placed = {n: tree_map(lambda x, d=self._device[n]:
+                              x.detach().to(d), params[n])
+                  for n in params}
+        opts = {n: adamw.init(placed[n]) for n in self._trainable}
+        return placed, opts
+
+    # ------------------------------------------------------------------ #
+    # shape binding
+    # ------------------------------------------------------------------ #
+    def _ensure_built(self, host: Dict[str, torch.Tensor]) -> None:
+        B = None
+        for s in self.spec.sections:
+            for k in s.inputs:
+                B = len(host[k])
+                break
+            if B is not None:
+                break
+        assert B is not None, "no section declares batch inputs"
+        S = self.spec.seq_len
+        if S is None:
+            for s in self.spec.sections:
+                for k, f in s.inputs.items():
+                    if SEQ in tuple(f.shape):
+                        S = int(host[k].shape[1 + tuple(f.shape).index(SEQ)])
+                        break
+                if S is not None:
+                    break
+        mbs = self.spec.mbs or B
+        if self._built != (B, S or 0, mbs):
+            self._build(B, S, mbs)
+
+    def _build(self, global_batch: int, seq_len: Optional[int],
+               mbs: int) -> None:
+        assert global_batch % mbs == 0, (global_batch, mbs)
+        if getattr(self, "_inflight", None):
+            raise RuntimeError(
+                "cannot rebind workload shapes with iterations in "
+                "flight — drain() first")
+        self.B, self.S, self.mbs = global_batch, seq_len, mbs
+        self.n_mb = global_batch // mbs
+        # the exact-zero fill a consumer takes for an inactive producer
+        self._port_zero: Dict[str, Dict[str, Tuple[Tuple[int, ...],
+                                                   torch.dtype]]] = {
+            s.name: {c.key: ((mbs,) + _resolve_shape(tuple(c.port.shape),
+                                                     seq_len),
+                             _torch_dtype(c.port.dtype))
+                     for c in s.consumes}
+            for s in self.spec.sections}
+        self._built = (global_batch, seq_len or 0, mbs)
+
+    # consumed keys whose cotangents matter (src is a trainable producer)
+    def _ct_keys(self, s: SectionSpec) -> List[str]:
+        by_name = {x.name: x for x in self.spec.sections}
+        return [c.key for c in s.consumes
+                if by_name[c.section].trainable]
+
+    # ------------------------------------------------------------------ #
+    # planning
+    # ------------------------------------------------------------------ #
+    def plan_iteration(self, host, *, reorder: bool = True) -> IterationPlan:
+        """Activation predicates → cost-model 6-tuples → wavefront (or
+        FIFO) sample order → per-section capacity layouts.  ``host`` is
+        the batch (numpy arrays or tensors)."""
+        assert self._built is not None, "runtime not shape-bound yet"
+        view = _numpy_view(_host_batch(host))
+        flags: Dict[str, np.ndarray] = {}
+        n = None
+        for s in self.spec.sections:
+            if s.activation is not None:
+                f = np.asarray(s.activation(view)).astype(bool)
+                flags[s.name] = f
+                n = len(f)
+        if n is None:
+            n = self.B
+        assert n == self.B, (n, self.B)
+        if not flags:
+            # homogeneous batch: every order ties — skip the scheduler
+            reorder = False
+        samples = cmdl.sample_tuples(self.graph, flags, self.S or 1, n=n,
+                                     hw=H100)
+        order, sched = order_samples(samples, reorder=reorder)
+        activation = {name: build_activation(order, f, self.mbs)
+                      for name, f in flags.items()}
+        return IterationPlan(tuple(order), self.mbs, self.n_mb,
+                             activation, sched)
+
+    def _dispatched(self, plan: IterationPlan) -> Dict[str, set]:
+        """Effective per-microbatch dispatch sets: a producer runs on mb
+        ``i`` iff its predicate activates AND some consumer of it is
+        dispatched on ``i`` (work nobody pulls is never submitted)."""
+        disp: Dict[str, set] = {self._crit: set(range(plan.n_mb))}
+        for name in reversed(self._topo):
+            if name == self._crit:
+                continue
+            s = self.spec.section(name)
+            avail: set = set()
+            for p in s.emits:
+                for c in self.spec.consumers_of(name, p.name):
+                    avail |= disp.get(c, set())
+            act = plan.activation.get(name)
+            mine = (set(act.active_mbs) if act is not None
+                    else set(range(plan.n_mb)))
+            disp[name] = mine & avail
+        return disp
+
+    # ------------------------------------------------------------------ #
+    # streaming state: install / state
+    # ------------------------------------------------------------------ #
+    def install(self, params: Dict[str, Any],
+                opts: Dict[str, Any]) -> None:
+        """Adopt per-section params (every section) and optimizer states
+        (at least every trainable section) as the runtime's streaming
+        state.  Worker-side ``upd`` tasks advance this state (the
+        optimizer state in place); read it back with :meth:`state`.
+        Requires a quiescent runtime (nothing in flight)."""
+        if self._inflight:
+            raise RuntimeError(
+                "install() requires a quiescent runtime — retire()/"
+                "drain() the in-flight iterations first")
+        missing = {s.name for s in self.spec.sections} - set(params)
+        if missing:
+            raise ValueError(f"install: missing params for sections "
+                             f"{sorted(missing)}")
+        missing_o = set(self._trainable) - set(opts)
+        if missing_o:
+            raise ValueError(f"install: missing optimizer state for "
+                             f"trainable sections {sorted(missing_o)}")
+        for name in self._device:
+            stream = self.rt.workers[name].stream
+            if stream is None:
+                continue
+            # the section's stream reads (and frees) what the main thread
+            # allocated: its memory must not return to the main stream's
+            # pool while that stream's work is queued
+            for x in tree_leaves(params[name]) + tree_leaves(
+                    opts.get(name, {})):
+                if isinstance(x, torch.Tensor) and x.is_cuda:
+                    x.record_stream(stream)
+        self._params = dict(params)
+        self._opts = dict(opts)
+        self._installed = True
+
+    def state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Snapshot of the current (params, opts) streaming state.  Only
+        consistent across sections when nothing is in flight."""
+        return dict(self._params), dict(self._opts)
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._inflight)
+
+    # ------------------------------------------------------------------ #
+    # one training iteration on the executor (streaming)
+    # ------------------------------------------------------------------ #
+    def submit_iteration(self, batch, step_idx, *,
+                         reorder: bool = True,
+                         plan: Optional[IterationPlan] = None,
+                         consts: Optional[Dict[str, Dict[str, Any]]] = None,
+                         return_grads: bool = False,
+                         timeout: float = 300.0) -> int:
+        """Enqueue one global-batch iteration onto the section streams
+        and return its sequence number.  All tasks — including each
+        trainable section's grad-finalize + AdamW ``upd`` — run on the
+        section workers; the main thread only moves the iteration's
+        inputs and consts onto the sections' devices and blocks beyond
+        that only at the ``lookahead`` gate (when more than ``lookahead``
+        iterations are already in flight, the oldest is retired first and
+        its metrics buffered for the next :meth:`retire`)."""
+        assert self._installed, \
+            "call install(params, opts) before submit_iteration()"
+        while len(self._inflight) > self.lookahead:
+            self._retired.append(self._retire_oldest(timeout=timeout))
+        host = _host_batch(batch)
+        self._ensure_built(host)
+        if plan is None:
+            plan = self.plan_iteration(host, reorder=reorder)
+        assert plan.mbs == self.mbs and plan.n_mb == self.n_mb, \
+            (plan.mbs, plan.n_mb, self.mbs, self.n_mb)
+        by_name = {s.name: s for s in self.spec.sections}
+        disp = self._dispatched(plan)
+        m = plan.mbs
+        q = self.rt.queue
+        rec = _Inflight(self._it_seq, f"s{self._it_seq}", step_idx, plan,
+                        return_grads, self._trainable)
+        self._it_seq += 1
+        it = rec.scope     # iteration-scoped tag namespace (evicted on
+        #                    retirement: cross-iteration prefetch cannot
+        #                    alias message keys across iterations)
+
+        # ---- main thread: every section's inputs on its device --------- #
+        order_t = torch.as_tensor(plan.order, dtype=torch.int64)
+        on_device: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+        def ordered(k: str, dev: torch.device) -> torch.Tensor:
+            if (k, dev) not in on_device:
+                on_device[(k, dev)] = host[k].index_select(
+                    0, order_t).to(dev)
+            return on_device[(k, dev)]
+
+        prepared: Dict[str, Dict[int, Dict[str, Any]]] = {}
+        for s in self.spec.sections:
+            dev = self._device[s.name]
+            given = (consts or {}).get(s.name, {})
+            missing = set(s.consts) - set(given)
+            if missing:
+                raise ValueError(
+                    f"section {s.name!r}: missing consts "
+                    f"{sorted(missing)}")
+            placed_consts = {k: torch.as_tensor(given[k]).to(dev)
+                             for k in s.consts}
+            act = plan.activation.get(s.name)
+            if act is not None:
+                act_idx = torch.as_tensor(act.idx, dtype=torch.int64,
+                                          device=dev)
+                act_valid = torch.as_tensor(act.valid, device=dev)
+            cons_act = {}
+            for c in s.consumes:
+                sa = plan.activation.get(c.section)
+                if sa is not None:
+                    cons_act[c.section] = (
+                        torch.as_tensor(sa.idx, dtype=torch.int64,
+                                        device=dev),
+                        torch.as_tensor(sa.valid, device=dev))
+            per_mb: Dict[int, Dict[str, Any]] = {}
+            for i in sorted(disp[s.name]):
+                rows = slice(i * m, (i + 1) * m)
+                out = {}
+                for k in s.inputs:
+                    v = ordered(k, dev)[rows]
+                    if act is not None:
+                        v = v.index_select(0, act_idx[i])
+                    out[k] = v
+                if act is not None:
+                    out["act_valid"] = act_valid[i]
+                for src, (idx_t, valid_t) in cons_act.items():
+                    out[f"{src}.act_idx"] = idx_t[i]
+                    out[f"{src}.act_valid"] = valid_t[i]
+                out.update(placed_consts)
+                per_mb[i] = out
+            prepared[s.name] = per_mb
+        for dev in set(self._device.values()):
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                rec.ready[dev] = ev
+
+        def mb_inputs(s: SectionSpec, i: int) -> Dict[str, Any]:
+            """The main thread's tensors for (section, mb), marked as in
+            use by the calling worker's stream (which waited for them)."""
+            return {k: adopt(v) for k, v in prepared[s.name][i].items()}
+
+        def wait_main(name: str) -> None:
+            ev = rec.ready.get(self._device[name])
+            if ev is not None:
+                torch.cuda.current_stream(self._device[name]).wait_event(ev)
+
+        def pull_consumed(s: SectionSpec, i: int) -> Dict[str, Any]:
+            dev = self._device[s.name]
+            pulled, stalled = {}, False
+            for c in s.consumes:
+                if i in disp.get(c.section, ()):
+                    pulled[c.key] = q.pull(
+                        c.section, s.name, f"{it}/{c.key}.{i}",
+                        device=dev, timeout=timeout)
+                    stalled = True
+                else:
+                    # inactive producer: the port's contribution is the
+                    # exact zero a colocated step computes
+                    shp, dt = self._port_zero[s.name][c.key]
+                    pulled[c.key] = torch.zeros(shp, dtype=dt, device=dev)
+            if stalled:
+                mark_start()      # dependency wait is idle, not busy
+            return pulled
+
+        def fwd_task(s: SectionSpec, i: int):
+            def fn():
+                pulled = pull_consumed(s, i)
+                inputs = {**mb_inputs(s, i), **pulled}
+                with torch.no_grad():
+                    out = s.fn(self._params[s.name], inputs)
+                if s.trainable:
+                    rec.ctx[(s.name, i)] = inputs
+                for p in s.emits:
+                    for cname in self.spec.consumers_of(s.name, p.name):
+                        if i in disp.get(cname, ()):
+                            q.push(s.name, cname,
+                                   f"{it}/{s.name}.{p.name}.{i}",
+                                   out[p.name])
+                return out
+            return fn
+
+        def crit_task(i: int):
+            s = by_name[self._crit]
+            ct_keys = self._ct_keys(s)
+
+            def fn():
+                pulled = pull_consumed(s, i)
+                rest = {**mb_inputs(s, i),
+                        **{k: v for k, v in pulled.items()
+                           if k not in ct_keys}}
+                params = _grad_leaves(self._params[s.name])
+                p_leaves = tree_leaves(params)
+                cts = {k: pulled[k].detach().requires_grad_()
+                       for k in ct_keys}
+                val = s.fn(params, {**rest, **cts})
+                loss, aux = (val if s.loss_aux else (val, None))
+                grads = _grads([loss], p_leaves + list(cts.values()))
+                g_p, g_c = grads[:len(p_leaves)], dict(
+                    zip(cts, grads[len(p_leaves):]))
+                for c in s.consumes:
+                    if c.key in g_c and i in disp.get(c.section, ()):
+                        q.push(s.name, c.section,
+                               f"{it}/ct.{c.key}.{i}", g_c[c.key])
+                loss = loss.detach()
+                a = rec.crit_acc
+                a["loss"] = (torch.zeros((), dtype=torch.float32,
+                                         device=loss.device)
+                             if a["loss"] is None else a["loss"]) + loss
+                if aux is not None:
+                    aux = {k: v.detach() for k, v in aux.items()}
+                    a["aux"] = aux if a["aux"] is None else {
+                        k: a["aux"][k] + v for k, v in aux.items()}
+                rec.acc[s.name]["g"] = _accumulate(rec.acc[s.name]["g"],
+                                                   g_p)
+                return loss
+            return fn
+
+        def bwd_task(s: SectionSpec, i: int):
+            ct_keys = self._ct_keys(s)
+
+            def fn():
+                dev = self._device[s.name]
+                cts = {}
+                for p in s.emits:
+                    consumer = self.spec.consumers_of(s.name, p.name)[0]
+                    cts[p.name] = q.pull(
+                        consumer, s.name, f"{it}/ct.{s.name}.{p.name}.{i}",
+                        device=dev, timeout=timeout)
+                mark_start()
+                inputs = rec.ctx.pop((s.name, i))
+                # the vjp recomputes the forward under autograd, here on
+                # the producer's worker and stream
+                params = _grad_leaves(self._params[s.name])
+                p_leaves = tree_leaves(params)
+                cin = {k: inputs[k].detach().requires_grad_()
+                       for k in ct_keys}
+                out = s.fn(params, {**inputs, **cin})
+                names = list(cts)
+                grads = _grads([out[n] for n in names],
+                               p_leaves + list(cin.values()),
+                               [cts[n] for n in names])
+                g_p = grads[:len(p_leaves)]
+                g_c = dict(zip(cin, grads[len(p_leaves):]))
+                for c in s.consumes:
+                    if c.key in g_c and i in disp.get(c.section, ()):
+                        q.push(s.name, c.section,
+                               f"{it}/ct.{c.key}.{i}", g_c[c.key])
+                rec.acc[s.name]["g"] = _accumulate(rec.acc[s.name]["g"],
+                                                   g_p)
+                return True
+            return fn
+
+        n_mb = plan.n_mb
+        trainable = list(self._trainable)
+
+        def upd_task(name: str):
+            peers = [n for n in trainable if n != name]
+
+            def fn():
+                params = self._params[name]
+                leaves = tree_leaves(params)
+                g = rec.acc[name]["g"]
+                with torch.no_grad():
+                    if g is None:      # section never dispatched: zero
+                        g = [torch.zeros(x.shape, dtype=torch.float32,
+                                         device=x.device) for x in leaves]
+                    gs = [(a / n_mb).to(x.dtype) for a, x in zip(g, leaves)]
+                    # joint grad-norm rendezvous: every trainable section
+                    # pushes its per-leaf sum-of-squares vector to every
+                    # peer BEFORE pulling any (pushes never block → no
+                    # wait cycle), then all of them reduce the identical
+                    # host vector in sorted-section order — bitwise the
+                    # one global clip threshold of a colocated step
+                    vec = torch.stack([x.float().square().sum() for x in gs])
+                    for p in peers:
+                        q.push(name, p, f"{it}/gnorm.{name}", vec)
+                    vecs = {name: vec.cpu().numpy()}
+                    for p in peers:
+                        vecs[p] = q.pull(p, name, f"{it}/gnorm.{p}",
+                                         timeout=timeout).cpu().numpy()
+                    if peers:
+                        mark_start()   # rendezvous wait is idle, not busy
+                    gnorm = torch.sqrt(torch.from_numpy(np.concatenate(
+                        [vecs[n] for n in sorted(vecs)])).sum()).to(
+                            self._device[name])
+                grads = tree_unflatten(params, gs)
+                lr = self.lr_fn(rec.step_idx)
+                if self.opt_cfg.clip_norm > 0:
+                    p2, o2, _ = adamw.update(grads, self._opts[name], lr,
+                                             self.opt_cfg, gnorm=gnorm)
+                else:
+                    p2, o2, _ = adamw.update(grads, self._opts[name], lr,
+                                             self.opt_cfg)
+                self._params[name], self._opts[name] = p2, o2
+                out = {"grad_norm": gnorm, "lr": lr}
+                if rec.return_grads:
+                    out["grads"] = grads
+                if name == self._crit:
+                    out["loss"] = (rec.crit_acc["loss"] / n_mb).float()
+                    if rec.crit_acc["aux"] is not None:
+                        out["aux"] = {k: (v / n_mb).float() for k, v
+                                      in rec.crit_acc["aux"].items()}
+                return out
+            return fn
+
+        def on_stream(name: str, fn):
+            """Order the task after the main thread's writes."""
+            def run():
+                wait_main(name)
+                return fn()
+            return run
+
+        dispatches: List[Dispatch] = []
+        for name in self._topo:
+            if name == self._crit:
+                continue
+            s = by_name[name]
+            for i in sorted(disp[name]):
+                dispatches.append(Dispatch(name, f"fwd{i}", on_stream(
+                    name, fwd_task(s, i))))
+        for i in range(plan.n_mb):
+            dispatches.append(Dispatch(self._crit, f"mb{i}", on_stream(
+                self._crit, crit_task(i))))
+        for name in reversed(self._topo):
+            s = by_name[name]
+            if name == self._crit or not s.trainable:
+                continue
+            for i in sorted(disp[name]):
+                dispatches.append(Dispatch(name, f"bwd{i}", on_stream(
+                    name, bwd_task(s, i))))
+        # grad-finalize + AdamW run on each trainable section's OWN worker:
+        # the per-section FIFO serializes update(i) before that section's
+        # fwd(i+1) while other sections stream ahead independently
+        for name in self._topo:
+            if by_name[name].trainable:
+                dispatches.append(Dispatch(name, "upd", on_stream(
+                    name, upd_task(name))))
+        self._session.submit(rec.seq, dispatches)
+        self._inflight.append(rec)
+        return rec.seq
+
+    # ------------------------------------------------------------------ #
+    # retirement: collect one iteration's metrics
+    # ------------------------------------------------------------------ #
+    def _retire_oldest(self, *, timeout: float = 300.0) -> dict:
+        rec = self._inflight.popleft()
+        try:
+            execution = self._session.retire(rec.seq, timeout=timeout)
+        finally:
+            leftovers = self.rt.queue.evict_scope(rec.scope)
+            if leftovers:
+                _log.warning(
+                    "iteration %s retired with undrained messages "
+                    "(producer pushed, no consumer pulled): %s",
+                    rec.step_idx, leftovers)
+        self.last_execution = execution
+        upd = {n: execution.results[(n, "upd")] for n in self._trainable}
+        crit = upd[self._crit]
+        metrics = {"loss": crit["loss"], "grad_norm": crit["grad_norm"],
+                   "lr": crit["lr"], "execution": execution,
+                   "plan": rec.plan, "n_tasks": execution.task_counts}
+        for k, v in crit.get("aux", {}).items():
+            metrics[k] = v
+        if rec.return_grads:
+            metrics["grads"] = {n: upd[n]["grads"]
+                                for n in self._trainable}
+        return metrics
+
+    def retire(self, *, timeout: float = 300.0) -> dict:
+        """Block until the oldest outstanding iteration completes and
+        return its metrics dict (loss / joint grad_norm / lr / aux
+        scalars / realized ``execution`` timeline / ``plan`` /
+        per-section ``n_tasks``).  Iterations auto-retired by the
+        lookahead gate are returned first, in order."""
+        if self._retired:
+            return self._retired.popleft()
+        if not self._inflight:
+            raise RuntimeError("retire(): no iteration in flight")
+        return self._retire_oldest(timeout=timeout)
+
+    def drain(self, *, timeout: float = 300.0) -> List[dict]:
+        """Retire every outstanding iteration (oldest first); returns
+        their metrics in submission order.  Leaves the runtime quiescent
+        — required before ``install()`` or shape rebinding."""
+        out = []
+        while self._retired:
+            out.append(self._retired.popleft())
+        while self._inflight:
+            out.append(self._retire_oldest(timeout=timeout))
+        return out
+
+    # ------------------------------------------------------------------ #
+    # serialized compatibility wrapper
+    # ------------------------------------------------------------------ #
+    def train_iteration(self, params, opts, batch, step_idx, *,
+                        reorder: bool = True,
+                        plan: Optional[IterationPlan] = None,
+                        consts: Optional[Dict[str, Dict[str, Any]]] = None,
+                        return_grads: bool = False,
+                        timeout: float = 300.0):
+        """One serialized global-batch iteration: ``install`` the given
+        state, ``submit_iteration``, ``retire``, and return ``(params,
+        opts, metrics)``.  Exactly the streaming path at lookahead
+        depth 0 — there is no second execution mode.  ``opts``' tensors
+        are updated in place."""
+        if self._inflight or self._retired:
+            raise RuntimeError(
+                "train_iteration() is the serialized wrapper; it cannot "
+                "interleave with in-flight submit_iteration()/retire() "
+                "streams — drain() first")
+        self.install(params, opts)
+        self.submit_iteration(batch, step_idx, reorder=reorder, plan=plan,
+                              consts=consts, return_grads=return_grads,
+                              timeout=timeout)
+        metrics = self.retire(timeout=timeout)
+        new_params, new_opts = self.state()
+        return new_params, new_opts, metrics
+
+    # ------------------------------------------------------------------ #
+    def shutdown(self):
+        self.rt.shutdown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+        return False

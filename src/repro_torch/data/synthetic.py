@@ -40,3 +40,23 @@ def lm_batches(*, batch: int, seq_len: int, vocab: int, seed: int = 0,
             "loss_mask": torch.ones((batch, seq_len), dtype=torch.float32,
                                     device=device),
         }
+
+
+def routed_lm_batches(*, batch: int, seq_len: int, vocab: int,
+                      specialist_ratio: float = 0.3, seed: int = 0,
+                      device="cuda") -> Iterator[Dict[str, torch.Tensor]]:
+    """LM batches with a per-sample ``domain`` flag (1 = specialist
+    domain, int32): the data-dependent activation signal for multi-teacher
+    distillation — specialist-domain samples route to the second teacher
+    section, everything else bypasses it."""
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = torch.from_numpy(_lm_ngram_tokens(rng, batch, seq_len, vocab))
+        domain = (rng.random(batch) < specialist_ratio).astype(np.int32)
+        yield {
+            "tokens": toks[:, :-1].to(device),
+            "labels": toks[:, 1:].to(device),
+            "loss_mask": torch.ones((batch, seq_len), dtype=torch.float32,
+                                    device=device),
+            "domain": torch.from_numpy(domain).to(device),
+        }

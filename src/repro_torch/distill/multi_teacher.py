@@ -1,0 +1,220 @@
+"""Multi-teacher knowledge distillation with data-dependent routing.
+Counterpart of ``repro/distill/multi_teacher.py``.
+
+TWO frozen teacher sections feed one student.  The generalist teacher
+sees every sample; the *specialist* teacher activates only on samples
+whose ``domain`` flag routes to it (data-dependent activation), so the
+wavefront scheduler groups specialist samples into fewer microbatches and
+the specialist section never runs on pure-generalist microbatches.
+
+Per §3.1 both teachers' output layers are colocated with the student
+(consts ``w_a`` / ``w_b``): only hidden states cross the section
+boundaries, and the student computes
+
+    loss = (1-α)·CE + α·T²·(KL_a + KL_b·[domain])
+
+with the chunked-vocab ``distill_kl`` kernel.  Specialist rows travel in
+the capacity layout (gathered + zero-padded) and are scattered back to
+sample slots inside the student loss; the KL_b token mask comes from
+scattering ``act_valid`` — an all-generalist microbatch contributes an
+exact-zero KL_b.
+
+:func:`multi_teacher_spec` is run by the generic
+:class:`repro_torch.core.workload.CompoundRuntime`;
+:func:`build_colocated_step` is the one-device oracle (a Python loop over
+the microbatches of :func:`colocated_batch`) the runtime is held against.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import workload as wl
+from repro_torch.core.types import ArchConfig, ParallelConfig
+from repro_torch.distill.workload import teacher_hidden, teacher_unembedding
+from repro_torch.kernels import ops as kops
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim import adamw, schedules
+
+LM_KEYS = ("tokens", "labels", "loss_mask")
+
+
+# --------------------------------------------------------------------------- #
+# Shared arithmetic (oracle ≡ disaggregated)
+# --------------------------------------------------------------------------- #
+def specialist_hidden(pt, tb_cfg: ArchConfig, tokens: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Specialist-teacher hidden states for the gathered (capacity-layout)
+    domain samples of one microbatch, padding rows masked to exact zero.
+    tokens [cap, S], valid [cap] → h [cap, S, D_b]."""
+    h = teacher_hidden(pt, tb_cfg, tokens)
+    return h * valid[:, None, None].to(h.dtype)
+
+
+def student_mt_loss(ps, s_cfg: ArchConfig, batch: dict, h_a, w_a, h_b,
+                    b_idx, b_valid, w_b, *, alpha: float,
+                    temperature: float):
+    """CE + α·T²·(KL vs generalist + domain-masked KL vs specialist).
+    h_b arrives in capacity layout and is scattered back to sample slots
+    by ``b_idx``; the KL_b mask is the scattered ``b_valid``."""
+    h_s, _ = tf.lm_forward(ps, s_cfg, batch, remat=True, logits_out=False)
+    logits = tf.unembed(ps, s_cfg, h_s)
+    ce = cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    B, S, Ds = h_s.shape
+    w_s = ps["embed"].T if s_cfg.tie_embeddings else ps["unembed"]
+    hsf = h_s.reshape(B * S, Ds)
+    lm = batch["loss_mask"].reshape(B * S)
+    T = temperature
+    kl_a = kops.distill_kl(hsf, w_s, h_a.detach().reshape(B * S, -1),
+                           w_a.detach(), mask=lm, temperature=T)
+    b_idx = b_idx.long()
+    hb = torch.zeros((B,) + tuple(h_b.shape[1:]), dtype=h_b.dtype,
+                     device=h_b.device).index_add(0, b_idx, h_b.detach())
+    mb = torch.zeros((B,), dtype=torch.float32,
+                     device=b_valid.device).index_add(0, b_idx,
+                                                      b_valid.float())
+    mask_b = (batch["loss_mask"] * mb[:, None]).reshape(B * S)
+    kl_b = kops.distill_kl(hsf, w_s, hb.reshape(B * S, -1), w_b.detach(),
+                           mask=mask_b, temperature=T)
+    loss = (1 - alpha) * ce + alpha * T * T * (kl_a + kl_b)
+    return loss, {"ce": ce, "kl_a": kl_a, "kl_b": kl_b}
+
+
+# --------------------------------------------------------------------------- #
+# The declaration (run it with CompoundRuntime — no bespoke runtime class)
+# --------------------------------------------------------------------------- #
+def multi_teacher_spec(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
+                       s_cfg: ArchConfig, *,
+                       ta_parallel: ParallelConfig,
+                       tb_parallel: ParallelConfig,
+                       s_parallel: ParallelConfig,
+                       global_batch: int, seq_len: int, mbs: int,
+                       alpha: float = 0.5, temperature: float = 2.0
+                       ) -> wl.WorkloadSpec:
+    """Two frozen teachers → one student, specialist routed by the
+    per-sample ``domain`` flag."""
+    h_a = wl.Port("hidden", (wl.SEQ, ta_cfg.d_model), ta_cfg.dtype)
+    h_b = wl.Port("hidden", (wl.SEQ, tb_cfg.d_model), tb_cfg.dtype)
+
+    def ta_fn(pt, x):
+        return {"hidden": teacher_hidden(pt, ta_cfg, x["tokens"])}
+
+    def tb_fn(pt, x):
+        return {"hidden": specialist_hidden(pt, tb_cfg, x["tokens"],
+                                            x["act_valid"])}
+
+    def s_fn(ps, x):
+        batch = {k: x[k] for k in LM_KEYS}
+        return student_mt_loss(
+            ps, s_cfg, batch, x["teacher_a.hidden"], x["w_a"],
+            x["teacher_b.hidden"], x["teacher_b.act_idx"],
+            x["teacher_b.act_valid"], x["w_b"], alpha=alpha,
+            temperature=temperature)
+
+    tok = {"tokens": wl.Field((wl.SEQ,), "int32")}
+    teacher_a = wl.SectionSpec(
+        "teacher_a", ta_cfg, ta_parallel, ta_fn, tf.lm_specs(ta_cfg),
+        inputs=tok, emits=(h_a,), mode="fwd_only")
+    teacher_b = wl.SectionSpec(
+        "teacher_b", tb_cfg, tb_parallel, tb_fn, tf.lm_specs(tb_cfg),
+        inputs=tok, emits=(h_b,), mode="fwd_only",
+        activation=lambda b: np.asarray(b["domain"]).astype(bool))
+    student = wl.SectionSpec(
+        "student", s_cfg, s_parallel, s_fn, tf.lm_specs(s_cfg),
+        inputs={"tokens": wl.Field((wl.SEQ,), "int32"),
+                "labels": wl.Field((wl.SEQ,), "int32"),
+                "loss_mask": wl.Field((wl.SEQ,), "float32")},
+        consumes=(wl.Consume("teacher_a", h_a),
+                  wl.Consume("teacher_b", h_b)),
+        loss=True, loss_aux=True, critical=True,
+        consts={"w_a": wl.Field((ta_cfg.d_model, ta_cfg.padded_vocab),
+                                ta_cfg.dtype),
+                "w_b": wl.Field((tb_cfg.d_model, tb_cfg.padded_vocab),
+                                tb_cfg.dtype)})
+    return wl.WorkloadSpec("multi_teacher",
+                           (teacher_a, teacher_b, student),
+                           seq_len=seq_len, global_batch=global_batch,
+                           mbs=mbs)
+
+
+def teacher_unembed(params_t, t_cfg: ArchConfig, device) -> torch.Tensor:
+    """A teacher's (student-colocated) output layer, on the student
+    section's device."""
+    return teacher_unembedding(params_t, t_cfg).to(device)
+
+
+# --------------------------------------------------------------------------- #
+# Colocated one-device oracle
+# --------------------------------------------------------------------------- #
+def colocated_batch(batch: dict, plan: wl.IterationPlan, device=None
+                    ) -> dict:
+    """Permute into the plan's dispatch order, pre-split into
+    [n_mb, mbs, ...], and attach the specialist capacity layout — the
+    oracle's loop sees exactly the executor's microbatch composition.
+    Tensors land on ``device`` (default: the CPU)."""
+    order = torch.as_tensor(plan.order, dtype=torch.int64)
+    out = {}
+    for k in LM_KEYS:
+        v = torch.as_tensor(batch[k]).cpu().index_select(0, order)
+        out[k] = v.reshape((plan.n_mb, plan.mbs) + tuple(v.shape[1:]))
+    act = plan.activation["teacher_b"]
+    out["b_idx"] = torch.as_tensor(act.idx, dtype=torch.int64)
+    out["b_valid"] = torch.as_tensor(act.valid)
+    return {k: v.to(device or "cpu") for k, v in out.items()}
+
+
+def build_colocated_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
+                         s_cfg: ArchConfig, *, alpha: float = 0.5,
+                         temperature: float = 2.0, lr_schedule=None,
+                         opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                         return_grads: bool = False):
+    """-> ``step(params_s, opt_state, params_a, params_b, w_a, w_b, batch,
+    step_idx) -> (params_s, opt_state, metrics)`` over a batch from
+    :func:`colocated_batch`: per microbatch, both teacher forwards (the
+    specialist on its gathered domain samples) + the student loss, the
+    student's gradients accumulated in float32 in dispatch order, one
+    AdamW update (``opt_state`` in place)."""
+    lr_fn = lr_schedule or functools.partial(schedules.constant,
+                                             peak_lr=1e-3)
+
+    def step(params_s, opt_state, params_a, params_b, w_a, w_b, batch,
+             step_idx):
+        n_mb = batch["tokens"].shape[0]
+        leaves = tree_leaves(params_s)
+        g_acc, l_sum = None, None
+        for i in range(n_mb):
+            mb = {k: batch[k][i] for k in LM_KEYS}
+            bidx, bval = batch["b_idx"][i], batch["b_valid"][i]
+            h_a = teacher_hidden(params_a, ta_cfg, mb["tokens"])
+            h_b = specialist_hidden(params_b, tb_cfg,
+                                    mb["tokens"].index_select(0, bidx), bval)
+            p = tree_map(lambda x: x.detach().requires_grad_(), params_s)
+            loss, _ = student_mt_loss(p, s_cfg, mb, h_a, w_a, h_b, bidx,
+                                      bval, w_b, alpha=alpha,
+                                      temperature=temperature)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            with torch.no_grad():
+                if g_acc is None:
+                    g_acc = [torch.zeros(g.shape, dtype=torch.float32,
+                                         device=g.device) for g in grads]
+                    l_sum = torch.zeros((), dtype=torch.float32,
+                                        device=loss.device)
+                for a, g in zip(g_acc, grads):
+                    a.add_(g.float())
+                l_sum = l_sum + loss.detach()
+        with torch.no_grad():
+            grads = tree_unflatten(params_s, [(a / n_mb).to(x.dtype) for a, x
+                                              in zip(g_acc, leaves)])
+        lr = lr_fn(step_idx)
+        new_p, new_opt, gnorm = adamw.update(grads, opt_state, lr, opt_cfg)
+        metrics = {"loss": (l_sum / n_mb).float(), "grad_norm": gnorm,
+                   "lr": lr}
+        if return_grads:
+            metrics["grads"] = grads
+        return new_p, new_opt, metrics
+
+    return step

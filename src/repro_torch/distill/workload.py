@@ -1,25 +1,34 @@
 """Knowledge distillation with the teacher's output layer colocated with
-the student (paper §2.2, §3.1), on one device.
+the student (paper §2.2, §3.1).
 
-Counterpart of ``repro/distill/workload.py``'s ``teacher_hidden``,
-``distill_loss`` and ``build_colocated_step``.  The teacher body is a
+Counterpart of ``repro/distill/workload.py``.  The teacher body is a
 forward-only section that produces final hidden states; the teacher's
 unembedding lives with the student, which computes
 CE + α·T²·KL(p_teacher ‖ p_student) from both models' hidden states
 through the chunked-vocab ``distill_kl`` kernel, so neither model's
-[N, V] distillation logits are formed.  ``distill_spec`` and
-``DistillRuntime`` (the disaggregated compound runtime) are not ported
-yet (ROADMAP.md, A4).
+[N, V] distillation logits are formed.  Two execution modes:
+
+* ``build_colocated_step`` — teacher and student in one step on one
+  device (the numerical oracle);
+* ``DistillRuntime`` — disaggregated: teacher and student sections on
+  their own devices (or one card shared, each section on its own worker
+  thread and CUDA stream), hidden states flowing through the message
+  queue; a declaration (``distill_spec``) on the generic
+  :class:`~repro_torch.core.workload.CompoundRuntime`.
 """
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
 
+from repro_torch.core import workload as wl
 from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, schedules
 from repro_torch.train.step import (accumulate_and_update,
                                     check_single_device, default_lr_schedule,
                                     num_microbatches)
@@ -99,3 +108,115 @@ def build_colocated_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
 
     return step
 
+
+
+# --------------------------------------------------------------------------- #
+# Declarative workload spec + thin runtime wrapper (paper-faithful)
+# --------------------------------------------------------------------------- #
+def distill_spec(t_cfg: ArchConfig, s_cfg: ArchConfig, *,
+                 teacher_parallel: ParallelConfig,
+                 student_parallel: ParallelConfig,
+                 alpha: float = 0.5, temperature: float = 2.0
+                 ) -> wl.WorkloadSpec:
+    """KD as a declaration: a forward-only teacher section emitting final
+    hidden states, and the critical student section computing CE + KL
+    with the teacher's (colocated) output layer as a const.  Left
+    shape-polymorphic (no global_batch/seq_len): the runtime binds shapes
+    from the first batch, one microbatch per iteration."""
+    hidden = wl.Port("hidden", (wl.SEQ, t_cfg.d_model), t_cfg.dtype)
+
+    def teacher_fn(pt, x):
+        return {"hidden": teacher_hidden(pt, t_cfg, x["tokens"],
+                                         remat=teacher_parallel.remat)}
+
+    def student_fn(ps, x):
+        batch = {"tokens": x["tokens"], "labels": x["labels"],
+                 "loss_mask": x["loss_mask"]}
+        loss, met = distill_loss(
+            ps, s_cfg, batch, x["teacher.hidden"], x["w_t"], alpha=alpha,
+            temperature=temperature, remat=student_parallel.remat)
+        return loss, {"ce": met["ce"], "kl": met["kl"]}
+
+    teacher = wl.SectionSpec(
+        "teacher", t_cfg, teacher_parallel, teacher_fn,
+        tf.lm_specs(t_cfg),
+        inputs={"tokens": wl.Field((wl.SEQ,), "int32")},
+        emits=(hidden,), mode="fwd_only")
+    student = wl.SectionSpec(
+        "student", s_cfg, student_parallel, student_fn,
+        tf.lm_specs(s_cfg),
+        inputs={"tokens": wl.Field((wl.SEQ,), "int32"),
+                "labels": wl.Field((wl.SEQ,), "int32"),
+                "loss_mask": wl.Field((wl.SEQ,), "float32")},
+        consumes=(wl.Consume("teacher", hidden),),
+        loss=True, loss_aux=True, critical=True,
+        consts={"w_t": wl.Field((t_cfg.d_model, t_cfg.padded_vocab),
+                                t_cfg.dtype)})
+    return wl.WorkloadSpec("distill", (teacher, student))
+
+
+class DistillRuntime:
+    """Teacher and student sections on their own devices, hidden states
+    flowing through the message queue: a thin declaration over
+    :class:`~repro_torch.core.workload.CompoundRuntime` (``distill_spec``
+    above).
+
+    ``devices`` lists the teacher's device, then the student's (default:
+    every visible card; ``[torch.device("cuda:0")] * 2`` shares one card,
+    ``["cpu", "cpu"]`` runs on the host).  ``train_iteration`` updates
+    ``opt``'s tensors in place."""
+
+    def __init__(self, t_cfg: ArchConfig, s_cfg: ArchConfig, *,
+                 teacher_parallel: ParallelConfig,
+                 student_parallel: ParallelConfig,
+                 devices=None, alpha: float = 0.5, temperature: float = 2.0,
+                 lr: float = 1e-3):
+        self.t_cfg, self.s_cfg = t_cfg, s_cfg
+        self.alpha, self.temperature = alpha, temperature
+        self.spec = distill_spec(t_cfg, s_cfg,
+                                 teacher_parallel=teacher_parallel,
+                                 student_parallel=student_parallel,
+                                 alpha=alpha, temperature=temperature)
+        self.runtime = wl.CompoundRuntime(
+            self.spec, devices=devices,
+            lr_schedule=functools.partial(schedules.constant, peak_lr=lr))
+        self.rt = self.runtime.rt
+        self.graph = self.runtime.graph
+        self.executor = self.runtime.executor
+        self.last_execution = None
+
+    # ------------------------------------------------------------------ #
+    def init(self, seed: int = 0) -> Tuple:
+        params, opts = self.runtime.init(seed)
+        return params["teacher"], params["student"], opts["student"]
+
+    def teacher_unembed(self, params_t) -> torch.Tensor:
+        """The teacher's output layer, on the student section's device."""
+        return teacher_unembedding(params_t, self.t_cfg).to(
+            self.rt.device("student"))
+
+    def train_iteration(self, params_t, params_s, opt, batch, step_idx, *,
+                        w_t=None, timeout: float = 300.0):
+        """One global-batch iteration on the compound executor: teacher
+        fwd (its own worker) → hidden-state push → student pull +
+        loss/grads → the student's AdamW update on its worker, with the
+        realized timeline on ``last_execution``.  Returns (params_s, opt,
+        metrics)."""
+        if w_t is None:
+            w_t = self.teacher_unembed(params_t)
+        params, opts, metrics = self.runtime.train_iteration(
+            {"teacher": params_t, "student": params_s},
+            {"student": opt}, batch, step_idx,
+            consts={"student": {"w_t": w_t}}, timeout=timeout)
+        self.last_execution = metrics["execution"]
+        return params["student"], opts["student"], metrics
+
+    def shutdown(self):
+        self.runtime.shutdown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+        return False

@@ -7,7 +7,11 @@ carries a hash of the source, of every ``csrc/*.cuh`` header it includes
 (``#include "..."``, followed through headers) and of the flags, so an
 edited source or header is rebuilt and a built one is reused.
 ``build_all`` runs ``build`` for several sources on threads, so their
-``nvcc`` runs overlap.  Nothing here runs when the module is imported.
+``nvcc`` runs overlap.  ``build`` is safe to call from several threads at
+once (the compound runtime's section workers do): one lock per source
+name lets one thread compile and load it while the others wait for that
+``Built``.  :func:`count_launch` bumps a wrapper's launch counter exactly
+under threads.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -37,6 +42,9 @@ class Built:
 
 
 _LOADED: dict[str, Built] = {}
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -66,10 +74,24 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def count_launch(fn) -> None:
+    """``fn.launches += 1`` as one step under threads: a kernel wrapper
+    calls it where it launches its kernel."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` (once per process) and load it."""
-    if name in _LOADED:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        if name not in _LOADED:
+            _LOADED[name] = _build(name)
         return _LOADED[name]
+
+
+def _build(name: str) -> Built:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _key_sources(src):
@@ -91,10 +113,8 @@ def build(name: str) -> Built:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
         log_path.write_text(log)
         os.replace(tmp, out)
-    built = Built(ctypes.CDLL(str(out)), out, seconds,
-                  log_path.read_text() if log_path.exists() else "")
-    _LOADED[name] = built
-    return built
+    return Built(ctypes.CDLL(str(out)), out, seconds,
+                 log_path.read_text() if log_path.exists() else "")
 
 
 def build_all(names) -> dict[str, Built]:

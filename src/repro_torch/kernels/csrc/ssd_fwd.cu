@@ -76,8 +76,11 @@
 //   80GB HBM3 at 700 W, chip_smoke.py).
 // f32 -> three kernels, f32 FMAs on the CUDA cores (67 TFLOP/s peak), for
 // the f32 checks (TF32 would break their tolerances):
-//   1. per (chunk, h, b): cum by one thread, written out for kernels 2 and
-//      3, and the chunk's own state S_c to f32 scratch [b,h,nc,p,n];
+//   1. per (chunk, h, b): cum by one thread in f64, written out for
+//      kernels 2 and 3, and the chunk's own state S_c to f32 scratch
+//      [b,h,nc,p,n].  Differences of cum are taken in f64 and rounded to
+//      f32 before the exp: in f32 both terms carry the chunk's whole
+//      decay, and their difference loses the digits of a small one;
 //   2. per (b, h, 256 state elements): the sequential pass over the chunks
 //      H_c = exp(cum_Q) H_{c-1} + S_c, overwriting each S_c with the state
 //      entering its chunk, and the final state; each thread keeps 16 loads
@@ -120,7 +123,7 @@ struct Args {
   const float* C;
   const float* D;
   float* y;
-  float* cum;                      // [b][h][nc][Q]
+  double* cum;                     // [b][h][nc][Q]
   float* states;                   // [b][h][nc][p][n]
   float* final_state;              // [b][h][p][n] or null
   int b, s, h, p, n, nc;
@@ -169,8 +172,8 @@ __global__ void __launch_bounds__(NTHREADS) ssd_chunk_state_kernel(const Args a)
   const int p = a.p, n = a.n;
   const int t0 = c * Q;
   const int len = min(Q, a.s - t0);
-  float* cum = smem;                       // [Q]
-  float* wx = cum + Q;                     // [Q][p + 1]: w_t x_t
+  double* cum = reinterpret_cast<double*>(smem);   // [Q]
+  float* wx = smem + 2 * Q;                // [Q][p + 1]: w_t x_t
   float* Bs = wx + Q * (p + 1);            // [Q][n + 1]
   const float* x = a.x + bb * a.x_sb + t0 * a.x_ss + hh * a.x_sh;
   const float* B = a.B + bb * a.B_sb + t0 * a.B_ss;
@@ -179,21 +182,22 @@ __global__ void __launch_bounds__(NTHREADS) ssd_chunk_state_kernel(const Args a)
   for (int t = tid; t < Q; t += NTHREADS) cum[t] = t < len ? dt[t * a.dt_ss] : 0.f;
   __syncthreads();
   if (tid == 0) {                          // sequential, as cumsum
-    const float A = a.A[hh];
-    float run = 0.f;
+    const double A = a.A[hh];
+    double run = 0.;
     for (int t = 0; t < Q; ++t) {
       run += A * cum[t];
       cum[t] = run;
     }
   }
   __syncthreads();
-  float* cum_out = a.cum + ((static_cast<long long>(bb) * a.h + hh) * a.nc + c) * Q;
+  double* cum_out = a.cum + ((static_cast<long long>(bb) * a.h + hh) * a.nc + c) * Q;
   for (int t = tid; t < Q; t += NTHREADS) cum_out[t] = cum[t];
-  const float cum_end = cum[Q - 1];
+  const double cum_end = cum[Q - 1];
   for (int i = tid; i < Q * p; i += NTHREADS) {
     const int t = i / p, k = i % p;
     float v = 0.f;
-    if (t < len) v = expf(cum_end - cum[t]) * dt[t * a.dt_ss] * x[t * a.x_ss + k];
+    if (t < len)
+      v = expf(static_cast<float>(cum_end - cum[t])) * dt[t * a.dt_ss] * x[t * a.x_ss + k];
     wx[t * (p + 1) + k] = v;
   }
   for (int i = tid; i < Q * n; i += NTHREADS) {
@@ -233,7 +237,7 @@ __global__ void __launch_bounds__(PASS_THREADS) ssd_state_pass_kernel(const Args
   const int hh = blockIdx.y, bb = blockIdx.z;
   const long long bh = static_cast<long long>(bb) * a.h + hh;
   for (int c = threadIdx.x; c < a.nc; c += PASS_THREADS)
-    decay[c] = expf(a.cum[(bh * a.nc + c) * Q + (Q - 1)]);
+    decay[c] = expf(static_cast<float>(a.cum[(bh * a.nc + c) * Q + (Q - 1)]));
   __syncthreads();
   const int e = blockIdx.x * PASS_THREADS + threadIdx.x;
   const long long pn = static_cast<long long>(a.p) * a.n;
@@ -264,8 +268,8 @@ __global__ void __launch_bounds__(NTHREADS) ssd_chunk_output_kernel(const Args a
   const int p = a.p, n = a.n;
   const int t0 = c * Q;
   const int len = min(Q, a.s - t0);
-  float* cum = smem;                       // [Q]
-  float* dts = cum + Q;                    // [Q]
+  double* cum = reinterpret_cast<double*>(smem);   // [Q]
+  float* dts = smem + 2 * Q;               // [Q]
   float* Cs = dts + Q;                     // [Q][n + 1]
   float* BH = Cs + Q * (n + 1);            // [max(Q, p)][n + 1]: B, then H
   float* Sm = BH + max(Q, p) * (n + 1);    // [Q][Q + 1]: masked scores
@@ -275,7 +279,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_chunk_output_kernel(const Args a
   const float* B = a.B + bb * a.B_sb + t0 * a.B_ss;
   const float* C = a.C + bb * a.C_sb + t0 * a.C_ss;
   const float* dt = a.dt + bb * a.dt_sb + t0 * a.dt_ss + hh;
-  const float* cum_in = a.cum + (bh * a.nc + c) * Q;
+  const double* cum_in = a.cum + (bh * a.nc + c) * Q;
 
   for (int t = tid; t < Q; t += NTHREADS) {
     cum[t] = cum_in[t];
@@ -303,7 +307,8 @@ __global__ void __launch_bounds__(NTHREADS) ssd_chunk_output_kernel(const Args a
       for (int j = 0; j < CPT; ++j) {
         const int r = ty + i * TY, q = tx + j * TX;
         Sm[r * (Q + 1) + q] =
-            q <= r ? acc[i][j] * expf(cum[r] - cum[q]) * dts[q] : 0.f;
+            q <= r ? acc[i][j] * expf(static_cast<float>(cum[r] - cum[q])) * dts[q]
+                   : 0.f;
       }
   }
   __syncthreads();                         // every thread is done with B
@@ -326,7 +331,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_chunk_output_kernel(const Args a
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = ty + i * TY;
-      const float decay = expf(cum[r]);
+      const float decay = expf(static_cast<float>(cum[r]));
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int pc = p0 + tx + j * TX;
@@ -339,13 +344,13 @@ __global__ void __launch_bounds__(NTHREADS) ssd_chunk_output_kernel(const Args a
 }
 
 size_t state_smem(int p, int n) {
-  return sizeof(float) * (Q + Q * (p + 1) + Q * (n + 1));
+  return sizeof(double) * Q + sizeof(float) * (Q * (p + 1) + Q * (n + 1));
 }
 
 size_t output_smem(int p, int n) {
   const int rows = p > Q ? p : Q;
-  return sizeof(float) * (2 * Q + Q * (n + 1) + rows * (n + 1) +
-                          Q * (Q + 1) + Q * (p + 1));
+  return sizeof(double) * Q + sizeof(float) * (Q + Q * (n + 1) + rows * (n + 1) +
+                                               Q * (Q + 1) + Q * (p + 1));
 }
 
 cudaError_t launch(const Args& a, cudaStream_t stream) {
@@ -935,7 +940,7 @@ extern "C" {
 // tensor-core kernels) for x, B, C and y; dt, A and D are f32.  Strides are
 // in elements; the last dim of x, dt, B and C is contiguous, y is
 // contiguous [b,s,h,p].  Scratch, with nc = ceil(s / 64):
-//   float32:  cum of b*h*nc*64 floats and states of b*h*nc*p*n floats;
+//   float32:  cum of b*h*nc*64 doubles and states of b*h*nc*p*n floats;
 //   bfloat16: cum unused, states of b*h*nc*PP*NP floats (PP, NP: p and n
 //             rounded up to 64 or 128), 16-byte aligned.
 // final_state [b,h,p,n] f32 may be null.  tma (bfloat16): 1 to read x, B
@@ -943,7 +948,7 @@ extern "C" {
 // kernels/tma.py), 0 to load them by threads.  Returns the cudaError_t of
 // the launches (0 on success); nothing synchronises.
 int ssd_fwd(const void* x, const float* dt, const float* A, const void* B,
-            const void* C, const float* D, void* y, float* cum,
+            const void* C, const float* D, void* y, double* cum,
             float* states, float* final_state, int b, int s, int h, int p,
             int n, long long x_sb, long long x_ss, long long x_sh,
             long long dt_sb, long long dt_ss, long long B_sb, long long B_ss,

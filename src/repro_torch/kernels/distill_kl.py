@@ -45,10 +45,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
 def _lib() -> ctypes.CDLL:
     lib = _build.build("distill_kl_fwd").lib
     if lib.distill_kl_fwd.argtypes is None:
-        lib.distill_kl_fwd.argtypes = _ARGTYPES
         lib.distill_kl_fwd.restype = ctypes.c_int
         lib.distill_kl_fwd_error_string.argtypes = [ctypes.c_int]
         lib.distill_kl_fwd_error_string.restype = ctypes.c_char_p
+        lib.distill_kl_fwd.argtypes = _ARGTYPES    # last: other threads test it
     return lib
 
 
@@ -120,7 +120,7 @@ def distill_kl_fwd(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,
     if err != 0:
         raise RuntimeError("distill_kl_fwd launch failed: "
                            + lib.distill_kl_fwd_error_string(err).decode())
-    distill_kl_fwd.launches += 1
+    _build.count_launch(distill_kl_fwd)
     return tuple(out)
 
 

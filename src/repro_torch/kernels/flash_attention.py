@@ -45,10 +45,10 @@ def _lib() -> ctypes.CDLL:
     built = _build.build("flash_fwd")
     lib = built.lib
     if lib.flash_fwd.argtypes is None:
-        lib.flash_fwd.argtypes = _ARGTYPES
         lib.flash_fwd.restype = ctypes.c_int
         lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_fwd_error_string.restype = ctypes.c_char_p
+        lib.flash_fwd.argtypes = _ARGTYPES    # last: other threads test it
     return lib
 
 
@@ -127,7 +127,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError("flash_fwd launch failed: "
                            + lib.flash_fwd_error_string(err).decode())
-    flash_fwd.launches += 1
+    _build.count_launch(flash_fwd)
     return o, lse
 
 

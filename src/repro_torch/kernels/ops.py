@@ -44,17 +44,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None, q_offset: int = 0,
                     kv_positions: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Attention output only; see :func:`flash_attention_lse`."""
-    if segment_q is not None or segment_kv is not None:
-        raise NotImplementedError(
-            "segment ids (packed sequences) are not ported yet; see "
-            "ROADMAP.md, B1")
+    """Attention output only; see :func:`flash_attention_lse`.
+
+    ``segment_q`` [B, S] / ``segment_kv`` [B, T] restrict each row to keys
+    of its own segment (packed sequences).  The plain version computes
+    that mask; the CUDA kernel has no segment operand yet, so CUDA
+    tensors with segment ids raise."""
     if q.is_cuda:
+        if segment_q is not None or segment_kv is not None:
+            raise ValueError(
+                "flash_attention: segment ids (packed sequences) on CUDA "
+                "tensors need a segment operand in csrc/flash_fwd.cu, "
+                "which is not written yet; see ROADMAP.md, B5")
         return fa.FlashAttention.apply(q, k, v, kv_positions, causal, window,
                                        scale, q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, q_offset=q_offset,
-                                   kv_positions=kv_positions)[0]
+                                   kv_positions=kv_positions,
+                                   segment_q=segment_q,
+                                   segment_kv=segment_kv)[0]
 
 
 def distill_kl(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,

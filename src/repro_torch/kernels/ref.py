@@ -52,8 +52,14 @@ def visible_mask(S: int, T: int, *, causal: bool, window: int,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         scale: Optional[float] = None, q_offset: int = 0,
-                        kv_positions: Optional[torch.Tensor] = None):
-    """-> (o [B, S, H, D] in q's dtype, lse [B, S, H] float32)."""
+                        kv_positions: Optional[torch.Tensor] = None,
+                        segment_q: Optional[torch.Tensor] = None,
+                        segment_kv: Optional[torch.Tensor] = None):
+    """-> (o [B, S, H, D] in q's dtype, lse [B, S, H] float32).
+
+    ``segment_q`` [B, S] and ``segment_kv`` [B, T] (packed sequences; both
+    or neither) let a row see only keys of its own segment, as the JAX
+    package's ``_mask`` does."""
     B, S, H, D = q.shape
     _, T, KV, _ = k.shape
     G = H // KV
@@ -63,6 +69,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = visible_mask(S, T, causal=causal, window=window,
                         q_offset=q_offset, kv_positions=kv_positions,
                         device=q.device)
+    if (segment_q is None) != (segment_kv is None):
+        raise ValueError("segment ids: pass both segment_q and segment_kv, "
+                         "or neither")
+    if segment_q is not None:
+        same = segment_q.to(q.device)[:, :, None] == \
+            segment_kv.to(q.device)[:, None, :]               # [B, S, T]
+        mask = (mask[None] & same)[:, None, None]              # [B,1,1,S,T]
     logits = logits.masked_fill(~mask, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m).masked_fill(~mask, 0.0)

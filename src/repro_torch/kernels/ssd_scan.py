@@ -12,7 +12,10 @@ Counterpart of ``repro/kernels/ssd_scan.py`` and
   ``|A dt|`` that passes 88.7 at chunk 128 and overflows float32; the JAX
   version's ``where`` drops the inf in the forward, but its VJP multiplies
   the zero cotangent by inf and gives NaN (ROADMAP.md, C3).  Here the
-  masked entries are ``exp(-inf) = 0`` with a zero gradient.
+  masked entries are ``exp(-inf) = 0`` with a zero gradient.  The
+  differences of ``cum`` are taken in float64: both terms grow with the
+  chunk's decay, and in float32 their difference loses the digits of a
+  small one (at 4094 tokens y then errs by ~1e-4 of 1 + |y|).
 * :func:`ssd_decode_step` ports the one-token recurrence; the JAX package
   computes it outside any kernel, and so does the port.
 * :func:`ssd_fwd` is the ctypes wrapper of ``csrc/ssd_fwd.cu``, which
@@ -62,14 +65,16 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int = 128,
     dtf = dt.float().reshape(b, nc, Q, h)
     Bf = B.float().reshape(b, nc, Q, n)
     Cf = C.float().reshape(b, nc, Q, n)
-    cum = torch.cumsum(A.float() * dtf, dim=2)                  # [b,nc,Q,h]
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [b,nc,i,j,h]
+    cum64 = torch.cumsum(A.double() * dtf.double(), dim=2)      # [b,nc,Q,h]
+    cum = cum64.float()
+    diff = (cum64[:, :, :, None, :]
+            - cum64[:, :, None, :, :]).float()                  # [b,nc,i,j,h]
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     L = torch.exp(diff.masked_fill(~tri[:, :, None], float("-inf")))
     scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)[..., None] * L
     dx = dtf[..., None] * xf                                    # [b,nc,Q,h,p]
     y = torch.einsum("bcijh,bcjhp->bcihp", scores, dx)
-    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)           # [b,nc,Q,h]
+    decay_to_end = torch.exp((cum64[:, :, -1:, :] - cum64).float())
     S_c = torch.einsum("bcjhp,bcjn->bchpn", (decay_to_end * dtf)[..., None]
                        * xf, Bf)                                 # [b,nc,h,p,n]
     decay_chunk = torch.exp(cum[:, :, -1, :])[..., None, None]  # [b,nc,h,1,1]
@@ -105,10 +110,10 @@ def ssd_decode_step(state, xt, dtt, A, Bt, Ct, D):
 def _lib() -> ctypes.CDLL:
     lib = _build.build("ssd_fwd").lib
     if lib.ssd_fwd.argtypes is None:
-        lib.ssd_fwd.argtypes = _ARGTYPES
         lib.ssd_fwd.restype = ctypes.c_int
         lib.ssd_fwd_error_string.argtypes = [ctypes.c_int]
         lib.ssd_fwd_error_string.restype = ctypes.c_char_p
+        lib.ssd_fwd.argtypes = _ARGTYPES    # last: other threads test it
     return lib
 
 
@@ -154,9 +159,10 @@ def tma_route(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> bool:
 
 def scratch(b: int, s: int, h: int, p: int, n: int,
             dtype: torch.dtype) -> tuple[int, int]:
-    """Float32 elements of the kernel's two scratch buffers (cum, states)
-    for these dims: float32 inputs keep cum [b,h,nc,64] and the chunk
-    states [b,h,nc,p,n]; bf16 inputs need no cum and keep the entering
+    """Elements of the kernel's two scratch buffers for these dims: cum
+    (float64) and states (float32).  Float32 inputs keep cum [b,h,nc,64]
+    and the chunk states [b,h,nc,p,n]; bf16 inputs need no cum and keep the
+    entering
     states as bf16 hi and lo parts [b,h,nc,2,PP,NP], p and n rounded up
     to 64 or 128 (the same bytes as [b,h,nc,PP,NP] in f32)."""
     nc = -(-s // CHUNK)
@@ -192,7 +198,7 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state = (torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
              if return_state else None)
     n_cum, n_states = scratch(b, s, h, p, n, x.dtype)
-    cum = torch.empty(n_cum, dtype=torch.float32, device=dev)
+    cum = torch.empty(n_cum, dtype=torch.float64, device=dev)
     states = torch.empty(n_states, dtype=torch.float32, device=dev)
     tma = x.dtype == torch.bfloat16 and tma_route(x, B, C)
     lib = _lib()
@@ -209,7 +215,7 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if err != 0:
         raise RuntimeError("ssd_fwd launch failed: "
                            + lib.ssd_fwd_error_string(err).decode())
-    ssd_fwd.launches += 1
+    _build.count_launch(ssd_fwd)
     return (y, state) if return_state else y
 
 

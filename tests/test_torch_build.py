@@ -76,3 +76,81 @@ def test_editing_a_header_rebuilds_the_sources_that_include_it(fake):
     assert again["a"].seconds > 0 and again["a"].path != first["a"].path
     assert again["b"].seconds == 0.0 and again["b"].path == first["b"].path
     assert (fake / "starts").read_text().count("start") == 3
+
+
+def test_build_and_launch_counts_are_exact_under_threads(tmp_path,
+                                                         monkeypatch):
+    """Section workers call a kernel for the first time from several
+    threads at once: the compiler must run once for a name, every thread
+    must get the same ``Built``, and a launch counter bumped from every
+    thread must come out exact."""
+    import ctypes
+    import subprocess
+    import sys
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "_LOCKS", {})
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    runs = []
+
+    def fake_run(cmd, **kw):
+        runs.append(cmd)
+        time.sleep(0.05)                  # widen the window a race needs
+        out = cmd[cmd.index("-o") + 1]
+        with open(out, "w") as f:
+            f.write("lib")
+        return SimpleNamespace(returncode=0, stdout="ok", stderr="")
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: SimpleNamespace(
+        path=path))
+    got, errors = [None] * 8, []
+    start = threading.Barrier(8)
+
+    def worker(i):
+        try:
+            start.wait(timeout=10)
+            got[i] = _build.build("k")
+        except Exception as e:            # reported by the assert below
+            errors.append(e)
+
+    def counting(fn):
+        start.wait(timeout=10)
+        for _ in range(5000):
+            _build.count_launch(fn)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+
+        def kernel():
+            pass
+        kernel.launches = 0
+        threads = [threading.Thread(target=counting, args=(kernel,))
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors, errors
+    assert len(runs) == 1
+    assert all(b is got[0] for b in got) and got[0].seconds > 0
+    assert kernel.launches == 8 * 5000

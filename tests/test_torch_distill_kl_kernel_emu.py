@@ -10,6 +10,7 @@ tied ``embed.T`` is, several vocabulary splits, f32 and bf16.  float32
 runs the CUDA-core kernel; bfloat16 runs the tensor-core kernel (TMA,
 mbarriers, wgmma) under the stand-in for ``hopper.cuh``.
 """
+import contextlib
 import ctypes
 
 import numpy as np
@@ -25,6 +26,27 @@ from repro_torch.kernels.ref import distill_kl_stats_ref  # noqa: E402
 # V-long exponentials in different orders; bf16 inputs are the same
 # numbers on both sides (both compute in float32), so one tolerance holds
 TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _ref(*args, **kw):
+    """``distill_kl_stats_ref`` on one CPU thread, as the oracle of
+    ``test_torch_ssd_kernel_emu.py`` runs: with several, MKL may pick
+    another blocking of its float32 products from one run to the next (as
+    the machine's load changes), and the oracle must not depend on the
+    load."""
+    with _one_thread():
+        return distill_kl_stats_ref(*args, **kw)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
 
 CASES = [
     # N, Ds, Dt, V, dtype, T, w layout, SM count (sets the split)
@@ -81,7 +103,7 @@ def test_kernel_source_matches_plain_version(lib, case):
         w_t.stride(0), w_t.stride(1), 1.0 / T,
         0 if dtype == torch.float32 else 1, None)
     assert err == 0
-    ref = distill_kl_stats_ref(h_s, w_s, h_t, w_t, T, block_v=64)
+    ref = _ref(h_s, w_s, h_t, w_t, T, block_v=64)
     for got, want in zip(out, ref):
         torch.testing.assert_close(got, want, **TOL)
 

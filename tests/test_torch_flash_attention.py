@@ -124,3 +124,60 @@ def test_rows_without_visible_key():
     o, lse = flash_attention_ref(q, k, v, causal=True, kv_positions=pos)
     assert torch.all(o == 0)
     assert torch.all(lse <= -1e29)
+
+
+# --------------------------------------------------------------------------- #
+# segment ids (packed sequences): the plain version's mask (ROADMAP.md, C4)
+# --------------------------------------------------------------------------- #
+def _segments(B, S, seed=0):
+    """Per row, ascending segment ids with row-specific boundaries."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((B, S), np.int32)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, S), 3, replace=False))
+        out[b] = np.searchsorted(cuts, np.arange(S), side="right")
+    return out
+
+
+@pytest.mark.parametrize("seg_kind", ["thirds", "ragged"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 24)])
+def test_segment_ids_match_jax_mha_reference(seg_kind, causal, window):
+    """tests/test_kernels_flash.py:74's packed-sequence case (and ragged
+    per-row boundaries), output and gradients."""
+    import jax
+    from repro_torch.kernels import ops
+    B, S, H, KV, D = 2, 96, 4, 2, 16
+    q, k, v = _qkv((B, S, S, H, KV, D))
+    seg = (np.repeat(np.repeat(np.arange(3)[None], B, 0), S // 3, 1)
+           .astype(np.int32) if seg_kind == "thirds" else _segments(B, S))
+    jseg = jnp.asarray(seg)
+
+    def f_jax(q, k, v):
+        return jref.mha_reference(q, k, v, causal=causal, window=window,
+                                  segment_q=jseg, segment_kv=jseg)
+
+    jx = [jnp.asarray(a) for a in (q, k, v)]
+    o_ref = f_jax(*jx)
+    g_ref = jax.grad(lambda *a: jnp.sum(jnp.sin(f_jax(*a))),
+                     argnums=(0, 1, 2))(*jx)
+    tx = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    tseg = torch.from_numpy(seg)
+    o = ops.flash_attention(*tx, causal=causal, window=window,
+                            segment_q=tseg, segment_kv=tseg)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref),
+                               atol=2e-5, rtol=2e-5)
+    g = torch.autograd.grad(torch.sin(o).sum(), tx)
+    for a, b in zip(g, g_ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-4)
+    # the mask matters: without it the rows past the first boundary differ
+    plain = ops.flash_attention(*(t.detach() for t in tx), causal=causal,
+                                window=window)
+    assert not torch.allclose(plain, o.detach(), atol=1e-3)
+
+
+def test_segment_ids_need_both_sides():
+    q = torch.zeros(1, 8, 2, 16)
+    seg = torch.zeros(1, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="both"):
+        flash_attention_ref(q, q, q, segment_q=seg)

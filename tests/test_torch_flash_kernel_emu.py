@@ -12,6 +12,7 @@ kernel's indexing, masking, tile skipping, online softmax and pipeline
 phases on every CPU run; the build, the launch, the fragment layouts on
 the real tensor cores and the speed on the card are ``chip_smoke.py``'s.
 """
+import contextlib
 import ctypes
 
 import numpy as np
@@ -25,6 +26,27 @@ from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      visible_mask)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _ref(*args, **kw):
+    """``flash_attention_ref`` on one CPU thread, as the oracle of
+    ``test_torch_ssd_kernel_emu.py`` runs: with several, MKL may pick
+    another blocking of its float32 products from one run to the next (as
+    the machine's load changes), and the oracle must not depend on the
+    load."""
+    with _one_thread():
+        return flash_attention_ref(*args, **kw)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
 
 CASES = [
     # (B, S, T, H, KV, D), dtype, causal, window, q_offset, positions
@@ -87,9 +109,8 @@ def test_kernel_source_matches_plain_version(lib, case):
         D ** -0.5, int(causal), window, q_offset,
         0 if dtype == torch.float32 else 1, None)
     assert err == 0
-    o_ref, lse_ref = flash_attention_ref(q, k, v, causal=causal,
-                                         window=window, q_offset=q_offset,
-                                         kv_positions=positions)
+    o_ref, lse_ref = _ref(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, kv_positions=positions)
     vis = visible_mask(S, T, causal=causal, window=window, q_offset=q_offset,
                        kv_positions=positions).any(dim=1)
     assert not torch.isnan(o.float()).any()

@@ -41,12 +41,26 @@ TRAINING_SLICE = ["repro_torch.kernels.distill_kl",
 MAMBA_SLICE = ["repro_torch.kernels.ssd_scan", "repro_torch.models.mamba"]
 
 
+COMPOUND_SLICE = ["repro_torch.core.graph", "repro_torch.core.simulator",
+                  "repro_torch.core.scheduler", "repro_torch.core.cost_model",
+                  "repro_torch.configs.compound", "repro_torch.analysis.core",
+                  "repro_torch.analysis.deadlock",
+                  "repro_torch.core.messages", "repro_torch.core.runtime",
+                  "repro_torch.core.executor", "repro_torch.core.workload",
+                  "repro_torch.distill.workload",
+                  "repro_torch.distill.multi_teacher"]
+
+
 def test_module_list_covers_the_training_slice():
     assert set(TRAINING_SLICE) <= set(_modules())
 
 
 def test_module_list_covers_the_mamba_slice():
     assert set(MAMBA_SLICE) <= set(_modules())
+
+
+def test_module_list_covers_the_compound_runtime_slice():
+    assert set(COMPOUND_SLICE) <= set(_modules())
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -91,9 +105,15 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_segments():
+    """The kernel's wrapper refuses CPU tensors; segment ids on CPU tensors
+    take the plain version's segment mask (ROADMAP.md, C4), and on CUDA
+    tensors ``ops`` raises (``chip_smoke.py`` checks that on the card)."""
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_fwd(q, q, q)
     seg = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(q, q, q, segment_q=seg, segment_kv=seg)
+    before = fa.flash_fwd.launches
+    o = ops.flash_attention(q, q, q, segment_q=seg, segment_kv=seg)
+    assert torch.equal(o, ref.flash_attention_ref(
+        q, q, q, segment_q=seg, segment_kv=seg)[0])
+    assert fa.flash_fwd.launches == before

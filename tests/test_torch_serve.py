@@ -210,6 +210,24 @@ def test_forward_and_loss_match_jax(name):
     _close(tmet["ce"].detach(), jloss)
 
 
+def test_forward_with_segment_ids_matches_jax():
+    """Packed sequences through ``lm_forward``'s ``batch["segment_ids"]``
+    (ROADMAP.md, C4): the plain attention masks across segments as the
+    JAX package does."""
+    jm, jparams, tm, _ = _pair("qwen1.5-0.5b", seed=2)
+    rng = np.random.default_rng(6)
+    B, S = 2, 32
+    tokens = rng.integers(0, tm.cfg.vocab_size, (B, S))
+    seg = np.stack([np.repeat(np.arange(2), S // 2),
+                    (np.arange(S) >= 5).astype(np.int64)
+                    + (np.arange(S) >= 20)]).astype(np.int32)
+    want = jm.forward(jparams, {"tokens": jnp.asarray(tokens, jnp.int32),
+                                "segment_ids": jnp.asarray(seg)})
+    got = tm({"tokens": _t(tokens), "segment_ids": _t(seg)})
+    _close(got, want)
+    assert not torch.allclose(got, tm({"tokens": _t(tokens)}), atol=1e-3)
+
+
 def test_forward_with_padded_heads_and_vocab():
     """head_pad / vocab_pad change the layout, not the logits."""
     jm, jparams, tm, _ = _pair("granite-3-8b", seed=4, head_pad=2,

@@ -114,7 +114,7 @@ def _run(lib, x, dt, A, B, C, D, with_state=True, tma=None):
         tma = x.dtype == torch.bfloat16 and ssd.tma_route(x, B, C)
     y = torch.full((b, s, h, p), float("nan"), dtype=x.dtype)
     n_cum, n_states = ssd.scratch(b, s, h, p, n, x.dtype)
-    cum = torch.full((max(n_cum, 1),), float("nan"))
+    cum = torch.full((max(n_cum, 1),), float("nan"), dtype=torch.float64)
     states = torch.full((n_states,), float("nan"))
     state = torch.full((b, h, p, n), float("nan"))
     err = lib.ssd_fwd(
