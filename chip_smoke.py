@@ -15,10 +15,14 @@ CUDA kernels from the sources in this checkout.  Phases:
    paths on the CUDA cores.
 2. The flash kernel against its plain version (``kernels/ref.py``) on the
    card, over a sweep of shapes, masks and dtypes (bf16 through the
-   tensor-core path, float32 through the CUDA-core path), and at the two
-   main-path shapes, granite-3-8b's serving prefill and qwen1.5-0.5b's
-   training and distillation attention, where the kernel, the plain
-   version and PyTorch's ``scaled_dot_product_attention`` are timed.  Then
+   tensor-core path, float32 through the CUDA-core path), and at the
+   main-path shapes, granite-3-8b's serving prefill, qwen1.5-0.5b's
+   training and distillation attention, a multi-teacher microbatch's, and
+   an MLLM microbatch's in the ViT (non-causal, 4096 patches) and in the
+   pixtral-12b-width LM, each held within a limit scaled to its output
+   that a planted fault (o * 0.9) must fail, and where the kernel, the plain
+   version and PyTorch's ``scaled_dot_product_attention`` are timed (and,
+   at the training shapes, the plain blockwise backward).  Then
    its gradients: autograd through ``ops.flash_attention[_lse]`` (kernel
    forward, blockwise backward) against autograd through the plain
    version, over a sweep and at the training shape.
@@ -80,7 +84,19 @@ CUDA kernels from the sources in this checkout.  Phases:
    equal the plan's active microbatches (printed beside FIFO's count), the
    launches the formula, the losses the colocated oracle's on the same
    microbatches.
-10. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+10. MLLM training (``mllm.workload``): the ViT section
+   (``vit_config(out_dim=1024)``, 24 layers) feeding pixtral-12b at full
+   width with 4 layers, bf16, batch 8 x 2048 in microbatches of 2, vision
+   ratio 0.5, each section on its own worker thread and stream of the
+   card, from one host-side initial parameter set: (a) the colocated step,
+   (b) ``MLLMRuntime`` serialized, (c) streamed with lookahead 1, run one
+   after the other (two training states do not fit the card); (b)
+   against (a) and (c) against (b) as in phase 9, launch counts, an
+   all-text batch (the ViT runs only its update; the queue carries only
+   the grad-norm pair), wavefront against FIFO (ViT microbatches and
+   realized makespan), and one traced iteration with the time both
+   sections' streams ran kernels.
+11. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash kernel's at each of its main-path
    shapes under ``at``; its top-level times are the serving prefill's),
    then the ``{"ok": true, ...}`` line.
@@ -113,6 +129,16 @@ TENSOR_CORE_LIBS = ("flash_fwd", "distill_kl_fwd", "ssd_fwd")
 SASS_OPS = ("HGMMA", "UTMALDG")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
+# At a main-path flash shape the bf16 limit is also at most this share of
+# max|o_ref|, four bf16 ulps of the largest output: where a softmax spreads
+# over thousands of keys (the ViT's non-causal rows) |o| is about 0.2 at
+# most, and the absolute 2e-2 would pass an epilogue that scales o by 0.85.
+# A planted fault, o * 0.9, must fail the limit at each shape.  At the
+# ViT's (2, 4096, 4096, 16, 16, 64) on an H100 80GB HBM3 at 700 W:
+# max|o_ref| 0.2188, limit 6.836e-3, the kernel 9.766e-4 (one bf16 ulp),
+# the planted fault 2.188e-2; at the causal shapes the absolute 2e-2
+# stays the lower limit (max|o_ref| 3.1-4.3, errors 7.8e-3-1.56e-2).
+SHAPE_REL_TOL = 2.0 ** -5
 # tests/test_kernels_flash.py's sweep (B, S, T, H, KV, D), plus a ragged length
 SWEEP = [(2, 128, 128, 4, 2, 16), (1, 256, 256, 8, 8, 32),
          (2, 128, 64, 4, 1, 16), (1, 64, 64, 6, 3, 8),
@@ -288,7 +314,7 @@ def run_case(rng, shape, dtype, causal, window, q_offset=0, positions=None,
           f"{' strided' if strided else ''}: "
           f"max|o-ref| {err:.3e} (tol {TOL[dtype]:.0e}), "
           f"hidden rows {int((~vis).sum())}")
-    return q, k, v, o, err
+    return q, k, v, o, o_ref, err
 
 
 def phase_sweep(rng) -> None:
@@ -318,40 +344,63 @@ def phase_sweep(rng) -> None:
     print("  flash with segment ids on CUDA tensors: ValueError (B5)")
 
 
-def phase_flash_shape(rng, shape) -> dict:
-    """The kernel at one main-path shape (bf16, causal, S == T): checked
-    against its plain version, then timed beside the plain version and
-    PyTorch's ``scaled_dot_product_attention``."""
+def phase_flash_shape(rng, shape, causal: bool = True,
+                      bwd: bool = True) -> dict:
+    """The kernel at one main-path shape (bf16, S == T; causal, or
+    bidirectional as in the ViT): checked against its plain version within
+    SHAPE_REL_TOL of the output's scale, then timed beside the plain
+    version and PyTorch's ``scaled_dot_product_attention``.  With ``bwd``
+    (a training shape) the plain blockwise backward is timed too."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
     B, S, T, H, KV, D = shape
-    q, k, v, o, err = run_case(rng, shape, torch.bfloat16, True, 0)
-    ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=True), iters=10)
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+    q, k, v, o, o_ref, err = run_case(rng, shape, torch.bfloat16, causal, 0)
+    top = o_ref.float().abs().max().item()
+    tol = min(TOL[torch.bfloat16], SHAPE_REL_TOL * top)
+    planted = (0.9 * o.float() - o_ref.float()).abs().max().item()
+    print(f"  max|o_ref| {top:.3e}: limit {tol:.3e}; max|o-ref| {err:.3e}, "
+          f"planted o*0.9 {planted:.3e}")
+    check(err <= tol, f"flash at {shape}: max|o-ref| {err:.3e} > {tol:.3e}")
+    check(planted > tol, f"flash at {shape}: the limit {tol:.3e} passes a "
+          f"planted o*0.9 ({planted:.3e})")
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal), iters=10)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
                        iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library():
-        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     lib_err = (library().transpose(1, 2).float() - o.float()).abs().max().item()
     library_ms = time_ms(library, iters=10)
-    pairs = S * (S + 1) // 2                      # causal, S == T
+    out = {}
+    if bwd:
+        # the plain-PyTorch blockwise backward that training runs after the
+        # kernel's forward (ROADMAP B2), for the device-time account
+        _, lse = fa.flash_fwd(q, k, v, causal=causal)
+        do = torch.randn_like(o)
+        out["plain_bwd_ms"] = time_ms(
+            lambda: fa.flash_bwd(q, k, v, o, lse, do, causal=causal),
+            iters=3, warmup=1)
+    # query-key pairs the mask lets through (S == T)
+    pairs = S * (S + 1) // 2 if causal else S * T
     flops = 4 * B * H * D * pairs
     nbytes = 2 * (2 * B * S * H * D + 2 * B * T * KV * D) + 4 * B * S * H
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"flash at {shape} bf16 causal: kernel {ms:.3f} ms "
+    print(f"flash at {shape} bf16 {'causal' if causal else 'non-causal'}: "
+          f"kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
           f"sdpa {library_ms:.3f} ms (|sdpa-kernel| {lib_err:.3e}), "
           f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB)")
-    return {"shape": list(shape), "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+          f"{nbytes / 1e6:.1f} MB)"
+          + (f"; plain backward {out['plain_bwd_ms']:.3f} ms" if bwd else ""))
+    return {"shape": list(shape), "causal": causal, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, **out}
 
 
 def flash_entry(at: dict) -> dict:
@@ -361,7 +410,8 @@ def flash_entry(at: dict) -> dict:
             "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:51",
             "launches": None,
-            **{k: v for k, v in at["serve"].items() if k != "shape"},
+            **{k: v for k, v in at["serve"].items()
+               if k not in ("shape", "causal")},
             "max_abs_err": max(a["max_abs_err"] for a in at.values()),
             "at": at}
 
@@ -966,44 +1016,67 @@ def _intervals_ms(spans) -> float:
     return total / 1e3
 
 
-def _stream_report(prof, wall_ms: float, what: str) -> dict:
+def _stream_report(prof, wall_ms: float, what: str, roles) -> None:
     """Device busy and each stream's kernel time in a trace, and the time
-    during which the streams of two sections both ran kernels.  Streams are
-    named by a kernel only one section launches: distill_kl (the student)
-    and flash_fwd without distill_kl (the teachers)."""
-    spans, names = {}, {}
+    during which streams of two different roles both ran kernels.
+    ``roles`` names the streams: it maps each stream's kernel counts,
+    {stream: {kernel name: count}}, to {stream: role} for the streams it
+    knows, and fails the run if they are not what it expects."""
+    spans, kernels = {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         sid = e.device_resource_id
         spans.setdefault(sid, []).append((e.time_range.start,
                                           e.time_range.end))
-        names.setdefault(sid, set()).add(e.name)
+        counts = kernels.setdefault(sid, {})
+        counts[e.name] = counts.get(e.name, 0) + 1
     check(bool(spans), f"the profiler saw no device time in {what}")
     busy = _intervals_ms([x for v in spans.values() for x in v])
-    student = [s for s, n in names.items()
-               if any("distill_kl" in k for k in n)]
-    teachers = [s for s, n in names.items() if s not in student
-                and any("flash_fwd" in k for k in n)]
+    role = roles(kernels)
     per = {s: _intervals_ms(v) for s, v in spans.items()}
     print(f"traced {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.0f}%, idle "
           f"{100 * (1 - busy / wall_ms):.0f}%), {len(spans)} streams")
     for sid, ms in sorted(per.items(), key=lambda kv: -kv[1]):
-        role = ("student" if sid in student else
-                "teacher" if sid in teachers else "other")
-        print(f"  stream {sid} ({role}): kernels {ms:.1f} ms")
-    overlaps = {}
-    for t in teachers:
-        for st in student:
-            both = per[t] + per[st] - _intervals_ms(spans[t] + spans[st])
-            overlaps[f"{t}&{st}"] = both
-            print(f"  teacher stream {t} and student stream {st} both ran "
+        print(f"  stream {sid} ({role.get(sid, 'other')}): kernels "
+              f"{ms:.1f} ms")
+    named = sorted(role)
+    for i, a in enumerate(named):
+        for b in named[i + 1:]:
+            if role[a] == role[b]:
+                continue
+            both = per[a] + per[b] - _intervals_ms(spans[a] + spans[b])
+            print(f"  {role[a]} stream {a} and {role[b]} stream {b} both ran "
                   f"kernels for {both:.1f} ms ({100 * both / busy:.1f}% of "
                   "device busy)")
-    check(len(student) == 1 and teachers,
-          f"expected one student stream and teacher streams, got {names}")
-    return {"busy_ms": busy, "overlap_ms": overlaps}
+
+
+def _distill_roles(kernels) -> dict:
+    """The student's stream is the one that runs distill_kl; the teachers'
+    run flash_fwd without it."""
+    def runs(sid, name):
+        return any(name in k for k in kernels[sid])
+    student = [s for s in kernels if runs(s, "distill_kl")]
+    teachers = [s for s in kernels
+                if s not in student and runs(s, "flash_fwd")]
+    check(len(student) == 1 and teachers, "expected one student stream and "
+          f"teacher streams, got {kernels}")
+    return {**{s: "teacher" for s in teachers}, student[0]: "student"}
+
+
+def _flash_count_roles(want: dict):
+    """Name each section's stream by its count of flash kernels (``want``:
+    section -> the launches the plan implies, which must match)."""
+    def roles(kernels) -> dict:
+        flash = {s: sum(c for k, c in n.items() if "flash_fwd" in k)
+                 for s, n in kernels.items()}
+        by_count = {c: s for s, c in flash.items() if c}
+        check(sum(map(bool, flash.values())) == len(want)
+              and set(by_count) == set(want.values()),
+              f"flash kernels per stream {flash}, expected {want}")
+        return {by_count[n]: name for name, n in want.items()}
+    return roles
 
 
 def _section_report(ex, q) -> None:
@@ -1156,7 +1229,7 @@ def phase_distill_runtime() -> tuple[int, int]:
         _kernel_report(prof, wall, "2 warm streamed distill-runtime "
                        "iterations")
         _stream_report(prof, wall, "2 warm streamed distill-runtime "
-                       "iterations (streams)")
+                       "iterations (streams)", _distill_roles)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     want_flash, want_kl = RT_ITERS * L * 3, RT_ITERS
@@ -1314,6 +1387,303 @@ def phase_multi_teacher() -> tuple[int, int]:
           f"({MT_B * TRAIN_S / warm * 1e3:.0f} tok/s); peak device memory "
           f"{peak:.2f} GiB")
     return flash, kl
+
+
+# --------------------------------------------------------------------------- #
+# MLLM training: a ViT section feeding a pixtral-12b-width LM section
+# --------------------------------------------------------------------------- #
+# pixtral-12b at its full width, its depth cut to 4 of 40 layers so that
+# one training state (about 22 bytes a parameter) fits the card; the ViT
+# is vit_config() at its defaults with out_dim = the LM's vision_dim
+MLLM_LM_LAYERS = 4
+MLLM_B, MLLM_S, MLLM_MBS, MLLM_RATIO, MLLM_ITERS = 8, 2048, 2, 0.5, 3
+MLLM_VIT_ATTN = (MLLM_MBS, 4096, 4096, 16, 16, 64)    # 1024 tokens x 4
+MLLM_LM_ATTN = (MLLM_MBS, MLLM_S, MLLM_S, 32, 8, 128)
+
+
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _host(tree):
+    """A copy of a tensor tree in host memory."""
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def _peak() -> tuple[float, int]:
+    """Peak allocated GiB since the last reset, and how often the caching
+    allocator had to free its cache and retry a cudaMalloc (each retry
+    synchronises the device) over the process so far."""
+    return (torch.cuda.max_memory_allocated() / 2**30,
+            torch.cuda.memory_stats().get("num_alloc_retries", 0))
+
+
+def _masters(opts) -> dict:
+    """The f32 master weights of both sections, on the host."""
+    return {"vit": _host(opts["vit"].master), "lm": _host(opts["lm"].master)}
+
+
+def phase_mllm() -> int:
+    """MLLM training through ``MLLMRuntime``: the ViT section and the LM
+    section (pixtral-12b width, 4 layers) each on its own worker thread
+    and CUDA stream of the one card, from one host-side initial parameter
+    set: (a) the colocated step, (b) the runtime serialized, (c) streamed
+    with lookahead 1, run one after the other (two training states do not
+    fit); then an all-text batch, wavefront against FIFO, and one traced
+    iteration.  Returns the flash launches of (c)'s 3 iterations."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import ParallelConfig
+    from repro_torch.data.synthetic import vlm_batches
+    from repro_torch.mllm import workload as mw
+    from repro_torch.models import vlm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw, schedules
+    dev = torch.device("cuda", 0)
+    lm_cfg = get_config("pixtral-12b").replace(num_layers=MLLM_LM_LAYERS)
+    vit_cfg = vlm.vit_config(out_dim=lm_cfg.vision_dim)
+    Lv, Ll = vit_cfg.num_layers, lm_cfg.num_layers
+    n_mb = MLLM_B // MLLM_MBS
+    toks = MLLM_B * MLLM_S
+    lr = functools.partial(schedules.constant, peak_lr=1e-4)
+    kw = dict(vit_parallel=ParallelConfig(), lm_parallel=ParallelConfig(),
+              global_batch=MLLM_B, seq_len=MLLM_S, mbs=MLLM_MBS,
+              devices=[dev, dev], lr_schedule=lr)
+    card_ = card()
+
+    def data(ratio, seed, n):
+        gen = vlm_batches(batch=MLLM_B, seq_len=MLLM_S,
+                          vocab=lm_cfg.vocab_size, vision_ratio=ratio,
+                          image_tokens=lm_cfg.max_image_tokens,
+                          patch_dim=vit_cfg.frontend_dim,
+                          downsample=vlm.downsample_factor(vit_cfg),
+                          seed=seed, device="cpu")
+        return [next(gen) for _ in range(n)]
+
+    batches = data(MLLM_RATIO, 0, MLLM_ITERS + 1)
+    (text,) = data(0.0, 1, 1)
+    init = _host(mw.init_compound_params(vit_cfg, lm_cfg, seed=0,
+                                         device=dev))
+    free()
+    n_par = {k: sum(x.numel() for x in tree_leaves(init[k])) for k in init}
+    print(f"mllm: vit {vit_cfg.num_layers} layers d_model {vit_cfg.d_model} "
+          f"({n_par['vit'] / 1e6:.1f}M parameters) -> {lm_cfg.name} width, "
+          f"{Ll} layers ({n_par['lm'] / 1e6:.1f}M); batch {MLLM_B} x "
+          f"{MLLM_S} in microbatches of {MLLM_MBS}, vision ratio "
+          f"{MLLM_RATIO}, {lm_cfg.max_image_tokens} image tokens of "
+          f"{lm_cfg.max_image_tokens * vlm.downsample_factor(vit_cfg)} "
+          "patches, bf16")
+    with mw.MLLMRuntime(vit_cfg, lm_cfg, **kw) as planner:
+        plans = [planner.plan_iteration(b["has_image"]) for b in batches]
+        fifos = [planner.plan_iteration(b["has_image"], reorder=False)
+                 for b in batches]
+        text_plan = planner.plan_iteration(text["has_image"])
+    # the batch on which the wavefront order saves the most ViT microbatches
+    w = max(range(MLLM_ITERS), key=lambda i: len(fifos[i].image_mbs)
+            - len(plans[i].image_mbs))
+    keys = ("loss", "grad_norm")
+    runs, peaks = {}, {}
+
+    def record(mode, i, met, ms):
+        runs.setdefault(mode, []).append((met, ms))
+        print(f"mllm ({mode}) iteration {i}: {len(plans[i].image_mbs)} of "
+              f"{n_mb} microbatches with images; loss {met['loss']:.4f} "
+              f"gnorm {met['grad_norm']:.3f} {ms:.1f} ms")
+
+    def launches_of(its, vit_per_mb):
+        # the ViT's layers launch flash vit_per_mb times on a microbatch it
+        # runs, the LM's 2 times (forward and its remat recompute) on every
+        # microbatch
+        return sum(Lv * vit_per_mb(plans[i]) + Ll * 2 * n_mb for i in its)
+
+    # (a) the colocated step: the ViT on every microbatch, padded rows
+    # masked to zero, as the reference's single jit runs it
+    torch.cuda.reset_peak_memory_stats()
+    step = mw.build_colocated_step(vit_cfg, lm_cfg, device=dev,
+                                   lr_schedule=lr)
+    params = tree_map(lambda x: x.to(dev), init)
+    opt = adamw.init(params)
+    reset_counts()
+    for i in range(MLLM_ITERS):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt,
+                                mw.colocated_batch(batches[i], plans[i]), i)
+        record("a colocated", i, {k: float(met[k]) for k in keys},
+               (time.perf_counter() - t0) * 1e3)
+    counts_a = read_counts()
+    peaks["a"] = _peak()
+    masters_a = _host(opt.master)
+    del params, opt, step, met
+    free()
+    # forward and remat recompute of every layer of both sections
+    want_a = launches_of(range(MLLM_ITERS), lambda p: 2 * n_mb)
+    check(counts_a == (want_a, 0, 0), f"(a) launched (flash, KL, SSD) = "
+          f"{counts_a}, expected ({want_a}, 0, 0)")
+
+    # (b) MLLMRuntime, serialized
+    torch.cuda.reset_peak_memory_stats()
+    with mw.MLLMRuntime(vit_cfg, lm_cfg, **kw) as rt:
+        streams = _worker_streams(rt)
+        main = torch.cuda.current_stream(dev).cuda_stream
+        check(len(set(streams.values())) == 2
+              and main not in streams.values(),
+              f"the two sections must each run on a stream of their own: "
+              f"{streams}, main {main}")
+        params, opts = rt.place(init)
+        reset_counts()
+        for i in range(MLLM_ITERS):
+            t0 = time.perf_counter()
+            params, opts, m = rt.train_iteration(params, opts, batches[i], i,
+                                                 plan=plans[i])
+            record("b serialized", i, {k: float(m[k]) for k in keys},
+                   (time.perf_counter() - t0) * 1e3)
+            n_img = len(plans[i].image_mbs)
+            check(m["n_vit_tasks"] == 2 * n_img
+                  and m["n_tasks"]["vit"] == 2 * n_img + 1,
+                  f"vit tasks {m['n_tasks']} for {n_img} image microbatches")
+        counts_b = read_counts()
+        print("mllm (b) sections of the last iteration:")
+        _section_report(m["execution"], rt.rt.queue)
+        for sec in ("vit", "lm"):
+            still = [p for (p, x), x0 in zip(_named_leaves(
+                opts[sec].master), tree_leaves(init[sec]))
+                if bool((x == x0.to(dev).float()).all())]
+            check(not still, f"{sec} master weights that did not move: "
+                  f"{still}")
+        masters_b = _masters(opts)
+        del params, opts, m
+    peaks["b"] = _peak()
+    del rt
+    free()
+
+    # (c) the same runtime streamed with lookahead 1; then an all-text
+    # batch, wavefront against FIFO and one traced iteration
+    torch.cuda.reset_peak_memory_stats()
+    with mw.MLLMRuntime(vit_cfg, lm_cfg, lookahead=1, **kw) as rt:
+        rt.install(*rt.place(init))
+        reset_counts()
+        t_start = time.perf_counter()
+        for i in range(MLLM_ITERS):
+            rt.submit_iteration(batches[i], i, plan=plans[i])
+        ms = rt.drain()
+        counts_c = read_counts()
+        prev = t_start
+        for i, m in enumerate(ms):
+            end = m["execution"].t0 + max(e.end for e in
+                                          m["execution"].timeline)
+            record("c streamed", i, {k: float(m[k]) for k in keys},
+                   (end - prev) * 1e3)
+            prev = end
+        masters_c = _masters(rt.state()[1])
+        print("mllm (c) sections of the last iteration:")
+        _section_report(ms[-1]["execution"], rt.rt.queue)
+        step_i = MLLM_ITERS
+
+        # all text: the vision section runs only its update, and the queue
+        # carries only the 2-push joint grad-norm rendezvous
+        pushes = rt.rt.queue.stats()["pushes"]
+        check(text_plan.image_mbs == (), "the all-text plan wakes the ViT")
+        rt.submit_iteration(text, step_i, plan=text_plan)
+        (tm,) = rt.drain()
+        step_i += 1
+        vit_tags = [e.tag for e in tm["execution"].timeline
+                    if e.section == "vit"]
+        grew = rt.rt.queue.stats()["pushes"] - pushes
+        print(f"mllm all-text batch: vit timeline {vit_tags}, queue pushes "
+              f"+{grew}, loss {float(tm['loss']):.4f}, "
+              f"{tm['execution'].makespan * 1e3:.1f} ms")
+        check(vit_tags == ["upd"] and grew == 2 and tm["n_vit_tasks"] == 0
+              and np.isfinite(float(tm["loss"])),
+              "all-text batch: the vision section ran more than its update "
+              "or the queue carried activations")
+
+        # wavefront against FIFO on the same mixed batch
+        made = {}
+        for name, plan in (("wavefront", plans[w]), ("FIFO", fifos[w])):
+            rt.submit_iteration(batches[w], step_i, plan=plan)
+            (m,) = rt.drain()
+            step_i += 1
+            made[name] = m["execution"].makespan * 1e3
+            print(f"mllm batch {w}, {name} order {list(plan.order)}: ViT on "
+                  f"{len(plan.image_mbs)} of {n_mb} microbatches; realized "
+                  f"makespan {made[name]:.1f} ms")
+        print(f"mllm batch {w}: planned makespan wavefront "
+              f"{plans[w].schedule.makespan * 1e3:.1f} ms, FIFO "
+              f"{plans[w].schedule.fifo_makespan * 1e3:.1f} ms")
+        for i in range(MLLM_ITERS):
+            check(len(plans[i].image_mbs) <= len(fifos[i].image_mbs),
+                  f"batch {i}: the wavefront order ran the ViT on more "
+                  "microbatches than FIFO")
+
+        # one warm streamed iteration, traced
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            rt.submit_iteration(batches[MLLM_ITERS], step_i,
+                                plan=plans[MLLM_ITERS])
+            (m,) = rt.drain()
+            check(np.isfinite(float(m["loss"])), "non-finite traced loss")
+            wall = (time.perf_counter() - t0) * 1e3
+        _kernel_report(prof, wall, "warm streamed MLLM iteration")
+        _stream_report(prof, wall, "MLLM iteration (streams)",
+                       _flash_count_roles({
+                           "vit": Lv * 3 * len(plans[MLLM_ITERS].image_mbs),
+                           "llm": Ll * 2 * n_mb}))
+        _section_report(m["execution"], rt.rt.queue)
+    peaks["c"] = _peak()
+    del rt
+    free()
+
+    # per ViT microbatch: the fwd task's forward, and the bwd task's
+    # forward under autograd with its remat recompute (3 per layer)
+    want = launches_of(range(MLLM_ITERS),
+                       lambda p: 3 * len(p.image_mbs))
+    for mode, counts in (("b", counts_b), ("c", counts_c)):
+        check(counts == (want, 0, 0), f"({mode}) launched (flash, KL, SSD) "
+              f"= {counts}, expected ({want}, 0, 0)")
+    for i in range(MLLM_ITERS):
+        (ma, _), (mb, _), (mc, _) = (runs[k][i] for k in sorted(runs))
+        for k in keys:
+            check(all(np.isfinite([ma[k], mb[k], mc[k]])),
+                  f"non-finite {k} at iteration {i}")
+            check(_rt_close(mb[k], ma[k]), f"(b) {k} {mb[k]} vs colocated "
+                  f"{ma[k]} at iteration {i} (tol {RT_TOL} relative)")
+            check(_rt_close(mc[k], mb[k]), f"(c) {k} {mc[k]} vs (b) {mb[k]} "
+                  f"at iteration {i} (tol {RT_TOL} relative)")
+    for what, new, ref in (("(b) vs (a)", masters_b, masters_a),
+                           ("(c) vs (b)", masters_c, masters_b)):
+        # every leaf is checked: neither section has an attention key bias
+        # (NOISE_LEAVES), whose gradient is zero in exact arithmetic
+        gap, leaf, most, noise = _update_gap(new, ref, init)
+        print(f"mllm {what}: master weights of both sections after "
+              f"{MLLM_ITERS} iterations, worst leaf {leaf} |new - ref| / "
+              f"|ref - start| {gap:.3e} (tol {UPD_TOL}), max |new - ref| "
+              f"{most:.3e}")
+        check(noise == 0.0 and gap <= UPD_TOL,
+              f"{what}: the updates differ at {leaf}: {gap:.3e} > {UPD_TOL}")
+    # printed, not checked: bitwise equality needs every reduction to sum
+    # in the same order on both runs, which CUDA does not promise for
+    # kernels queued from other threads and streams (atomics in the
+    # embedding backward); the checks above are the contract
+    bitwise = all(torch.equal(a, c) for a, c in
+                  zip(tree_leaves(masters_b), tree_leaves(masters_c)))
+    same = all(runs["b serialized"][i][0] == runs["c streamed"][i][0]
+               for i in range(MLLM_ITERS))
+    print(f"mllm: (c) streamed vs (b) serialized bitwise equal: metrics "
+          f"{same}, master weights {bitwise}")
+    print(f"mllm realized makespan: wavefront {made['wavefront']:.1f} ms, "
+          f"FIFO {made['FIFO']:.1f} ms")
+    for mode, rows in sorted(runs.items()):
+        times = [t for _, t in rows]
+        warm = float(np.mean(times[1:]))
+        print(f"mllm {lm_cfg.name}-width ({mode}), batch {MLLM_B} x seq "
+              f"{MLLM_S} bf16 on {card_}: cold {times[0]:.1f} ms, warm "
+              f"{warm:.1f} ms/iteration ({toks / warm * 1e3:.0f} tok/s); "
+              f"peak device memory {peaks[mode[0]][0]:.2f} GiB, "
+              f"{peaks[mode[0]][1]} allocator retries")
+    return counts_c[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -1643,16 +2013,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-
-    def free() -> None:
-        gc.collect()
-        torch.cuda.empty_cache()
-
     phase_build()
     phase_sweep(rng)
-    flash_at = {"serve": phase_flash_shape(rng, PREFILL),
+    flash_at = {"serve": phase_flash_shape(rng, PREFILL, bwd=False),
                 "train_distill": phase_flash_shape(rng, TRAIN_ATTN),
-                "multi_teacher": phase_flash_shape(rng, MT_ATTN)}
+                "multi_teacher": phase_flash_shape(rng, MT_ATTN),
+                "mllm_vit": phase_flash_shape(rng, MLLM_VIT_ATTN,
+                                              causal=False),
+                "mllm_llm": phase_flash_shape(rng, MLLM_LM_ATTN)}
     phase_flash_grads(rng)
     phase_kl_sweep(rng)
     kl = kl_entry({"train_distill": phase_kl_main(rng, TRAIN_B * TRAIN_S),
@@ -1688,14 +2056,18 @@ def main() -> int:
     rt_launches, rt_kl_launches = phase_distill_runtime()
     free()
     mt_launches, mt_kl_launches = phase_multi_teacher()
+    free()
+    mllm_launches = phase_mllm()
     paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}", f"distill {TRAIN_ARCH}",
              f"train {MAMBA}", f"serve {MAMBA}",
-             f"distill-runtime {TRAIN_ARCH}", f"multi-teacher {TRAIN_ARCH}")
+             f"distill-runtime {TRAIN_ARCH}", f"multi-teacher {TRAIN_ARCH}",
+             "mllm pixtral-12b-width")
     per_path = {
         "flash": (serve_launches, train_launches, distill_launches, 0, 0,
-                  rt_launches, mt_launches),
-        "kl": (0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches),
-        "ssd": (0, 0, 0, mamba_train_launches, mamba_serve_launches, 0, 0)}
+                  rt_launches, mt_launches, mllm_launches),
+        "kl": (0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches, 0),
+        "ssd": (0, 0, 0, mamba_train_launches, mamba_serve_launches, 0, 0,
+                0)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

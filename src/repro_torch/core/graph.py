@@ -10,8 +10,8 @@ data-flow edges.  Construction rules:
   the boundary instead of logits (vocab ≫ d_model) — realized by the
   ``hidden_handoff`` edge attribute + the chunked-vocab ``distill_kl``
   kernel on the student side;
-* **mutually-exclusive encoder colocation** (``maybe_colocate_exclusive``)
-  and the VLM graph arrive with the MLLM slice (ROADMAP.md, A5).
+* **mutually-exclusive encoder colocation**: modality encoders of similar
+  size that are (almost) never active on the same sample share a section.
 """
 from __future__ import annotations
 
@@ -102,3 +102,54 @@ def build_distill_graph(teacher: ArchConfig, student: ArchConfig, *,
               bytes_per_token=teacher.d_model * 2, fanout=fanout)
     g.validate()
     return g
+
+
+def build_vlm_graph(vit: ArchConfig, lm: ArchConfig, *, fanout: int = 1,
+                    vit_parallel: Optional[ParallelConfig] = None,
+                    lm_parallel: Optional[ParallelConfig] = None
+                    ) -> SectionGraph:
+    """VLM: ViT encoder section (CP-heavy, long visual-token sequences) →
+    LLM backbone (critical).  The default ViT ``cp=2`` is the paper's;
+    the port's runtime runs one device a section (ROADMAP.md, A6), so its
+    callers pass ``vit_parallel``."""
+    g = SectionGraph()
+    g.add(SectionConfig("vit", vit,
+                        vit_parallel or ParallelConfig(cp=2),
+                        trainable=True))
+    g.add(SectionConfig("llm", lm, lm_parallel or ParallelConfig(),
+                        trainable=True, critical=True))
+    g.connect("vit", "llm", bytes_per_token=lm.d_model * 2, fanout=fanout)
+    g.validate()
+    return g
+
+
+def maybe_colocate_exclusive(g: SectionGraph, a: str, b: str, *,
+                             coactivation_rate: float,
+                             size_ratio_tol: float = 2.0,
+                             rate_tol: float = 0.05) -> SectionGraph:
+    """§3.1 omni-modal rule: encoders that are (almost) mutually exclusive
+    and of comparable size share one section (resource-fragmentation fix).
+
+    Returns a new graph with `a`+`b` merged when the rule applies."""
+    sa, sb = g.sections[a], g.sections[b]
+    ratio = max(sa.arch.total_params(), sb.arch.total_params()) / max(
+        min(sa.arch.total_params(), sb.arch.total_params()), 1)
+    if coactivation_rate > rate_tol or ratio > size_ratio_tol:
+        return g
+    merged = SectionConfig(f"{a}+{b}", sa.arch, sa.parallel,
+                           trainable=sa.trainable or sb.trainable,
+                           critical=sa.critical or sb.critical,
+                           seq_scale=max(sa.seq_scale, sb.seq_scale))
+    out = SectionGraph()
+    out.add(merged)
+    for name, s in g.sections.items():
+        if name not in (a, b):
+            out.add(s)
+    for e in g.edges:
+        src = merged.name if e.src in (a, b) else e.src
+        dst = merged.name if e.dst in (a, b) else e.dst
+        if src != dst:
+            out.connect(src, dst, hidden_handoff=e.hidden_handoff,
+                        bytes_per_token=e.bytes_per_token, fanout=e.fanout)
+    out.validate()
+    return out

@@ -957,6 +957,9 @@ class CompoundRuntime:
                         g = [torch.zeros(x.shape, dtype=torch.float32,
                                          device=x.device) for x in leaves]
                     gs = [(a / n_mb).to(x.dtype) for a, x in zip(g, leaves)]
+                    # the f32 accumulators (4 bytes a parameter) are not
+                    # read again: free them before the update's temporaries
+                    rec.acc[name]["g"] = g = None
                     # joint grad-norm rendezvous: every trainable section
                     # pushes its per-leaf sum-of-squares vector to every
                     # peer BEFORE pulling any (pushes never block → no

@@ -1,13 +1,19 @@
-"""Deterministic synthetic token streams (``repro/data/synthetic.py``).
+"""Deterministic synthetic data (``repro/data/synthetic.py``): token
+streams and mixed-modality batches.
 
 The numpy stream is the JAX package's, draw for draw, so one seed gives
-the same tokens on both sides; the batches are torch tensors on the
-device the caller names (tokens and labels int64, the index dtype of
-PyTorch, where the JAX package uses int32).
+the same batches on both sides; the batches are torch tensors on the
+device the caller names (tokens, labels and image positions int64, the
+index dtype of PyTorch, where the JAX package uses int32).
+
+The multimodal generator reproduces the data regime the paper targets
+(§2.1/§4.1): a vision:text sample mix; text-only samples bypass the
+vision section entirely.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from dataclasses import dataclass
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -59,4 +65,58 @@ def routed_lm_batches(*, batch: int, seq_len: int, vocab: int,
             "loss_mask": torch.ones((batch, seq_len), dtype=torch.float32,
                                     device=device),
             "domain": torch.from_numpy(domain).to(device),
+        }
+
+
+@dataclass
+class MultimodalSample:
+    has_image: bool
+    image_tokens: int          # visual tokens consumed by the LM
+    vit_patches: int           # raw patches the ViT section processes
+
+
+def sample_modalities(rng: np.random.Generator, n: int, *,
+                      vision_ratio: float, image_tokens: int,
+                      downsample: int = 4) -> List[MultimodalSample]:
+    out = []
+    for _ in range(n):
+        has = rng.random() < vision_ratio
+        out.append(MultimodalSample(
+            has, image_tokens if has else 0,
+            image_tokens * downsample if has else 0))
+    return out
+
+
+def vlm_batches(*, batch: int, seq_len: int, vocab: int, vision_ratio: float,
+                image_tokens: int, patch_dim: int, downsample: int = 4,
+                seed: int = 0, device="cuda"
+                ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Mixed text/vision batches: LM inputs plus the ViT section's raw
+    ``patches`` [B, K·downsample, patch_dim] (bf16, rounded to nearest
+    even from the f32 draw as the JAX package's cast does; zero on text
+    rows) and static-capacity image slots (``image_pos`` / ``image_valid``
+    [B, K]; images lead the sequence, which carries no LM loss there)."""
+    rng = np.random.default_rng(seed)
+    K = image_tokens
+    while True:
+        toks = torch.from_numpy(_lm_ngram_tokens(rng, batch, seq_len, vocab))
+        modal = sample_modalities(rng, batch, vision_ratio=vision_ratio,
+                                  image_tokens=K, downsample=downsample)
+        has = np.array([m.has_image for m in modal])
+        patches = rng.standard_normal(
+            (batch, K * downsample, patch_dim)).astype(np.float32)
+        patches[~has] = 0.0
+        pos = np.tile(np.arange(K)[None], (batch, 1))
+        valid = np.tile(has[:, None], (1, K)).astype(np.int32)
+        mask = np.ones((batch, seq_len), np.float32)
+        mask[has, :K] = 0.0              # no LM loss on image positions
+        yield {
+            "tokens": toks[:, :-1].to(device),
+            "labels": toks[:, 1:].to(device),
+            "loss_mask": torch.from_numpy(mask).to(device),
+            "patches": torch.from_numpy(patches).to(device=device,
+                                                   dtype=torch.bfloat16),
+            "image_pos": torch.from_numpy(pos).to(device),
+            "image_valid": torch.from_numpy(valid).to(device),
+            "has_image": torch.from_numpy(has.astype(np.int32)).to(device),
         }

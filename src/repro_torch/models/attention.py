@@ -94,15 +94,18 @@ def _unpad_o_heads(o, cfg: ArchConfig, H: int):
     return og.reshape(B, S, H, D)
 
 
-def attention(p, x, cfg: ArchConfig, *,
+def attention(p, x, cfg: ArchConfig, *, causal: bool = True,
               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence causal attention. x: [B, S, D]."""
+    """Full-sequence attention (causal, or bidirectional for the ViT).
+    x: [B, S, D].  (The reference's ``positions``, ``rope`` and
+    ``kv_override`` serve whisper's encoder and cross-attention, A7.)"""
     B, S, _ = x.shape
     H = cfg.num_heads
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
     q = cm.shard_act(_pad_q_heads(q, cfg), "attn_q")
-    o = kops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+    o = kops.flash_attention(q, k, v, causal=causal,
+                             window=cfg.sliding_window,
                              segment_q=segment_ids, segment_kv=segment_ids)
     o = _unpad_o_heads(cm.shard_act(o, "attn_q"), cfg, H)
     return _out_proj(o, p["wo"])

@@ -10,9 +10,11 @@ argument:
 * ``prefill(batch, extra_cache)``-- (last logits [B, V], cache)
 * ``decode(cache, token, pos)`` -- one serving step (writes the cache in place)
 
-The ``dense`` (attention + MLP) and ``ssm`` (Mamba-2) families are
-ported; every other family raises ``NotImplementedError`` naming its
-slice in ROADMAP.md.
+The ``dense`` (attention + MLP), ``ssm`` (Mamba-2), ``vlm`` (the dense
+path with projected image embeddings scattered into the token stream)
+and ``vit`` (encoder-only, bidirectional attention, a loss of CE alone;
+no prefill or decode) families are ported; every other family raises
+``NotImplementedError`` naming its slice in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -25,13 +27,11 @@ from repro_torch.core.types import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 
-_PORTED = ("dense", "ssm")
+_PORTED = ("dense", "ssm", "vlm", "vit")
 _LATER = {
     "moe": "A7 (MoE)",
     "hybrid": "A7 (jamba: its Mamba-2 layers run, its MoE is not ported)",
     "audio": "A7 (whisper encoder-decoder)",
-    "vlm": "A5 (MLLM)",
-    "vit": "A5 (MLLM)",
 }
 
 
@@ -59,28 +59,45 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.params = ParamTree(params)
+        self.encoder = cfg.family == "vit"
 
     def param_tree(self) -> dict:
         return self.params.tree()
 
     @torch.inference_mode()
     def forward(self, batch: dict) -> torch.Tensor:
-        return tf.lm_forward(self.param_tree(), self.cfg, batch)[0]
+        return tf.lm_forward(self.param_tree(), self.cfg, batch,
+                             causal=not self.encoder)[0]
 
     def loss(self, batch: dict, params: Optional[dict] = None,
              *, remat: bool = True):
         """(loss, {"ce", "aux"}) on ``params`` (default: the model's own),
-        recorded by autograd; ``repro``'s ``Model.loss(p, batch)``."""
+        recorded by autograd; ``repro``'s ``Model.loss(p, batch)``.  The
+        encoder-only ``vit`` family's loss is the masked CE alone."""
         p = self.param_tree() if params is None else params
-        return tf.lm_loss(p, self.cfg, batch, remat=remat)
+        if not self.encoder:
+            return tf.lm_loss(p, self.cfg, batch, remat=remat)
+        logits, aux = tf.lm_forward(p, self.cfg, batch, causal=False,
+                                    remat=remat)
+        ce = cm.cross_entropy(logits, batch["labels"],
+                              batch.get("loss_mask"))
+        return ce, {"ce": ce, "aux": aux}
+
+    def _decoder(self, what: str) -> None:
+        if self.encoder:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the encoder-only vit family has no "
+                f"{what} (the reference's Model.{what} is None)")
 
     @torch.inference_mode()
     def prefill(self, batch: dict, extra_cache: int = 0):
+        self._decoder("prefill")
         return tf.lm_prefill(self.param_tree(), self.cfg, batch,
                              extra_cache=extra_cache)
 
     @torch.inference_mode()
     def decode(self, cache: dict, token: torch.Tensor, pos: int):
+        self._decoder("decode")
         return tf.lm_decode(self.param_tree(), self.cfg, cache, token, pos)
 
 

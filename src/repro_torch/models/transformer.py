@@ -7,6 +7,9 @@ of sub-layers whose parameters are stacked over the number of repeats (the
 ``layers`` axis); a Python loop over that axis takes the place of
 ``lax.scan``.  MoE sub-layers arrive with a later slice (ROADMAP.md, A7)
 and raise ``NotImplementedError`` here.
+
+VLM archs (``cfg.vision_dim > 0``) additionally scatter projected patch
+embeddings (``batch["image_embeds"]``) into the token stream.
 """
 from __future__ import annotations
 
@@ -111,6 +114,10 @@ def lm_specs(cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
                                      ("embed", "vocab"), "normal", dt, (0,))
+    if cfg.vision_dim:
+        specs["vision_proj"] = ParamSpec((cfg.vision_dim, cfg.d_model),
+                                         ("vision", "embed"), "normal",
+                                         dt, (0,))
     return specs
 
 
@@ -128,26 +135,46 @@ def _ffn(lp, x, cfg: ArchConfig, ffn: Optional[str]):
     return x + mlpm.mlp(lp[ffn], apply_norm(lp["norm2"], x, cfg), cfg)
 
 
+def vision_scatter(p, cfg: ArchConfig, x: torch.Tensor,
+                   batch: dict) -> torch.Tensor:
+    """Replace the token embeddings at the valid image slots
+    (``image_pos`` [B, K] where ``image_valid`` [B, K] is 1) with the
+    projected ``image_embeds`` [B, K, vision_dim]: an out-of-place
+    ``index_put(accumulate=True)`` of ``upd - cur * valid``, the
+    reference's ``x.at[b, pos].add(...)`` (invalid slots add exactly 0)."""
+    if not (cfg.vision_dim and "image_embeds" in batch):
+        return x
+    vh = batch["image_embeds"].to(x.dtype) @ p["vision_proj"]
+    valid = batch["image_valid"].to(x.dtype)[..., None]            # [B,K,1]
+    pos = batch["image_pos"].long()
+    b_ix = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(pos)
+    upd = vh * valid
+    cur = x[b_ix, pos]
+    return x.index_put((b_ix, pos), upd - cur * valid, accumulate=True)
+
+
 def embed_tokens(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    return p["embed"][batch["tokens"]]
+    return vision_scatter(p, cfg, p["embed"][batch["tokens"]], batch)
 
 
 def _sublayer_fwd(lp, x, cfg: ArchConfig, mixer: str, ffn: Optional[str],
-                  segment_ids):
+                  segment_ids, causal: bool = True):
     """One (mixer, ffn) sub-layer; ``repro`` returns (x, aux) and its aux
     is 0 for every sub-layer the port has."""
     h = apply_norm(lp["norm1"], x, cfg)
     if mixer == "attn":
-        h = att.attention(lp["attn"], h, cfg, segment_ids=segment_ids)
+        h = att.attention(lp["attn"], h, cfg, causal=causal,
+                          segment_ids=segment_ids)
     else:
         h = mb.mamba(lp["mamba"], h, cfg)
     return _ffn(lp, x + h, cfg, ffn)
 
 
-def lm_forward(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
-               logits_out: bool = True):
-    """Full-sequence causal forward. Returns (logits [B, S, V] or, with
-    ``logits_out=False``, the final-normed hidden states [B, S, D]; aux).
+def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
+               remat: bool = True, logits_out: bool = True):
+    """Full-sequence forward, causal unless ``causal=False`` (the ``vit``
+    family). Returns (logits [B, S, V] or, with ``logits_out=False``, the
+    final-normed hidden states [B, S, D]; aux).
 
     With ``remat`` each sub-layer runs under
     ``torch.utils.checkpoint`` (non-reentrant) in place of
@@ -170,9 +197,10 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             if checkpoint:
                 x = torch.utils.checkpoint.checkpoint(
                     _sublayer_fwd, lp, x, cfg, mixer, ffn, segment_ids,
-                    use_reentrant=False)
+                    causal, use_reentrant=False)
             else:
-                x = _sublayer_fwd(lp, x, cfg, mixer, ffn, segment_ids)
+                x = _sublayer_fwd(lp, x, cfg, mixer, ffn, segment_ids,
+                                  causal)
             x = cm.shard_act(x, "hidden")
     x = apply_norm(p["final_norm"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -51,6 +51,13 @@ COMPOUND_SLICE = ["repro_torch.core.graph", "repro_torch.core.simulator",
                   "repro_torch.distill.multi_teacher"]
 
 
+MLLM_SLICE = ["repro_torch.models.vlm", "repro_torch.mllm",
+              "repro_torch.mllm.workload", "repro_torch.models.attention",
+              "repro_torch.models.transformer", "repro_torch.models.model",
+              "repro_torch.data.synthetic", "repro_torch.core.graph",
+              "repro_torch.configs.compound"]
+
+
 def test_module_list_covers_the_training_slice():
     assert set(TRAINING_SLICE) <= set(_modules())
 
@@ -61,6 +68,10 @@ def test_module_list_covers_the_mamba_slice():
 
 def test_module_list_covers_the_compound_runtime_slice():
     assert set(COMPOUND_SLICE) <= set(_modules())
+
+
+def test_module_list_covers_the_mllm_slice():
+    assert set(MLLM_SLICE) <= set(_modules())
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -91,7 +91,7 @@ def test_param_counts_match(name):
 
 @pytest.mark.parametrize("entry", sorted(tcomp.COMPOUND))
 def test_compound_graphs_match(entry):
-    assert set(tcomp.COMPOUND) == set(jcomp.COMPOUND) - {"vlm_compound"}
+    assert set(tcomp.COMPOUND) == set(jcomp.COMPOUND)
     t, j = tcomp.COMPOUND[entry](), jcomp.COMPOUND[entry]()
     assert _graph_view(t) == _graph_view(j)
     assert t.critical.name == j.critical.name
