@@ -96,7 +96,27 @@ CUDA kernels from the sources in this checkout.  Phases:
    the grad-norm pair), wavefront against FIFO (ViT microbatches and
    realized makespan), and one traced iteration with the time both
    sections' streams ran kernels.
-11. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+11. The MoE family at full width with its depth cut. Serving:
+   mixtral-8x22b (8 of 56 layers, bf16, 20.4 B parameters) through
+   ``launch.serve.generate``, batch 2, prompt 8192 past its 4096-token
+   window, 32 tokens: flash once per layer in prefill, never in decode;
+   then warm, and a warm prefill and 8 decode steps traced with the device
+   time under the MoE layer's ranges.  Prefill of 4352 tokens and 4
+   decode steps, the rolling cache wrapping, against ``forward`` (4
+   layers, float32, no-drop capacity), every MoE call's routing compared
+   first.  Training: moonshot-v1-16b-a3b (4 of 48 layers, bf16, 2.95 B
+   parameters) through ``train.step.build_train_step``, batch 4 x 2048 in
+   microbatches of 2, 3 steps: finite loss, grad norm and aux, aux > 0,
+   weights moved, flash launched layers x 2 x microbatches a step; one warm
+   step traced.  Then one loss's gradients (float32) on the card against
+   the CPU at the reduced config and at full width with 2 layers, the
+   routing of every MoE call compared first (a difference is a tie flip
+   and fails as one).  The flash kernel is also held at mixtral's windowed
+   prefill (2, 8192, 8192, 48, 8, 128), window 4096, against the plain
+   version over 1024 query rows at a time, where the kernel run without
+   the window must fail, and at moonshot's training shapes (4 and 2, 2048,
+   2048, 16, 16, 128).
+12. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash kernel's at each of its main-path
    shapes under ``at``; its top-level times are the serving prefill's),
    then the ``{"ok": true, ...}`` line.
@@ -107,6 +127,7 @@ directory that holds no ``src/repro_torch``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -138,6 +159,12 @@ LSE_TOL = 1e-4
 # max|o_ref| 0.2188, limit 6.836e-3, the kernel 9.766e-4 (one bf16 ulp),
 # the planted fault 2.188e-2; at the causal shapes the absolute 2e-2
 # stays the lower limit (max|o_ref| 3.1-4.3, errors 7.8e-3-1.56e-2).
+# There max|o_ref| comes from the first rows, which see a few keys, while
+# rows that see thousands have |o| near 0.02; so each query row is also
+# held to this share of its own max|o_ref|, and o * 0.9 on the rows past
+# the window (or the second half) must fail that.  At every main-path
+# shape, the same card: the kernel 7.812e-3 (one bf16 ulp of a row's
+# largest output), the planted fault 1.096e-1.
 SHAPE_REL_TOL = 2.0 ** -5
 # tests/test_kernels_flash.py's sweep (B, S, T, H, KV, D), plus a ragged length
 SWEEP = [(2, 128, 128, 4, 2, 16), (1, 256, 256, 8, 8, 32),
@@ -288,8 +315,28 @@ def compare(o, lse, o_ref, lse_ref, vis, dtype) -> float:
     return err
 
 
+def row_rel_err(o, o_ref) -> float:
+    """Max over query rows (b, s, h) of max_d |o - o_ref| / max_d |o_ref|:
+    each row held to its own scale (a row with no visible key, 0 on both
+    sides, reads 0)."""
+    ref = o_ref.float()
+    num = (o.float() - ref).abs().amax(dim=-1)
+    return (num / ref.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def plain_rows(q, k, v, *, rows: int, q_offset: int = 0, **kw):
+    """The plain version over ``rows`` query rows at a time (each slice at
+    its own ``q_offset``, all keys), for a shape whose [B, H, S, T] float32
+    scores do not fit the card."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    outs = [flash_attention_ref(q[:, i:i + rows], k, v, q_offset=q_offset + i,
+                                **kw) for i in range(0, q.shape[1], rows)]
+    return (torch.cat([o for o, _ in outs], dim=1),
+            torch.cat([lse for _, lse in outs], dim=1))
+
+
 def run_case(rng, shape, dtype, causal, window, q_offset=0, positions=None,
-             strided=False):
+             strided=False, rows=0):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref, visible_mask
     B, S, T, H, KV, D = shape
@@ -304,7 +351,9 @@ def run_case(rng, shape, dtype, causal, window, q_offset=0, positions=None,
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               kv_positions=positions)
     o, lse = fa.flash_fwd(q, k, v, **kw)
-    o_ref, lse_ref = flash_attention_ref(q, k, v, **kw)
+    plain = (functools.partial(plain_rows, rows=rows) if rows
+             else flash_attention_ref)
+    o_ref, lse_ref = plain(q, k, v, **kw)
     torch.cuda.synchronize()
     vis = visible_mask(S, T, causal=causal, window=window, q_offset=q_offset,
                        kv_positions=positions, device=q.device).any(dim=1)
@@ -344,17 +393,23 @@ def phase_sweep(rng) -> None:
     print("  flash with segment ids on CUDA tensors: ValueError (B5)")
 
 
-def phase_flash_shape(rng, shape, causal: bool = True,
-                      bwd: bool = True) -> dict:
+def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
+                      window: int = 0, rows: int = 0) -> dict:
     """The kernel at one main-path shape (bf16, S == T; causal, or
-    bidirectional as in the ViT): checked against its plain version within
-    SHAPE_REL_TOL of the output's scale, then timed beside the plain
-    version and PyTorch's ``scaled_dot_product_attention``.  With ``bwd``
-    (a training shape) the plain blockwise backward is timed too."""
+    bidirectional as in the ViT; with a sliding ``window``): checked
+    against its plain version within SHAPE_REL_TOL of the output's scale
+    and, row by row, of each query row's own scale, then timed beside the plain version and PyTorch's
+    ``scaled_dot_product_attention``.  With ``bwd`` (a training shape) the
+    plain blockwise backward is timed too.  With ``rows`` the plain version
+    runs over that many query rows at a time (``plain_rows``).  With a
+    window the kernel run without it must fail the same limit, and it is
+    timed without it too (``nowindow_ms``: what skipping the tiles outside
+    the window saves)."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import flash_attention_ref, visible_mask
     B, S, T, H, KV, D = shape
-    q, k, v, o, o_ref, err = run_case(rng, shape, torch.bfloat16, causal, 0)
+    q, k, v, o, o_ref, err = run_case(rng, shape, torch.bfloat16, causal,
+                                      window, rows=rows)
     top = o_ref.float().abs().max().item()
     tol = min(TOL[torch.bfloat16], SHAPE_REL_TOL * top)
     planted = (0.9 * o.float() - o_ref.float()).abs().max().item()
@@ -363,42 +418,90 @@ def phase_flash_shape(rng, shape, causal: bool = True,
     check(err <= tol, f"flash at {shape}: max|o-ref| {err:.3e} > {tol:.3e}")
     check(planted > tol, f"flash at {shape}: the limit {tol:.3e} passes a "
           f"planted o*0.9 ({planted:.3e})")
-    ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal), iters=10)
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+    # row by row: the rows past the window (or, without one, the second
+    # half) attend to thousands of keys and their |o| is far below the
+    # first rows'; a fault that touches only them must fail too
+    rerr = row_rel_err(o, o_ref)
+    s0 = window or S // 2
+    bad = o.clone()
+    bad[:, s0:] *= 0.9
+    rplanted = row_rel_err(bad, o_ref)
+    del bad
+    print(f"  row by row: max over rows of max|o-ref| / max|o_ref| "
+          f"{rerr:.3e} (limit {SHAPE_REL_TOL:.3e}); planted o*0.9 on rows "
+          f">= {s0} {rplanted:.3e}")
+    check(rerr <= SHAPE_REL_TOL, f"flash at {shape}: a row's max|o-ref| is "
+          f"{rerr:.3e} of its max|o_ref| > {SHAPE_REL_TOL:.3e}")
+    check(rplanted > SHAPE_REL_TOL, f"flash at {shape}: the row limit "
+          f"passes o*0.9 on rows >= {s0} ({rplanted:.3e})")
+    out = {}
+    if window:
+        o_nw = fa.flash_fwd(q, k, v, causal=causal)[0]
+        unwindowed = (o_nw.float() - o_ref.float()).abs().max().item()
+        rnw = row_rel_err(o_nw, o_ref)
+        del o_nw
+        print(f"  planted: the kernel without the window {unwindowed:.3e} "
+              f"from the windowed plain version, row by row {rnw:.3e}")
+        check(unwindowed > tol and rnw > SHAPE_REL_TOL,
+              f"flash at {shape}: the limits pass the kernel run without "
+              f"its window ({unwindowed:.3e}, row by row {rnw:.3e})")
+        out["nowindow_ms"] = time_ms(
+            lambda: fa.flash_fwd(q, k, v, causal=causal), iters=10)
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal, window=window),
+                 iters=10)
+    plain = (functools.partial(plain_rows, rows=rows) if rows
+             else flash_attention_ref)
+    plain_ms = time_ms(lambda: plain(q, k, v, causal=causal, window=window),
                        iters=3, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)
+    if window:
+        # a boolean mask, and K/V repeated to H heads beforehand: the
+        # backend that takes an arbitrary mask takes no grouped heads
+        mask = visible_mask(S, T, causal=causal, window=window,
+                            device=q.device)
+        kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  for x in (k, v))
 
-    def library():
-        return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        def library():
+            return sdpa(qt, kt, vt, attn_mask=mask)
+    else:
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+        def library():
+            return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     lib_err = (library().transpose(1, 2).float() - o.float()).abs().max().item()
     library_ms = time_ms(library, iters=10)
-    out = {}
     if bwd:
         # the plain-PyTorch blockwise backward that training runs after the
         # kernel's forward (ROADMAP B2), for the device-time account
-        _, lse = fa.flash_fwd(q, k, v, causal=causal)
+        _, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
         do = torch.randn_like(o)
         out["plain_bwd_ms"] = time_ms(
-            lambda: fa.flash_bwd(q, k, v, o, lse, do, causal=causal),
+            lambda: fa.flash_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window),
             iters=3, warmup=1)
-    # query-key pairs the mask lets through (S == T)
-    pairs = S * (S + 1) // 2 if causal else S * T
+    # query-key pairs the mask lets through
+    pairs = int(visible_mask(S, T, causal=causal, window=window,
+                             device=q.device).sum())
     flops = 4 * B * H * D * pairs
     nbytes = 2 * (2 * B * S * H * D + 2 * B * T * KV * D) + 4 * B * S * H
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"flash at {shape} bf16 {'causal' if causal else 'non-causal'}: "
-          f"kernel {ms:.3f} ms "
+    print(f"flash at {shape} bf16 {'causal' if causal else 'non-causal'}"
+          f"{f' window {window}' if window else ''}: kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
           f"sdpa {library_ms:.3f} ms (|sdpa-kernel| {lib_err:.3e}), "
           f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB)"
-          + (f"; plain backward {out['plain_bwd_ms']:.3f} ms" if bwd else ""))
-    return {"shape": list(shape), "causal": causal, "max_abs_err": err,
+          + (f"; plain backward {out['plain_bwd_ms']:.3f} ms" if bwd else "")
+          + (f"; without the window {out['nowindow_ms']:.3f} ms"
+             if window else ""))
+    return {"shape": list(shape), "causal": causal, "window": window,
+            "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, **out}
 
@@ -411,7 +514,7 @@ def flash_entry(at: dict) -> dict:
             "replaces": "src/repro/kernels/flash_attention.py:51",
             "launches": None,
             **{k: v for k, v in at["serve"].items()
-               if k not in ("shape", "causal")},
+               if k not in ("shape", "causal", "window")},
             "max_abs_err": max(a["max_abs_err"] for a in at.values()),
             "at": at}
 
@@ -461,12 +564,34 @@ def phase_serve() -> int:
     return launches
 
 
+def _kernel_event(evt) -> bool:
+    """A device event that is a kernel or a copy: not the device-side span
+    that the profiler also records for each ``record_function`` range
+    (``is_user_annotation``), which covers its kernels and the gaps between
+    them and would count them twice."""
+    return (evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False))
+
+
+def _range_ms(prof, keys) -> dict:
+    """Device time of the kernels launched under each named range or
+    autograd node (label -> key), read from the range's host-side row."""
+    per = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for label, key in keys:
+            if evt.key == key or evt.key.endswith(key):
+                per[label] = per.get(label, 0.0) + evt.device_time_total / 1e3
+    return per
+
+
 def _device_ms(prof) -> tuple[float, dict]:
     """Total device time of a trace and its largest kernels, in ms."""
     per = {}
     for evt in prof.key_averages():
         t = evt.self_device_time_total
-        if evt.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+        if _kernel_event(evt) and t > 0:
             per[evt.key] = per.get(evt.key, 0.0) + t / 1e3
     return sum(per.values()), per
 
@@ -782,23 +907,17 @@ def _kernel_report(prof, wall_ms: float, what: str) -> None:
     """Device busy against wall time, time by part, and the top kernels."""
     busy, per = _device_ms(prof)
     check(busy > 0, f"the profiler saw no device time in {what}")
-    ranges = {}
-    for evt in prof.key_averages():
-        for label, key in (("flash backward (plain torch)",
-                            "evaluate_function: FlashAttentionBackward"),
-                           ("KL backward (plain torch)",
-                            "evaluate_function: DistillKLBackward"),
-                           ("SSD backward (plain torch)",
-                            "evaluate_function: SSDScanBackward"),
-                           ("AdamW update", "adamw.update")):
-            if evt.key.endswith(key) or evt.key == key:
-                ranges[label] = ranges.get(label, 0.0) + \
-                    evt.device_time_total / 1e3
+    ranges = _range_ms(prof, (
+        ("flash backward (plain torch)",
+         "evaluate_function: FlashAttentionBackward"),
+        ("KL backward (plain torch)", "evaluate_function: DistillKLBackward"),
+        ("SSD backward (plain torch)", "evaluate_function: SSDScanBackward"),
+        ("AdamW update", "adamw.update")))
     kinds = {"flash forward kernel": lambda k: "flash_fwd_kernel" in k,
              "distill_kl kernels": lambda k: "distill_kl_" in k,
              "SSD forward kernels": lambda k: "ssd_" in k,
              "GEMMs": lambda k: any(x in k.lower() for x in
-                                    ("gemm", "xmma", "cutlass"))}
+                                    ("gemm", "xmma", "cutlass", "nvjet"))}
     print(f"traced {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.0f}%, idle "
           f"{100 * (1 - busy / wall_ms):.0f}%), {len(per)} kernel kinds")
@@ -1024,7 +1143,7 @@ def _stream_report(prof, wall_ms: float, what: str, roles) -> None:
     knows, and fails the run if they are not what it expects."""
     spans, kernels = {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not _kernel_event(e):
             continue
         sid = e.device_resource_id
         spans.setdefault(sid, []).append((e.time_range.start,
@@ -2006,6 +2125,380 @@ def phase_mamba_grad_consistency(rng) -> None:
     check(rel <= tol, "mamba gradients differ between the card and the CPU")
 
 
+# --------------------------------------------------------------------------- #
+# The MoE family: mixtral-8x22b serving and moonshot-v1-16b-a3b training
+# --------------------------------------------------------------------------- #
+# mixtral-8x22b at its full width (d_model 6144, 48 heads, 8 KV heads of
+# 128, 8 experts of d_ff 16384, top-2, window 4096, vocab 32768), its depth
+# cut to 8 of 56 layers: 20.4 B parameters, 38.1 GiB in bf16
+MIXTRAL = "mixtral-8x22b"
+MIXTRAL_LAYERS = 8
+MIXTRAL_B, MIXTRAL_S, MIXTRAL_GEN = 2, 8192, 32
+MIXTRAL_WINDOW = 4096
+MIXTRAL_ATTN = (MIXTRAL_B, MIXTRAL_S, MIXTRAL_S, 48, 8, 128)
+# the plain flash version over 1024 query rows at a time at that shape:
+# its [2, 48, 8192, 8192] float32 scores are 25.8 GB
+PLAIN_ROWS = 1024
+# prefill + decode against forward: a prompt past the window, so that the
+# 4096-slot rolling cache wraps, and 4 decoded tokens
+MIXTRAL_CONS_S, MIXTRAL_CONS_GEN = 4352, 4
+# moonshot-v1-16b-a3b at its full width (d_model 2048, 16 heads of 128,
+# 64 experts of d_ff 1408, top-6, vocab 163840), its depth cut to 4 of 48
+# layers: 2.95 B parameters, about 16 bytes each of training state
+MOONSHOT = "moonshot-v1-16b-a3b"
+MOONSHOT_LAYERS = 4
+MOONSHOT_B, MOONSHOT_S, MOONSHOT_MBS, MOONSHOT_STEPS = 4, 2048, 2, 3
+MOONSHOT_ATTN = (MOONSHOT_B, MOONSHOT_S, MOONSHOT_S, 16, 16, 128)
+MOONSHOT_MB_ATTN = (MOONSHOT_MBS, MOONSHOT_S, MOONSHOT_S, 16, 16, 128)
+# the MoE layer's profiler ranges (models/moe.py) and the autograd nodes of
+# its backward: the expert products' (bmm), the dispatch's (index_put) and
+# the combine's (index_select)
+MOE_RANGES = (("routing", "moe.route"), ("dispatch", "moe.dispatch"),
+              ("expert products", "moe.experts"), ("combine", "moe.combine"),
+              ("expert products' backward",
+               "evaluate_function: BmmBackward0"),
+              ("dispatch backward", "evaluate_function: IndexPutBackward0"),
+              ("combine backward", "evaluate_function: IndexSelectBackward0"))
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The expert indices [B, S, K] of every ``moe.route`` call inside the
+    block, in call order, on the host."""
+    from repro_torch.models import moe as moem
+    seen, route = [], moem.route
+
+    def spy(*args, **kw):
+        out = route(*args, **kw)
+        seen.append(out[2].detach().cpu())
+        return out
+
+    moem.route = spy
+    try:
+        yield seen
+    finally:
+        moem.route = route
+
+
+@contextlib.contextmanager
+def scaled_gates(router: torch.Tensor, factor: float):
+    """A planted fault: inside the block the top-k gates of the one MoE
+    layer whose router is ``router`` (the stacked tree's first layer: its
+    per-layer view shares the data pointer) are scaled by ``factor``, a
+    wrong combine scale in that layer."""
+    from repro_torch.models import moe as moem
+    route = moem.route
+
+    def planted(p, x, cfg):
+        logits, gates, idx = route(p, x, cfg)
+        if p["router"].data_ptr() == router.data_ptr():
+            gates = gates * factor
+        return logits, gates, idx
+
+    moem.route = planted
+    try:
+        yield
+    finally:
+        moem.route = route
+
+
+def _moe_report(prof, what: str) -> None:
+    """Device time under the MoE layer's ranges and its backward's nodes
+    (ranges nest: under remat the forward's ranges also run inside the
+    backward's nodes)."""
+    per = _range_ms(prof, MOE_RANGES)
+    check(per.get("expert products", 0.0) > 0,
+          f"the profiler saw no device time under moe.experts in {what}")
+    for label, ms in per.items():
+        print(f"  {ms:8.2f} ms  MoE {label} (device time under its range)")
+
+
+def phase_moe_serve(rng) -> int:
+    """mixtral-8x22b serving through ``launch.serve.generate`` at full width
+    (8 layers, bf16, batch 2 x prompt 8192 x 32 tokens; the counted run),
+    then the same batch warm, then a warm prefill and 8 decode steps
+    traced; returns flash launches of the counted run."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    cfg = get_config(MIXTRAL).replace(num_layers=MIXTRAL_LAYERS,
+                                      dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(model.param_tree())
+    n_params = sum(x.numel() for x in leaves)
+    n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"serve {cfg.name}: {cfg.num_layers} of 56 layers at full width, "
+          f"{n_params / 1e9:.3f} B parameters ({n_bytes / 2**30:.2f} GiB), "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MIXTRAL_B, MIXTRAL_S))).cuda()
+    reset_counts()
+    res = serve_mod.generate(model, prompts, MIXTRAL_GEN)
+    launches, kl_launches, ssd_launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print("cold " + res.summary())
+    print(f"serve {cfg.name} peak device memory {peak:.2f} GiB")
+    check(res.prefill_launches == launches == cfg.num_layers,
+          f"prefill launched flash {res.prefill_launches} times, expected "
+          f"{cfg.num_layers}")
+    check(res.decode_launches == 0 and kl_launches == ssd_launches == 0,
+          "decode launched flash, or serving launched another kernel")
+    check(res.logits_finite, "non-finite logits")
+    check(tuple(res.tokens.shape) == (MIXTRAL_B, MIXTRAL_GEN)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          f"generated tokens {res.tokens.shape} outside the vocabulary")
+    print("warm " + serve_mod.generate(model, prompts, MIXTRAL_GEN).summary())
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": prompts}, extra_cache=9)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _kernel_report(prof, wall, f"warm prefill ({cfg.name})")
+    _moe_report(prof, "prefill")
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tok = logits.argmax(-1)[:, None]
+        for i in range(8):
+            logits, cache = model.decode(cache, tok, MIXTRAL_S + i)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _kernel_report(prof, wall, f"8 warm decode steps ({cfg.name})")
+    _moe_report(prof, "decode")
+    return launches
+
+
+def phase_moe_consistency(rng) -> None:
+    """mixtral-8x22b at full width (4 layers, float32, no-drop capacity
+    E / K = 4): prefill of 4352 tokens and 4 decode steps, the rolling
+    4096-slot cache wrapping, against ``forward``; every MoE call's routing
+    first, then the logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config(MIXTRAL)
+    cfg = base.replace(num_layers=4, dtype="float32",
+                       capacity_factor=base.num_experts
+                       / base.experts_per_token)
+    model = build_model(cfg, device="cuda", seed=1)
+    S, n = MIXTRAL_CONS_S, MIXTRAL_CONS_GEN
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, S + n))).cuda()
+    with recorded_routes() as fwd_routes:
+        full = model({"tokens": tokens})
+
+    def errors():
+        """max |logits - forward's| after the prefill and each decode."""
+        logits, cache = model.prefill({"tokens": tokens[:, :S]},
+                                      extra_cache=n)
+        check(cache["sub0"]["k"].shape[2] == cfg.sliding_window,
+              f"cache of {cache['sub0']['k'].shape[2]} slots")
+        errs = [(logits - full[:, S - 1]).abs().max().item()]
+        for pos in range(S, S + n):
+            logits, cache = model.decode(cache, tokens[:, pos:pos + 1], pos)
+            errs.append((logits - full[:, pos]).abs().max().item())
+        return errs
+
+    with recorded_routes() as routes:
+        errs = errors()
+    L = cfg.num_layers
+    want = [r[:, :S] for r in fwd_routes] + [
+        r[:, pos:pos + 1] for pos in range(S, S + n) for r in fwd_routes]
+    flips = [(i % L, int((a != b).any(-1).sum())) for i, (a, b) in
+             enumerate(zip(routes, want)) if not torch.equal(a, b)]
+    check(len(routes) == len(want) and not flips,
+          f"routing differs between forward and prefill/decode (a tie "
+          f"flip): (layer, tokens) {flips}")
+    scale = full.abs().max().item()
+    # float32 with TF32 off: as phase_consistency, sums over d_model 6144
+    # and d_ff 16384 in other orders; the planted fault below must fail it.
+    # H100 80GB HBM3 at 700 W: 1.57e-5-2.23e-5, layer 0's gates * 0.99
+    # 4.29e-2
+    tol = 1e-3
+    first = model.param_tree()["layers"]["sub0"]["moe"]["router"]
+    with scaled_gates(first, 0.99):
+        planted = max(errors())
+    print(f"consistency {cfg.name} d_model={cfg.d_model} layers={L} f32, "
+          f"capacity factor {cfg.capacity_factor}, S={S}+{n} (cache "
+          f"{cfg.sliding_window} slots): routes equal in {len(routes)} MoE "
+          f"calls; prefill/decode vs forward max|diff| "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol:.0e}; max "
+          f"|logit| {scale:.2f}); planted gates*0.99 in layer 0 "
+          f"{planted:.2e}")
+    check(max(errs) <= tol, "prefill + decode disagrees with forward")
+    check(planted > tol, f"the limit {tol:.0e} passes prefill + decode "
+          f"with layer 0's gates scaled by 0.99 ({planted:.2e})")
+
+
+def phase_moe_train() -> int:
+    """moonshot-v1-16b-a3b training through ``train.step.build_train_step``
+    at full width (4 layers, bf16, batch 4 x 2048 in microbatches of 2, lr
+    1e-4, 3 steps on ``lm_batches`` seed 0), then one warm step traced;
+    returns flash launches of the 3 steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.train import step as step_mod
+    cfg = get_config(MOONSHOT).replace(num_layers=MOONSHOT_LAYERS,
+                                       dtype="bfloat16")
+    B, S = MOONSHOT_B, MOONSHOT_S
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg, device="cuda", seed=0).param_tree()
+    # the step differentiates the tree it is given and returns a new one; a
+    # model holding the first weights would keep 5.9 GB of them alive
+    # through training, so the model the step calls holds meta tensors of
+    # their shapes
+    model = build_model(cfg, tree_map(
+        lambda x: torch.empty_like(x, device="meta"), params))
+    init = _host(params)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    step = step_mod.build_train_step(
+        model, ParallelConfig(mbs=MOONSHOT_MBS),
+        ShapeConfig("train", "train", S, B),
+        lr_schedule=functools.partial(schedules.constant, peak_lr=1e-4))
+    opt = adamw.init(params)
+    batches = lm_batches(batch=B, seq_len=S, vocab=cfg.vocab_size, seed=0,
+                         device="cuda")
+    times, mets = [], []
+    reset_counts()
+    for i in range(MOONSHOT_STEPS):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch, i)
+        met = {k: float(v) for k, v in met.items()}
+        times.append(time.perf_counter() - t0)
+        mets.append(met)
+        print(f"train {cfg.name} step {i}: loss {met['loss']:.4f} ce "
+              f"{met['ce']:.4f} aux {met['aux']:.4f} gnorm "
+              f"{met['grad_norm']:.3f} {times[-1] * 1e3:.1f} ms")
+    launches, kl_launches, ssd_launches = read_counts()
+    peak, retries = _peak()
+    warm = float(np.mean(times[1:]))
+    print(f"train {cfg.name}: {cfg.num_layers} of 48 layers at full width, "
+          f"{n_params / 1e9:.3f} B parameters, batch {B} x {S} in "
+          f"microbatches of {MOONSHOT_MBS}, bf16: cold {times[0] * 1e3:.1f} "
+          f"ms, warm {warm * 1e3:.1f} ms/step ({B * S / warm:.0f} tok/s); "
+          f"peak device memory {peak:.2f} GiB, {retries} allocator retries")
+    for met in mets:
+        check(_finite([met["loss"], met["grad_norm"], met["aux"]]),
+              f"non-finite metrics {met}")
+        check(met["aux"] > 0, f"MoE aux loss {met['aux']} not positive")
+    # remat: each layer's forward once and again in the backward, per
+    # microbatch
+    want = MOONSHOT_STEPS * cfg.num_layers * 2 * (B // MOONSHOT_MBS)
+    check(launches == want, f"flash launched {launches} times, expected "
+          f"steps x layers x 2 x microbatches = {want}")
+    check(kl_launches == ssd_launches == 0,
+          "training moonshot launched the distill_kl or the SSD kernel")
+    changed = {path: bool((x.detach().cpu() != x0).any()) for (path, x), x0
+               in zip(_named_leaves(params), tree_leaves(init))}
+    print(f"train {cfg.name}: {sum(changed.values())} of {len(changed)} "
+          f"parameter leaves changed")
+    names = ("embed", "unembed", "wq", "wk", "wv", "wo", "router", "w_gate",
+             "w_up", "w_down")
+    for path, moved in changed.items():
+        if path.rsplit("/", 1)[-1] in names:
+            check(moved, f"parameter {path} did not change in training")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, next(batches), MOONSHOT_STEPS)
+        float(met["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    _kernel_report(prof, wall, f"warm train step ({cfg.name})")
+    _moe_report(prof, "a train step")
+    return launches
+
+
+def phase_moe_grad_consistency(rng) -> None:
+    """One moonshot-v1-16b-a3b loss's gradients (float32, TF32 off) on the
+    card against the same on CPU copies, at the reduced config and at full
+    width with 2 layers: every MoE call's routing first (a difference there
+    is a tie flip, reported as one), then the loss and each leaf's
+    gradient."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    for cfg in (get_reduced(MOONSHOT).replace(dtype="float32"),
+                get_config(MOONSHOT).replace(num_layers=2, dtype="float32")):
+        # every leaf in float32 (norm scales are bf16 by spec)
+        init = tree_map(lambda p: p.detach().float(),
+                        build_model(cfg, device="cuda", seed=0).param_tree())
+        B, S = 2, 64
+        toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                 "labels": torch.from_numpy(toks[:, 1:]),
+                 "loss_mask": torch.from_numpy(
+                     (rng.random((B, S)) < 0.9).astype(np.float32))}
+
+        def grads(device, plant=False):
+            ps = tree_map(lambda p: p.to(device).requires_grad_(), init)
+            model = build_model(cfg, ps, device=device)
+            first = ps["layers"]["sub0"]["moe"]["router"]
+            with (scaled_gates(first, 0.99) if plant
+                  else contextlib.nullcontext()), \
+                    recorded_routes() as routes:
+                loss, met = model.loss(
+                    {k: v.to(device) for k, v in batch.items()}, params=ps)
+                g = torch.autograd.grad(loss, tree_leaves(ps))
+            return loss, met, g, routes
+
+        reset_counts()
+        loss_g, met_g, g_gpu, r_gpu = grads("cuda")
+        launches = read_counts()
+        check(launches == (cfg.num_layers * 2, 0, 0),
+              f"the CUDA step launched (flash, KL, SSD) = {launches}")
+        loss_c, met_c, g_cpu, r_cpu = grads("cpu")
+        check(read_counts() == launches, "the CPU step launched a kernel")
+        flips = [(i, int((a != b).any(-1).sum()))
+                 for i, (a, b) in enumerate(zip(r_gpu, r_cpu))
+                 if not torch.equal(a, b)]
+        check(len(r_gpu) == len(r_cpu) == 2 * cfg.num_layers and not flips,
+              f"{cfg.name} d_model {cfg.d_model}: routing differs between "
+              f"the card and the CPU (a tie flip): (call, tokens) {flips}")
+        check(all(bool(torch.isfinite(g).all()) for g in g_gpu),
+              "non-finite gradient on the card")
+        def rel_err(g_card):
+            return max(((a.cpu() - b).abs().max()
+                        / b.abs().max().clamp_min(1e-30)).item()
+                       for a, b in zip(g_card, g_cpu))
+
+        rel = rel_err(g_gpu)
+        planted = rel_err(grads("cuda", plant=True)[2])
+        # float32 with TF32 off on both, the same routes: sums in other
+        # orders over d_model and the vocabulary, about 100 times below
+        # this; the planted fault, layer 0's gates scaled by 0.99, must
+        # fail it.  H100 80GB HBM3 at 700 W, reduced and full width:
+        # 1.289e-6 and 3.125e-6, planted 2.019e-1 and 1.158e-2
+        tol = 3e-4
+        print(f"gradient consistency {cfg.name} d_model={cfg.d_model} "
+              f"{cfg.num_experts} experts top-{cfg.experts_per_token} "
+              f"{cfg.num_layers} layers f32 B={B} S={S}: routes equal in "
+              f"{len(r_gpu)} MoE calls; loss {loss_g.item():.6f} (CUDA) vs "
+              f"{loss_c.item():.6f} (CPU), aux {met_g['aux'].item():.6f} vs "
+              f"{met_c['aux'].item():.6f}; max per-leaf |dg| / max|g| "
+              f"{rel:.3e} (tol {tol:.0e}) over {len(g_cpu)} leaves; "
+              f"planted gates*0.99 in layer 0 {planted:.3e}")
+        check(abs(loss_g.item() - loss_c.item())
+              <= 1e-4 * abs(loss_c.item()),
+              "moonshot loss differs between the card and the CPU")
+        check(rel <= tol, "moonshot gradients differ between the card and "
+              "the CPU")
+        check(planted > tol, f"the gradient limit {tol:.0e} passes layer "
+              f"0's gates scaled by 0.99 ({planted:.3e})")
+        del init, g_gpu, g_cpu
+        free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2020,7 +2513,12 @@ def main() -> int:
                 "multi_teacher": phase_flash_shape(rng, MT_ATTN),
                 "mllm_vit": phase_flash_shape(rng, MLLM_VIT_ATTN,
                                               causal=False),
-                "mllm_llm": phase_flash_shape(rng, MLLM_LM_ATTN)}
+                "mllm_llm": phase_flash_shape(rng, MLLM_LM_ATTN),
+                "moe_serve": phase_flash_shape(rng, MIXTRAL_ATTN, bwd=False,
+                                               window=MIXTRAL_WINDOW,
+                                               rows=PLAIN_ROWS),
+                "moe_train": phase_flash_shape(rng, MOONSHOT_ATTN),
+                "moe_train_mb": phase_flash_shape(rng, MOONSHOT_MB_ATTN)}
     phase_flash_grads(rng)
     phase_kl_sweep(rng)
     kl = kl_entry({"train_distill": phase_kl_main(rng, TRAIN_B * TRAIN_S),
@@ -2058,16 +2556,27 @@ def main() -> int:
     mt_launches, mt_kl_launches = phase_multi_teacher()
     free()
     mllm_launches = phase_mllm()
+    free()
+    moe_serve_launches = phase_moe_serve(rng)
+    free()
+    phase_moe_consistency(rng)
+    free()
+    moe_train_launches = phase_moe_train()
+    free()
+    phase_moe_grad_consistency(rng)
     paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}", f"distill {TRAIN_ARCH}",
              f"train {MAMBA}", f"serve {MAMBA}",
              f"distill-runtime {TRAIN_ARCH}", f"multi-teacher {TRAIN_ARCH}",
-             "mllm pixtral-12b-width")
+             "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
+             f"train {MOONSHOT} {MOONSHOT_LAYERS}L")
     per_path = {
         "flash": (serve_launches, train_launches, distill_launches, 0, 0,
-                  rt_launches, mt_launches, mllm_launches),
-        "kl": (0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches, 0),
+                  rt_launches, mt_launches, mllm_launches,
+                  moe_serve_launches, moe_train_launches),
+        "kl": (0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches, 0,
+               0, 0),
         "ssd": (0, 0, 0, mamba_train_launches, mamba_serve_launches, 0, 0,
-                0)}
+                0, 0, 0)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

@@ -1,12 +1,11 @@
 """Decoder-only LM: specs, forward, prefill and decode.
 
-Counterpart of ``repro/models/transformer.py`` for the families whose
-sub-layers are attention + MLP (``dense``) or Mamba-2 with no FFN
-(``ssm``).  Layers are grouped as in the JAX package: a group is a period
-of sub-layers whose parameters are stacked over the number of repeats (the
-``layers`` axis); a Python loop over that axis takes the place of
-``lax.scan``.  MoE sub-layers arrive with a later slice (ROADMAP.md, A7)
-and raise ``NotImplementedError`` here.
+Counterpart of ``repro/models/transformer.py``: sub-layers are an
+attention or Mamba-2 mixer followed by an MLP (``dense``), a
+mixture-of-experts FFN (``moe``) or no FFN (``ssm``).  Layers are grouped
+as in the JAX package: a group is a period of sub-layers whose parameters
+are stacked over the number of repeats (the ``layers`` axis); a Python
+loop over that axis takes the place of ``lax.scan``.
 
 VLM archs (``cfg.vision_dim > 0``) additionally scatter projected patch
 embeddings (``batch["image_embeds"]``) into the token stream.
@@ -24,6 +23,7 @@ from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
 from repro_torch.models.common import ParamSpec, torch_dtype
 
 
@@ -81,7 +81,7 @@ def group_layout(cfg: ArchConfig) -> Tuple[list, int]:
 
 
 def _check_kind(mixer: str, ffn: Optional[str]) -> None:
-    if mixer not in ("attn", "mamba") or ffn not in ("mlp", None):
+    if mixer not in ("attn", "mamba") or ffn not in ("mlp", "moe", None):
         raise NotImplementedError(
             f"sub-layer ({mixer}, {ffn}) is not ported yet; see ROADMAP.md, "
             "A7")
@@ -96,7 +96,8 @@ def _sublayer_specs(cfg: ArchConfig, mixer: str, ffn: Optional[str]) -> dict:
         s["mamba"] = mb.mamba_specs(cfg)
     if ffn is not None:
         s["norm2"] = norm_specs(cfg)
-        s[ffn] = mlpm.mlp_specs(cfg)
+        s[ffn] = (moem.moe_specs(cfg) if ffn == "moe"
+                  else mlpm.mlp_specs(cfg))
     return s
 
 
@@ -130,9 +131,15 @@ def _layer(tree, i: int):
 # Forward passes
 # --------------------------------------------------------------------------- #
 def _ffn(lp, x, cfg: ArchConfig, ffn: Optional[str]):
+    """The residual FFN block -> (x, aux): aux is the MoE sub-layer's
+    load-balancing loss, None for an MLP or no FFN."""
     if ffn is None:
-        return x
-    return x + mlpm.mlp(lp[ffn], apply_norm(lp["norm2"], x, cfg), cfg)
+        return x, None
+    h = apply_norm(lp["norm2"], x, cfg)
+    if ffn == "mlp":
+        return x + mlpm.mlp(lp[ffn], h, cfg), None
+    h, aux = moem.moe(lp[ffn], h, cfg)
+    return x + h, aux
 
 
 def vision_scatter(p, cfg: ArchConfig, x: torch.Tensor,
@@ -159,8 +166,9 @@ def embed_tokens(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 def _sublayer_fwd(lp, x, cfg: ArchConfig, mixer: str, ffn: Optional[str],
                   segment_ids, causal: bool = True):
-    """One (mixer, ffn) sub-layer; ``repro`` returns (x, aux) and its aux
-    is 0 for every sub-layer the port has."""
+    """One (mixer, ffn) sub-layer -> (x, aux), as the reference's; aux is
+    the MoE loss, and None (the reference's constant 0) for a sub-layer
+    without a router."""
     h = apply_norm(lp["norm1"], x, cfg)
     if mixer == "attn":
         h = att.attention(lp["attn"], h, cfg, causal=causal,
@@ -181,7 +189,10 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
     ``jax.checkpoint``: its activations are recomputed in the backward,
     so the flash or SSD kernel runs twice per layer in a training step.
     Without autograd recording (serving, the frozen teacher) nothing is
-    saved and ``remat`` changes nothing."""
+    saved and ``remat`` changes nothing.
+
+    aux is the sum of every MoE sub-layer's load-balancing loss (0 for a
+    model without one), as the reference's scan sums it."""
     pk, reps = group_layout(cfg)
     x = cm.shard_act(embed_tokens(p, cfg, batch), "hidden")
     segment_ids = batch.get("segment_ids")
@@ -189,21 +200,23 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
     # one unbind per leaf: its backward stacks the layers' gradients once,
     # where indexing would add a zero-filled full-size gradient per layer
     layers = cm.tree_map(lambda x: x.unbind(0), p["layers"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(reps):
         period = cm.tree_map(lambda xs: xs[r], layers)
         for j, (mixer, ffn) in enumerate(pk):
             _check_kind(mixer, ffn)
             lp = period[f"sub{j}"]
             if checkpoint:
-                x = torch.utils.checkpoint.checkpoint(
+                x, a = torch.utils.checkpoint.checkpoint(
                     _sublayer_fwd, lp, x, cfg, mixer, ffn, segment_ids,
                     causal, use_reentrant=False)
             else:
-                x = _sublayer_fwd(lp, x, cfg, mixer, ffn, segment_ids,
-                                  causal)
+                x, a = _sublayer_fwd(lp, x, cfg, mixer, ffn, segment_ids,
+                                     causal)
             x = cm.shard_act(x, "hidden")
+            if a is not None:
+                aux = aux + a
     x = apply_norm(p["final_norm"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not logits_out:
         return x, aux
     return unembed(p, cfg, x), aux
@@ -224,7 +237,7 @@ def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def lm_loss(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             aux_weight: float = 0.01):
     """-> (loss, {"ce", "aux"}): masked-mean cross-entropy plus the
-    weighted aux loss (0 for the dense family)."""
+    weighted aux loss (the MoE load-balancing loss; 0 without a router)."""
     logits, aux = lm_forward(p, cfg, batch, remat=remat)
     loss = cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
@@ -246,7 +259,8 @@ def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
     for attention, with C = ``kv_cache_len(cfg, S + extra_cache)``, or
     ``{"conv": [repeats, B, W-1, Ch], "ssm": [repeats, B, h, p, n]}`` for
     Mamba-2; it is allocated once here and written in place by
-    :func:`lm_decode`."""
+    :func:`lm_decode`.  A MoE sub-layer takes its capacity at this call's
+    S, as the reference's ``_sublayer_prefill`` does."""
     pk, reps = group_layout(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -270,7 +284,7 @@ def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
                                              cache_len=clen, cache=cache)
             else:
                 h = mb.mamba(lp["mamba"], h, cfg, cache=cache)
-            x = _ffn(lp, x + h, cfg, ffn)
+            x, _ = _ffn(lp, x + h, cfg, ffn)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, x[:, -1:])[:, 0]
     return logits, caches
@@ -278,7 +292,9 @@ def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
 
 def lm_decode(p, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos: int):
     """One decode step. token [B, 1] int; pos: absolute position (int).
-    Writes into ``cache`` in place; returns (logits [B, V], cache)."""
+    Writes into ``cache`` in place; returns (logits [B, V], cache).  A MoE
+    sub-layer's capacity at S = 1 is K slots an expert, so decode drops no
+    token."""
     pk, reps = group_layout(cfg)
     x = p["embed"][token]
     for r in range(reps):
@@ -293,7 +309,7 @@ def lm_decode(p, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos: int):
                                             pos=pos)
             else:
                 h, _ = mb.mamba_decode(lp["mamba"], h, layer_cache, cfg)
-            x = _ffn(lp, x + h, cfg, ffn)
+            x, _ = _ffn(lp, x + h, cfg, ffn)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, x)[:, 0]
     return logits, cache

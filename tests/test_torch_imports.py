@@ -58,6 +58,11 @@ MLLM_SLICE = ["repro_torch.models.vlm", "repro_torch.mllm",
               "repro_torch.configs.compound"]
 
 
+MOE_SLICE = ["repro_torch.models.moe", "repro_torch.models.transformer",
+             "repro_torch.models.model", "repro_torch.launch.serve",
+             "repro_torch.launch.train"]
+
+
 def test_module_list_covers_the_training_slice():
     assert set(TRAINING_SLICE) <= set(_modules())
 
@@ -72,6 +77,10 @@ def test_module_list_covers_the_compound_runtime_slice():
 
 def test_module_list_covers_the_mllm_slice():
     assert set(MLLM_SLICE) <= set(_modules())
+
+
+def test_module_list_covers_the_moe_slice():
+    assert set(MOE_SLICE) <= set(_modules())
 
 
 def test_port_imports_no_jax_and_no_repro():
