@@ -85,11 +85,11 @@ CUDA kernels from the sources in this checkout.  Phases:
    launches the formula, the losses the colocated oracle's on the same
    microbatches.
 10. MLLM training (``mllm.workload``): the ViT section
-   (``vit_config(out_dim=1024)``, 24 layers) feeding pixtral-12b at full
-   width with 4 layers, bf16, batch 8 x 2048 in microbatches of 2, vision
-   ratio 0.5, each section on its own worker thread and stream of the
-   card, from one host-side initial parameter set: (a) the colocated step,
-   (b) ``MLLMRuntime`` serialized, (c) streamed with lookahead 1, run one
+   (``vit_config(out_dim=1024)`` at 12 of its 24 layers) feeding
+   pixtral-12b at full width with 2 layers, bf16, batch 8 x 2048 in
+   microbatches of 2, vision ratio 0.5, each section on its own worker
+   thread and stream of the card, from one host-side initial parameter
+   set: (a) the colocated step, (b) ``MLLMRuntime`` serialized, (c) streamed with lookahead 1, run one
    after the other (two training states do not fit the card); (b)
    against (a) and (c) against (b) as in phase 9, launch counts, an
    all-text batch (the ViT runs only its update; the queue carries only
@@ -116,10 +116,39 @@ CUDA kernels from the sources in this checkout.  Phases:
    version over 1024 query rows at a time, where the kernel run without
    the window must fail, and at moonshot's training shapes (4 and 2, 2048,
    2048, 16, 16, 128).
-12. A ``{"kernels": [...]}`` line with each kernel's launches on the main
-   paths, error and times (the flash kernel's at each of its main-path
-   shapes under ``at``; its top-level times are the serving prefill's),
-   then the ``{"ok": true, ...}`` line.
+12. The last two families at full width. whisper-small (12 encoder and
+   12 decoder layers, 1500 frames of 768 from the stubbed frontend):
+   training through ``train.step.build_train_step`` and
+   ``train.loop.train`` on ``audio_batches`` (bf16, batch 32 x 448 tokens
+   in microbatches of 16, 4 steps; finite metrics, weights moved, flash
+   launched steps x microbatches x 2 x (12 + 2 x 12) times; one warm step
+   traced); serving through ``launch.serve.generate(..., frames=)``
+   (batch 16, prompt 64, 64 tokens: flash 36 times a prefill, never in
+   decode); prefill of S-2 tokens and 2 decode steps against ``forward``
+   (float32, full depth) and one loss's gradients on the card against the
+   CPU (float32, reduced and full width with 2 + 2 layers), each also run
+   with layer 0's cross-attention ``wk`` scaled by 0.99, which must fail.
+   jamba-v0.1-52b (8 of 32 layers: 1 attention, 7 Mamba-2 at d_state 16,
+   4 MoE; 13.27 B parameters in bf16): serving through
+   ``launch.serve.generate``, batch 2, prompt 16384, 32 tokens (flash once
+   and SSD 7 times a prefill, neither in decode), warm, and a traced warm
+   prefill and 8 decode steps; prefill + 2 decode steps against
+   ``forward`` (float32, no-drop capacity, routes compared first) at the
+   reduced config and at full width (B 1, S 512); the reduced config's
+   gradients on the card against the CPU; both with the first MoE layer's
+   gates scaled by 0.99, which must fail.  The flash kernel is held at
+   whisper's encoder (16, 1500, 1500, 12, 12, 64) non-causal, decoder
+   self-attention (16, 448, 448, ...), cross-attention (16, 448, 1500, ...)
+   and prefill cross-attention (16, 64, 1500, ...), and at jamba's (2,
+   16384, 16384, 32, 8, 128) against the plain version over 1024 query
+   rows at a time; the SSD kernel at jamba's (2, 16384, 128, 64, 16),
+   and in the sweep at jamba's heads over 1024 and 4096 tokens (each bf16
+   case prints its worst element in bf16 steps of its value).
+13. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+   paths, error and times (the flash and SSD kernels' at each of their
+   main-path shapes under ``at``; the top-level times are granite's
+   serving prefill's and mamba2-130m's), then the ``{"ok": true, ...}``
+   line.  Each phase prints its wall time.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero without a CUDA card, and when run from a
@@ -166,10 +195,12 @@ LSE_TOL = 1e-4
 # shape, the same card: the kernel 7.812e-3 (one bf16 ulp of a row's
 # largest output), the planted fault 1.096e-1.
 SHAPE_REL_TOL = 2.0 ** -5
-# tests/test_kernels_flash.py's sweep (B, S, T, H, KV, D), plus a ragged length
+# tests/test_kernels_flash.py's sweep (B, S, T, H, KV, D), plus a ragged
+# length and a cross-attention case: S != T with T ragged (whisper's 1500
+# encoder frames)
 SWEEP = [(2, 128, 128, 4, 2, 16), (1, 256, 256, 8, 8, 32),
          (2, 128, 64, 4, 1, 16), (1, 64, 64, 6, 3, 8),
-         (2, 200, 200, 4, 2, 64)]
+         (2, 200, 200, 4, 2, 64), (2, 96, 1500, 4, 4, 64)]
 MODES = [(True, 0), (False, 0), (True, 32)]
 PREFILL = (4, 2048, 2048, 32, 8, 128)    # granite-3-8b serving prefill
 TRAIN_ATTN = (4, 2048, 2048, 16, 16, 64)  # qwen1.5-0.5b train and distill
@@ -178,7 +209,7 @@ ARCH = "granite-3-8b"
 # bf16 step at the gradients' magnitude (up to ~4): both sides compute in
 # f32, the kernel's o is rounded to bf16 before the backward reads it
 GRAD_SWEEP = [(2, 128, 128, 4, 2, 16), (1, 256, 256, 8, 8, 32),
-              (2, 200, 200, 4, 2, 64)]
+              (2, 200, 200, 4, 2, 64), (2, 96, 1500, 4, 4, 64)]
 GRAD_MODES = [(True, 0), (False, 0), (True, 32)]
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # distill_kl statistics and KL: both sides sum f32 products of the same
@@ -199,15 +230,23 @@ DISTILL_STEPS = 3
 # SSD scan kernel against ssd_scan_ref, both f32 inside: f32 inputs (TF32
 # off) within 1e-4 of 1 + |ref| (sums in other orders over n <= 128 and
 # 64-token chunks); bf16 within 1e-2, past the one bf16 step (at most
-# 2**-7 relative) by which two roundings of nearly equal f32 sums differ.
+# 2**-7 relative) by which two roundings of nearly equal f32 sums differ:
+# y is rounded to bf16 once on each side, from f32 sums taken in other
+# orders (the kernel's chunk states pass between its two kernels as bf16
+# hi + lo parts, whose sum keeps 16 bits).
 # The final state is f32 on both sides: 1e-4 in both dtypes.
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_STATE_TOL = 1e-4
 # (b, s, h, p, n): tests/test_kernels_ssd.py's sweep, a ragged length, one
-# chunk's, mamba2-130m's p and n at the consistency check's ragged 4094
+# chunk's, mamba2-130m's p and n at the consistency check's ragged 4094,
+# jamba's p and n (n = 16, padded to 64 on the tensor cores)
 SSD_SWEEP = [(2, 64, 3, 8, 16), (1, 128, 2, 16, 8), (2, 48, 4, 8, 4),
-             (1, 200, 2, 16, 8), (2, 4094, 4, 64, 128), (1, 130, 3, 80, 72)]
+             (1, 200, 2, 16, 8), (2, 4094, 4, 64, 128), (1, 130, 3, 80, 72),
+             (1, 200, 4, 64, 16)]
 SSD_MAIN = (4, 4096, 24, 64, 128)       # mamba2-130m training and prefill
+SSD_JAMBA = (2, 16384, 128, 64, 16)     # jamba-v0.1-52b's prefill
+# jamba's heads at shorter prompts: does y's error grow with the length?
+SSD_JAMBA_SHORT = [(2, 1024, 128, 64, 16), (2, 4096, 128, 64, 16)]
 # 1024 chunks: 2048 blocks of the bf16 output kernel, far more than the
 # card holds at once, each reading a state the state kernel carried
 # through up to 1023 chunks
@@ -219,7 +258,7 @@ SSD_LONG = (2, 65536, 8, 64, 128)
 SSD_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 SSD_GRAD_SWEEP = [((2, 64, 3, 8, 16), 16), ((2, 64, 3, 8, 16), 128),
                   ((1, 128, 2, 16, 8), 32), ((2, 48, 4, 8, 4), 16),
-                  ((1, 200, 2, 16, 8), 64)]
+                  ((1, 200, 2, 16, 8), 64), ((1, 200, 4, 64, 16), 64)]
 MAMBA = "mamba2-130m"
 MAMBA_B, MAMBA_S = 4, 4096
 
@@ -395,10 +434,11 @@ def phase_sweep(rng) -> None:
 
 def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
                       window: int = 0, rows: int = 0) -> dict:
-    """The kernel at one main-path shape (bf16, S == T; causal, or
-    bidirectional as in the ViT; with a sliding ``window``): checked
-    against its plain version within SHAPE_REL_TOL of the output's scale
-    and, row by row, of each query row's own scale, then timed beside the plain version and PyTorch's
+    """The kernel at one main-path shape (bf16; causal, or bidirectional as
+    in the ViT and whisper's encoder, or cross-attention with S != T; with
+    a sliding ``window``): checked against its plain version within
+    SHAPE_REL_TOL of the output's scale and, row by row, of each query
+    row's own scale, then timed beside the plain version and PyTorch's
     ``scaled_dot_product_attention``.  With ``bwd`` (a training shape) the
     plain blockwise backward is timed too.  With ``rows`` the plain version
     runs over that many query rows at a time (``plain_rows``).  With a
@@ -573,11 +613,19 @@ def _kernel_event(evt) -> bool:
             and not getattr(evt, "is_user_annotation", False))
 
 
+def _averages(prof):
+    """``prof.key_averages()``, taken once a trace: each call walks every
+    event of the trace again, seconds for a traced train step."""
+    if not hasattr(prof, "smoke_averages"):
+        prof.smoke_averages = prof.key_averages()
+    return prof.smoke_averages
+
+
 def _range_ms(prof, keys) -> dict:
     """Device time of the kernels launched under each named range or
     autograd node (label -> key), read from the range's host-side row."""
     per = {}
-    for evt in prof.key_averages():
+    for evt in _averages(prof):
         if evt.device_type != torch.autograd.DeviceType.CPU:
             continue
         for label, key in keys:
@@ -589,7 +637,7 @@ def _range_ms(prof, keys) -> dict:
 def _device_ms(prof) -> tuple[float, dict]:
     """Total device time of a trace and its largest kernels, in ms."""
     per = {}
-    for evt in prof.key_averages():
+    for evt in _averages(prof):
         t = evt.self_device_time_total
         if _kernel_event(evt) and t > 0:
             per[evt.key] = per.get(evt.key, 0.0) + t / 1e3
@@ -931,7 +979,7 @@ def _kernel_report(prof, wall_ms: float, what: str) -> None:
         print(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
     # host side: the CUDA runtime calls, where a synchronising call (a
     # free, a copy from pageable memory) drains the queue the host built
-    runtime = [e for e in prof.key_averages()
+    runtime = [e for e in _averages(prof)
                if e.key.startswith("cuda") and e.cpu_time_total > 0]
     for e in sorted(runtime, key=lambda e: -e.cpu_time_total)[:6]:
         print(f"  host {e.cpu_time_total / 1e3:8.2f} ms in {e.count:6d} x "
@@ -1003,6 +1051,14 @@ def phase_distill() -> tuple[int, int]:
     return launches, kl_launches
 
 
+def grad_rel_err(g_card, g_cpu) -> float:
+    """Worst per-leaf max |g_card - g_cpu| / max |g_cpu| of two gradient
+    lists, the card's copied to the host."""
+    return max(((a.cpu() - b).abs().max()
+                / b.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(g_card, g_cpu))
+
+
 def phase_grad_consistency(rng) -> None:
     """One distillation step's gradients at full width on the kernels
     against the same step on CPU copies (plain versions)."""
@@ -1041,8 +1097,7 @@ def phase_grad_consistency(rng) -> None:
           f"the CUDA step launched (flash, KL, SSD) = {launches}")
     loss_c, met_c, g_cpu = grads("cpu")
     check(read_counts() == launches, "the CPU step launched a kernel")
-    rel = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
-              .item() for a, b in zip(g_gpu, g_cpu))
+    rel = grad_rel_err(g_gpu, g_cpu)
     # float32 with TF32 off on both; sums in other orders over d_model 1024
     # and V = 151936: 1e-3 relative per leaf is far above that and far
     # below a wrong term of the KL backward or of attention's
@@ -1105,11 +1160,13 @@ def _named_leaves(tree, path=""):
 def _update_gap(new, ref, start) -> tuple[float, str, float, float]:
     """The worst leaf's |new - ref| / |ref - start| over f32 weight trees,
     its name, the largest |new - ref| of any element, and the worst gap of
-    the NOISE_LEAVES, which the first leaves out."""
+    the NOISE_LEAVES, which the first leaves out.  Each leaf is compared
+    on the card, one at a time (the trees may lie in host memory)."""
     worst, name, most, noise = 0.0, "", 0.0, 0.0
     for (path, n), (_, r), (_, s0) in zip(_named_leaves(new),
                                           _named_leaves(ref),
                                           _named_leaves(start)):
+        n, r, s0 = (x.to("cuda", non_blocking=True) for x in (n, r, s0))
         step = (r - s0.float()).norm().item()
         gap = (n - r).norm().item() / max(step, 1e-30)
         most = max(most, (n - r).abs().max().item())
@@ -1511,10 +1568,14 @@ def phase_multi_teacher() -> tuple[int, int]:
 # --------------------------------------------------------------------------- #
 # MLLM training: a ViT section feeding a pixtral-12b-width LM section
 # --------------------------------------------------------------------------- #
-# pixtral-12b at its full width, its depth cut to 4 of 40 layers so that
-# one training state (about 22 bytes a parameter) fits the card; the ViT
-# is vit_config() at its defaults with out_dim = the LM's vision_dim
-MLLM_LM_LAYERS = 4
+# pixtral-12b at its full width, its depth cut to 2 of 40 layers, and the
+# ViT, vit_config() at its width with out_dim = the LM's vision_dim, cut
+# to 12 of its 24: one training state (about 22 bytes a parameter) must
+# fit the card, and the whole script a fixed time, of which this phase
+# (where the plain-PyTorch flash backward over the ViT's 4096 patches
+# dominates an iteration) took the most
+MLLM_LM_LAYERS = 2
+MLLM_VIT_LAYERS = 12
 MLLM_B, MLLM_S, MLLM_MBS, MLLM_RATIO, MLLM_ITERS = 8, 2048, 2, 0.5, 3
 MLLM_VIT_ATTN = (MLLM_MBS, 4096, 4096, 16, 16, 64)    # 1024 tokens x 4
 MLLM_LM_ATTN = (MLLM_MBS, MLLM_S, MLLM_S, 32, 8, 128)
@@ -1546,7 +1607,7 @@ def _masters(opts) -> dict:
 
 def phase_mllm() -> int:
     """MLLM training through ``MLLMRuntime``: the ViT section and the LM
-    section (pixtral-12b width, 4 layers) each on its own worker thread
+    section (pixtral-12b width, 2 layers) each on its own worker thread
     and CUDA stream of the one card, from one host-side initial parameter
     set: (a) the colocated step, (b) the runtime serialized, (c) streamed
     with lookahead 1, run one after the other (two training states do not
@@ -1562,7 +1623,8 @@ def phase_mllm() -> int:
     from repro_torch.optim import adamw, schedules
     dev = torch.device("cuda", 0)
     lm_cfg = get_config("pixtral-12b").replace(num_layers=MLLM_LM_LAYERS)
-    vit_cfg = vlm.vit_config(out_dim=lm_cfg.vision_dim)
+    vit_cfg = vlm.vit_config(num_layers=MLLM_VIT_LAYERS,
+                             out_dim=lm_cfg.vision_dim)
     Lv, Ll = vit_cfg.num_layers, lm_cfg.num_layers
     n_mb = MLLM_B // MLLM_MBS
     toks = MLLM_B * MLLM_S
@@ -1832,6 +1894,18 @@ def _rel(got, want) -> float:
             / (1 + want.float().abs())).max().item()
 
 
+def _worst_step(got, want) -> str:
+    """The element where |y-ref| / (1 + |ref|) is largest: |ref| there,
+    |y-ref| and that in bf16 steps at |ref| (2**(e-8) for |ref| in
+    [2**(e-1), 2**e))."""
+    d, r = (got.float() - want.float()).abs(), want.float().abs()
+    i = (d / (1 + r)).argmax()
+    ref, diff = r.flatten()[i], d.flatten()[i]
+    step = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    return (f"worst element |ref| {ref.item():.4g}: |y-ref| {diff.item():.4g}"
+            f" = {(diff / step).item():.3g} bf16 steps there")
+
+
 def ssd_case(rng, shape, dtype, return_state, packed) -> float:
     """One sweep case of the SSD kernel against its plain version."""
     from repro_torch.kernels import ssd_scan as ssd
@@ -1848,6 +1922,7 @@ def ssd_case(rng, shape, dtype, return_state, packed) -> float:
     err = _rel(y, y_ref)
     check(err <= SSD_TOL[dtype], f"SSD y at {shape} {dtype}: {err:.3e} > "
           f"{SSD_TOL[dtype]}")
+    worst = _worst_step(y, y_ref) if dtype == torch.bfloat16 else ""
     serr = 0.0
     if return_state:
         serr = _rel(out[1], want[1])
@@ -1855,7 +1930,8 @@ def ssd_case(rng, shape, dtype, return_state, packed) -> float:
               f"{serr:.3e} > {SSD_STATE_TOL}")
     print(f"  ssd {shape} {str(dtype)[6:]} state={return_state} "
           f"packed={packed} ({route}): |y-ref|/(1+|ref|) {err:.3e}"
-          + (f", state {serr:.3e}" if return_state else ""))
+          + (f", state {serr:.3e}" if return_state else "")
+          + (f"; {worst}" if worst else ""))
     return err
 
 
@@ -1869,6 +1945,8 @@ def phase_ssd_sweep(rng) -> None:
                 # every other shape with x, B, C sliced from one tensor
                 ssd_case(rng, shape, dtype, return_state, packed=i % 2 == 1)
     ssd_case(rng, SSD_LONG, torch.bfloat16, True, packed=True)
+    for shape in SSD_JAMBA_SHORT:
+        ssd_case(rng, shape, torch.bfloat16, True, packed=True)
 
 
 def _ssd_split(fn, iters: int) -> dict:
@@ -1887,22 +1965,26 @@ def _ssd_split(fn, iters: int) -> dict:
     return split
 
 
-def phase_ssd_main(rng) -> dict:
-    """The kernel at mamba2-130m's training and prefill shape, with x, B
-    and C sliced from one tensor as the model passes them."""
+def phase_ssd_shape(rng, shape) -> dict:
+    """The kernel at one main-path shape (bf16), with x, B and C sliced from
+    one tensor as the model passes them: checked against its plain version,
+    timed beside it, and its kernels' device times traced."""
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import ssd_scan_ref
-    b, s, h, p, n = SSD_MAIN
+    b, s, h, p, n = shape
     x, dt, A, B, C, D = _ssd_inputs(rng, b, s, h, p, n, torch.bfloat16,
                                     packed=True)
-    check(ssd.tma_route(x, B, C), "the main shape does not take TMA")
+    check(ssd.tma_route(x, B, C), f"the main shape {shape} does not take "
+          "TMA")
     y, state = ssd.ssd_fwd(x, dt, A, B, C, D, return_state=True)
     y_ref, state_ref = ssd_scan_ref(x, dt, A, B, C, D, return_state=True)
     err = (y.float() - y_ref.float()).abs().max().item()
     rel = _rel(y, y_ref)
     serr = _rel(state, state_ref)
+    worst = _worst_step(y, y_ref)
+    del y, state, y_ref, state_ref
     check(rel <= SSD_TOL[torch.bfloat16] and serr <= SSD_STATE_TOL,
-          f"SSD at the main shape: y {rel:.3e}, state {serr:.3e}")
+          f"SSD at {shape}: y {rel:.3e}, state {serr:.3e}")
     ms = time_ms(lambda: ssd.ssd_fwd(x, dt, A, B, C, D), iters=20)
     split = _ssd_split(lambda: ssd.ssd_fwd(x, dt, A, B, C, D), iters=10)
     plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, D), iters=3,
@@ -1918,23 +2000,34 @@ def phase_ssd_main(rng) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"ssd main shape {SSD_MAIN} bf16: kernel {ms:.3f} ms "
+    scratch = 4 * ssd.scratch(b, s, h, p, n, torch.bfloat16)[1]
+    print(f"ssd main shape {shape} bf16: kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), "
           f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); max|y-ref| "
-          f"{err:.3e} (relative {rel:.3e}), state {serr:.3e}; no single "
-          "PyTorch call computes the scan")
+          f"{err:.3e} (relative {rel:.3e}), state {serr:.3e}; state scratch "
+          f"{scratch / 1e6:.1f} MB; no single PyTorch call computes the scan"
+          f"; {worst}")
     for name, k_ms in split.items():
         print(f"  ssd split: {k_ms:.4f} ms ({100 * k_ms / ms:.1f}% of the "
               f"event-timed call)  {name[:90]}")
     print(f"  ssd split: {sum(split.values()):.4f} ms in {len(split)} "
           "kernels (torch.profiler, device time a call)")
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def ssd_entry(at: dict) -> dict:
+    """The SSD kernel's line: mamba2-130m's numbers at the top, each
+    main-path shape's under ``at``, the worst error of all."""
     return {"name": "ssd_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_fwd.cu",
             "replaces": "src/repro/kernels/ssd_pallas.py:30",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "launches": None,
+            **{k: v for k, v in at["mamba"].items() if k != "shape"},
+            "max_abs_err": max(a["max_abs_err"] for a in at.values()),
+            "at": at}
 
 
 def _ssd_grad_case(rng, shape, chunk, dtype, A=None) -> float:
@@ -2110,8 +2203,7 @@ def phase_mamba_grad_consistency(rng) -> None:
     check(read_counts() == launches, "the CPU step launched a kernel")
     check(all(bool(torch.isfinite(g).all()) for g in g_gpu),
           "non-finite gradient on the card")
-    rel = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
-              .item() for a, b in zip(g_gpu, g_cpu))
+    rel = grad_rel_err(g_gpu, g_cpu)
     # float32 with TF32 off on both; the card's forward is the kernel's
     # 64-token chunks, the CPU's ssd_chunked at 128: 1e-3 relative per
     # leaf is far above their rounding and far below a wrong term
@@ -2178,6 +2270,20 @@ def recorded_routes():
         yield seen
     finally:
         moem.route = route
+
+
+def serving_route_flips(fwd_routes, routes, prompt: int, positions):
+    """(MoE layer, tokens) of each MoE call of a prefill over the first
+    ``prompt`` tokens and of one decode step at each of ``positions``
+    whose expert indices differ from the forward's at the same tokens (a
+    tie flip); None when the number of calls differs."""
+    n = len(fwd_routes)
+    want = [r[:, :prompt] for r in fwd_routes] + [
+        r[:, pos:pos + 1] for pos in positions for r in fwd_routes]
+    if len(routes) != len(want):
+        return None
+    return [(i % n, int((a != b).any(-1).sum())) for i, (a, b) in
+            enumerate(zip(routes, want)) if not torch.equal(a, b)]
 
 
 @contextlib.contextmanager
@@ -2307,13 +2413,9 @@ def phase_moe_consistency(rng) -> None:
     with recorded_routes() as routes:
         errs = errors()
     L = cfg.num_layers
-    want = [r[:, :S] for r in fwd_routes] + [
-        r[:, pos:pos + 1] for pos in range(S, S + n) for r in fwd_routes]
-    flips = [(i % L, int((a != b).any(-1).sum())) for i, (a, b) in
-             enumerate(zip(routes, want)) if not torch.equal(a, b)]
-    check(len(routes) == len(want) and not flips,
-          f"routing differs between forward and prefill/decode (a tie "
-          f"flip): (layer, tokens) {flips}")
+    flips = serving_route_flips(fwd_routes, routes, S, range(S, S + n))
+    check(flips == [], f"routing differs between forward and "
+          f"prefill/decode (a tie flip): (layer, tokens) {flips}")
     scale = full.abs().max().item()
     # float32 with TF32 off: as phase_consistency, sums over d_model 6144
     # and d_ff 16384 in other orders; the planted fault below must fail it.
@@ -2467,13 +2569,8 @@ def phase_moe_grad_consistency(rng) -> None:
               f"the card and the CPU (a tie flip): (call, tokens) {flips}")
         check(all(bool(torch.isfinite(g).all()) for g in g_gpu),
               "non-finite gradient on the card")
-        def rel_err(g_card):
-            return max(((a.cpu() - b).abs().max()
-                        / b.abs().max().clamp_min(1e-30)).item()
-                       for a, b in zip(g_card, g_cpu))
-
-        rel = rel_err(g_gpu)
-        planted = rel_err(grads("cuda", plant=True)[2])
+        rel = grad_rel_err(g_gpu, g_cpu)
+        planted = grad_rel_err(grads("cuda", plant=True)[2], g_cpu)
         # float32 with TF32 off on both, the same routes: sums in other
         # orders over d_model and the vocabulary, about 100 times below
         # this; the planted fault, layer 0's gates scaled by 0.99, must
@@ -2499,6 +2596,496 @@ def phase_moe_grad_consistency(rng) -> None:
         free()
 
 
+# --------------------------------------------------------------------------- #
+# The last two families: whisper-small (audio) and jamba-v0.1-52b (hybrid)
+# --------------------------------------------------------------------------- #
+# whisper-small at full width and depth (12 encoder and 12 decoder layers,
+# d_model 768, 12 heads of 64, d_ff 3072 GELU, LayerNorm, vocab 51865,
+# untied): 1500 frame embeddings of 768 (the stubbed frontend's), 448 text
+# tokens (Whisper's text context), batch 32 in microbatches of 16
+WHISPER = "whisper-small"
+WHISPER_B, WHISPER_S, WHISPER_MBS, WHISPER_STEPS = 32, 448, 16, 4
+WHISPER_F = 1500
+WHISPER_ENC_ATTN = (WHISPER_MBS, WHISPER_F, WHISPER_F, 12, 12, 64)
+WHISPER_SELF_ATTN = (WHISPER_MBS, WHISPER_S, WHISPER_S, 12, 12, 64)
+WHISPER_CROSS_ATTN = (WHISPER_MBS, WHISPER_S, WHISPER_F, 12, 12, 64)
+WHISPER_SERVE_B, WHISPER_PROMPT, WHISPER_GEN = 16, 64, 64
+WHISPER_PREFILL_CROSS = (WHISPER_SERVE_B, WHISPER_PROMPT, WHISPER_F, 12, 12,
+                         64)
+# jamba-v0.1-52b at its full width (d_model 4096, 32 heads, 8 KV heads of
+# 128, d_ff 14336, 16 experts top-2 on every second layer, attention at
+# offset 4 of each period of 8, Mamba-2 with d_state 16, heads of 64,
+# expand 2; vocab 65536), its depth cut to one period, 8 of 32 layers: 1
+# attention, 7 Mamba-2 and 4 MoE layers, 13.27 B parameters
+JAMBA = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8
+JAMBA_B, JAMBA_S, JAMBA_GEN = 2, 16384, 32
+JAMBA_ATTN = (JAMBA_B, JAMBA_S, JAMBA_S, 32, 8, 128)
+# prefill + decode against forward at full width: B = 1, S = 512, 8 layers
+# in float32 (53 GB of weights)
+JAMBA_CONS_B, JAMBA_CONS_S = 1, 512
+
+
+def whisper_flash(cfg) -> int:
+    """Flash launches of one whisper forward: the encoder's self-attention,
+    the decoder's self- and cross-attention, one a layer each."""
+    return cfg.encoder_layers + 2 * cfg.num_layers
+
+
+@contextlib.contextmanager
+def scaled_first_layer(w: torch.Tensor, factor: float):
+    """A planted fault: inside the block layer 0's slice of the stacked
+    leaf ``w`` is scaled by ``factor`` in place."""
+    keep = w[0].detach().clone()
+    with torch.no_grad():
+        w[0].mul_(factor)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            w[0].copy_(keep)
+
+
+def _audio_batch(rng, cfg, B, S, device="cuda"):
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).to(device),
+            "labels": torch.from_numpy(toks[:, 1:]).to(device),
+            "loss_mask": torch.from_numpy(
+                (rng.random((B, S)) < 0.9).astype(np.float32)).to(device),
+            "frames": _randn(rng, (B, cfg.frontend_frames, cfg.frontend_dim),
+                             torch.float32, device)}
+
+
+def phase_whisper_train() -> int:
+    """whisper-small training through ``train.step.build_train_step`` and
+    ``train.loop.train`` fed by ``audio_batches`` (bf16, batch 32 x 448
+    tokens and 1500 frames, microbatches of 16, lr 1e-4, 4 steps), then one
+    warm step traced; returns flash launches of the 4 steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.data.synthetic import audio_batches
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.train import loop
+    from repro_torch.train import step as step_mod
+    cfg = get_config(WHISPER).replace(dtype="bfloat16")
+    B, S = WHISPER_B, WHISPER_S
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", seed=0)
+    params = model.param_tree()
+    init = _host(params)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    step = step_mod.build_train_step(
+        model, ParallelConfig(mbs=WHISPER_MBS),
+        ShapeConfig("train", "train", S, B),
+        lr_schedule=functools.partial(schedules.constant, peak_lr=1e-4))
+    batches = audio_batches(batch=B, seq_len=S, vocab=cfg.vocab_size,
+                            frames=cfg.frontend_frames,
+                            frame_dim=cfg.frontend_dim, seed=0,
+                            device="cuda")
+    reset_counts()
+    res = loop.train(step, params=params, opt_state=adamw.init(params),
+                     batches=batches, num_steps=WHISPER_STEPS, log_every=1,
+                     log_fn=lambda m: print(f"train {cfg.name} {m}"))
+    launches, kl_launches, ssd_launches = read_counts()
+    peak, retries = _peak()
+    times = res.step_times
+    warm = float(np.mean(times[1:]))
+    print(f"train {cfg.name}: {cfg.encoder_layers} + {cfg.num_layers} "
+          f"layers at full width, {n_params / 1e6:.1f} M parameters, batch "
+          f"{B} x {S} tokens and {cfg.frontend_frames} frames in "
+          f"microbatches of {WHISPER_MBS}, bf16: cold {times[0] * 1e3:.1f} "
+          f"ms, warm {warm * 1e3:.1f} ms/step ({B * S / warm:.0f} tok/s, "
+          f"{B * cfg.frontend_frames / warm:.0f} frames/s); peak device "
+          f"memory {peak:.2f} GiB, {retries} allocator retries")
+    check(_finite(res.losses) and _finite(res.grad_norms),
+          f"non-finite loss or grad norm: {res.losses}, {res.grad_norms}")
+    # remat: each layer's forward once and again in the backward, per
+    # microbatch; the encoder's attention, the decoder's self- and
+    # cross-attention
+    want = WHISPER_STEPS * (B // WHISPER_MBS) * 2 * whisper_flash(cfg)
+    check(launches == want, f"flash launched {launches} times, expected "
+          f"steps x microbatches x 2 x (enc + 2 dec) = {want}")
+    check(kl_launches == ssd_launches == 0,
+          "training whisper launched the distill_kl or the SSD kernel")
+    changed = {path: bool((x.detach().cpu() != x0).any()) for (path, x), x0
+               in zip(_named_leaves(res.params), tree_leaves(init))}
+    print(f"train {cfg.name}: {sum(changed.values())} of {len(changed)} "
+          f"parameter leaves changed")
+    names = ("frontend_proj", "embed", "unembed", "wq", "wk", "wv", "wo",
+             "w_in", "w_out")
+    for path, moved in changed.items():
+        if path.rsplit("/", 1)[-1] in names:
+            check(moved, f"parameter {path} did not change in training")
+    params, opt = res.params, res.opt_state
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, next(batches), WHISPER_STEPS)
+        float(met["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    _kernel_report(prof, wall, f"warm train step ({cfg.name})")
+    return launches
+
+
+def phase_whisper_serve(rng) -> int:
+    """whisper-small serving through ``launch.serve.generate`` with frames
+    (bf16, batch 16, 1500 frames, prompt 64, 64 tokens; the counted run),
+    then the same batch warm; returns flash launches of the counted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model
+    cfg = get_config(WHISPER).replace(dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", seed=0)
+    B = WHISPER_SERVE_B
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, WHISPER_PROMPT))).cuda()
+    frames = _randn(rng, (B, cfg.frontend_frames, cfg.frontend_dim),
+                    torch.bfloat16)
+    reset_counts()
+    res = serve_mod.generate(model, prompts, WHISPER_GEN, frames=frames)
+    launches, kl_launches, ssd_launches = read_counts()
+    print("cold " + res.summary())
+    print(f"serve {cfg.name} ({cfg.frontend_frames} frames) peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = whisper_flash(cfg)
+    check(res.prefill_launches == launches == want,
+          f"prefill launched flash {res.prefill_launches} times, expected "
+          f"enc + 2 dec = {want}")
+    check(res.decode_launches == 0 and kl_launches == ssd_launches == 0,
+          "decode launched flash, or serving launched another kernel")
+    check(res.logits_finite, "non-finite logits")
+    check(tuple(res.tokens.shape) == (B, WHISPER_GEN)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          f"generated tokens {res.tokens.shape} outside the vocabulary")
+    print("warm " + serve_mod.generate(model, prompts, WHISPER_GEN,
+                                       frames=frames).summary())
+    return launches
+
+
+def phase_whisper_consistency(rng) -> None:
+    """whisper-small at full width and depth in float32: prefill of S-2
+    tokens (1500 frames) and 2 decode steps, the cross-attention decode
+    over the cached encoder keys, against ``forward``; the same with layer
+    0's cross-attention ``wk`` scaled by 0.99 during prefill and decode
+    must fail."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(WHISPER).replace(dtype="float32")
+    model = build_model(cfg, device="cuda", seed=1)
+    B, S = 2, 130
+    batch = _audio_batch(rng, cfg, B, S)
+    tokens, frames = batch["tokens"], batch["frames"]
+    full = model({"tokens": tokens, "frames": frames})
+
+    def errors():
+        logits, cache = model.prefill({"tokens": tokens[:, :S - 2],
+                                       "frames": frames}, extra_cache=2)
+        check(cache["cross"]["k"].shape[2] == cfg.frontend_frames
+              and cache["self"]["k"].shape[2] == S,
+              f"cache {cache['self']['k'].shape}, "
+              f"{cache['cross']['k'].shape}")
+        errs = [(logits - full[:, S - 3]).abs().max().item()]
+        for pos in (S - 2, S - 1):
+            logits, cache = model.decode(cache, tokens[:, pos:pos + 1], pos)
+            errs.append((logits - full[:, pos]).abs().max().item())
+        return errs
+
+    reset_counts()
+    errs = errors()
+    check(read_counts() == (whisper_flash(cfg), 0, 0),
+          f"prefill + 2 decode steps launched {read_counts()}")
+    wk = model.param_tree()["dec_layers"]["cross_attn"]["wk"]
+    with scaled_first_layer(wk, 0.99):
+        planted = max(errors())
+    scale = full.abs().max().item()
+    # float32 with TF32 off: sums over d_model 768 and 1500 frames in other
+    # orders, through 24 layers.  H100 80GB HBM3 at 700 W: 4.05e-6-5.96e-6,
+    # and layer 0's cross-attention wk * 0.99 moves the logits 7.13e-4, which
+    # the 1e-3 of the other consistency checks would pass
+    tol = 1e-4
+    print(f"consistency {cfg.name} {cfg.encoder_layers} + {cfg.num_layers} "
+          f"layers f32, {cfg.frontend_frames} frames, S={S}: prefill/decode "
+          f"vs forward max|diff| {', '.join(f'{e:.2e}' for e in errs)} (tol "
+          f"{tol:.0e}; max |logit| {scale:.2f}); planted cross wk*0.99 in "
+          f"layer 0 {planted:.2e}")
+    check(max(errs) <= tol, "prefill + decode disagrees with forward")
+    check(planted > tol, f"the limit {tol:.0e} passes prefill + decode "
+          f"with layer 0's cross-attention wk scaled by 0.99 ({planted:.2e})")
+
+
+def phase_whisper_grad_consistency(rng) -> None:
+    """One whisper-small loss's gradients (float32, TF32 off) on the card
+    against the same on CPU copies, at the reduced config and at full width
+    with 2 encoder and 2 decoder layers over 1500 frames; the card's with
+    layer 0's cross-attention ``wk`` scaled by 0.99 must fail."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    for cfg in (get_reduced(WHISPER).replace(dtype="float32"),
+                get_config(WHISPER).replace(num_layers=2, encoder_layers=2,
+                                            dtype="float32")):
+        # every leaf in float32 (norm scales are bf16 by spec)
+        init = tree_map(lambda p: p.detach().float(),
+                        build_model(cfg, device="cuda", seed=0).param_tree())
+        B, S = 2, 64
+        batch = _audio_batch(rng, cfg, B, S, device="cpu")
+
+        def grads(device, plant=False):
+            ps = tree_map(lambda p: p.to(device).requires_grad_(), init)
+            model = build_model(cfg, ps, device=device)
+            wk = ps["dec_layers"]["cross_attn"]["wk"]
+            with (scaled_first_layer(wk, 0.99) if plant
+                  else contextlib.nullcontext()):
+                loss, _ = model.loss(
+                    {k: v.to(device) for k, v in batch.items()}, params=ps)
+                g = torch.autograd.grad(loss, tree_leaves(ps))
+            return loss, g
+
+        reset_counts()
+        loss_g, g_gpu = grads("cuda")
+        launches = read_counts()
+        check(launches == (2 * whisper_flash(cfg), 0, 0),
+              f"the CUDA step launched (flash, KL, SSD) = {launches}")
+        loss_c, g_cpu = grads("cpu")
+        check(read_counts() == launches, "the CPU step launched a kernel")
+        check(all(bool(torch.isfinite(g).all()) for g in g_gpu),
+              "non-finite gradient on the card")
+
+        rel = grad_rel_err(g_gpu, g_cpu)
+        planted = grad_rel_err(grads("cuda", plant=True)[1], g_cpu)
+        # float32 with TF32 off on both: the kernel's blocks and the CPU's
+        # plain attention sum in other orders over 1500 keys; 1e-3 relative
+        # per leaf is far above that and far below a wrong term
+        tol = 1e-3
+        print(f"gradient consistency {cfg.name} d_model={cfg.d_model} "
+              f"{cfg.encoder_layers} + {cfg.num_layers} layers f32 B={B} "
+              f"S={S} frames={cfg.frontend_frames}: loss "
+              f"{loss_g.item():.6f} (CUDA) vs {loss_c.item():.6f} (CPU); max "
+              f"per-leaf |dg| / max|g| {rel:.3e} (tol {tol:.0e}) over "
+              f"{len(g_cpu)} leaves; planted cross wk*0.99 in layer 0 "
+              f"{planted:.3e}")
+        check(abs(loss_g.item() - loss_c.item())
+              <= 1e-4 * abs(loss_c.item()),
+              "whisper loss differs between the card and the CPU")
+        check(rel <= tol, "whisper gradients differ between the card and "
+              "the CPU")
+        check(planted > tol, f"the gradient limit {tol:.0e} passes layer "
+              f"0's cross-attention wk scaled by 0.99 ({planted:.3e})")
+        del init, g_gpu, g_cpu
+        free()
+
+
+def phase_jamba_serve(rng) -> tuple[int, int]:
+    """jamba-v0.1-52b serving through ``launch.serve.generate`` at full width
+    (8 layers, bf16, batch 2 x prompt 16384 x 32 tokens; the counted run),
+    then the same batch warm, then a warm prefill and 8 decode steps traced;
+    returns (flash, SSD) launches of the counted run."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_kinds
+    cfg = get_config(JAMBA).replace(num_layers=JAMBA_LAYERS,
+                                    dtype="bfloat16")
+    kinds = layer_kinds(cfg)
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    n_mamba = len(kinds) - n_attn
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(model.param_tree())
+    n_params = sum(x.numel() for x in leaves)
+    n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"serve {cfg.name}: {cfg.num_layers} of 32 layers at full width "
+          f"({n_attn} attention, {n_mamba} Mamba-2, "
+          f"{sum(f == 'moe' for _, f in kinds)} MoE), "
+          f"{n_params / 1e9:.3f} B parameters ({n_bytes / 2**30:.2f} GiB), "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (JAMBA_B, JAMBA_S))).cuda()
+    reset_counts()
+    res = serve_mod.generate(model, prompts, JAMBA_GEN)
+    launches, kl_launches, ssd_launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print("cold " + res.summary())
+    print(f"serve {cfg.name} peak device memory {peak:.2f} GiB")
+    check(res.prefill_launches == launches == n_attn
+          and res.prefill_ssd_launches == ssd_launches == n_mamba,
+          f"prefill launched flash {res.prefill_launches} and SSD "
+          f"{res.prefill_ssd_launches} times, expected {n_attn} and "
+          f"{n_mamba}")
+    check(res.decode_launches == res.decode_ssd_launches == kl_launches == 0,
+          "decode launched flash or SSD, or serving launched distill_kl")
+    check(res.logits_finite, "non-finite logits")
+    check(tuple(res.tokens.shape) == (JAMBA_B, JAMBA_GEN)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          f"generated tokens {res.tokens.shape} outside the vocabulary")
+    print("warm " + serve_mod.generate(model, prompts, JAMBA_GEN).summary())
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": prompts}, extra_cache=9)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _kernel_report(prof, wall, f"warm prefill ({cfg.name})")
+    _moe_report(prof, "prefill")
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tok = logits.argmax(-1)[:, None]
+        for i in range(8):
+            logits, cache = model.decode(cache, tok, JAMBA_S + i)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _kernel_report(prof, wall, f"8 warm decode steps ({cfg.name})")
+    _moe_report(prof, "decode")
+    return launches, ssd_launches
+
+
+def phase_jamba_consistency(rng) -> None:
+    """jamba-v0.1-52b in float32 at no-drop capacity (E / K): prefill of
+    S-2 tokens and 2 decode steps against ``forward``, every MoE call's
+    routing first, then the logits; at the reduced config (B 2, S 130) and
+    at full width with 8 layers (B 1, S 512); layer 0's gates scaled by
+    0.99 during prefill and decode must fail it."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_kinds
+    for base, B, S in ((get_reduced(JAMBA), 2, 130),
+                       (get_config(JAMBA).replace(num_layers=JAMBA_LAYERS),
+                        JAMBA_CONS_B, JAMBA_CONS_S)):
+        cfg = base.replace(dtype="float32", capacity_factor=base.num_experts
+                           / base.experts_per_token)
+        model = build_model(cfg, device="cuda", seed=1)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S))).cuda()
+        with recorded_routes() as fwd_routes:
+            full = model({"tokens": tokens})
+
+        def errors():
+            logits, cache = model.prefill({"tokens": tokens[:, :S - 2]},
+                                          extra_cache=2)
+            errs = [(logits - full[:, S - 3]).abs().max().item()]
+            for pos in (S - 2, S - 1):
+                logits, cache = model.decode(cache, tokens[:, pos:pos + 1],
+                                             pos)
+                errs.append((logits - full[:, pos]).abs().max().item())
+            return errs
+
+        with recorded_routes() as routes:
+            errs = errors()
+        flips = serving_route_flips(fwd_routes, routes, S - 2,
+                                    (S - 2, S - 1))
+        check(len(fwd_routes) == sum(f == "moe" for _, f in layer_kinds(cfg))
+              and flips == [], f"routing differs between forward and "
+              f"prefill/decode (a tie flip): (MoE layer, tokens) {flips}")
+        first = model.param_tree()["layers"]["sub1"]["moe"]["router"]
+        with scaled_gates(first, 0.99):
+            planted = max(errors())
+        scale = full.abs().max().item()
+        # float32 with TF32 off: the SSD kernel's chunks against the
+        # decode recurrence, sums over d_model and d_ff in other orders
+        tol = 1e-3
+        print(f"consistency {cfg.name} d_model={cfg.d_model} "
+              f"layers={cfg.num_layers} f32, capacity factor "
+              f"{cfg.capacity_factor}, B={B} S={S}: routes equal in "
+              f"{len(routes)} MoE calls; prefill/decode vs forward max|diff| "
+              f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol:.0e}; max "
+              f"|logit| {scale:.2f}); planted gates*0.99 in the first MoE "
+              f"layer {planted:.2e}")
+        check(max(errs) <= tol, "prefill + decode disagrees with forward")
+        check(planted > tol, f"the limit {tol:.0e} passes prefill + decode "
+              f"with the first MoE layer's gates scaled by 0.99 "
+              f"({planted:.2e})")
+        del model, full
+        free()
+
+
+def phase_jamba_grad_consistency(rng) -> None:
+    """One reduced jamba loss's gradients (float32, TF32 off) on the card
+    against the same on CPU copies: every MoE call's routing first, then
+    the loss and each leaf's gradient; the card's with the first MoE
+    layer's gates scaled by 0.99 must fail."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_kinds
+    cfg = get_reduced(JAMBA).replace(dtype="float32")
+    init = tree_map(lambda p: p.detach().float(),
+                    build_model(cfg, device="cuda", seed=0).param_tree())
+    B, S = 2, 130
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:]),
+             "loss_mask": torch.from_numpy(
+                 (rng.random((B, S)) < 0.9).astype(np.float32))}
+
+    def grads(device, plant=False):
+        ps = tree_map(lambda p: p.to(device).requires_grad_(), init)
+        model = build_model(cfg, ps, device=device)
+        first = ps["layers"]["sub1"]["moe"]["router"]
+        with (scaled_gates(first, 0.99) if plant
+              else contextlib.nullcontext()), recorded_routes() as routes:
+            loss, met = model.loss(
+                {k: v.to(device) for k, v in batch.items()}, params=ps)
+            g = torch.autograd.grad(loss, tree_leaves(ps))
+        return loss, met, g, routes
+
+    reset_counts()
+    loss_g, met_g, g_gpu, r_gpu = grads("cuda")
+    launches = read_counts()
+    kinds = layer_kinds(cfg)
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    n_moe = sum(f == "moe" for _, f in kinds)
+    # remat: each sub-layer's forward and its recompute
+    check(launches == (2 * n_attn, 0, 2 * (len(kinds) - n_attn)),
+          f"the CUDA step launched (flash, KL, SSD) = {launches}")
+    loss_c, met_c, g_cpu, r_cpu = grads("cpu")
+    check(read_counts() == launches, "the CPU step launched a kernel")
+    flips = [(i, int((a != b).any(-1).sum()))
+             for i, (a, b) in enumerate(zip(r_gpu, r_cpu))
+             if not torch.equal(a, b)]
+    check(len(r_gpu) == len(r_cpu) == 2 * n_moe and not flips,
+          f"routing differs between the card and the CPU (a tie flip): "
+          f"(call, tokens) {flips}")
+    check(all(bool(torch.isfinite(g).all()) for g in g_gpu),
+          "non-finite gradient on the card")
+
+    rel = grad_rel_err(g_gpu, g_cpu)
+    planted = grad_rel_err(grads("cuda", plant=True)[2], g_cpu)
+    # float32 with TF32 off, the same routes: the card's SSD forward is the
+    # kernel's 64-token chunks, the CPU's ssd_chunked at 128; 1e-3 relative
+    # per leaf, as the mamba2-130m check
+    tol = 1e-3
+    print(f"gradient consistency {cfg.name} reduced (d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, {cfg.num_layers} layers) f32 B={B} "
+          f"S={S}: routes equal in {len(r_gpu)} MoE calls; loss "
+          f"{loss_g.item():.6f} (CUDA) vs {loss_c.item():.6f} (CPU), aux "
+          f"{met_g['aux'].item():.6f} vs {met_c['aux'].item():.6f}; max "
+          f"per-leaf |dg| / max|g| {rel:.3e} (tol {tol:.0e}) over "
+          f"{len(g_cpu)} leaves; planted gates*0.99 {planted:.3e}")
+    check(abs(loss_g.item() - loss_c.item()) <= 1e-4 * abs(loss_c.item()),
+          "jamba loss differs between the card and the CPU")
+    check(rel <= tol, "jamba gradients differ between the card and the CPU")
+    check(planted > tol, f"the gradient limit {tol:.0e} passes the first MoE "
+          f"layer's gates scaled by 0.99 ({planted:.3e})")
+
+
+def timed(phase, *args, **kw):
+    """Run one phase and print its wall time."""
+    t = time.perf_counter()
+    out = phase(*args, **kw)
+    print(f"phase {phase.__name__} took {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2506,77 +3093,103 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    phase_build()
-    phase_sweep(rng)
-    flash_at = {"serve": phase_flash_shape(rng, PREFILL, bwd=False),
-                "train_distill": phase_flash_shape(rng, TRAIN_ATTN),
-                "multi_teacher": phase_flash_shape(rng, MT_ATTN),
-                "mllm_vit": phase_flash_shape(rng, MLLM_VIT_ATTN,
-                                              causal=False),
-                "mllm_llm": phase_flash_shape(rng, MLLM_LM_ATTN),
-                "moe_serve": phase_flash_shape(rng, MIXTRAL_ATTN, bwd=False,
-                                               window=MIXTRAL_WINDOW,
-                                               rows=PLAIN_ROWS),
-                "moe_train": phase_flash_shape(rng, MOONSHOT_ATTN),
-                "moe_train_mb": phase_flash_shape(rng, MOONSHOT_MB_ATTN)}
-    phase_flash_grads(rng)
-    phase_kl_sweep(rng)
-    kl = kl_entry({"train_distill": phase_kl_main(rng, TRAIN_B * TRAIN_S),
-                   "multi_teacher": phase_kl_main(rng, MT_MBS * TRAIN_S)})
-    phase_ssd_sweep(rng)
-    ssd = phase_ssd_main(rng)
-    phase_ssd_grads(rng)
+    timed(phase_build)
+    timed(phase_sweep, rng)
+    flash_shapes = {
+        "serve": (PREFILL, dict(bwd=False)),
+        "train_distill": (TRAIN_ATTN, {}),
+        "multi_teacher": (MT_ATTN, {}),
+        "mllm_vit": (MLLM_VIT_ATTN, dict(causal=False)),
+        "mllm_llm": (MLLM_LM_ATTN, {}),
+        "moe_serve": (MIXTRAL_ATTN, dict(bwd=False, window=MIXTRAL_WINDOW,
+                                         rows=PLAIN_ROWS)),
+        "moe_train": (MOONSHOT_ATTN, {}),
+        "moe_train_mb": (MOONSHOT_MB_ATTN, {}),
+        "whisper_enc": (WHISPER_ENC_ATTN, dict(causal=False)),
+        "whisper_self": (WHISPER_SELF_ATTN, {}),
+        "whisper_cross": (WHISPER_CROSS_ATTN, dict(causal=False)),
+        "whisper_prefill_cross": (WHISPER_PREFILL_CROSS,
+                                  dict(causal=False, bwd=False)),
+        "jamba_serve": (JAMBA_ATTN, dict(bwd=False, rows=PLAIN_ROWS))}
+    flash_at = {name: timed(phase_flash_shape, rng, shape, **kw)
+                for name, (shape, kw) in flash_shapes.items()}
+    timed(phase_flash_grads, rng)
+    timed(phase_kl_sweep, rng)
+    kl = kl_entry({
+        "train_distill": timed(phase_kl_main, rng, TRAIN_B * TRAIN_S),
+        "multi_teacher": timed(phase_kl_main, rng, MT_MBS * TRAIN_S)})
+    timed(phase_ssd_sweep, rng)
+    ssd = ssd_entry({"mamba": timed(phase_ssd_shape, rng, SSD_MAIN),
+                     "jamba_serve": timed(phase_ssd_shape, rng, SSD_JAMBA)})
+    timed(phase_ssd_grads, rng)
     free()
-    serve_launches = phase_serve()
+    serve_launches = timed(phase_serve)
     free()
-    phase_profile(rng)
+    timed(phase_profile, rng)
     free()
-    phase_consistency(rng)
+    timed(phase_consistency, rng)
     free()
-    train_launches = phase_train()
+    train_launches = timed(phase_train)
     free()
-    phase_train_trace()
+    timed(phase_train_trace)
     free()
-    distill_launches, kl_launches = phase_distill()
+    distill_launches, kl_launches = timed(phase_distill)
     free()
-    phase_grad_consistency(rng)
+    timed(phase_grad_consistency, rng)
     free()
-    mamba_train_launches = phase_mamba_train()
+    mamba_train_launches = timed(phase_mamba_train)
     free()
-    phase_train_trace(MAMBA, MAMBA_B, MAMBA_S)
+    timed(phase_train_trace, MAMBA, MAMBA_B, MAMBA_S)
     free()
-    mamba_serve_launches = phase_mamba_serve(rng)
+    mamba_serve_launches = timed(phase_mamba_serve, rng)
     free()
-    phase_mamba_consistency(rng)
+    timed(phase_mamba_consistency, rng)
     free()
-    phase_mamba_grad_consistency(rng)
+    timed(phase_mamba_grad_consistency, rng)
     free()
-    rt_launches, rt_kl_launches = phase_distill_runtime()
+    rt_launches, rt_kl_launches = timed(phase_distill_runtime)
     free()
-    mt_launches, mt_kl_launches = phase_multi_teacher()
+    mt_launches, mt_kl_launches = timed(phase_multi_teacher)
     free()
-    mllm_launches = phase_mllm()
+    mllm_launches = timed(phase_mllm)
     free()
-    moe_serve_launches = phase_moe_serve(rng)
+    moe_serve_launches = timed(phase_moe_serve, rng)
     free()
-    phase_moe_consistency(rng)
+    timed(phase_moe_consistency, rng)
     free()
-    moe_train_launches = phase_moe_train()
+    moe_train_launches = timed(phase_moe_train)
     free()
-    phase_moe_grad_consistency(rng)
+    timed(phase_moe_grad_consistency, rng)
+    free()
+    whisper_train_launches = timed(phase_whisper_train)
+    free()
+    whisper_serve_launches = timed(phase_whisper_serve, rng)
+    free()
+    timed(phase_whisper_consistency, rng)
+    free()
+    timed(phase_whisper_grad_consistency, rng)
+    free()
+    jamba_launches, jamba_ssd_launches = timed(phase_jamba_serve, rng)
+    free()
+    timed(phase_jamba_consistency, rng)
+    free()
+    timed(phase_jamba_grad_consistency, rng)
     paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}", f"distill {TRAIN_ARCH}",
              f"train {MAMBA}", f"serve {MAMBA}",
              f"distill-runtime {TRAIN_ARCH}", f"multi-teacher {TRAIN_ARCH}",
              "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
-             f"train {MOONSHOT} {MOONSHOT_LAYERS}L")
+             f"train {MOONSHOT} {MOONSHOT_LAYERS}L", f"train {WHISPER}",
+             f"serve {WHISPER}", f"serve {JAMBA} {JAMBA_LAYERS}L")
     per_path = {
         "flash": (serve_launches, train_launches, distill_launches, 0, 0,
                   rt_launches, mt_launches, mllm_launches,
-                  moe_serve_launches, moe_train_launches),
+                  moe_serve_launches, moe_train_launches,
+                  whisper_train_launches, whisper_serve_launches,
+                  jamba_launches),
         "kl": (0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches, 0,
-               0, 0),
+               0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, mamba_train_launches, mamba_serve_launches, 0, 0,
-                0, 0, 0)}
+                0, 0, 0, 0, 0, jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

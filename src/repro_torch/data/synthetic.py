@@ -1,5 +1,5 @@
 """Deterministic synthetic data (``repro/data/synthetic.py``): token
-streams and mixed-modality batches.
+streams, mixed-modality batches and audio (frame-embedding) batches.
 
 The numpy stream is the JAX package's, draw for draw, so one seed gives
 the same batches on both sides; the batches are torch tensors on the
@@ -119,4 +119,25 @@ def vlm_batches(*, batch: int, seq_len: int, vocab: int, vision_ratio: float,
             "image_pos": torch.from_numpy(pos).to(device),
             "image_valid": torch.from_numpy(valid).to(device),
             "has_image": torch.from_numpy(has.astype(np.int32)).to(device),
+        }
+
+
+def audio_batches(*, batch: int, seq_len: int, vocab: int, frames: int,
+                  frame_dim: int, seed: int = 0, device="cuda"
+                  ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Encoder-decoder batches: LM inputs plus ``frames`` [B, frames,
+    frame_dim], the stubbed audio frontend's frame embeddings (bf16: the
+    float64 draw rounded through float32, as the JAX package's cast
+    does)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = torch.from_numpy(_lm_ngram_tokens(rng, batch, seq_len, vocab))
+        fr = rng.standard_normal((batch, frames, frame_dim))
+        yield {
+            "tokens": toks[:, :-1].to(device),
+            "labels": toks[:, 1:].to(device),
+            "loss_mask": torch.ones((batch, seq_len), dtype=torch.float32,
+                                    device=device),
+            "frames": torch.from_numpy(fr.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16),
         }

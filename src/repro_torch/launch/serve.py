@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -80,16 +81,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, prompts: torch.Tensor, gen: int) -> ServeResult:
-    """Prefill ``prompts`` [B, S], then ``gen - 1`` greedy decode steps."""
+def generate(model: Model, prompts: torch.Tensor, gen: int,
+             frames: Optional[torch.Tensor] = None) -> ServeResult:
+    """Prefill ``prompts`` [B, S], then ``gen - 1`` greedy decode steps.
+    An encoder-decoder (``audio``) model also takes ``frames`` [B, F,
+    frontend_dim], which the prefill encodes; the CLI, like the
+    reference's, passes tokens only, so it cannot serve that family."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
+    elif model.cfg.family == "audio":
+        raise ValueError(
+            f"{model.cfg.name} is an encoder-decoder: generate() needs the "
+            "frame embeddings `frames` [B, frontend_frames, frontend_dim] "
+            "beside the prompts")
     device = prompts.device
     S = prompts.shape[1]
     _sync(device)
     n0, m0 = fa.flash_fwd.launches, ssd.ssd_fwd.launches
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": prompts}, extra_cache=gen)
+    logits, cache = model.prefill(batch, extra_cache=gen)
     out = [logits.argmax(-1)[:, None]]
     finite = torch.isfinite(logits).all()
     _sync(device)

@@ -60,15 +60,20 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o.flatten(-2) @ wo.reshape(h * k, d)
 
 
-def _project_qkv(p, x, cfg: ArchConfig, positions):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_q(p, x, cfg: ArchConfig, positions, rope: bool = True):
+    q = _proj(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
+    return cm.apply_rope(q, positions, cfg.rope_theta) if rope else q
+
+
+def _project_qkv(p, x, cfg: ArchConfig, positions):
+    q = _project_q(p, x, cfg, positions)
+    k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
         k = k + p["bk"]
         v = v + p["bv"]
-    q = cm.apply_rope(q, positions, cfg.rope_theta)
-    k = cm.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, cm.apply_rope(k, positions, cfg.rope_theta), v
 
 
 def _pad_q_heads(q, cfg: ArchConfig):
@@ -95,14 +100,24 @@ def _unpad_o_heads(o, cfg: ArchConfig, H: int):
 
 
 def attention(p, x, cfg: ArchConfig, *, causal: bool = True,
-              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence attention (causal, or bidirectional for the ViT).
-    x: [B, S, D].  (The reference's ``positions``, ``rope`` and
-    ``kv_override`` serve whisper's encoder and cross-attention, A7.)"""
+              segment_ids: Optional[torch.Tensor] = None,
+              kv_override=None) -> torch.Tensor:
+    """Full-sequence attention (causal, or bidirectional for the ViT and
+    whisper's encoder). x: [B, S, D].  ``kv_override`` = (k, v)
+    [B, T, KV, hd] makes it cross-attention (whisper's decoder over the
+    encoder's output; T may differ from S), position-free: q gets no RoPE,
+    as the reference's ``rope=False`` (set there exactly where
+    ``kv_override`` is) gives.  The reference projects k and v from x and
+    then discards them there; here they are not projected, which gives the
+    same numbers."""
     B, S, _ = x.shape
     H = cfg.num_heads
-    positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    if kv_override is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+        q, k, v = _project_qkv(p, x, cfg, positions)
+    else:                                             # cross-attention
+        q = _project_q(p, x, cfg, None, rope=False)
+        k, v = kv_override
     q = cm.shard_act(_pad_q_heads(q, cfg), "attn_q")
     o = kops.flash_attention(q, k, v, causal=causal,
                              window=cfg.sliding_window,
@@ -150,10 +165,17 @@ def attention_prefill(p, x, cfg: ArchConfig, *, cache_len: int,
     return out, cache
 
 
-def attention_decode(p, x, cache: dict, cfg: ArchConfig, *, pos: int):
+def attention_decode(p, x, cache: Optional[dict], cfg: ArchConfig, *,
+                     pos: int, kv_override=None):
     """One-token decode. x: [B, 1, D]; pos: absolute position (int).
-    Writes the new key/value into ``cache`` in place."""
+    Writes the new key/value into ``cache`` in place and returns (out,
+    cache).  With ``kv_override`` = (k, v), a static cross-attention cache
+    (``cache`` is None), q gets no RoPE and the output alone is returned,
+    as in the reference."""
     B = x.shape[0]
+    if kv_override is not None:                       # cross-attention
+        q = _project_q(p, x, cfg, None, rope=False)
+        return _attend_full(q, *kv_override, p, cfg, valid=None)
     C = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
@@ -177,7 +199,8 @@ def _attend_full(q, kc, vc, p, cfg: ArchConfig, valid):
     G = H // KV
     qr = q.reshape(B, S, KV, G, D).float()
     logits = torch.einsum("bskgd,btkd->bkgst", qr, kc.float()) * (D ** -0.5)
-    logits = logits.masked_fill(~valid, -1e30)
+    if valid is not None:
+        logits = logits.masked_fill(~valid, -1e30)
     prob = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", prob, vc.float())
     o = o.reshape(B, S, H, D).to(q.dtype)

@@ -59,6 +59,15 @@ def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
         spec_tree)
 
 
+def unbind_layers(stacked: dict) -> list:
+    """A tree stacked on axis 0 -> one tree per layer.  One unbind per
+    leaf: its backward stacks the layers' gradients once, where indexing
+    would add a zero-filled full-size gradient per layer."""
+    leaves = tree_map(lambda x: x.unbind(0), stacked)
+    n = len(tree_leaves(leaves)[0])
+    return [tree_map(lambda xs: xs[i], leaves) for i in range(n)]
+
+
 def _init_one(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
     out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "zeros":

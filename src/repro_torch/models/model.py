@@ -10,13 +10,15 @@ argument:
 * ``prefill(batch, extra_cache)``-- (last logits [B, V], cache)
 * ``decode(cache, token, pos)`` -- one serving step (writes the cache in place)
 
-The ``dense`` (attention + MLP), ``moe`` (attention + a top-k
-mixture of experts, whose load-balancing loss joins the loss), ``ssm``
-(Mamba-2), ``vlm`` (the dense path with projected image embeddings
-scattered into the token stream) and ``vit`` (encoder-only, bidirectional
-attention, a loss of CE alone; no prefill or decode) families are ported;
-every other family raises ``NotImplementedError`` naming its slice in
-ROADMAP.md.
+Every family of the reference is ported: ``dense`` (attention + MLP),
+``moe`` (attention + a top-k mixture of experts, whose load-balancing loss
+joins the loss), ``ssm`` (Mamba-2), ``hybrid`` (jamba: attention and
+Mamba-2 mixers interleaved, MoE on every other layer), ``vlm`` (the dense
+path with projected image embeddings scattered into the token stream),
+``vit`` (encoder-only, bidirectional attention, a loss of CE alone; no
+prefill or decode) and ``audio`` (whisper's encoder-decoder,
+:mod:`repro_torch.models.encdec`; its batches carry ``frames``).  An
+unknown family raises ``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -27,15 +29,10 @@ from torch import nn
 
 from repro_torch.core.types import ArchConfig
 from repro_torch.models import common as cm
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 
-_PORTED = ("dense", "moe", "ssm", "vlm", "vit")
-_LATER = {
-    "hybrid": "A7 (jamba: its attention, Mamba-2 and MoE sub-layers run; "
-              "its SSD scan at d_state 16 and headdim 64 is not yet held "
-              "against its plain version on the card)",
-    "audio": "A7 (whisper encoder-decoder)",
-}
+_PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "vit", "audio")
 
 
 class ParamTree(nn.Module):
@@ -63,12 +60,15 @@ class Model(nn.Module):
         self.cfg = cfg
         self.params = ParamTree(params)
         self.encoder = cfg.family == "vit"
+        self.audio = cfg.family == "audio"
 
     def param_tree(self) -> dict:
         return self.params.tree()
 
     @torch.inference_mode()
     def forward(self, batch: dict) -> torch.Tensor:
+        if self.audio:
+            return ed.encdec_forward(self.param_tree(), self.cfg, batch)
         return tf.lm_forward(self.param_tree(), self.cfg, batch,
                              causal=not self.encoder)[0]
 
@@ -78,6 +78,8 @@ class Model(nn.Module):
         recorded by autograd; ``repro``'s ``Model.loss(p, batch)``.  The
         encoder-only ``vit`` family's loss is the masked CE alone."""
         p = self.param_tree() if params is None else params
+        if self.audio:
+            return ed.encdec_loss(p, self.cfg, batch, remat=remat)
         if not self.encoder:
             return tf.lm_loss(p, self.cfg, batch, remat=remat)
         logits, aux = tf.lm_forward(p, self.cfg, batch, causal=False,
@@ -95,12 +97,18 @@ class Model(nn.Module):
     @torch.inference_mode()
     def prefill(self, batch: dict, extra_cache: int = 0):
         self._decoder("prefill")
+        if self.audio:
+            return ed.encdec_prefill(self.param_tree(), self.cfg, batch,
+                                     extra_cache=extra_cache)
         return tf.lm_prefill(self.param_tree(), self.cfg, batch,
                              extra_cache=extra_cache)
 
     @torch.inference_mode()
     def decode(self, cache: dict, token: torch.Tensor, pos: int):
         self._decoder("decode")
+        if self.audio:
+            return ed.encdec_decode(self.param_tree(), self.cfg, cache,
+                                    token, pos)
         return tf.lm_decode(self.param_tree(), self.cfg, cache, token, pos)
 
 
@@ -110,11 +118,10 @@ def build_model(cfg: ArchConfig, params: Optional[dict] = None, *,
     :func:`repro_torch.convert.params_from_numpy`) or initialised from a
     ``torch.Generator`` seeded with ``seed``."""
     if cfg.family not in _PORTED:
-        later = _LATER.get(cfg.family, "a later slice")
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; see "
-            f"ROADMAP.md, {later}")
-    specs = tf.lm_specs(cfg)
+            f"{cfg.name}: family {cfg.family!r} is not ported; see "
+            "ROADMAP.md")
+    specs = ed.encdec_specs(cfg) if cfg.family == "audio" else tf.lm_specs(cfg)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = cm.init_params(specs, gen, device)

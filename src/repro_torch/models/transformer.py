@@ -193,16 +193,12 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
 
     aux is the sum of every MoE sub-layer's load-balancing loss (0 for a
     model without one), as the reference's scan sums it."""
-    pk, reps = group_layout(cfg)
+    pk, _ = group_layout(cfg)
     x = cm.shard_act(embed_tokens(p, cfg, batch), "hidden")
     segment_ids = batch.get("segment_ids")
     checkpoint = remat and torch.is_grad_enabled()
-    # one unbind per leaf: its backward stacks the layers' gradients once,
-    # where indexing would add a zero-filled full-size gradient per layer
-    layers = cm.tree_map(lambda x: x.unbind(0), p["layers"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(reps):
-        period = cm.tree_map(lambda xs: xs[r], layers)
+    for period in cm.unbind_layers(p["layers"]):
         for j, (mixer, ffn) in enumerate(pk):
             _check_kind(mixer, ffn)
             lp = period[f"sub{j}"]

@@ -73,10 +73,7 @@ def vit_encode(p, cfg: ArchConfig, patches: torch.Tensor, *,
     x = cm.shard_act(patches.to(p["patch_proj"].dtype) @ p["patch_proj"],
                      "hidden")
     checkpoint = remat and torch.is_grad_enabled()
-    # one unbind per leaf (see transformer.lm_forward)
-    layers = cm.tree_map(lambda t: t.unbind(0), p["layers"])
-    for i in range(cfg.num_layers):
-        lp = cm.tree_map(lambda ts: ts[i], layers)
+    for lp in cm.unbind_layers(p["layers"]):
         if checkpoint:
             x = torch.utils.checkpoint.checkpoint(_layer_fwd, lp, x, cfg,
                                                   use_reentrant=False)

@@ -63,6 +63,11 @@ MOE_SLICE = ["repro_torch.models.moe", "repro_torch.models.transformer",
              "repro_torch.launch.train"]
 
 
+ENCDEC_SLICE = ["repro_torch.models.encdec", "repro_torch.models.attention",
+                "repro_torch.models.model", "repro_torch.data.synthetic",
+                "repro_torch.launch.serve"]
+
+
 def test_module_list_covers_the_training_slice():
     assert set(TRAINING_SLICE) <= set(_modules())
 
@@ -81,6 +86,10 @@ def test_module_list_covers_the_mllm_slice():
 
 def test_module_list_covers_the_moe_slice():
     assert set(MOE_SLICE) <= set(_modules())
+
+
+def test_module_list_covers_the_encdec_slice():
+    assert set(ENCDEC_SLICE) <= set(_modules())
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -133,9 +133,27 @@ def test_leaf_dtypes_follow_the_specs_in_bf16(how):
     assert tm.param_tree()["layers"]["sub0"]["mamba"]["D"].eq(1).all()
 
 
-def test_hybrid_family_still_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tbuild(tcfgs.get_reduced("jamba-v0.1-52b"), device="cpu")
+def test_hybrid_family_matches_jax():
+    """jamba (reduced: 7 Mamba-2 sub-layers at d_state 16 beside one
+    attention sub-layer, MoE on every second) builds and its forward
+    matches the JAX package's; tests/test_torch_hybrid.py holds the rest
+    of the family."""
+    name = "jamba-v0.1-52b"
+    jcfg = jcfgs.get_reduced(name).replace(dtype="float32")
+    jm = jbuild(jcfg)
+    rng = np.random.default_rng(7)
+    np_tree = jax.tree_util.tree_map(
+        lambda x: (np.asarray(x, np.float32)
+                   + 0.05 * rng.standard_normal(x.shape, dtype=np.float32)),
+        jm.init(jax.random.PRNGKey(7)))
+    tm = tbuild(tcfgs.get_reduced(name).replace(dtype="float32"),
+                params_from_numpy(np_tree, device="cpu"), device="cpu")
+    assert sum(1 for j in range(8) if "mamba" in
+               tm.param_tree()["layers"][f"sub{j}"]) == 7
+    jb, tb = _batch(tm.cfg, 2, 24, seed=8)
+    _close(tm({"tokens": tb["tokens"]}),
+           jm.forward(jax.tree_util.tree_map(jnp.asarray, np_tree),
+                      {"tokens": jb["tokens"]}))
 
 
 # --------------------------------------------------------------------------- #

@@ -105,7 +105,8 @@ def test_init_params_truncated_and_seeded():
 
 def test_build_model_rejects_other_families_and_bad_trees():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(tcfgs.get_reduced("whisper-small"), device="cpu")
+        tbuild(tcfgs.get_reduced("granite-3-8b").replace(family="retnet"),
+               device="cpu")
     cfg = tcfgs.get_reduced("granite-3-8b").replace(dtype="float32")
     params = tcm.init_params(ttf.lm_specs(cfg), torch.Generator(), "cpu")
     del params["final_norm"]

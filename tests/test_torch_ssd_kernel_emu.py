@@ -49,6 +49,8 @@ CASES = [
     (1, 192, 1, 64, 128, torch.bfloat16, False),  # mamba2-130m's p, n
     (1, 200, 2, 64, 128, torch.bfloat16, True),   # packed as the model; ragged
     (1, 40, 3, 64, 128, torch.bfloat16, True),    # packed, below one chunk
+    (1, 200, 4, 64, 16, torch.bfloat16, True),    # jamba's p, n (n padded to
+    #   64), packed as the model: B and C 32 bytes wide, by TMA
     (1, 130, 3, 80, 72, torch.bfloat16, False),   # p, n padded to 128
     (2, 48, 4, 8, 4, torch.bfloat16, False),      # p, n padded to 64; B rows
     #   of 8 bytes: TMA refuses them
