@@ -41,7 +41,17 @@ CUDA kernels from the sources in this checkout.  Phases:
    bf16, batch 4 x seq 2048; losses and grad norms finite, weights
    changed, the flash kernel launched twice per layer and step (forward
    and the recompute of the checkpointed layer).  One warm step of the
-   same model is traced.
+   same model is traced.  Then checkpoint and resume through the same
+   entry point (``phase_checkpoint``), under deterministic algorithms: 4
+   steps uninterrupted against 2 steps that save asynchronously and stop
+   on SIGTERM, then a freshly built model and optimizer state that resume
+   from that directory for steps 2-3 on the batches from index 2 on;
+   losses, parameters, master, mu, nu and step must be equal bit for bit,
+   the step-2 checkpoint must restore bit for bit, one leaf moved by one
+   ulp must fail that comparison and a manifest missing a leaf must raise
+   KeyError.  It prints the bytes a checkpoint writes, the save's copy
+   and write seconds, the restore seconds and the step time with a save
+   in flight.
 6. Distillation: ``distill.workload.build_colocated_step``, teacher
    qwen1.5-0.5b (seed 1, frozen) and student qwen1.5-0.5b (seed 0) at full
    width in bf16, batch 4 x seq 2048, alpha 0.5, T 2, 3 steps; the KL
@@ -77,7 +87,15 @@ CUDA kernels from the sources in this checkout.  Phases:
    bf16 step, launches checked for (b) and (c), cold and warm times, each
    section's busy time and utilization, the queue's stats, and two warm
    streamed iterations traced: device busy against wall and the time the
-   teacher's and the student's streams both ran kernels.  Then routed
+   teacher's and the student's streams both ran kernels.  The affinity
+   pass holds the runtime's wiring (one worker and one stream of its own a
+   section) and the traced kernels (each on its section's stream; a
+   planted task that launches on the other section's stream must be
+   reported).  Then the two-stage planner (``phase_plan``) with the H100's
+   numbers for the compound configurations at the JAX package's test
+   budgets (every section fits, eq. 2 on every edge) and for qwen1.5-0.5b
+   on one card beside the measured student busy time and peak memory (a
+   calibration record).  Then routed
    multi-teacher distillation (``CompoundRuntime(multi_teacher_spec)``,
    three qwen1.5-0.5b sections, batch 8 x 2048 in microbatches of 2,
    specialist ratio 0.3, wavefront order): the specialist's dispatches
@@ -95,7 +113,8 @@ CUDA kernels from the sources in this checkout.  Phases:
    all-text batch (the ViT runs only its update; the queue carries only
    the grad-norm pair), wavefront against FIFO (ViT microbatches and
    realized makespan), and one traced iteration with the time both
-   sections' streams ran kernels.
+   sections' streams ran kernels, held by the affinity pass; installing
+   two sections' states that share a master tensor must be refused.
 11. The MoE family at full width with its depth cut. Serving:
    mixtral-8x22b (8 of 56 layers, bf16, 20.4 B parameters) through
    ``launch.serve.generate``, batch 2, prompt 8192 past its 4096-token
@@ -613,34 +632,30 @@ def _kernel_event(evt) -> bool:
             and not getattr(evt, "is_user_annotation", False))
 
 
-def _averages(prof):
-    """``prof.key_averages()``, taken once a trace: each call walks every
-    event of the trace again, seconds for a traced train step."""
-    if not hasattr(prof, "smoke_averages"):
-        prof.smoke_averages = prof.key_averages()
-    return prof.smoke_averages
-
-
 def _range_ms(prof, keys) -> dict:
     """Device time of the kernels launched under each named range or
-    autograd node (label -> key), read from the range's host-side row."""
+    autograd node (label -> key), read from the range's host-side events.
+    Read from ``prof.events()``: ``key_averages()`` aggregates every event
+    of the trace, seconds a trace, tens of seconds for one that records
+    every thread."""
     per = {}
-    for evt in _averages(prof):
+    for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CPU:
             continue
         for label, key in keys:
-            if evt.key == key or evt.key.endswith(key):
+            if evt.name == key or evt.name.endswith(key):
                 per[label] = per.get(label, 0.0) + evt.device_time_total / 1e3
     return per
 
 
 def _device_ms(prof) -> tuple[float, dict]:
-    """Total device time of a trace and its largest kernels, in ms."""
+    """Total device time of a trace and its time by kernel, in ms."""
     per = {}
-    for evt in _averages(prof):
-        t = evt.self_device_time_total
-        if _kernel_event(evt) and t > 0:
-            per[evt.key] = per.get(evt.key, 0.0) + t / 1e3
+    for evt in prof.events():
+        if _kernel_event(evt):
+            per[evt.name] = (per.get(evt.name, 0.0)
+                             + evt.time_range.elapsed_us() / 1e3)
+    per = {k: v for k, v in per.items() if v > 0}
     return sum(per.values()), per
 
 
@@ -979,11 +994,14 @@ def _kernel_report(prof, wall_ms: float, what: str) -> None:
         print(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {key[:90]}")
     # host side: the CUDA runtime calls, where a synchronising call (a
     # free, a copy from pageable memory) drains the queue the host built
-    runtime = [e for e in _averages(prof)
-               if e.key.startswith("cuda") and e.cpu_time_total > 0]
-    for e in sorted(runtime, key=lambda e: -e.cpu_time_total)[:6]:
-        print(f"  host {e.cpu_time_total / 1e3:8.2f} ms in {e.count:6d} x "
-              f"{e.key}")
+    runtime = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("cuda")):
+            n, us = runtime.get(e.name, (0, 0.0))
+            runtime[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, (n, us) in sorted(runtime.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"  host {us / 1e3:8.2f} ms in {n:6d} x {name}")
 
 
 def phase_distill() -> tuple[int, int]:
@@ -1111,6 +1129,155 @@ def phase_grad_consistency(rng) -> None:
           "distillation loss differs between the card and the CPU")
     check(rel <= tol, "distillation gradients differ between the card and "
           "the CPU")
+
+
+# --------------------------------------------------------------------------- #
+# Checkpoint and resume
+# --------------------------------------------------------------------------- #
+CKPT_STEPS, CKPT_STOP = 4, 2     # (b) stops after step 2 and resumes there
+
+
+def _state_diff(a, b) -> list:
+    """The leaf paths at which two {"params", "opt"} trees differ, compared
+    bit for bit on the card."""
+    from repro_torch.models.common import flatten_with_path
+    fa, fb = flatten_with_path(a), flatten_with_path(b)
+    check([p for p, _ in fa] == [p for p, _ in fb], "state trees differ in "
+          "structure")
+    return [p for (p, x), (_, y) in zip(fa, fb)
+            if not torch.equal(x.detach(), y.detach())]
+
+
+def _lm_stream(vocab: int, start: int, stop_after: int = 0):
+    """``lm_batches(seed=0)`` from batch ``start`` on.  With ``stop_after``
+    the process receives SIGTERM as batch ``stop_after - 1`` is handed
+    out, as a preempted job would: the training loop finishes that step,
+    saves and stops."""
+    import signal
+    from repro_torch.data.synthetic import lm_batches
+    gen = lm_batches(batch=TRAIN_B, seq_len=TRAIN_S, vocab=vocab, seed=0,
+                     device="cuda")
+    for i, b in enumerate(gen):
+        if i < start:
+            continue
+        if stop_after and i == stop_after - 1:
+            signal.raise_signal(signal.SIGTERM)
+        yield b
+
+
+def phase_checkpoint() -> int:
+    """qwen1.5-0.5b at full width through ``launch.train.run``, (a) 4
+    steps uninterrupted against (b) 2 steps checkpointing asynchronously
+    every 2 steps, stopped by SIGTERM, then a freshly built model and
+    optimizer state that resume from that directory and run steps 2-3 on
+    the batches from index 2 on (saving every step, so step 3 runs with a
+    save in flight).  Both under deterministic algorithms: the losses of
+    steps 2-3 and the final parameters, master, mu, nu and step must be
+    equal bit for bit.  The step-2 checkpoint must restore bit for bit,
+    and fail that comparison with one leaf moved by one ulp; a manifest
+    missing a leaf must raise KeyError.  Returns (b)'s flash launches."""
+    import os
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.common import flatten_with_path
+    ckdir = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir.parent.mkdir(exist_ok=True)
+    disk = shutil.disk_usage(ckdir.parent)
+    print(f"checkpoint: {ckdir}, {disk.free / 1e9:.1f} GB free of "
+          f"{disk.total / 1e9:.1f} GB")
+    # bitwise equality of two card runs: the embedding backward
+    # accumulates with atomics unless deterministic algorithms are on,
+    # which cuBLAS allows only with a fixed workspace configuration
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    common = dict(steps=CKPT_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                  dtype="bfloat16", device="cuda", seed=0, log_every=1)
+    try:
+        reset_counts()
+        a = train_mod.run(TRAIN_ARCH, **common)
+        launches_a = read_counts()
+        vocab, L = a.cfg.vocab_size, a.cfg.num_layers
+        reset_counts()
+        b1 = train_mod.run(TRAIN_ARCH, ckpt_dir=str(ckdir), ckpt_every=2,
+                           batches=_lm_stream(vocab, 0, CKPT_STOP), **common)
+        ck1 = b1.checkpointer
+        check(b1.result.final_step == CKPT_STOP
+              and ck1.all_steps() == [CKPT_STOP],
+              f"the SIGTERM'd run stopped at {b1.result.final_step} with "
+              f"checkpoints {ck1.all_steps()}")
+        state_b1 = {"params": b1.result.params, "opt": b1.result.opt_state}
+        del b1
+        b2 = train_mod.run(TRAIN_ARCH, ckpt_dir=str(ckdir), ckpt_every=1,
+                           batches=_lm_stream(vocab, CKPT_STOP), **common)
+        launches_b = read_counts()
+        ck2 = b2.checkpointer
+        resume_s = ck2.last_restore_s
+        ra, rb = a.result, b2.result
+        check(rb.resumed_from == CKPT_STOP and rb.steps_run == 2
+              and rb.final_step == CKPT_STEPS,
+              f"resumed from {rb.resumed_from}, ran {rb.steps_run} steps")
+        want = CKPT_STEPS * L * 2
+        for what, n in (("(a)", launches_a), ("(b)", launches_b)):
+            check(n == (want, 0, 0), f"{what} launched (flash, KL, SSD) "
+                  f"= {n}, expected ({want}, 0, 0)")
+        print(f"checkpoint: losses of steps 2-3 uninterrupted "
+              f"{ra.losses[2:]}, resumed {rb.losses}")
+        check(rb.losses == ra.losses[CKPT_STOP:], "the resumed run's "
+              "losses differ from the uninterrupted run's")
+        final_a = {"params": ra.params, "opt": ra.opt_state}
+        final_b = {"params": rb.params, "opt": rb.opt_state}
+        diff = _state_diff(final_a, final_b)
+        n_leaves = len(flatten_with_path(final_a))
+        print(f"checkpoint: final state, {n_leaves} leaves (params, master, "
+              f"mu, nu, step): {len(diff)} differ bit for bit {diff[:4]}")
+        check(not diff, f"the resumed run ends in another state: {diff[:8]}")
+        # the checkpoint itself: step 2 restores bit for bit, and the
+        # comparison sees one ulp of one leaf
+        restored = ck2.restore(CKPT_STOP, state_b1)
+        torch.cuda.synchronize()
+        again_s = ck2.last_restore_s
+        check(not _state_diff(restored, state_b1), "the step-2 checkpoint "
+              "does not restore bit for bit")
+        leaf = restored["opt"].master["embed"].view(-1)
+        leaf[0] = torch.nextafter(leaf[0], torch.tensor(np.inf,
+                                                        device="cuda"))
+        planted = _state_diff(restored, state_b1)
+        print(f"checkpoint: a restored leaf moved by one ulp differs at "
+              f"{planted}")
+        check(planted == ["opt.master.embed"], "one ulp of a restored leaf "
+              "passed the comparison")
+        manifest = ckdir / f"step_{CKPT_STOP:08d}" / "manifest.json"
+        m = json.loads(manifest.read_text())
+        m["leaves"] = [x for x in m["leaves"] if x["path"] != "opt.step"]
+        manifest.write_text(json.dumps(m))
+        try:
+            ck2.restore(CKPT_STOP, state_b1)
+            missing = None
+        except KeyError as e:
+            missing = str(e)
+        print(f"checkpoint: a manifest without opt.step raises {missing}")
+        check(missing is not None and "opt.step" in missing,
+              "a manifest missing a leaf restored")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        shutil.rmtree(ckdir, ignore_errors=True)
+    card_ = card()
+    print(f"checkpoint {TRAIN_ARCH} on {card_}: {ck1.last_bytes / 1e9:.3f} GB "
+          f"a checkpoint ({n_leaves} leaves); save: device-to-host copy "
+          f"{ck1.last_copy_s:.3f} s (the step waits for it), write "
+          f"{ck1.last_write_s:.3f} s (a thread); restore in the resume "
+          f"{resume_s:.3f} s, again {again_s:.3f} s")
+    print(f"checkpoint: step time uninterrupted {ra.step_times[2] * 1e3:.1f}, "
+          f"{ra.step_times[3] * 1e3:.1f} ms; resumed step 2 (no save in "
+          f"flight) {rb.step_times[0] * 1e3:.1f} ms, step 3 (the save of "
+          f"step 3 in flight) {rb.step_times[1] * 1e3:.1f} ms; last saves "
+          f"copy {ck2.last_copy_s:.3f} s, write {ck2.last_write_s:.3f} s")
+    return launches_b[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -1275,14 +1442,63 @@ def _worker_streams(rt) -> dict:
     return {n: v for (n, _), v in res.results.items()}
 
 
-def phase_distill_runtime() -> tuple[int, int]:
+def _affinity_ok(rep, what: str) -> None:
+    print(rep.render())
+    check(rep.ok, f"affinity: {what}")
+
+
+def _stream_fault(crt, prof_acts) -> None:
+    """A teacher task that launches one kernel on its own stream and one
+    on the student's: ``check_profile`` must report it."""
+    from torch.profiler import profile
+    from repro_torch.analysis import affinity
+    from repro_torch.core.executor import Dispatch
+    other = crt.rt.workers["student"].stream
+
+    def rogue():
+        x = torch.ones(1 << 20, device="cuda")
+        for _ in range(4):
+            x.add_(1)
+        with torch.cuda.stream(other):
+            x.mul_(2)
+        other.synchronize()
+
+    crt.executor.run([Dispatch("teacher", "rogue", rogue)])      # warm
+    a = torch.randn(2048, 2048, device="cuda")
+    with profile(activities=prof_acts,
+                 experimental_config=affinity.profile_config()) as prof:
+        # the profiler's device tracing can start some milliseconds after
+        # the window opens: the main thread's products fill that time
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.2:
+            a @ a
+            torch.cuda.synchronize()
+        crt.executor.run([Dispatch("teacher", f"rogue{i}", rogue)
+                          for i in range(3)])
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"affinity: the rogue tasks' trace holds {len(kernels)} device "
+          f"events")
+    rep = affinity.check_profile(prof, crt)
+    print(f"affinity: a teacher task with a kernel on the student's stream:"
+          f"\n{rep.render()}")
+    check(any(f.check == "affinity.foreign-stream" and f.subject == "teacher"
+              for f in rep.errors),
+          "a kernel on another section's stream passed check_profile")
+
+
+def phase_distill_runtime() -> tuple[int, int, dict]:
     """qwen1.5-0.5b self-distillation through the compound runtime, teacher
     and student sections sharing the card (each on its own worker thread
     and stream), against the colocated step: (a) the colocated step, (b)
     ``DistillRuntime.train_iteration`` (serialized), (c) the same spec on a
-    ``CompoundRuntime`` with lookahead 1, streamed.  Returns the (flash,
-    KL) launches of (c), the streamed run; (b)'s are checked here."""
+    ``CompoundRuntime`` with lookahead 1, streamed, its wiring and traced
+    iterations held by the affinity pass.  Returns the (flash, KL)
+    launches of (c), the streamed run ((b)'s are checked here), and the
+    measured numbers the planner's calibration record prints."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import affinity
     from repro_torch.core import workload as wl
     from repro_torch.core.types import ParallelConfig, ShapeConfig
     from repro_torch.data.synthetic import lm_batches
@@ -1358,6 +1574,8 @@ def phase_distill_runtime() -> tuple[int, int]:
         check(moved, "the runtime's student weights did not move")
         print("distill-runtime (b) sections of the last iteration:")
         _section_report(m["execution"], drt.rt.queue)
+        calib = {"student_busy_ms": m["execution"].busy("student") * 1e3,
+                 "teacher_busy_ms": m["execution"].busy("teacher") * 1e3}
         params_b, masters_b = ps, opt.master
         del opt
     gc.collect()
@@ -1368,6 +1586,7 @@ def phase_distill_runtime() -> tuple[int, int]:
                            temperature=2.0)
     with wl.CompoundRuntime(spec, devices=[dev, dev], lr_schedule=lr,
                             lookahead=1) as crt:
+        _affinity_ok(affinity.check_wiring(crt), "distill-runtime wiring")
         ps = tree_map(torch.clone, student0)
         crt.install({"teacher": teacher, "student": ps},
                     {"student": adamw.init(ps)})
@@ -1394,7 +1613,8 @@ def phase_distill_runtime() -> tuple[int, int]:
         # two more warm streamed iterations, traced: the teacher's forward
         # of the second may run beside the student's work on the first
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
+        with profile(activities=acts,
+                     experimental_config=affinity.profile_config()) as prof:
             t0 = time.perf_counter()
             for i in (RT_ITERS, RT_ITERS + 1):
                 crt.submit_iteration(batches[i], i, consts=consts)
@@ -1406,7 +1626,11 @@ def phase_distill_runtime() -> tuple[int, int]:
                        "iterations")
         _stream_report(prof, wall, "2 warm streamed distill-runtime "
                        "iterations (streams)", _distill_roles)
+        _affinity_ok(affinity.check_profile(prof, crt),
+                     "kernels of the traced distill-runtime iterations")
+        _stream_fault(crt, acts)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    calib["peak_gib"] = peak
 
     want_flash, want_kl = RT_ITERS * L * 3, RT_ITERS
     for mode, counts in (("b", counts_b), ("c", counts_c)):
@@ -1453,7 +1677,7 @@ def phase_distill_runtime() -> tuple[int, int]:
               f"{TRAIN_S} bf16 on {card_}: cold {times[0]:.1f} ms, warm "
               f"{warm:.1f} ms/iteration ({toks / warm * 1e3:.0f} tok/s)")
     print(f"distill-runtime peak device memory {peak:.2f} GiB")
-    return counts_c[0], counts_c[1]
+    return counts_c[0], counts_c[1], calib
 
 
 def phase_multi_teacher() -> tuple[int, int]:
@@ -1568,6 +1792,60 @@ def phase_multi_teacher() -> tuple[int, int]:
 # --------------------------------------------------------------------------- #
 # MLLM training: a ViT section feeding a pixtral-12b-width LM section
 # --------------------------------------------------------------------------- #
+# The two-stage section planner (paper §3.2) on the H100
+# --------------------------------------------------------------------------- #
+# the JAX package's planner tests' budgets (tests/test_planner.py)
+PLAN_BUDGET = dict(critical_gpus=256, seq_len=4096, global_batch=256)
+PLAN_GRAPHS = (("self_distill_compound", None), ("distill_compound", None),
+               ("vlm_compound", {"vit": 0.3}))
+
+
+def phase_plan(calib: dict) -> None:
+    """``planner.plan(..., hw=H100)`` for the compound configurations at
+    the JAX package's test budgets: each plan's summary, every section
+    within the card's memory, and eq. 2 on every edge into the critical
+    section (DP^producer x fanout = DP^consumer).  Then ``plan_critical``
+    for qwen1.5-0.5b on one card at the distill-runtime phase's batch,
+    printed beside that phase's measured student busy time and peak memory:
+    a calibration record, not a gate (the cost model's constants are the
+    TPU's; ROADMAP.md, A9)."""
+    from repro_torch.configs import compound, get_config
+    from repro_torch.core import cost_model as cmdl
+    from repro_torch.core import planner
+    from repro_torch.core.types import H100, ParallelConfig, SectionConfig
+    for name, rates in PLAN_GRAPHS:
+        g = compound.COMPOUND[name]()
+        plan = planner.plan(g, **PLAN_BUDGET, activation_rates=rates,
+                            hw=H100)
+        print(f"plan {name} on {H100.name} ({PLAN_BUDGET}, activation "
+              f"{rates}): {plan.total_gpus} GPUs, iteration "
+              f"{plan.iter_time * 1e3:.1f} ms\n{plan.summary()}")
+        for sec, sp in plan.sections.items():
+            cfg = g.sections[sec]
+            check(cmdl.fits(cfg.arch, sp.parallel,
+                            int(PLAN_BUDGET["seq_len"] * cfg.seq_scale),
+                            trainable=cfg.trainable, hw=H100),
+                  f"plan {name}: section {sec} does not fit the card")
+        for e in g.edges:
+            src, dst = plan.sections[e.src], plan.sections[e.dst]
+            check(src.parallel.dp * src.fanout == dst.parallel.dp,
+                  f"plan {name}: edge {e.src}->{e.dst} breaks eq. 2: dp "
+                  f"{src.parallel.dp} x fanout {src.fanout} != dp "
+                  f"{dst.parallel.dp}")
+    cfg = get_config(TRAIN_ARCH).replace(dtype="bfloat16")
+    one = planner.plan_critical(
+        SectionConfig("student", cfg, ParallelConfig(), critical=True), 1,
+        TRAIN_S, TRAIN_B, hw=H100)
+    print(f"plan_critical {TRAIN_ARCH} on one {H100.name}, batch {TRAIN_B} "
+          f"x {TRAIN_S}: mbs {one.parallel.mbs}, planned t_iter "
+          f"{one.t_iter * 1e3:.1f} ms, mem_per_gpu "
+          f"{one.mem_per_gpu / 2**30:.2f} GiB; measured in distill-runtime "
+          f"(b) on {card()}: student busy {calib['student_busy_ms']:.1f} ms "
+          f"(teacher {calib['teacher_busy_ms']:.1f} ms) an iteration, peak "
+          f"{calib['peak_gib']:.2f} GiB (both sections)")
+
+
+# --------------------------------------------------------------------------- #
 # pixtral-12b at its full width, its depth cut to 2 of 40 layers, and the
 # ViT, vit_config() at its width with out_dim = the LM's vision_dim, cut
 # to 12 of its 24: one training state (about 22 bytes a parameter) must
@@ -1612,8 +1890,12 @@ def phase_mllm() -> int:
     set: (a) the colocated step, (b) the runtime serialized, (c) streamed
     with lookahead 1, run one after the other (two training states do not
     fit); then an all-text batch, wavefront against FIFO, and one traced
-    iteration.  Returns the flash launches of (c)'s 3 iterations."""
+    iteration, whose kernels the affinity pass holds to their sections'
+    streams; installing two sections' states that share a master tensor
+    must be refused.  Returns the flash launches of (c)'s 3 iterations."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import affinity
+    from repro_torch.analysis.donation import AliasedStateError
     from repro_torch.configs import get_config
     from repro_torch.core.types import ParallelConfig
     from repro_torch.data.synthetic import vlm_batches
@@ -1743,6 +2025,7 @@ def phase_mllm() -> int:
     # batch, wavefront against FIFO and one traced iteration
     torch.cuda.reset_peak_memory_stats()
     with mw.MLLMRuntime(vit_cfg, lm_cfg, lookahead=1, **kw) as rt:
+        _affinity_ok(affinity.check_wiring(rt), "MLLM wiring")
         rt.install(*rt.place(init))
         reset_counts()
         t_start = time.perf_counter()
@@ -1800,7 +2083,8 @@ def phase_mllm() -> int:
 
         # one warm streamed iteration, traced
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
+        with profile(activities=acts,
+                     experimental_config=affinity.profile_config()) as prof:
             t0 = time.perf_counter()
             rt.submit_iteration(batches[MLLM_ITERS], step_i,
                                 plan=plans[MLLM_ITERS])
@@ -1813,6 +2097,23 @@ def phase_mllm() -> int:
                            "vit": Lv * 3 * len(plans[MLLM_ITERS].image_mbs),
                            "llm": Ll * 2 * n_mb}))
         _section_report(m["execution"], rt.rt.queue)
+        _affinity_ok(affinity.check_profile(prof, rt),
+                     "kernels of the traced MLLM iteration")
+        # planted: the LM's optimizer state holding one of the ViT's
+        # master tensors must be refused at install
+        p_now, o_now = rt.state()
+        key = next(iter(o_now["lm"].master))
+        bad = dict(o_now, lm=o_now["lm"]._replace(master={
+            **o_now["lm"].master, key: o_now["vit"].master}))
+        try:
+            rt.install(p_now, bad)
+            refused = None
+        except AliasedStateError as e:
+            refused = str(e)
+        print("mllm: install of an LM state sharing the ViT's master: "
+              + (refused or "accepted")[:400])
+        check(refused is not None and "cross-section-alias" in refused,
+              "install accepted two sections' states sharing one master")
     peaks["c"] = _peak()
     del rt
     free()
@@ -3133,6 +3434,8 @@ def main() -> int:
     free()
     timed(phase_train_trace)
     free()
+    resume_launches = timed(phase_checkpoint)
+    free()
     distill_launches, kl_launches = timed(phase_distill)
     free()
     timed(phase_grad_consistency, rng)
@@ -3147,8 +3450,9 @@ def main() -> int:
     free()
     timed(phase_mamba_grad_consistency, rng)
     free()
-    rt_launches, rt_kl_launches = timed(phase_distill_runtime)
+    rt_launches, rt_kl_launches, calib = timed(phase_distill_runtime)
     free()
+    timed(phase_plan, calib)
     mt_launches, mt_kl_launches = timed(phase_multi_teacher)
     free()
     mllm_launches = timed(phase_mllm)
@@ -3174,22 +3478,23 @@ def main() -> int:
     timed(phase_jamba_consistency, rng)
     free()
     timed(phase_jamba_grad_consistency, rng)
-    paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}", f"distill {TRAIN_ARCH}",
+    paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}",
+             f"resume {TRAIN_ARCH}", f"distill {TRAIN_ARCH}",
              f"train {MAMBA}", f"serve {MAMBA}",
              f"distill-runtime {TRAIN_ARCH}", f"multi-teacher {TRAIN_ARCH}",
              "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
              f"train {MOONSHOT} {MOONSHOT_LAYERS}L", f"train {WHISPER}",
              f"serve {WHISPER}", f"serve {JAMBA} {JAMBA_LAYERS}L")
     per_path = {
-        "flash": (serve_launches, train_launches, distill_launches, 0, 0,
-                  rt_launches, mt_launches, mllm_launches,
-                  moe_serve_launches, moe_train_launches,
+        "flash": (serve_launches, train_launches, resume_launches,
+                  distill_launches, 0, 0, rt_launches, mt_launches,
+                  mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
-        "kl": (0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches, 0,
-               0, 0, 0, 0, 0),
-        "ssd": (0, 0, 0, mamba_train_launches, mamba_serve_launches, 0, 0,
-                0, 0, 0, 0, 0, jamba_ssd_launches)}
+        "kl": (0, 0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches,
+               0, 0, 0, 0, 0, 0),
+        "ssd": (0, 0, 0, 0, mamba_train_launches, mamba_serve_launches, 0,
+                0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

@@ -9,8 +9,10 @@ The port's own copy of ``repro/analysis/core.py``.
   quotes every error finding (``WorkloadSpec.validate`` uses this).
 * :data:`PASSES` — the registry mapping pass names to callables.
 
-Of the JAX package's passes the port has ``deadlock``; the others check
-XLA-specific invariants (ROADMAP.md, port conventions).
+The port has the JAX package's ``deadlock``, ``donation`` and
+``affinity`` passes, the last two recast for in-place updates and CUDA
+streams; the ``hlo`` gates wait for the multi-device regimes (ROADMAP.md,
+A6).
 
 Severity model:
 

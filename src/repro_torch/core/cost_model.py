@@ -152,6 +152,14 @@ def memory_per_gpu(cfg: ArchConfig, parallel: ParallelConfig, seq_len: int,
     return p_bytes + opt + act + min(logits, 4e9)
 
 
+def fits(cfg: ArchConfig, parallel: ParallelConfig, seq_len: int, *,
+         trainable: bool, hw: HardwareSpec, reserve: float = 0.9) -> bool:
+    """Whether the section's modelled memory per device stays within
+    ``reserve`` of the device's memory."""
+    return memory_per_gpu(cfg, parallel, seq_len, trainable=trainable) \
+        <= hw.hbm_bytes * reserve
+
+
 # --------------------------------------------------------------------------- #
 # Scheduler 6-tuples (§3.4): cost-model durations per sample
 # --------------------------------------------------------------------------- #

@@ -19,7 +19,12 @@ artifact into the thing that *executes* training:
 * every task's realized ``(start, end)`` wall time is recorded: on a card
   the task's end synchronises its section's own stream before ``end`` is
   stamped (other sections' streams run on), so benches report *executed*
-  makespan / section utilization rather than simulated ones.
+  makespan / section utilization rather than simulated ones;
+* each task records itself for the affinity pass
+  (:func:`repro_torch.analysis.affinity.record`, a no-op unless a dispatch
+  trace is on) and runs inside the profiler range
+  :func:`~repro_torch.analysis.affinity.task_range`, which
+  ``check_profile`` reads.
 
 Data-dependent activation is expressed by simply not emitting a dispatch:
 a sample (or microbatch) that does not activate a section produces no task
@@ -40,6 +45,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.analysis import affinity
 from repro_torch.core.graph import SectionGraph
 from repro_torch.core.messages import MessageQueue
 from repro_torch.core.runtime import SectionWorker, TaskError
@@ -222,7 +228,9 @@ class StreamSession:
 
         def timed():
             _task_local.slot = {"start": time.perf_counter()}
-            return _block(d.fn(), stream)
+            affinity.record(d.section)
+            with affinity.task_range(d.section):
+                return _block(d.fn(), stream)
         return timed
 
     def _sink(self, st: _IterationState, d: Dispatch):

@@ -10,9 +10,8 @@ A device list may name one card more than once: every section then runs
 on that card, each from its own thread and on its own CUDA stream, which
 its worker makes current inside its thread (PyTorch's current stream is
 per thread).  This is how a compound workload runs on one H100; on the
-CPU the sections share the host.  The JAX package's thread-affinity
-record (``worker_section``) checks an XLA-CPU launch rule; the port
-leaves it out, and the per-section stream is the ordering it stands for.
+CPU the sections share the host.  ``repro_torch.analysis.affinity``
+checks that wiring: each worker marks its thread in ``worker_section``.
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.analysis.affinity import worker_section
 from repro_torch.core.graph import SectionGraph
 from repro_torch.core.messages import MessageQueue
 
@@ -105,6 +105,9 @@ class SectionWorker:
         self._thread.start()
 
     def _run(self):
+        # mark this thread as the section's one launching thread, so the
+        # affinity pass can attribute dispatch execution precisely
+        worker_section.name = self.name
         if self.stream is not None:
             torch.cuda.set_device(self.device)
             torch.cuda.set_stream(self.stream)

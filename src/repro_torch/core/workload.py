@@ -74,6 +74,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import affinity, donation
 from repro_torch.analysis import deadlock as _deadlock
 from repro_torch.core import cost_model as cmdl
 from repro_torch.core.executor import Dispatch, mark_start, order_samples
@@ -540,6 +541,14 @@ class CompoundRuntime:
                                                       peak_lr=1e-3)
         self.graph = spec.to_graph()
         self.rt = MaestroRuntime(self.graph, devices)
+        # section-stream affinity (repro_torch.analysis.affinity): one
+        # live worker a section, each on a CUDA stream of its own
+        wiring = affinity.check_wiring(self.rt)
+        if not wiring.ok:
+            self.rt.shutdown()
+        wiring.raise_on_error(
+            RuntimeError,
+            f"workload {spec.name!r}: section-stream affinity check failed")
         self.executor = self.rt.executor()
         self.last_execution = None
         #: cross-iteration pipelining depth: how many iterations beyond
@@ -707,6 +716,12 @@ class CompoundRuntime:
         if missing_o:
             raise ValueError(f"install: missing optimizer state for "
                              f"trainable sections {sorted(missing_o)}")
+        # aliasing lint (repro_torch.analysis.donation): the upd tasks
+        # write each optimizer state in place, so state that shares memory
+        # with another section's, or with its own parameters, would be
+        # corrupted silently; refuse it here with a named error
+        donation.lint_state(params, opts, runtime=self).raise_on_error(
+            donation.AliasedStateError, "install: aliasing lint failed")
         for name in self._device:
             stream = self.rt.workers[name].stream
             if stream is None:

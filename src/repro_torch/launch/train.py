@@ -8,7 +8,11 @@ presets, plus ``--device`` (``cuda`` by default) and ``--seed`` (weights
 from a seeded ``torch.Generator``, batches from ``lm_batches`` with that
 seed).  ``--arch <id> --reduced --device cpu`` runs the reduced config on
 the CPU.  One device only: ``--data``/``--model`` above 1 raise (ROADMAP.md,
-A6), and so does ``--ckpt-dir`` until the checkpointer is ported (A9).
+A6).  ``--ckpt-dir DIR`` saves ``{"params", "opt"}`` there every
+``--ckpt-every`` steps and at the end, and a run given a directory that
+holds a checkpoint resumes from the latest one: run the same command again
+after an interruption.  Like the JAX package's launcher, a resumed run
+starts the batches again from the first (ROADMAP.md, C9).
 It prints each logged step, the cold (first) and warm step times,
 tokens/s, and how many times the flash-attention and SSD-scan kernels were
 launched.
@@ -20,7 +24,9 @@ import functools
 import statistics
 import time
 from dataclasses import dataclass
+from typing import Iterator, Optional
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import ARCH_NAMES
 from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.data.synthetic import lm_batches
@@ -45,13 +51,19 @@ class TrainRun:
     seconds: float               # the whole loop, first step included
     flash_launches: int          # flash kernel launches during the loop
     ssd_launches: int            # SSD kernel launches during the loop
+    checkpointer: Optional[Checkpointer] = None
 
     def summary(self) -> str:
         r = self.result
+        resumed = ("" if r.resumed_from is None
+                   else f" (resumed from step {r.resumed_from})")
+        if not r.steps_run:
+            return f"done: 0 steps{resumed}"
         toks = self.batch * self.seq
         warm = r.step_times[1:] or r.step_times
         warm_s = statistics.mean(warm)
-        return (f"done: {r.steps_run} steps, loss {r.losses[0]:.3f} -> "
+        return (f"done: {r.steps_run} steps{resumed}, loss "
+                f"{r.losses[0]:.3f} -> "
                 f"{r.losses[-1]:.3f}, {r.steps_run * toks / self.seconds:.0f}"
                 f" tok/s, stragglers={r.stragglers}\n"
                 f"step: cold {r.step_times[0] * 1e3:.1f} ms, warm "
@@ -63,10 +75,12 @@ class TrainRun:
 def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
         batch: int = 8, seq: int = 256, mbs: int = 0, lr: float = 3e-3,
         data: int = 1, model: int = 1, dtype: str = "float32",
-        device: str = "cuda", seed: int = 0, log_every: int = 10
-        ) -> TrainRun:
-    """Build ``arch`` with seeded random weights and train it on
-    ``lm_batches`` for ``steps`` steps."""
+        device: str = "cuda", seed: int = 0, log_every: int = 10,
+        ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+        batches: Optional[Iterator] = None) -> TrainRun:
+    """Build ``arch`` with seeded random weights and train it up to step
+    ``steps`` on ``batches`` (default: ``lm_batches`` from ``seed``),
+    checkpointing under ``ckpt_dir`` and resuming from it when given."""
     cfg = resolve_config(arch, reduced=reduced, dtype=dtype)
     shape = ShapeConfig("cli", "train", seq, batch)
     mbs = mbs or max(batch // data, 1)
@@ -82,16 +96,19 @@ def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device} "
            f"mbs={mbs}")
     opt = adamw.init(params)
+    ck = Checkpointer(ckpt_dir) if ckpt_dir else None
+    if batches is None:
+        batches = lm_batches(batch=batch, seq_len=seq, vocab=cfg.vocab_size,
+                             seed=seed, device=device)
     n0, m0 = fa.flash_fwd.launches, ssd.ssd_fwd.launches
     t0 = time.perf_counter()
-    res = train(step, params=params, opt_state=opt,
-                batches=lm_batches(batch=batch, seq_len=seq,
-                                   vocab=cfg.vocab_size, seed=seed,
-                                   device=device),
-                num_steps=steps, log_every=log_every)
+    res = train(step, params=params, opt_state=opt, batches=batches,
+                num_steps=steps, checkpointer=ck, checkpoint_every=ckpt_every,
+                log_every=log_every)
     seconds = time.perf_counter() - t0
     return TrainRun(cfg, n_params, mbs, batch, seq, res, seconds,
-                    fa.flash_fwd.launches - n0, ssd.ssd_fwd.launches - m0)
+                    fa.flash_fwd.launches - n0, ssd.ssd_fwd.launches - m0,
+                    ck)
 
 
 def main(argv=None) -> TrainRun:
@@ -115,13 +132,11 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpointing is not ported yet; see ROADMAP.md, A9")
     res = run(args.arch, reduced=args.reduced, steps=args.steps,
               batch=args.batch, seq=args.seq, mbs=args.mbs, lr=args.lr,
               data=args.data, model=args.model, dtype=args.dtype,
-              device=args.device, seed=args.seed)
+              device=args.device, seed=args.seed,
+              ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every)
     print(res.summary())
     return res
 

@@ -9,7 +9,7 @@ stacked ``layers`` axis, so a JAX tree converts leaf for leaf
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +42,25 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def flatten_with_path(tree, prefix: Tuple[str, ...] = ()
+                      ) -> List[Tuple[str, Any]]:
+    """(dotted path, leaf) pairs in the order, and with the names, of the
+    JAX package's ``tree_flatten_with_path``: dict keys sorted, named-tuple
+    fields by name, list and tuple items by index; None holds no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in flatten_with_path(tree[k], prefix + (str(k),))]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for k in tree._fields
+                for x in flatten_with_path(getattr(tree, k), prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in flatten_with_path(v, prefix + (str(i),))]
+    return [(".".join(prefix), tree)]
 
 
 def tree_unflatten(like, leaves) -> dict:

@@ -1,16 +1,32 @@
-"""Training loop: straggler detection and per-step metrics.
+"""Training loop: checkpoint and resume, straggler detection, metrics.
 
-Counterpart of ``repro/train/loop.py``.  Checkpoint and restart arrive
-with the checkpointer (ROADMAP.md, A9): passing a ``checkpointer`` raises.
+Counterpart of ``repro/train/loop.py``:
+
+* periodic asynchronous checkpoints of ``{"params", "opt"}`` and a resume
+  from the latest checkpoint on start;
+* an emergency checkpoint on SIGTERM (the step in progress finishes
+  first) or KeyboardInterrupt between steps;
+* per-step wall time against the rolling median (``StragglerMonitor``).
+
 The step's metrics are read back each step (``float(loss)``), which waits
-for the device, so a step's time is the time of its work.
+for the device, so a step's time is the time of its work.  The port's
+AdamW updates the optimizer state in place, so a KeyboardInterrupt that
+lands inside ``step_fn`` may leave it half updated: no emergency
+checkpoint is written then, and the last periodic one stands.  The
+final checkpoint is written only when a step ran, and not again when the
+last periodic one already holds that step.  A resumed run takes its
+batches from ``batches`` as given: the JAX package's launcher, like this
+port's, restarts the data stream at its first batch (ROADMAP.md, C9).
 """
 from __future__ import annotations
 
+import signal
 import statistics
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, Optional
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
 
 
 @dataclass
@@ -42,35 +58,84 @@ class TrainResult:
     grad_norms: List[float] = field(default_factory=list)
     params: Any = None          # the parameters after the last step
     opt_state: Any = None
+    resumed_from: Optional[int] = None
 
 
 def train(step_fn: Callable, *, params, opt_state, batches: Iterator,
-          num_steps: int, checkpointer=None, checkpoint_every: int = 50,
-          log_every: int = 10, straggler_factor: float = 2.0,
+          num_steps: int, checkpointer: Optional[Checkpointer] = None,
+          checkpoint_every: int = 50, log_every: int = 10,
+          straggler_factor: float = 2.0,
           log_fn: Callable[[str], None] = print) -> TrainResult:
-    """Run ``num_steps`` of ``step_fn(params, opt, batch, step_idx)``."""
+    """Run steps up to ``num_steps`` of ``step_fn(params, opt, batch,
+    step_idx)``, resuming from the latest checkpoint when there is one."""
+    start_step = 0
+    resumed = None
     if checkpointer is not None:
-        raise NotImplementedError(
-            "checkpointing is not ported yet; see ROADMAP.md, A9")
+        latest = checkpointer.latest_step()
+        if latest is not None:
+            state = checkpointer.restore(
+                latest, {"params": params, "opt": opt_state})
+            params, opt_state = state["params"], state["opt"]
+            start_step = resumed = latest
+            log_fn(f"resumed from step {latest}")
+
     mon = StragglerMonitor(factor=straggler_factor)
     losses: List[float] = []
     gnorms: List[float] = []
     times: List[float] = []
-    for step in range(num_steps):
-        batch = next(batches)
-        t0 = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch, step)
-        loss = float(metrics["loss"])
-        dt = time.perf_counter() - t0
-        gnorm = float(metrics.get("grad_norm", 0.0))
-        times.append(dt)
-        losses.append(loss)
-        gnorms.append(gnorm)
-        if mon.observe(dt):
-            log_fn(f"[straggler] step {step}: {dt*1e3:.0f}ms "
-                   f"(median {statistics.median(mon.times)*1e3:.0f}ms)")
-        if step % log_every == 0:
-            log_fn(f"step {step}: loss={loss:.4f} gnorm={gnorm:.3f} "
-                   f"{dt*1e3:.0f}ms")
-    return TrainResult(len(losses), num_steps, losses, times, mon.flagged,
-                       gnorms, params, opt_state)
+    interrupted = {"flag": False}
+
+    def _sigterm(signum, frame):
+        interrupted["flag"] = True
+
+    old = None
+    try:
+        old = signal.signal(signal.SIGTERM, _sigterm)
+    except ValueError:                       # not the main thread
+        pass
+
+    done = start_step                        # steps completed
+    saved = None                             # step of the last save
+    torn = False                             # interrupted inside step_fn
+    try:
+        for step in range(start_step, num_steps):
+            batch = next(batches)
+            t0 = time.perf_counter()
+            torn = True
+            params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                 step)
+            torn = False
+            done = step + 1
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            gnorm = float(metrics.get("grad_norm", 0.0))
+            times.append(dt)
+            losses.append(loss)
+            gnorms.append(gnorm)
+            if mon.observe(dt):
+                log_fn(f"[straggler] step {step}: {dt*1e3:.0f}ms "
+                       f"(median {statistics.median(mon.times)*1e3:.0f}ms)")
+            if step % log_every == 0:
+                log_fn(f"step {step}: loss={loss:.4f} gnorm={gnorm:.3f} "
+                       f"{dt*1e3:.0f}ms")
+            if checkpointer is not None and done % checkpoint_every == 0:
+                checkpointer.save(done, {"params": params, "opt": opt_state})
+                saved = done
+            if interrupted["flag"]:
+                log_fn("SIGTERM — emergency checkpoint")
+                break
+    except KeyboardInterrupt:
+        log_fn("interrupted inside a step: its optimizer state may be half "
+               "updated, so no emergency checkpoint" if torn else
+               "interrupted — emergency checkpoint")
+    finally:
+        if checkpointer is not None:
+            if done > start_step and not torn and saved != done:
+                checkpointer.save(done, {"params": params,
+                                         "opt": opt_state}, block=True)
+            checkpointer.wait()
+        if old is not None:
+            signal.signal(signal.SIGTERM, old)
+
+    return TrainResult(len(losses), done, losses, times, mon.flagged,
+                       gnorms, params, opt_state, resumed)

@@ -140,4 +140,7 @@ def build_train_step(model: Model, parallel: ParallelConfig,
                                      step_idx, n_micro=n_micro, lr_fn=lr_fn,
                                      opt_cfg=opt_cfg)
 
+    # the arguments the step writes in place, for analysis.donation
+    step._in_place = (1,)
+    step._in_place_label = "train_step(params, opt)"
     return step

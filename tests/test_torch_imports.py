@@ -68,6 +68,15 @@ ENCDEC_SLICE = ["repro_torch.models.encdec", "repro_torch.models.attention",
                 "repro_torch.launch.serve"]
 
 
+RESUME_SLICE = ["repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
+                "repro_torch.train.loop", "repro_torch.launch.train",
+                "repro_torch.core.cost_model", "repro_torch.core.planner",
+                "repro_torch.analysis", "repro_torch.analysis.affinity",
+                "repro_torch.analysis.donation",
+                "repro_torch.analysis.__main__", "repro_torch.core.executor",
+                "repro_torch.core.runtime", "repro_torch.core.workload"]
+
+
 def test_module_list_covers_the_training_slice():
     assert set(TRAINING_SLICE) <= set(_modules())
 
@@ -90,6 +99,10 @@ def test_module_list_covers_the_moe_slice():
 
 def test_module_list_covers_the_encdec_slice():
     assert set(ENCDEC_SLICE) <= set(_modules())
+
+
+def test_module_list_covers_the_resume_slice():
+    assert set(RESUME_SLICE) <= set(_modules())
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -438,20 +438,24 @@ def test_training_learns():
     assert res.steps_run == 30 and len(res.step_times) == 30
 
 
-def test_train_cli_on_cpu(capsys):
-    res = tlaunch.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device",
-                        "cpu", "--steps", "3", "--batch", "4", "--seq", "16",
-                        "--mbs", "2", "--seed", "1"])
+def test_train_cli_on_cpu(capsys, tmp_path):
+    args = ["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+            "--batch", "4", "--seq", "16", "--mbs", "2", "--seed", "1"]
+    res = tlaunch.main(args + ["--steps", "3"])
     out = capsys.readouterr().out
     assert "done: 3 steps" in out and "flash kernel launches: 0" in out
     assert res.result.steps_run == 3 and res.mbs == 2
     assert all(np.isfinite(res.result.losses))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tlaunch.main(["--reduced", "--arch", "qwen1.5-0.5b", "--device",
-                      "cpu", "--ckpt-dir", "ckpt"])
+    # --ckpt-dir: checkpoints every --ckpt-every steps and at the end, and
+    # the same command resumes from the latest
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    res = tlaunch.main(args + ck + ["--steps", "3"])
+    assert res.checkpointer.all_steps() == [2, 3]
+    res = tlaunch.main(args + ck + ["--steps", "5"])
+    out = capsys.readouterr().out
+    assert "resumed from step 3" in out and "done: 2 steps" in out
+    assert res.result.resumed_from == 3 and res.result.final_step == 5
+    assert res.checkpointer.all_steps() == [3, 4, 5]
     with pytest.raises(NotImplementedError, match="A6"):
         tlaunch.main(["--reduced", "--arch", "qwen1.5-0.5b", "--device",
                       "cpu", "--data", "2"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttrain(None, params=None, opt_state=None, batches=iter(()),
-               num_steps=1, checkpointer=object())
