@@ -51,7 +51,22 @@ CUDA kernels from the sources in this checkout.  Phases:
    ulp must fail that comparison and a manifest missing a leaf must raise
    KeyError.  It prints the bytes a checkpoint writes, the save's copy
    and write seconds, the restore seconds and the step time with a save
-   in flight.
+   in flight.  Then data parallelism (``phase_dp``) on a one-rank NCCL
+   process group in this process, destroyed after: ``launch.train.run(...,
+   mesh=section_mesh([0], ParallelConfig(dp=1, mbs=2, zero_opt=True)))``,
+   FSDP and ZeRO blocks, all-gathers, reduce-scatters and the sharded
+   norm through NCCL, 3 steps against 3 steps of the single-device step,
+   under deterministic algorithms: losses and every leaf of params,
+   master, mu, nu and step equal bit for bit, flash launched as often; the
+   first gradient leaf scaled by 0.99 must break that; ``grad_compress``
+   bf16 and int8, 3 steps each, within ``tests/drivers/
+   driver_compression.py``'s tolerances of the uncompressed losses, a
+   non-zero int8 residual, the wire counters at 1/2 and 1/4 of the float32
+   payload, and a traced fourth step with the device time under the
+   quantize and dequantize ranges; the sharded state saved through the
+   collective save and restored with ``shardings=`` on the same mesh and
+   with none, bit for bit.  World size 1 is all one card can run: NCCL
+   refuses two ranks on one GPU.
 6. Distillation: ``distill.workload.build_colocated_step``, teacher
    qwen1.5-0.5b (seed 1, frozen) and student qwen1.5-0.5b (seed 0) at full
    width in bf16, batch 4 x seq 2048, alpha 0.5, T 2, 3 steps; the KL
@@ -180,6 +195,7 @@ import functools
 import gc
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -1278,6 +1294,233 @@ def phase_checkpoint() -> int:
           f"step 3 in flight) {rb.step_times[1] * 1e3:.1f} ms; last saves "
           f"copy {ck2.last_copy_s:.3f} s, write {ck2.last_write_s:.3f} s")
     return launches_b[0]
+
+
+# --------------------------------------------------------------------------- #
+# Data parallelism (FSDP and ZeRO sharding, compressed gradient all-reduce)
+# at world size 1 on NCCL
+# --------------------------------------------------------------------------- #
+DP_STEPS, DP_MBS = 3, 2
+# tests/drivers/driver_compression.py:158: the relative deviation of a
+# compressed trajectory's losses from the exact one's
+DP_COMPRESS_TOL = {"bf16": 1e-3, "int8": 5e-2}
+
+
+@contextlib.contextmanager
+def scaled_first_grad(step_mod, factor: float):
+    """The sharded step's first gradient leaf (the parameter tree's first,
+    qwen's ``embed``) scaled by ``factor`` once reduced: a planted fault
+    that the bitwise comparison with the plain step must see."""
+    reduce_grads = step_mod.reduce_grads
+
+    def planted(grads, specs, mesh, axes):
+        out = reduce_grads(grads, specs, mesh, axes)
+        out[0] = out[0] * factor
+        return out
+
+    step_mod.reduce_grads = planted
+    try:
+        yield
+    finally:
+        step_mod.reduce_grads = reduce_grads
+
+
+def _compressed_steps(method: str, mesh, trace: bool):
+    """``DP_STEPS`` steps of the compressed sharded step (qwen1.5-0.5b, the
+    training cell's batches), and with ``trace`` one more, traced -> (losses,
+    warm step ms, wire bytes of the ``DP_STEPS`` steps, payload in float32
+    of one step, the residual's max, the trace and its wall ms or None)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.optim import compression as gcomp
+    from repro_torch.train import step as step_mod
+    cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+    model = build_model(cfg, device="cuda", seed=0)
+    par = ParallelConfig(dp=1, mbs=DP_MBS, grad_compress=method)
+    # launch.train.run's schedule for DP_STEPS steps at its default lr
+    step = step_mod.build_train_step(
+        model, par, ShapeConfig("train", "train", TRAIN_S, TRAIN_B),
+        mesh=mesh, lr_schedule=functools.partial(
+            schedules.warmup_cosine, peak_lr=3e-3,
+            warmup_steps=max(DP_STEPS // 10, 1), total_steps=DP_STEPS))
+    sh = step.shardings
+    full = model.param_tree()
+    payload = gcomp.wire_bytes(full, "none")
+    opt = adamw.init(shd.shard_tree(full, sh["opt"].master, mesh))
+    params = shd.shard_tree(full, sh["params"], mesh)
+    del full
+    ef = sh["ef_init"](params)
+    batches = lm_batches(batch=TRAIN_B, seq_len=TRAIN_S,
+                         vocab=cfg.vocab_size, seed=0, device="cuda")
+    gcomp.reset_wire_counts()
+    losses, times = [], []
+    for i in range(DP_STEPS):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        params, opt, met, ef = step(params, opt, batch, i, ef)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+    wire = gcomp.wire_counts()
+    res = max(float(x.abs().max()) for x in tree_leaves(ef))
+    prof = wall = None
+    if trace:
+        batch = next(batches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, met, ef = step(params, opt, batch, DP_STEPS, ef)
+            float(met["loss"])
+            wall = (time.perf_counter() - t0) * 1e3
+    return (losses, 1e3 * statistics.mean(times[1:]), wire, payload, res,
+            prof, wall)
+
+
+def phase_dp() -> int:
+    """The data-parallel path at qwen1.5-0.5b's full width and depth on a
+    one-rank NCCL process group (this process, ``cuda:0``), under
+    deterministic algorithms: (1) ``launch.train.run(..., mesh=)`` on
+    ``section_mesh([0], ParallelConfig(dp=1, mbs=2, zero_opt=True))``
+    against the single-device ``run``, 3 steps each, losses and every leaf
+    of params, master, mu, nu and step equal bit for bit, flash launched
+    as often; (2) the same with the first gradient leaf scaled by 0.99,
+    which must differ; (3) ``grad_compress`` bf16 and int8, 3 steps each,
+    losses within the reference driver's tolerances of the uncompressed
+    ones, a non-zero int8 residual, the wire counters at 1/2 and 1/4 of
+    the float32 payload, and a traced fourth int8 step with the device time
+    under the quantize and dequantize ranges; (4) the sharded state saved
+    through the collective save and restored with ``shardings=`` on the
+    same mesh and with none, bit for bit.  The process group is destroyed
+    at the end.  Returns the sharded run's flash launches."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.types import ParallelConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import step as step_mod
+    ckdir = ROOT / "build" / "dp_smoke"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    common = dict(steps=DP_STEPS, batch=TRAIN_B, seq=TRAIN_S, mbs=DP_MBS,
+                  dtype="bfloat16", device="cuda", seed=0, log_every=1)
+    parts = {}                # wall seconds of each part of the phase
+    t = time.perf_counter()
+    try:
+        mesh = shd.section_mesh([0], ParallelConfig(dp=1, mbs=DP_MBS,
+                                                    zero_opt=True))
+        print(f"dp: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, mesh {shd.mesh_shape(mesh)}")
+        reset_counts()
+        plain = train_mod.run(TRAIN_ARCH, **common)
+        launches_plain = read_counts()
+        parts["plain run"], t = time.perf_counter() - t, time.perf_counter()
+        reset_counts()
+        sharded = train_mod.run(TRAIN_ARCH, mesh=mesh, **common)
+        launches = read_counts()
+        parts["sharded run"], t = time.perf_counter() - t, time.perf_counter()
+        rp, rs = plain.result, sharded.result
+        L = plain.cfg.num_layers
+        want = DP_STEPS * L * 2 * (TRAIN_B // DP_MBS)
+        check(launches == launches_plain == (want, 0, 0),
+              f"(flash, KL, SSD) launched {launches} sharded and "
+              f"{launches_plain} plain, expected ({want}, 0, 0)")
+        print(f"dp: losses plain {rp.losses}, sharded {rs.losses}")
+        check(rs.losses == rp.losses, "the sharded step's losses differ "
+              "from the single-device step's")
+        state_p = {"params": rp.params, "opt": rp.opt_state}
+        state_s = {"params": rs.params, "opt": rs.opt_state}
+        diff = _state_diff(state_s, state_p)
+        print(f"dp: final state (params, master, mu, nu, step): "
+              f"{len(diff)} leaves differ bit for bit {diff[:4]}")
+        check(not diff, f"the sharded run ends in another state: {diff[:8]}")
+        with scaled_first_grad(step_mod, 0.99):
+            planted = train_mod.run(TRAIN_ARCH, mesh=mesh, **common)
+        pdiff = _state_diff({"params": planted.result.params,
+                             "opt": planted.result.opt_state}, state_p)
+        print(f"dp: with the first gradient leaf x 0.99, {len(pdiff)} leaves "
+              f"differ {pdiff[:4]}; losses {planted.result.losses}")
+        check(len(pdiff) > 0, "a gradient scaled by 0.99 passed the bitwise "
+              "comparison")
+        del planted
+        parts["planted run"], t = time.perf_counter() - t, time.perf_counter()
+        comp = {}
+        for method in ("bf16", "int8"):
+            free()
+            comp[method] = _compressed_steps(method, mesh,
+                                             trace=method == "int8")
+            losses, _, wire, payload, res, _, _ = comp[method]
+            dev = max(abs(a - b) / max(abs(b), 1e-8)
+                      for a, b in zip(losses, rs.losses))
+            print(f"dp: {method} losses {losses}, max relative deviation "
+                  f"from the uncompressed {dev:.3e} (limit "
+                  f"{DP_COMPRESS_TOL[method]}); wire {wire}; float32 payload "
+                  f"{payload} a step; residual max {res:.3e}")
+            check(dev < DP_COMPRESS_TOL[method], f"{method}: the compressed "
+                  f"losses deviate by {dev:.3e}")
+            key, per = {"bf16": ("bf16.bfloat16", 2),
+                        "int8": ("int8.int8", 4)}[method]
+            check(wire[key] * per == DP_STEPS * payload,
+                  f"{method}: {wire[key]} bytes on the wire for "
+                  f"{DP_STEPS} x {payload} float32 bytes")
+            check(method == "bf16" or res > 0, "the int8 residual is zero")
+            parts[f"{method} run"], t = (time.perf_counter() - t,
+                                         time.perf_counter())
+        # the elastic restore: save collectively, restore on the same mesh
+        # and on no mesh
+        ck = Checkpointer(ckdir, async_save=False)
+        shardings = sharded.shardings
+        ck.save(DP_STEPS, state_s, shardings=shardings, mesh=mesh)
+        save_s = ck.last_copy_s + ck.last_write_s
+        parts["save"], t = time.perf_counter() - t, time.perf_counter()
+        for what, kw in (("the same mesh", dict(shardings=shardings,
+                                                mesh=mesh)),
+                         ("no mesh", {})):
+            restored = ck.restore(DP_STEPS, state_s, **kw)
+            torch.cuda.synchronize()
+            rdiff = _state_diff(restored, state_s)
+            print(f"dp: restored on {what} in {ck.last_restore_s:.3f} s, "
+                  f"{len(rdiff)} leaves differ")
+            check(not rdiff, f"the restore on {what} differs: {rdiff[:4]}")
+            del restored
+            parts[f"restore on {what}"], t = (time.perf_counter() - t,
+                                             time.perf_counter())
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        shutil.rmtree(ckdir, ignore_errors=True)
+    card_ = card()
+    warm = {"plain": 1e3 * statistics.mean(rp.step_times[1:]),
+            "sharded": 1e3 * statistics.mean(rs.step_times[1:]),
+            **{m: comp[m][1] for m in comp}}
+    print(f"dp {TRAIN_ARCH} on {card_}: warm step ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in warm.items())
+          + f"; flash launches {launches[0]} a run of {DP_STEPS} steps; "
+          f"collective save {save_s:.3f} s")
+    print("dp: wall s of each part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    prof, wall = comp["int8"][5:]
+    _kernel_report(prof, wall, "warm int8-compressed sharded train step")
+    ranges = _range_ms(prof, (("quantize", "compression.quantize"),
+                              ("dequantize", "compression.dequantize")))
+    print(f"dp: traced int8 step on {card_}: device time under "
+          f"compression.quantize {ranges.get('quantize', 0.0):.2f} ms, under "
+          f"compression.dequantize {ranges.get('dequantize', 0.0):.2f} ms")
+    return launches[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -3436,6 +3679,8 @@ def main() -> int:
     free()
     resume_launches = timed(phase_checkpoint)
     free()
+    dp_launches = timed(phase_dp)
+    free()
     distill_launches, kl_launches = timed(phase_distill)
     free()
     timed(phase_grad_consistency, rng)
@@ -3479,7 +3724,8 @@ def main() -> int:
     free()
     timed(phase_jamba_grad_consistency, rng)
     paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}",
-             f"resume {TRAIN_ARCH}", f"distill {TRAIN_ARCH}",
+             f"resume {TRAIN_ARCH}", f"dp {TRAIN_ARCH} world 1",
+             f"distill {TRAIN_ARCH}",
              f"train {MAMBA}", f"serve {MAMBA}",
              f"distill-runtime {TRAIN_ARCH}", f"multi-teacher {TRAIN_ARCH}",
              "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
@@ -3487,14 +3733,15 @@ def main() -> int:
              f"serve {WHISPER}", f"serve {JAMBA} {JAMBA_LAYERS}L")
     per_path = {
         "flash": (serve_launches, train_launches, resume_launches,
-                  distill_launches, 0, 0, rt_launches, mt_launches,
+                  dp_launches, distill_launches, 0, 0, rt_launches,
+                  mt_launches,
                   mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
-        "kl": (0, 0, 0, kl_launches, 0, 0, rt_kl_launches, mt_kl_launches,
-               0, 0, 0, 0, 0, 0),
-        "ssd": (0, 0, 0, 0, mamba_train_launches, mamba_serve_launches, 0,
-                0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
+        "kl": (0, 0, 0, 0, kl_launches, 0, 0, rt_kl_launches,
+               mt_kl_launches, 0, 0, 0, 0, 0, 0),
+        "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
+                0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

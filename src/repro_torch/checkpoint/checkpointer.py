@@ -37,10 +37,27 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models.common import flatten_with_path
 
 BF16_DESCR = "<V2"
+
+
+def _with_specs(tree, specs, prefix: Tuple[str, ...] = ()):
+    """(path, leaf, spec) in :func:`flatten_with_path`'s order, ``specs``
+    walked alongside ``tree`` with each ``PartitionSpec`` a leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _with_specs(tree[k], specs[k], prefix + (str(k),))]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for k in tree._fields
+                for x in _with_specs(getattr(tree, k), getattr(specs, k),
+                                     prefix + (k,))]
+    return [(".".join(prefix), tree, specs)]
 
 
 def _rebuild(tree, leaves):
@@ -126,17 +143,36 @@ class Checkpointer:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[str] = None
+        self._mesh = None               # the mesh of an unfinished save
         self.last_copy_s = self.last_write_s = self.last_restore_s = 0.0
         self.last_bytes = 0
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, tree: Any, *, metadata: Optional[dict] = None,
-             block: bool = False) -> None:
+             block: bool = False, shardings: Any = None,
+             mesh=None) -> None:
+        """Write ``tree`` as checkpoint ``step``.  With ``shardings`` and
+        ``mesh`` the leaves are this rank's blocks: every rank of the mesh
+        must call ``save`` (and :meth:`wait`), and the mesh's origin
+        writes."""
         self.wait()                     # one in-flight save at a time
         t0 = time.perf_counter()
-        flat = flatten_with_path(tree)
-        host = list(zip((p for p, _ in flat),
-                        _host_copies(leaf for _, leaf in flat)))
+        if shardings is None:
+            flat = flatten_with_path(tree)
+            names, leaves = [p for p, _ in flat], (x for _, x in flat)
+        else:
+            self._mesh = mesh
+            flat = _with_specs(tree, shardings)
+            names = [p for p, _, _ in flat]
+            leaves = (shd.gather(x, s, mesh) for _, x, s in flat)
+            if not shd.is_origin(mesh):
+                for _ in leaves:        # take part in every gather
+                    pass
+                self.last_copy_s = time.perf_counter() - t0
+                if block or not self.async_save:
+                    self.wait()
+                return
+        host = list(zip(names, _host_copies(leaves)))
         self.last_copy_s = time.perf_counter() - t0
 
         def _write():
@@ -176,12 +212,22 @@ class Checkpointer:
             self.wait()
 
     def wait(self) -> None:
-        """Block until the in-flight save is on disk; raise its error."""
+        """Block until the in-flight save is on disk; raise its error.
+        After a sharded save this is collective: no rank of the mesh
+        returns before the origin's write has ended, and every rank raises
+        when it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            failed = torch.tensor([1.0 if err else 0.0],
+                                  device=mesh.device_type)
+            shd.all_reduce_mesh(failed, mesh, torch.distributed.ReduceOp.MAX)
+            if failed.item() and not err:
+                err = "on the mesh's origin"
+        if err:
             raise RuntimeError(f"checkpoint save failed: {err}")
 
     # ------------------------------------------------------------------ #
@@ -206,12 +252,17 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     # ------------------------------------------------------------------ #
-    def restore(self, step: Optional[int], target: Any) -> Any:
+    def restore(self, step: Optional[int], target: Any, shardings: Any = None,
+                mesh=None) -> Any:
         """A tree shaped like ``target`` holding checkpoint ``step``'s
         values (the latest when ``step`` is None).  Each tensor leaf of
         ``target`` gives its restored leaf's dtype, device and
         ``requires_grad``; any other leaf comes back as a CPU tensor of the
-        saved dtype.  A leaf the checkpoint lacks raises ``KeyError``."""
+        saved dtype.  A leaf the checkpoint lacks raises ``KeyError``.
+
+        With ``shardings`` (a spec tree shaped like ``target``) and
+        ``mesh``, each leaf is this rank's block of the saved one under its
+        spec on ``mesh``, whatever mesh wrote it."""
         t0 = time.perf_counter()
         if step is None:
             step = self.latest_step()
@@ -219,12 +270,20 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         d = self.dir / f"step_{step:08d}"
         files = {leaf["path"]: leaf for leaf in self.manifest(step)["leaves"]}
+        flat = ([(p, x, None) for p, x in flatten_with_path(target)]
+                if shardings is None else _with_specs(target, shardings))
         out = []
-        for name, leaf in flatten_with_path(target):
+        for name, leaf, spec in flat:
             if name not in files:
                 raise KeyError(f"checkpoint {step} missing leaf {name}")
             t = _read_leaf(d / files[name]["file"], files[name]["dtype"])
+            if spec is not None:
+                t = shd.shard(t, spec, mesh)
             if isinstance(leaf, torch.Tensor):
+                if tuple(t.shape) != tuple(leaf.shape):
+                    raise ValueError(
+                        f"checkpoint {step} leaf {name}: {tuple(t.shape)} "
+                        f"where the target holds {tuple(leaf.shape)}")
                 t = t.to(device=leaf.device, dtype=leaf.dtype)
                 if leaf.requires_grad:
                     t.requires_grad_()

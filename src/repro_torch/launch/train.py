@@ -7,8 +7,22 @@ Counterpart of ``repro/launch/train.py`` with the same options and
 presets, plus ``--device`` (``cuda`` by default) and ``--seed`` (weights
 from a seeded ``torch.Generator``, batches from ``lm_batches`` with that
 seed).  ``--arch <id> --reduced --device cpu`` runs the reduced config on
-the CPU.  One device only: ``--data``/``--model`` above 1 raise (ROADMAP.md,
-A6).  ``--ckpt-dir DIR`` saves ``{"params", "opt"}`` there every
+the CPU.
+
+``--data N`` trains data-parallel with FSDP and ZeRO sharding, one process
+per rank, launched by ``torchrun``::
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --data 2 --device cpu \
+        --arch qwen1.5-0.5b --reduced --batch 8 --seq 32
+
+The process group comes from the environment ``torchrun`` sets (NCCL on
+``cuda``, one card a rank, gloo on ``--device cpu``), and the world size
+must equal ``--data`` x ``--model``.  Every rank builds the same seeded
+model and draws the same global batches; the step keeps its own rows.
+Without ``torchrun``, ``--data`` above 1 raises and says how to launch;
+``--model`` above 1 raises (tensor parallelism is ROADMAP.md, A6.4).
+``--ckpt-dir DIR`` saves ``{"params", "opt"}`` there every
 ``--ckpt-every`` steps and at the end, and a run given a directory that
 holds a checkpoint resumes from the latest one: run the same command again
 after an interruption.  Like the JAX package's launcher, a resumed run
@@ -21,15 +35,20 @@ from __future__ import annotations
 
 import argparse
 import functools
+import os
 import statistics
 import time
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import ARCH_NAMES
 from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.data.synthetic import lm_batches
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.serve import PRESETS, resolve_config
@@ -52,6 +71,7 @@ class TrainRun:
     flash_launches: int          # flash kernel launches during the loop
     ssd_launches: int            # SSD kernel launches during the loop
     checkpointer: Optional[Checkpointer] = None
+    shardings: Optional[dict] = None   # {"params", "opt"} specs on a mesh
 
     def summary(self) -> str:
         r = self.result
@@ -77,25 +97,49 @@ def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
         data: int = 1, model: int = 1, dtype: str = "float32",
         device: str = "cuda", seed: int = 0, log_every: int = 10,
         ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
-        batches: Optional[Iterator] = None) -> TrainRun:
+        batches: Optional[Iterator] = None, mesh=None) -> TrainRun:
     """Build ``arch`` with seeded random weights and train it up to step
     ``steps`` on ``batches`` (default: ``lm_batches`` from ``seed``),
-    checkpointing under ``ckpt_dir`` and resuming from it when given."""
+    checkpointing under ``ckpt_dir`` and resuming from it when given.
+
+    ``mesh`` (``dist.sharding.section_mesh`` over an initialised process
+    group, of ``data`` x ``model`` ranks) runs the sharded step; every rank
+    calls ``run`` with the same arguments, and the result's parameters and
+    optimizer state are this rank's blocks."""
+    if model > 1:
+        raise NotImplementedError(
+            f"--model {model}: tensor parallelism is not ported yet; see "
+            "ROADMAP.md, A6.4")
+    if data > 1 and mesh is None:
+        raise RuntimeError(
+            f"--data {data} runs one process per rank: launch it with "
+            f"python -m torch.distributed.run --nproc-per-node {data} -m "
+            f"repro_torch.launch.train --data {data} ... (ROADMAP.md, A6.1)")
     cfg = resolve_config(arch, reduced=reduced, dtype=dtype)
     shape = ShapeConfig("cli", "train", seq, batch)
     mbs = mbs or max(batch // data, 1)
     parallel = ParallelConfig(dp=data, tp=model, mbs=mbs)
     m = build_model(cfg, device=device, seed=seed)
     step = step_mod.build_train_step(
-        m, parallel, shape,
+        m, parallel, shape, mesh=mesh,
         lr_schedule=functools.partial(
             schedules.warmup_cosine, peak_lr=lr,
             warmup_steps=max(steps // 10, 1), total_steps=steps))
     params = m.param_tree()
     n_params = sum(x.numel() for x in tree_leaves(params))
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device} "
-           f"mbs={mbs}")
-    opt = adamw.init(params)
+    shardings = None
+    if mesh is None:
+        opt = adamw.init(params)
+        where = ""
+    else:
+        shardings = {k: step.shardings[k] for k in ("params", "opt")}
+        opt = adamw.init(shd.shard_tree(params, shardings["opt"].master,
+                                        mesh))
+        params = shd.shard_tree(params, shardings["params"], mesh)
+        where = f" mesh={shd.mesh_shape(mesh)}"
+    if mesh is None or shd.is_origin(mesh):
+        print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device} "
+              f"mbs={mbs}{where}")
     ck = Checkpointer(ckpt_dir) if ckpt_dir else None
     if batches is None:
         batches = lm_batches(batch=batch, seq_len=seq, vocab=cfg.vocab_size,
@@ -104,11 +148,12 @@ def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
     t0 = time.perf_counter()
     res = train(step, params=params, opt_state=opt, batches=batches,
                 num_steps=steps, checkpointer=ck, checkpoint_every=ckpt_every,
-                log_every=log_every)
+                log_every=log_every, mesh=mesh,
+                shardings=shardings)
     seconds = time.perf_counter() - t0
     return TrainRun(cfg, n_params, mbs, batch, seq, res, seconds,
                     fa.flash_fwd.launches - n0, ssd.ssd_fwd.launches - m0,
-                    ck)
+                    ck, shardings)
 
 
 def main(argv=None) -> TrainRun:
@@ -132,12 +177,32 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    res = run(args.arch, reduced=args.reduced, steps=args.steps,
-              batch=args.batch, seq=args.seq, mbs=args.mbs, lr=args.lr,
-              data=args.data, model=args.model, dtype=args.dtype,
-              device=args.device, seed=args.seed,
-              ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every)
-    print(res.summary())
+    kw = dict(reduced=args.reduced, steps=args.steps, batch=args.batch,
+              seq=args.seq, mbs=args.mbs, lr=args.lr, data=args.data,
+              model=args.model, dtype=args.dtype, device=args.device,
+              seed=args.seed, ckpt_dir=args.ckpt_dir or None,
+              ckpt_every=args.ckpt_every)
+    if "WORLD_SIZE" not in os.environ or args.model > 1:
+        res = run(args.arch, **kw)
+        print(res.summary())
+        return res
+    # one rank of a torchrun launch
+    if args.device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+    try:
+        world = dist.get_world_size()
+        if world != args.data * args.model:
+            raise ValueError(
+                f"torchrun started {world} ranks for --data {args.data} x "
+                f"--model {args.model}")
+        mesh = shd.section_mesh(range(world), ParallelConfig(
+            dp=args.data, tp=args.model))
+        res = run(args.arch, mesh=mesh, **kw)
+        if dist.get_rank() == 0:
+            print(res.summary())
+    finally:
+        dist.destroy_process_group()
     return res
 
 

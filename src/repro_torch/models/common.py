@@ -70,6 +70,16 @@ def tree_unflatten(like, leaves) -> dict:
     return tree_map(lambda _: next(it), like)
 
 
+def tree_like(like, other):
+    """``other``'s leaves in a tree keyed and ordered as ``like``: two
+    trees with the same keys may list them in different orders (a
+    ``Model``'s parameter tree puts a level's tensors before its subtrees,
+    its spec tree keeps the specs' order)."""
+    if isinstance(like, dict):
+        return {k: tree_like(v, other[k]) for k, v in like.items()}
+    return other
+
+
 def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
     """Prepend a stacked `layers` dim to every spec."""
     return tree_map(

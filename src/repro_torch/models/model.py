@@ -9,6 +9,7 @@ argument:
 * ``loss(batch, params=None)``  -- (loss, {"ce", "aux"}), differentiable
 * ``prefill(batch, extra_cache)``-- (last logits [B, V], cache)
 * ``decode(cache, token, pos)`` -- one serving step (writes the cache in place)
+* ``specs()``                   -- the ParamSpec tree (:func:`model_specs`)
 
 Every family of the reference is ported: ``dense`` (attention + MLP),
 ``moe`` (attention + a top-k mixture of experts, whose load-balancing loss
@@ -65,6 +66,11 @@ class Model(nn.Module):
     def param_tree(self) -> dict:
         return self.params.tree()
 
+    def specs(self) -> dict:
+        """The ParamSpec tree the parameters follow (``repro``'s
+        ``Model.specs()``), which the sharding rules read."""
+        return model_specs(self.cfg)
+
     @torch.inference_mode()
     def forward(self, batch: dict) -> torch.Tensor:
         if self.audio:
@@ -112,16 +118,21 @@ class Model(nn.Module):
         return tf.lm_decode(self.param_tree(), self.cfg, cache, token, pos)
 
 
+def model_specs(cfg: ArchConfig) -> dict:
+    """The ParamSpec tree of ``cfg``'s parameters."""
+    if cfg.family not in _PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported; see "
+            "ROADMAP.md")
+    return ed.encdec_specs(cfg) if cfg.family == "audio" else tf.lm_specs(cfg)
+
+
 def build_model(cfg: ArchConfig, params: Optional[dict] = None, *,
                 device="cuda", seed: int = 0) -> Model:
     """A :class:`Model` for ``cfg`` on ``device``: with ``params`` (e.g. from
     :func:`repro_torch.convert.params_from_numpy`) or initialised from a
     ``torch.Generator`` seeded with ``seed``."""
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; see "
-            "ROADMAP.md")
-    specs = ed.encdec_specs(cfg) if cfg.family == "audio" else tf.lm_specs(cfg)
+    specs = model_specs(cfg)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = cm.init_params(specs, gen, device)

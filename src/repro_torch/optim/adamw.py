@@ -7,6 +7,9 @@ writes ``mu``, ``nu`` and ``master`` in place under ``torch.no_grad()``
 and returns a state holding the same tensors: a student's state at
 qwen1.5-0.5b's width is about 5.6 GB, and a second copy per step would
 double it.  The new parameters are fresh tensors in the gradients' dtype.
+The update is elementwise, so it runs unchanged on the blocks a sharded
+step keeps (``repro_torch.dist.sharding``); :func:`sharded_global_norm`
+gives such a step the clip norm over the whole tree.
 ``DonatedStateError``/``check_live`` guard XLA's buffer donation, which
 PyTorch has no counterpart of; they are left out (ROADMAP.md, port
 conventions).
@@ -53,6 +56,23 @@ def global_norm(tree) -> torch.Tensor:
     with torch.no_grad():
         return torch.sqrt(torch.stack(
             [x.float().square().sum() for x in tree_leaves(tree)]).sum())
+
+
+def sharded_global_norm(tree, specs, mesh) -> torch.Tensor:
+    """The global norm of a tree of blocks that ``specs`` lays out over
+    ``mesh``, each element counted once: a block replicated over an axis
+    adds its sum of squares at that axis's coordinate 0 only.  The sum is
+    all-reduced over the mesh; the leaves are summed in :func:`global_norm`'s
+    order, so on a one-rank mesh the two agree bit for bit.  Pass the result
+    to :func:`update` as ``gnorm``."""
+    from repro_torch.dist import sharding as shd
+    with torch.no_grad():
+        sq = [x.float().square().sum() if shd.counted_here(s, mesh)
+              else torch.zeros((), dtype=torch.float32, device=x.device)
+              for x, s in zip(tree_leaves(tree), tree_leaves(specs))]
+        total = torch.stack(sq).sum()
+        shd.all_reduce_mesh(total, mesh)
+        return torch.sqrt(total)
 
 
 def update(grads, state: AdamWState, lr: Union[torch.Tensor, float],

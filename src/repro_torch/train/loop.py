@@ -17,6 +17,13 @@ final checkpoint is written only when a step ran, and not again when the
 last periodic one already holds that step.  A resumed run takes its
 batches from ``batches`` as given: the JAX package's launcher, like this
 port's, restarts the data stream at its first batch (ROADMAP.md, C9).
+
+Under a process group (``mesh=`` and ``shardings=``, the sharded step's
+spec trees) every rank runs every step and takes part in every save's
+gathers; only the rank at the mesh's origin logs and writes.  The ranks
+agree on the checkpoint to resume from, and a SIGTERM on any rank stops
+all of them after the same step: each step ends with one all-reduce of a
+flag, and the save that follows is collective.
 """
 from __future__ import annotations
 
@@ -26,7 +33,12 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator, List, Optional
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.dist import sharding as shd
+from repro_torch.models.common import tree_leaves
 
 
 @dataclass
@@ -65,16 +77,33 @@ def train(step_fn: Callable, *, params, opt_state, batches: Iterator,
           num_steps: int, checkpointer: Optional[Checkpointer] = None,
           checkpoint_every: int = 50, log_every: int = 10,
           straggler_factor: float = 2.0,
-          log_fn: Callable[[str], None] = print) -> TrainResult:
+          log_fn: Callable[[str], None] = print, mesh=None,
+          shardings: Optional[dict] = None) -> TrainResult:
     """Run steps up to ``num_steps`` of ``step_fn(params, opt, batch,
-    step_idx)``, resuming from the latest checkpoint when there is one."""
+    step_idx)``, resuming from the latest checkpoint when there is one.
+    ``mesh`` and ``shardings`` (``{"params", "opt"}`` spec trees) make the
+    run one rank of a sharded run (see the module docstring)."""
+    if mesh is not None and not shd.is_origin(mesh):
+        log_fn = _quiet
+    device = tree_leaves(params)[0].device
+
+    def agreed(value: float, op) -> float:
+        """``value`` reduced over the mesh's ranks (itself without one)."""
+        if mesh is None:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=device)
+        return float(shd.all_reduce_mesh(t, mesh, op)[0])
+
+    ck_kw = dict(shardings=shardings, mesh=mesh)
     start_step = 0
     resumed = None
     if checkpointer is not None:
         latest = checkpointer.latest_step()
-        if latest is not None:
+        latest = int(agreed(-1 if latest is None else latest,
+                            dist.ReduceOp.MIN))
+        if latest >= 0:
             state = checkpointer.restore(
-                latest, {"params": params, "opt": opt_state})
+                latest, {"params": params, "opt": opt_state}, **ck_kw)
             params, opt_state = state["params"], state["opt"]
             start_step = resumed = latest
             log_fn(f"resumed from step {latest}")
@@ -119,8 +148,13 @@ def train(step_fn: Callable, *, params, opt_state, batches: Iterator,
                 log_fn(f"step {step}: loss={loss:.4f} gnorm={gnorm:.3f} "
                        f"{dt*1e3:.0f}ms")
             if checkpointer is not None and done % checkpoint_every == 0:
-                checkpointer.save(done, {"params": params, "opt": opt_state})
+                checkpointer.save(done, {"params": params, "opt": opt_state},
+                                  **ck_kw)
                 saved = done
+            if mesh is not None:
+                interrupted["flag"] = agreed(
+                    float(interrupted["flag"]),
+                    dist.ReduceOp.MAX) > 0
             if interrupted["flag"]:
                 log_fn("SIGTERM — emergency checkpoint")
                 break
@@ -132,10 +166,15 @@ def train(step_fn: Callable, *, params, opt_state, batches: Iterator,
         if checkpointer is not None:
             if done > start_step and not torn and saved != done:
                 checkpointer.save(done, {"params": params,
-                                         "opt": opt_state}, block=True)
+                                         "opt": opt_state}, block=True,
+                                  **ck_kw)
             checkpointer.wait()
         if old is not None:
             signal.signal(signal.SIGTERM, old)
 
     return TrainResult(len(losses), done, losses, times, mon.flagged,
                        gnorms, params, opt_state, resumed)
+
+
+def _quiet(msg: str) -> None:
+    """The log of a rank that is not the mesh's origin."""

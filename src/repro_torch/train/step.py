@@ -1,54 +1,121 @@
-"""The single-device train step: loss, backward, micro-batch gradient
-accumulation, AdamW.
+"""The train step: loss, backward, micro-batch gradient accumulation, AdamW;
+on one device, or data-parallel over a mesh with FSDP parameter sharding,
+ZeRO optimizer-state sharding and, optionally, a compressed gradient
+all-reduce.
 
 Counterpart of ``repro/train/step.py::build_train_step`` in its plain
-regime on one device: the global batch is split into
-``num_microbatches`` micro-batches (the JAX package's shard-major layout
-with ``dp_total = 1``), each micro-batch's gradient is accumulated in
-float32, and one ``adamw.update`` follows.  PyTorch runs eagerly, so there
-is no jit and no sharding tree; ``step`` is a plain function.  Data,
-tensor, pipeline and context parallelism and gradient compression are
-not ported yet and raise (ROADMAP.md, A6).
+regime.  PyTorch runs eagerly, so there is no jit; ``step`` is a plain
+function.
+
+* ``mesh=None``: the single-device step.  The global batch is split into
+  ``num_microbatches`` micro-batches, each micro-batch's gradient is
+  accumulated in float32, and one ``adamw.update`` follows.
+* ``mesh=`` a ``DeviceMesh`` from ``dist.sharding.section_mesh``: one
+  process per rank.  Parameters rest as blocks by
+  ``spec_for(rules_for(cfg, mesh))`` (``embed`` over ``data``), and ``mu``,
+  ``nu`` and ``master`` by ``zero_extend`` when ``zero_opt``.  The step
+  takes the global batch and keeps this rank's rows of the shard-major
+  layout ``[dp, n_micro, mbs]``; it all-gathers the parameters, runs the
+  forward and backward on full tensors (the hand-written kernels
+  unchanged), accumulates float32 gradients over its micro-batches,
+  reduce-scatters each into its optimizer-state block, runs AdamW on the
+  blocks with the clip norm of the whole tree, and all-gathers the new
+  master blocks, cast, into parameter blocks.  Each micro-batch's masked
+  mean divides by the mask total over every data rank, as the reference's
+  global computation does.
+* ``grad_compress`` ``"bf16"``/``"int8"``: as in the reference, each rank
+  takes its own shard's mean loss and gradient, and one compressed
+  mean-reduce (``optim.compression``) replaces the float32 one; the step
+  takes and returns the error-feedback residual ``ef``, stacked ``[1, ...]``
+  on each rank.
+
+Only the plain regime runs: a ``pipe``, ``seq`` or ``model`` axis above 1
+raises (ROADMAP.md, A6.4, A6.3, A6.4), and so do the MoE and hybrid
+families on more than one data rank (their load-balancing loss needs the
+router statistics, A6.4).
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.types import ParallelConfig, ShapeConfig
-from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.dist import sharding as shd
+from repro_torch.models.common import (tree_leaves, tree_like, tree_map,
+                                       tree_unflatten)
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw, schedules
+from repro_torch.optim import compression as gcomp
+
+#: ParallelConfig knobs above 1 that no step runs yet, and their slice
+_LATER = {"pp": "A6.4", "cp": "A6.3", "tp": "A6.4"}
 
 
 def check_single_device(parallel: ParallelConfig, what: str) -> None:
-    """Raise for every ParallelConfig knob the port does not run yet."""
-    multi = {k: getattr(parallel, k) for k in ("dp", "tp", "pp", "cp")
-             if getattr(parallel, k) != 1}
-    if multi:
+    """Raise for every ParallelConfig knob a step on one device cannot
+    run."""
+    for k, item in _LATER.items():
+        if getattr(parallel, k) != 1:
+            raise NotImplementedError(
+                f"{what}: {k}={getattr(parallel, k)} is not ported yet; see "
+                f"ROADMAP.md, {item}")
+    compress = parallel.grad_compress or "none"
+    if parallel.dp != 1 or compress != "none":
         raise NotImplementedError(
-            f"{what}: {multi} needs the multi-device regimes, which are not "
-            "ported yet; see ROADMAP.md, A6")
-    if (parallel.grad_compress or "none") != "none":
+            f"{what}: dp={parallel.dp}, grad_compress={compress!r} run only "
+            "on a mesh: train.step.build_train_step(..., mesh=dist.sharding"
+            ".section_mesh(ranks, parallel)) under torch.distributed "
+            "(ROADMAP.md, A6.1); a compound section on several ranks is "
+            "ROADMAP.md, A6.2")
+
+
+def parallel_regime(mesh, parallel: ParallelConfig) -> str:
+    """Validate ``parallel`` against ``mesh`` (a ``DeviceMesh`` or an
+    ``{axis: size}`` mapping) and name the step regime.  A mismatch raises
+    ``ValueError``; a ``pipe``, ``seq`` or ``model`` axis above 1 raises
+    ``NotImplementedError`` naming its ROADMAP item.  Only ``"plain"``
+    runs."""
+    sizes = shd.mesh_shape(mesh)
+    have = {"pp": sizes.get(shd.AXIS_PIPE, 1),
+            "cp": sizes.get(shd.AXIS_SEQ, 1),
+            "tp": sizes.get(shd.AXIS_MODEL, 1),
+            "dp": shd.axis_size(mesh, shd.dp_axes(mesh))}
+    axis = {"pp": "pipe", "cp": "seq", "tp": "model", "dp": "data"}
+    for k, n in have.items():
+        if getattr(parallel, k) != n:
+            raise ValueError(
+                f"ParallelConfig.{k}={getattr(parallel, k)} does not match "
+                f"the mesh's {axis[k]} axis ({n}): a section must run on a "
+                "mesh carved by section_mesh, not fall back to replication")
+    if have["pp"] > 1 and have["cp"] > 1:
         raise NotImplementedError(
-            f"{what}: grad_compress={parallel.grad_compress!r} is not ported "
-            "yet; see ROADMAP.md, A6")
+            "pp x cp composition is not supported in the reference either; "
+            "pipeline parallelism is ROADMAP.md, A6.4")
+    for k, item in _LATER.items():
+        if have[k] > 1:
+            raise NotImplementedError(
+                f"{k}={have[k]}: the {axis[k]} axis's regime is not ported "
+                f"yet; see ROADMAP.md, {item}")
+    return "plain"
 
 
-def num_microbatches(shape: ShapeConfig, parallel: ParallelConfig) -> int:
-    """Gradient-accumulation depth for this shape on one device.
+def num_microbatches(shape: ShapeConfig, parallel: ParallelConfig,
+                     dp_total: int = 1) -> int:
+    """Gradient-accumulation depth for this shape over ``dp_total`` data
+    ranks.
 
-    Raises when the global batch cannot be laid out as ``[n_micro, mbs]``,
-    rather than train on duplicated data."""
-    denom = parallel.mbs
+    Raises when the global batch cannot be laid out as ``[dp_total,
+    n_micro, mbs]``, rather than train on duplicated data."""
+    denom = dp_total * parallel.mbs
     if shape.global_batch > denom and shape.global_batch % denom:
         raise ValueError(
             f"global_batch={shape.global_batch} is not a multiple of "
-            f"dp_total*mbs=1*{parallel.mbs}: grad accumulation would train "
-            "on duplicated data with an inflated effective batch; adjust "
-            "ShapeConfig.global_batch or ParallelConfig.mbs")
+            f"dp_total*mbs={dp_total}*{parallel.mbs}: grad accumulation would "
+            "train on duplicated data with an inflated effective batch; "
+            "adjust ShapeConfig.global_batch or ParallelConfig.mbs")
     return max(shape.global_batch // denom, 1)
 
 
@@ -71,6 +138,34 @@ def _split_microbatches(batch: dict, n_micro: int, dp_total: int = 1):
     return [tree_map(lambda x: x[i], split_tree) for i in range(n_micro)]
 
 
+def _accumulate(loss_fn: Callable, params: dict, leaves: list, mbs: list,
+                weights: Optional[torch.Tensor] = None):
+    """``loss_fn(params, mb) -> (loss, metrics)`` and its gradient with
+    respect to ``leaves`` for each micro-batch, the loss and metrics scaled
+    by ``weights[i]`` when given -> (gradients, sums of the loss and of
+    each metric).  The gradients are the micro-batch's own when there is
+    one, else their float32 sum."""
+    g_acc, sums = None, {}
+    for i, mb in enumerate(mbs):
+        loss, metrics = loss_fn(params, mb)
+        if weights is not None:
+            loss = loss * weights[i]
+            metrics = {k: v * weights[i] for k, v in metrics.items()}
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            if len(mbs) == 1:
+                g_acc = list(grads)
+            elif g_acc is None:
+                g_acc = [g.float() for g in grads]
+            else:
+                for a, g in zip(g_acc, grads):
+                    a.add_(g.float())
+            for k, v in {"loss": loss, **metrics}.items():
+                sums[k] = sums.get(k, 0.0) + v.detach().float()
+        del loss, metrics, grads
+    return g_acc, sums
+
+
 def accumulate_and_update(loss_fn: Callable, params: dict,
                           opt_state: adamw.AdamWState, batch: dict,
                           step_idx, *, n_micro: int, lr_fn: Callable,
@@ -87,21 +182,7 @@ def accumulate_and_update(loss_fn: Callable, params: dict,
         raise ValueError("the train step differentiates with respect to the "
                          "parameter tree: its leaves must require grad")
     mbs = [batch] if n_micro == 1 else _split_microbatches(batch, n_micro)
-    g_acc, sums = None, {}
-    for mb in mbs:
-        loss, metrics = loss_fn(params, mb)
-        grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            if n_micro == 1:
-                g_acc = list(grads)
-            elif g_acc is None:
-                g_acc = [g.float() for g in grads]
-            else:
-                for a, g in zip(g_acc, grads):
-                    a.add_(g.float())
-            for k, v in {"loss": loss, **metrics}.items():
-                sums[k] = sums.get(k, 0.0) + v.detach().float()
-        del loss, metrics, grads
+    g_acc, sums = _accumulate(loss_fn, params, leaves, mbs)
     if n_micro > 1:
         with torch.no_grad():
             g_acc = [(a / n_micro).to(p.dtype) for a, p in zip(g_acc, leaves)]
@@ -120,14 +201,20 @@ def default_lr_schedule():
 
 
 def build_train_step(model: Model, parallel: ParallelConfig,
-                     shape: ShapeConfig, *, lr_schedule=None,
+                     shape: ShapeConfig, *, mesh=None, lr_schedule=None,
                      opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()):
     """-> ``step(params, opt_state, batch, step_idx) -> (params, opt_state,
     {"loss", "grad_norm", "lr", "ce", "aux"})``.
 
-    ``params`` is a parameter tree whose leaves require grad (the model's
-    own ``param_tree()`` at the first step, the returned tree after);
-    ``opt_state`` comes from ``adamw.init`` and is updated in place."""
+    ``mesh=None``: ``params`` is a parameter tree whose leaves require grad
+    (the model's own ``param_tree()`` at the first step, the returned tree
+    after); ``opt_state`` comes from ``adamw.init`` and is updated in
+    place.
+
+    With a ``mesh``, see :func:`build_sharded_step`."""
+    if mesh is not None:
+        return build_sharded_step(model, parallel, shape, mesh,
+                                  lr_schedule=lr_schedule, opt_cfg=opt_cfg)
     check_single_device(parallel, f"build_train_step({model.cfg.name})")
     n_micro = num_microbatches(shape, parallel)
     lr_fn = lr_schedule or default_lr_schedule()
@@ -143,4 +230,192 @@ def build_train_step(model: Model, parallel: ParallelConfig,
     # the arguments the step writes in place, for analysis.donation
     step._in_place = (1,)
     step._in_place_label = "train_step(params, opt)"
+    return step
+
+
+# --------------------------------------------------------------------------- #
+# The data-parallel step over a mesh
+# --------------------------------------------------------------------------- #
+def _mask_total(mb: dict) -> torch.Tensor:
+    """The token count a micro-batch's masked mean divides by."""
+    mask = mb.get("loss_mask")
+    if mask is None:
+        return torch.tensor(float(mb["labels"].numel()),
+                            device=mb["labels"].device)
+    return mask.float().sum()
+
+
+def reduce_grads(grads: List[torch.Tensor], specs: list, mesh,
+                 axes) -> List[torch.Tensor]:
+    """Each rank's float32 gradient summed over the data ``axes`` and kept
+    in its optimizer-state block (``specs``), one leaf at a time."""
+    return [shd.reduce_to(g, s, mesh, axes) for g, s in zip(grads, specs)]
+
+
+def _check_sharded(model: Model, parallel: ParallelConfig,
+                   shape: ShapeConfig, mesh) -> tuple:
+    """The refusals of the sharded step -> (data axes, their size)."""
+    cfg = model.cfg
+    parallel_regime(mesh, parallel)
+    dp_ax = shd.dp_axes(mesh)
+    dp_total = shd.axis_size(mesh, dp_ax)
+    if dp_total > 1 and cfg.family in ("moe", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's load-balancing loss is "
+            "nonlinear in the batch's router statistics, so per-rank values "
+            f"do not combine over {dp_total} data ranks; the exact form "
+            "needs moe(return_stats=), ROADMAP.md, A6.4")
+    compress = parallel.grad_compress or "none"
+    if compress not in gcomp.METHODS:
+        raise ValueError(f"ParallelConfig.grad_compress={compress!r}: "
+                         f"expected one of {gcomp.METHODS}")
+    if compress != "none" and len(dp_ax) > 1:
+        raise NotImplementedError(
+            "grad_compress supports a single data axis (got a multi-pod dp "
+            "mesh); compress per pod or disable")
+    if shape.global_batch % dp_total:
+        raise NotImplementedError(
+            f"the sharded step needs the global batch ({shape.global_batch}) "
+            f"to divide the data axes ({dp_total}) so that every rank owns a "
+            "real slice of it; the reference's sequence-sharded and "
+            "replicated batch fallbacks are not ported")
+    return dp_ax, dp_total
+
+
+def build_sharded_step(model: Model, parallel: ParallelConfig,
+                       shape: ShapeConfig, mesh, *, lr_schedule=None,
+                       opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()):
+    """The data-parallel step on ``mesh`` (see the module docstring) ->
+    ``step(params, opt_state, batch, step_idx) -> (params, opt_state,
+    metrics)``, or with ``grad_compress`` ``step(params, opt_state, batch,
+    step_idx, ef) -> (params, opt_state, metrics, ef)``.
+
+    ``params`` and ``opt_state`` are this rank's blocks under
+    ``step.shardings["params"]`` and ``["opt"]`` (``dist.sharding
+    .shard_tree``); ``batch`` is the global batch, the same on every rank.
+    With compression, ``step.shardings["ef_init"](params)`` gives the zero
+    residual.  Every rank must call the step: it runs collectives."""
+    dp_ax, dp_total = _check_sharded(model, parallel, shape, mesh)
+    compress = parallel.grad_compress or "none"
+    cfg = model.cfg
+    n_micro = num_microbatches(shape, parallel, dp_total)
+    lr_fn = lr_schedule or default_lr_schedule()
+    specs = model.specs()
+    rules = shd.rules_for(cfg, mesh)
+    p_specs = shd.param_shardings(specs, mesh, rules)
+    o_specs = shd.opt_state_shardings(specs, mesh, rules,
+                                      zero=parallel.zero_opt)
+    coord = shd.coordinate(mesh)
+    sizes = shd.mesh_shape(mesh)
+    rank = 0
+    for a in dp_ax:
+        rank = rank * sizes[a] + coord[a]
+    data_group = mesh.get_group(dp_ax[0]) if compress != "none" else None
+
+    def loss_fn(p, mb):
+        return model.loss(mb, params=p, remat=parallel.remat)
+
+    def local_microbatches(batch):
+        local = tree_map(lambda x: x.reshape((dp_total, -1) + x.shape[1:])
+                         [rank], batch)
+        return [local] if n_micro == 1 else _split_microbatches(local,
+                                                                n_micro)
+
+    def spec_lists(params):
+        """The parameter and optimizer-state specs in ``params``' leaf
+        order."""
+        return (tree_leaves(tree_like(params, p_specs)),
+                tree_leaves(tree_like(params, o_specs.master)))
+
+    def full_params(params, p_list):
+        with torch.no_grad():
+            full = [shd.gather(x, s, mesh)
+                    for x, s in zip(tree_leaves(params), p_list)]
+        return [x.requires_grad_() for x in full]
+
+    def finish(params, opt_state, g_opt, step_idx, metrics, p_list, o_list):
+        """AdamW on the optimizer-state blocks -> parameter blocks."""
+        with torch.no_grad():
+            g_opt = tree_unflatten(params, [
+                g.to(x.dtype) for g, x in zip(g_opt, tree_leaves(params))])
+        gnorm = adamw.sharded_global_norm(g_opt, tree_like(params, o_specs
+                                                           .master), mesh)
+        lr = lr_fn(step_idx)
+        new_master, opt_state, _ = adamw.update(
+            g_opt, opt_state, lr, opt_cfg,
+            gnorm=gnorm if opt_cfg.clip_norm > 0 else None)
+        with torch.no_grad():
+            new = [shd.regather(x, o, p, mesh) for x, o, p in
+                   zip(tree_leaves(new_master), o_list, p_list)]
+        metrics.update(grad_norm=gnorm, lr=lr)
+        return tree_unflatten(params, new), opt_state, metrics
+
+    def metric_means(sums, mean_over: int):
+        """The micro-batch means of ``sums``, summed over the data ranks
+        (divided by ``mean_over``) in one all-reduce."""
+        keys = list(sums)
+        packed = torch.stack([sums[k] for k in keys])
+        for a in dp_ax:
+            dist.all_reduce(packed, group=mesh.get_group(a))
+        if mean_over > 1:
+            packed = packed / mean_over
+        return {k: v / n_micro for k, v in zip(keys, packed.unbind(0))}
+
+    if compress == "none":
+        def step(params, opt_state, batch, step_idx):
+            mbs = local_microbatches(batch)
+            counts = torch.stack([_mask_total(mb) for mb in mbs])
+            totals = counts.clone()
+            for a in dp_ax:
+                dist.all_reduce(totals, group=mesh.get_group(a))
+            weights = counts / totals.clamp_min(1.0)
+            p_list, o_list = spec_lists(params)
+            full = full_params(params, p_list)
+            g_acc, sums = _accumulate(loss_fn, tree_unflatten(params, full),
+                                      full, mbs, weights)
+            del full
+            with torch.no_grad():
+                g_acc = reduce_grads([g.float() for g in g_acc], o_list,
+                                     mesh, dp_ax)
+                if n_micro > 1:
+                    g_acc = [a / n_micro for a in g_acc]
+            return finish(params, opt_state, g_acc, step_idx,
+                          metric_means(sums, 1), p_list, o_list)
+    else:
+        def step(params, opt_state, batch, step_idx, ef):
+            mbs = local_microbatches(batch)
+            p_list, o_list = spec_lists(params)
+            full = full_params(params, p_list)
+            g_acc, sums = _accumulate(loss_fn, tree_unflatten(params, full),
+                                      full, mbs)
+            del full
+            with torch.no_grad():
+                g = [a.float() / n_micro for a in g_acc]
+                red, new_ef = gcomp.ef_compress_tree(
+                    tree_unflatten(params, g), gcomp.ErrorFeedback(
+                        tree_map(lambda x: x[0], tree_like(params, ef))),
+                    data_group, compress, mean=True)
+                g_opt = [shd.shard(x, s, mesh)
+                         for x, s in zip(tree_leaves(red), o_list)]
+            params, opt_state, metrics = finish(
+                params, opt_state, g_opt, step_idx,
+                metric_means(sums, dp_total), p_list, o_list)
+            return (params, opt_state, metrics,
+                    tree_map(lambda x: x[None], new_ef.residual))
+
+    def ef_init(params):
+        """The zero error-feedback residual, this rank's ``[1, ...]`` slice
+        of the reference's stacked ``[dp, ...]`` one."""
+        dev = tree_leaves(params)[0].device
+        return tree_map(lambda s: torch.zeros((1,) + tuple(s.shape),
+                                              dtype=torch.float32,
+                                              device=dev),
+                        tree_like(params, specs))
+
+    step.mesh = mesh
+    step.shardings = {"params": p_specs, "opt": o_specs}
+    if compress != "none":
+        step.shardings["ef_init"] = ef_init
+    step._in_place = (1,)
+    step._in_place_label = "train_step[sharded](params, opt)"
     return step

@@ -1,8 +1,9 @@
 """Import hygiene and dispatch of the PyTorch port.
 
-The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX
-nor anything of the JAX package ``repro``; CPU tensors reach the plain
-version and never the CUDA kernel's wrapper.
+The port (``src/repro_torch``), ``chip_smoke.py`` and the port's
+multi-rank drivers (``tests/torch_drivers``) import neither JAX nor
+anything of the JAX package ``repro``; CPU tensors reach the plain version
+and never the CUDA kernel's wrapper.
 """
 import json
 import os
@@ -77,6 +78,19 @@ RESUME_SLICE = ["repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
                 "repro_torch.core.runtime", "repro_torch.core.workload"]
 
 
+DP_SLICE = ["repro_torch.dist", "repro_torch.dist.sharding",
+            "repro_torch.optim.compression", "repro_torch.optim.adamw",
+            "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
+            "repro_torch.models.model"]
+
+DRIVERS = ROOT / "tests" / "torch_drivers"
+
+
+def test_module_list_covers_the_dp_slice():
+    assert set(DP_SLICE) <= set(_modules())
+
+
 def test_module_list_covers_the_training_slice():
     assert set(TRAINING_SLICE) <= set(_modules())
 
@@ -127,10 +141,34 @@ _FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|"
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"]
+                         + sorted(DRIVERS.glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     assert _FORBIDDEN.search(path.read_text()) is None
+
+
+def test_the_port_drivers_import_no_jax_and_no_repro():
+    """Each multi-rank driver, imported in a fresh process (its ``__main__``
+    block does not run), leaves ``jax`` and ``repro`` out of
+    ``sys.modules``."""
+    names = sorted(p.stem for p in DRIVERS.glob("*.py"))
+    assert {"dist_util", "driver_dp", "driver_compression",
+            "driver_elastic"} <= set(names)
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'repro'\n"
+        "             or m.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(DRIVERS), str(ROOT / "src")]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -456,6 +456,7 @@ def test_train_cli_on_cpu(capsys, tmp_path):
     assert "resumed from step 3" in out and "done: 2 steps" in out
     assert res.result.resumed_from == 3 and res.result.final_step == 5
     assert res.checkpointer.all_steps() == [3, 4, 5]
-    with pytest.raises(NotImplementedError, match="A6"):
+    # --data above 1 runs one process per rank, under torchrun
+    with pytest.raises(RuntimeError, match="A6.1"):
         tlaunch.main(["--reduced", "--arch", "qwen1.5-0.5b", "--device",
                       "cpu", "--data", "2"])
