@@ -106,7 +106,24 @@ CUDA kernels from the sources in this checkout.  Phases:
    pass holds the runtime's wiring (one worker and one stream of its own a
    section) and the traced kernels (each on its section's stream; a
    planted task that launches on the other section's stream must be
-   reported).  Then the two-stage planner (``phase_plan``) with the H100's
+   reported).  Then the same distillation through section meshes
+   (``phase_sections``): ``DistillRuntime(..., ranks=[0, 0])`` on a
+   one-rank NCCL group in this process, destroyed after, both sections on
+   rank 0, each with its own ``section_mesh``, worker thread and stream,
+   against ``DistillRuntime(devices=[cuda:0] * 2)``, 3 iterations under
+   deterministic algorithms: losses, ce, kl, grad norms and every student
+   leaf equal bit for bit, flash and KL launched as often, the
+   collectives (gathers, reduce-scatters, all-reduces) run and counted an
+   iteration; the first gradient leaf scaled by 0.99 must break that;
+   ``grad_compress="bf16"`` on the student equal bit for bit to the exact
+   run (one rank, one microbatch and bf16 parameters: the bf16 round trip
+   of the float32 accumulator loses nothing here) with the wire counter
+   at 1/2 of the float32 payload; one traced iteration through the
+   affinity pass (ROADMAP.md, C10); and the device-carved runtime at a
+   reduced size built, run and shut down four times, after which the
+   card's reserved memory must not grow (with the runtime's release of
+   the cuBLAS workspaces turned off it must: the planted fault).  Then the
+   two-stage planner (``phase_plan``) with the H100's
    numbers for the compound configurations at the JAX package's test
    budgets (every section fits, eq. 2 on every edge) and for qwen1.5-0.5b
    on one card beside the measured student busy time and peak memory (a
@@ -1923,6 +1940,276 @@ def phase_distill_runtime() -> tuple[int, int, dict]:
     return counts_c[0], counts_c[1], calib
 
 
+# --------------------------------------------------------------------------- #
+# Compound sections on section meshes (ranks), at world size 1 on NCCL
+# --------------------------------------------------------------------------- #
+#: the torch.distributed calls the mesh path makes, counted by _nccl_calls
+_DIST_CALLS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
+               "all_to_all_single", "broadcast", "isend", "irecv", "send",
+               "recv")
+
+
+@contextlib.contextmanager
+def _nccl_calls(counts: dict):
+    """Count every ``torch.distributed`` collective and point-to-point call
+    into ``counts`` while the block runs (the port calls them through the
+    module, so replacing its attributes sees every call)."""
+    import torch.distributed as dist
+    saved = {n: getattr(dist, n) for n in _DIST_CALLS}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(dist, n, counted(n, fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+@contextlib.contextmanager
+def _scaled_first_accumulated(factor: float):
+    """Every section's first gradient leaf scaled by ``factor`` as the
+    compound runtime accumulates it: a planted fault that the bitwise
+    comparison of the two runtimes must see."""
+    from repro_torch.core import workload as wl
+    accumulate = wl._accumulate
+
+    def planted(acc, grads):
+        grads = list(grads)
+        grads[0] = grads[0] * factor
+        return accumulate(acc, grads)
+
+    wl._accumulate = planted
+    try:
+        yield
+    finally:
+        wl._accumulate = accumulate
+
+
+def _rebuilds_reserved(builds: int = 4) -> list[int]:
+    """The card's reserved bytes after each of ``builds`` device-carved
+    ``DistillRuntime``s (qwen1.5-0.5b reduced, float32, both sections on
+    the card), each built, run one iteration and shut down, with the
+    caches emptied after."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.types import ParallelConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.distill import workload as dw
+    dev = torch.device("cuda", 0)
+    cfg = get_reduced(TRAIN_ARCH).replace(dtype="float32")
+    batch = next(lm_batches(batch=8, seq_len=64, vocab=cfg.vocab_size,
+                            seed=0, device="cpu"))
+    out = []
+    for _ in range(builds):
+        with dw.DistillRuntime(cfg, cfg, teacher_parallel=ParallelConfig(),
+                               student_parallel=ParallelConfig(),
+                               devices=[dev, dev]) as drt:
+            pt, ps, opt = drt.init(0)
+            drt.train_iteration(pt, ps, opt, batch, 0,
+                                w_t=drt.teacher_unembed(pt))
+            del pt, ps, opt
+        free()
+        out.append(torch.cuda.memory_reserved(dev))
+    return out
+
+
+def phase_sections() -> tuple[int, int]:
+    """qwen1.5-0.5b self-distillation through section meshes
+    (``DistillRuntime(..., ranks=[0, 0])``: both sections on rank 0 of a
+    one-rank NCCL group in this process, each with its own mesh, worker
+    thread and stream) against the device-carved ``DistillRuntime(devices=
+    [cuda:0] * 2)``, full width and depth, bf16, batch 4 x 2048, 3
+    iterations, under deterministic algorithms: (1) losses, ce, kl, grad
+    norms and every student leaf equal bit for bit, flash and KL launched
+    as often; the gathers, reduce-scatters and all-reduces run on groups
+    of one (nothing skips a collective for a group's size); (2) the first
+    gradient leaf scaled by 0.99, which must differ; (3) ``grad_compress=
+    "bf16"`` on the student, equal bit for bit to the exact run, the wire
+    counters at exactly 1/2 of the float32 payload; (4) one traced
+    iteration through the affinity pass (ROADMAP.md, C10); (5) runtimes
+    built one after another hold the card's reserved memory flat, and
+    without the runtime's cuBLAS workspace release they do not.  Returns
+    the mesh run's (flash, KL) launches."""
+    import os
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import affinity
+    from repro_torch.core.types import ParallelConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.distill import workload as dw
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import compression as gcomp
+    t_phase = time.perf_counter()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.set_device(0)
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    dev = torch.device("cuda", 0)
+    cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+    L = cfg.num_layers
+    teacher = tree_map(lambda p: p.detach(),
+                       build_model(cfg, device=dev, seed=1).param_tree())
+    student0 = tree_map(lambda p: p.detach(),
+                        build_model(cfg, device=dev, seed=0).param_tree())
+    gen = lm_batches(batch=TRAIN_B, seq_len=TRAIN_S, vocab=cfg.vocab_size,
+                     seed=0, device="cpu")
+    batches = [next(gen) for _ in range(RT_ITERS + 1)]
+    keys = ("loss", "ce", "kl", "grad_norm")
+
+    def run(compress="none", trace=False, **where):
+        """RT_ITERS iterations -> (metrics, student leaves, warm ms,
+        (flash, KL) launches, wire counts, collective calls an iteration,
+        the traced iteration's profile and runtime)."""
+        with dw.DistillRuntime(
+                cfg, cfg, teacher_parallel=ParallelConfig(),
+                student_parallel=ParallelConfig(grad_compress=compress),
+                alpha=0.5, temperature=2.0, lr=1e-4, **where) as drt:
+            params, opts = drt.runtime.place(
+                {"teacher": teacher,
+                 "student": tree_map(torch.clone, student0)})
+            pt, ps, opt = params["teacher"], params["student"], \
+                opts["student"]
+            w_t = drt.teacher_unembed(teacher)
+            mets, times, calls = [], [], {}
+            reset_counts()
+            gcomp.reset_wire_counts()
+            with _nccl_calls(calls):
+                for i, b in enumerate(batches[:RT_ITERS]):
+                    t0 = time.perf_counter()
+                    ps, opt, m = drt.train_iteration(pt, ps, opt, b, i,
+                                                     w_t=w_t)
+                    mets.append([m[k] for k in keys])
+                    float(m["loss"])
+                    times.append((time.perf_counter() - t0) * 1e3)
+            counts, wire = read_counts(), gcomp.wire_counts()
+            full = tree_leaves(drt.runtime.state()[0]["student"])
+            prof = None
+            if trace:
+                acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                with profile(activities=acts, experimental_config=affinity
+                             .profile_config()) as prof:
+                    drt.train_iteration(pt, ps, opt, batches[RT_ITERS],
+                                        RT_ITERS, w_t=w_t)
+                rep = affinity.check_profile(prof, drt.runtime)
+            else:
+                rep = None
+        per_it = {k: v / RT_ITERS for k, v in sorted(calls.items())}
+        return (mets, full, float(np.mean(times[1:])), counts, wire, per_it,
+                rep)
+
+    parts = {}
+    t = time.perf_counter()
+    try:
+        ref = run(devices=[dev, dev])
+        parts["device-carved"], t = time.perf_counter() - t, \
+            time.perf_counter()
+        got = run(ranks=[0, 0], trace=True)
+        parts["section meshes"], t = time.perf_counter() - t, \
+            time.perf_counter()
+        with _scaled_first_accumulated(0.99):
+            bad = run(ranks=[0, 0])
+        parts["planted"], t = time.perf_counter() - t, time.perf_counter()
+        comp = run(ranks=[0, 0], compress="bf16")
+        parts["bf16"], t = time.perf_counter() - t, time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i in range(RT_ITERS):
+        print(f"sections iteration {i}: device-carved "
+              f"{[float(x) for x in ref[0][i]]}, section meshes "
+              f"{[float(x) for x in got[0][i]]}, bf16 "
+              f"{[float(x) for x in comp[0][i]]}")
+    same_mets = all(torch.equal(a, b) for ra, rb in zip(got[0], ref[0])
+                    for a, b in zip(ra, rb))
+    diff = sum(not torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+    print(f"sections: metrics bitwise equal {same_mets}; student leaves "
+          f"differing {diff} of {len(ref[1])}; launches (flash, KL, SSD) "
+          f"device-carved {ref[3]}, section meshes {got[3]}")
+    check(same_mets and diff == 0, "the section-mesh DistillRuntime differs "
+          "from the device-carved one")
+    want = (RT_ITERS * L * 3, RT_ITERS, 0)
+    check(got[3] == ref[3] == want, f"(flash, KL, SSD) launched {got[3]} on "
+          f"meshes and {ref[3]} device-carved, expected {want}")
+    check(got[5].get("all_gather", 0) > 0
+          and got[5].get("reduce_scatter", 0) > 0
+          and got[5].get("all_reduce", 0) > 0,
+          f"the mesh path skipped its collectives: {got[5]}")
+    pdiff = sum(not torch.equal(a, b) for a, b in zip(bad[1], ref[1]))
+    print(f"sections: with the first gradient leaf x 0.99, {pdiff} student "
+          f"leaves differ; losses {[float(m[0]) for m in bad[0]]}")
+    check(pdiff > 0, "a gradient scaled by 0.99 passed the bitwise "
+          "comparison")
+    # one rank and one microbatch: the float32 accumulator holds the bf16
+    # gradient exactly, so the bf16 round trip (and its residual) is exact
+    # and the compressed run must equal the exact one bit for bit
+    c_mets = all(torch.equal(a, b) for ra, rb in zip(comp[0], got[0])
+                 for a, b in zip(ra, rb))
+    c_diff = sum(not torch.equal(a, b) for a, b in zip(comp[1], got[1]))
+    payload = sum(x.numel() for x in ref[1]) * 4
+    print(f"sections: bf16 metrics bitwise equal to the exact run's "
+          f"{c_mets}, student leaves differing {c_diff}; wire {comp[4]}; "
+          f"float32 payload {payload} bytes an iteration")
+    check(c_mets and c_diff == 0, "bf16 compression at one rank and one "
+          "microbatch differs from the exact run")
+    check(comp[4]["bf16.bfloat16"] * 2 == RT_ITERS * payload,
+          f"bf16: {comp[4]['bf16.bfloat16']} bytes on the wire for "
+          f"{RT_ITERS} x {payload} float32 bytes")
+    t = time.perf_counter()
+    held = _rebuilds_reserved()
+    from repro_torch.core import runtime as rt_mod
+    release, rt_mod.release_blas_workspaces = \
+        rt_mod.release_blas_workspaces, lambda: None
+    try:
+        leaked = _rebuilds_reserved()
+    finally:
+        rt_mod.release_blas_workspaces = release
+        release()           # what the planted fault left behind
+    free()
+    parts["rebuilds"] = time.perf_counter() - t
+    mib = [f"{x / 2**20:.0f}" for x in held]
+    print(f"sections: reserved MiB after each of {len(held)} runtime builds "
+          f"{mib}; with the workspace release off "
+          f"{[f'{x / 2**20:.0f}' for x in leaked]}")
+    check(max(held) <= held[0], "reserved memory grows as runtimes are "
+          f"built one after another: {mib} MiB")
+    check(leaked[-1] > leaked[0], "the rebuild check cannot fail: without "
+          "the workspace release reserved memory did not grow")
+    rep = got[6]
+    print(rep.render())
+    main = [f for f in rep.findings if f.subject == "main"]
+    on_section = [f for f in rep.findings
+                  if f.check == "affinity.main-on-section-stream"]
+    print(f"sections: C10 check over one traced mesh iteration: "
+          f"{len(on_section)} findings of main-thread kernels on a section's "
+          f"stream; {main[0].message if main else 'no main-thread summary'}")
+    check(rep.ok, "affinity: kernels of the traced section-mesh iteration")
+    card_ = card()
+    print(f"sections {TRAIN_ARCH} on {card_}: warm iteration ms "
+          f"device-carved {ref[2]:.1f}, section meshes {got[2]:.1f}, bf16 "
+          f"{comp[2]:.1f}; collective calls an iteration {got[5]} (bf16 "
+          f"{comp[5]}); peak device memory {peak:.2f} GiB")
+    print("sections: wall s of each part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f}")
+    return got[3][0], got[3][1]
+
+
 def phase_multi_teacher() -> tuple[int, int]:
     """Routed multi-teacher distillation of qwen1.5-0.5b through
     ``CompoundRuntime(multi_teacher_spec)``, three sections sharing the
@@ -2103,6 +2390,7 @@ MLLM_LM_ATTN = (MLLM_MBS, MLLM_S, MLLM_S, 32, 8, 128)
 
 
 def free() -> None:
+    """Return the card's memory between phases."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3697,6 +3985,8 @@ def main() -> int:
     free()
     rt_launches, rt_kl_launches, calib = timed(phase_distill_runtime)
     free()
+    sec_launches, sec_kl_launches = timed(phase_sections)
+    free()
     timed(phase_plan, calib)
     mt_launches, mt_kl_launches = timed(phase_multi_teacher)
     free()
@@ -3727,21 +4017,23 @@ def main() -> int:
              f"resume {TRAIN_ARCH}", f"dp {TRAIN_ARCH} world 1",
              f"distill {TRAIN_ARCH}",
              f"train {MAMBA}", f"serve {MAMBA}",
-             f"distill-runtime {TRAIN_ARCH}", f"multi-teacher {TRAIN_ARCH}",
+             f"distill-runtime {TRAIN_ARCH}",
+             f"distill-sections {TRAIN_ARCH} world 1",
+             f"multi-teacher {TRAIN_ARCH}",
              "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
              f"train {MOONSHOT} {MOONSHOT_LAYERS}L", f"train {WHISPER}",
              f"serve {WHISPER}", f"serve {JAMBA} {JAMBA_LAYERS}L")
     per_path = {
         "flash": (serve_launches, train_launches, resume_launches,
                   dp_launches, distill_launches, 0, 0, rt_launches,
-                  mt_launches,
+                  sec_launches, mt_launches,
                   mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
         "kl": (0, 0, 0, 0, kl_launches, 0, 0, rt_kl_launches,
-               mt_kl_launches, 0, 0, 0, 0, 0, 0),
+               sec_kl_launches, mt_kl_launches, 0, 0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
-                0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
+                0, 0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

@@ -30,6 +30,11 @@ Data-dependent activation is expressed by simply not emitting a dispatch:
 a sample (or microbatch) that does not activate a section produces no task
 for that section's worker.
 
+On section meshes (a runtime carved by ranks) every rank computes the
+same plan and submits the same dispatch list; the executor keeps the
+dispatches of the sections this rank runs, so each section's dispatch
+order and timeline are its own, as on one process.
+
 Cross-iteration streaming (:class:`StreamSession`): dispatches carry an
 iteration index, workers consume one continuous per-section FIFO stream
 spanning iterations, and results drain asynchronously (event-driven, no
@@ -193,6 +198,8 @@ class StreamSession:
         streams (per-section FIFO in list order)."""
         per_section: Dict[str, List[Dispatch]] = {}
         for d in dispatches:
+            if d.section in self.ex.remote:
+                continue        # another rank runs that section's tasks
             assert d.section in self.ex.workers, d.section
             per_section.setdefault(d.section, []).append(d)
         for name, lst in per_section.items():
@@ -318,10 +325,16 @@ class CompoundExecutor:
                  queue: Optional[MessageQueue] = None):
         self.graph = graph if graph is not None else (
             runtime.graph if runtime is not None else None)
+        #: sections whose tasks run on other ranks (section meshes): their
+        #: dispatches are dropped here, so every rank can submit the same
+        #: iteration plan
+        self.remote: set = set()
         if runtime is not None:
             self.workers = runtime.workers
             self.queue = runtime.queue
             self._owns_workers = False
+            self.remote = set(runtime.graph.sections) - set(
+                runtime.local_sections)
         else:
             names = list(sections if sections is not None
                          else self.graph.sections)

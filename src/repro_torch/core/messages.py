@@ -24,16 +24,28 @@ traffic under a monotonic ``s<i>/`` prefix).  ``evict_scope`` retires a
 namespace when its iteration retires: leftover messages are dropped
 (and reported) and later push/pull against the retired scope raise.
 Keys without a ``/`` are unscoped and never evicted.
+
+Between processes (sections carved by ranks, one process a rank) the
+tensors travel point to point over the default process group
+(:class:`PeerTransport`).  NCCL matches a receive with the sends of its
+peer in the order they were issued and ignores tags; gloo matches tags.
+So the receiving rank posts its receives in the order the sending rank
+pushes, which both compute from the same iteration plan (``expect``), and
+buffers what arrives by key: ``pull`` may ask for any key in any order on
+either backend.  A send never blocks its thread (``isend``).
 """
 from __future__ import annotations
 
+import collections
 import logging
 import threading
 import time
+import zlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 _log = logging.getLogger("repro_torch.messages")
 
@@ -103,13 +115,16 @@ class MessageQueue:
     """M-to-N cross-section transfer with the move onto the consumer's
     device."""
 
-    def __init__(self):
+    def __init__(self, transport: Optional["PeerTransport"] = None):
         self._channels: Dict[Tuple[str, str], _Channel] = {}
         self._lock = threading.Lock()
         self._seq = 0
         self._retired_scopes: set = set()
         self.bytes_pushed = 0
         self.pushes = 0
+        #: the point-to-point path to sections on other ranks (None: every
+        #: section is in this process)
+        self.transport = transport
 
     def _channel(self, src: str, dst: str) -> _Channel:
         with self._lock:
@@ -119,7 +134,7 @@ class MessageQueue:
 
     @staticmethod
     def _scope(key: str) -> Optional[str]:
-        return key.split("/", 1)[0] if "/" in key else None
+        return _scope_of(key)
 
     def _check_scope(self, op: str, src: str, dst: str, key: str) -> None:
         sc = self._scope(key)
@@ -207,6 +222,54 @@ class MessageQueue:
         return out
 
     # ------------------------------------------------------------------ #
+    # sections on other ranks
+    # ------------------------------------------------------------------ #
+    def send(self, src: str, dst: str, key: str, value: torch.Tensor, *,
+             rank: int) -> None:
+        """Send one fragment of ``key`` to section ``dst``'s ``rank``.  The
+        transport counts fragments and bytes on the wire; the key itself
+        counts as a push only through :meth:`count_push`."""
+        self._check_scope("push", src, dst, key)
+        self.transport.send(rank, (src, dst, key), value)
+
+    def count_push(self, value: torch.Tensor) -> None:
+        """Count one logical message (a key) whose fragments went out by
+        :meth:`send`: the sending section's origin calls it once a key, so
+        ``stats()["pushes"]`` counts messages as the one-process queue
+        does."""
+        with self._lock:
+            self.pushes += 1
+            self.bytes_pushed += _nbytes(value)
+
+    def recv(self, src: str, dst: str, key: str, ranks: Sequence[int], *,
+             timeout: Optional[float] = 30.0) -> Dict[int, torch.Tensor]:
+        """The fragments of ``key`` that section ``src``'s ``ranks`` sent
+        here, by rank.  Receives from each rank in the order that rank
+        sends (see :meth:`expect`), buffering what is not ``key``."""
+        self._check_scope("pull", src, dst, key)
+        wid = (src, dst, key)
+        try:
+            return {r: self.transport.recv(r, wid, timeout=timeout)
+                    for r in ranks}
+        except PullTimeout as e:
+            sc = self._scope(key)
+            scope_note = "" if sc is None else f" into iteration scope {sc!r}"
+            raise PullTimeout(
+                f"pull({src}->{dst}, {key}): producer section {src!r} never "
+                f"sent {key!r}{scope_note}: {e}") from None
+
+    def expect(self, src: str, dst: str, key: str, rank: int,
+               shape: Tuple[int, ...], dtype) -> None:
+        """Register one message that ``rank`` will send here, in that
+        rank's send order."""
+        self.transport.expect(rank, (src, dst, key), shape, dtype)
+
+    def close(self) -> None:
+        """Wait (briefly) for this rank's sends to complete."""
+        if self.transport is not None:
+            self.transport.close()
+
+    # ------------------------------------------------------------------ #
     def evict_scope(self, scope: str) -> Dict[str, List[str]]:
         """Retire an iteration's tag namespace: drop every leftover
         message whose key lives under ``scope + "/"`` and refuse future
@@ -226,6 +289,9 @@ class MessageQueue:
                 if keys:
                     evicted[f"{src}->{dst}"] = sorted(keys)
                     ch.cv.notify_all()
+        if self.transport is not None:
+            for src, dst, key in self.transport.evict(scope):
+                evicted.setdefault(f"{src}->{dst}", []).append(key)
         for edge, keys in sorted(evicted.items()):
             _log.warning(
                 "evict_scope(%r): dropped %d leftover message(s) on %s: "
@@ -247,8 +313,149 @@ class MessageQueue:
             edges[f"{src}->{dst}"] = {"depth": len(pending),
                                       "pending": pending,
                                       "bytes": int(nbytes)}
-        return {"pushes": self.pushes, "bytes_pushed": self.bytes_pushed,
-                "channels": len(self._channels), "edges": edges}
+        out = {"pushes": self.pushes, "bytes_pushed": self.bytes_pushed,
+               "channels": len(self._channels), "edges": edges}
+        if self.transport is not None:
+            out.update(fragments=self.transport.fragments,
+                       wire_bytes=self.transport.wire_bytes)
+        return out
+
+
+# --------------------------------------------------------------------------- #
+# Point-to-point transport between ranks
+# --------------------------------------------------------------------------- #
+def _scope_of(key: str) -> Optional[str]:
+    """The iteration scope of a key (``"<scope>/<rest>"``), or None."""
+    return key.split("/", 1)[0] if "/" in key else None
+
+
+def _tag(wid: Tuple[str, str, str]) -> int:
+    """gloo's tag of a message ``(src, dst, key)``: the same on both ranks,
+    distinct per key (NCCL ignores it)."""
+    return zlib.crc32("\x00".join(wid).encode()) & 0x7FFFFFFF
+
+
+def _completes(work, timeout: Optional[float]) -> bool:
+    """Wait for ``work``; False when it has not completed within
+    ``timeout`` seconds (None or negative: waits for ever).  gloo answers a
+    ``wait(timeout)`` that runs out by closing the connection to the peer,
+    and its point-to-point work reports completion only once waited on, so
+    the wait runs on a helper thread.  Under NCCL the wait must run on the
+    calling thread (it orders that thread's current stream)."""
+    if timeout is None or timeout < 0 or dist.get_backend() == "nccl":
+        work.wait()
+        return True
+    done, failed = threading.Event(), []
+
+    def run():
+        try:
+            work.wait()
+        except Exception as e:          # surfaced on the caller's thread
+            failed.append(e)
+        finally:
+            done.set()
+
+    threading.Thread(target=run, daemon=True).start()
+    if not done.wait(timeout):
+        return False
+    if failed:
+        raise failed[0]
+    return True
+
+
+@dataclass(frozen=True)
+class _Expected:
+    wid: Tuple[str, str, str]
+    shape: Tuple[int, ...]
+    dtype: Any
+
+
+class PeerTransport:
+    """Tensors between this rank and others over the default process group.
+
+    ``send`` posts an ``isend`` and keeps it (and its tensor) until
+    :meth:`settle` waits for it (the runtime settles an iteration's sends
+    when it retires the iteration).  The receiving side registers, per
+    sending rank, the messages that rank will send in its order
+    (``expect``); ``recv(rank, wid)`` receives that rank's messages in
+    order until ``wid`` has come, buffering the others."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.fragments = 0
+        self.wire_bytes = 0
+        self._expected: Dict[int, "collections.deque[_Expected]"] = (
+            collections.defaultdict(collections.deque))
+        self._got: Dict[Tuple[int, Tuple[str, str, str]], torch.Tensor] = {}
+        self._sent: List[Tuple[str, Any, torch.Tensor]] = []
+        self._retired: set = set()
+        self._lock = threading.Lock()
+        self._peer_locks: Dict[int, threading.Lock] = (
+            collections.defaultdict(threading.Lock))
+
+    def send(self, rank: int, wid, value: torch.Tensor) -> None:
+        value = value.detach().contiguous()
+        work = dist.isend(value, dst=rank, tag=_tag(wid))
+        with self._lock:
+            self.fragments += 1
+            self.wire_bytes += _nbytes(value)
+            self._sent.append((_scope_of(wid[2]), work, value, wid, rank))
+
+    def settle(self, scope: Optional[str] = None) -> None:
+        """Wait for the sends under ``scope`` (every send: None): each
+        completes once its receiver has taken it."""
+        with self._lock:
+            done = [x for x in self._sent if scope in (None, x[0])]
+            self._sent = [x for x in self._sent if x[0] != scope
+                          and scope is not None]
+        for _, work, *_ in done:
+            work.wait()
+
+    def expect(self, rank: int, wid, shape, dtype) -> None:
+        with self._lock:
+            self._expected[rank].append(_Expected(wid, tuple(shape), dtype))
+
+    def recv(self, rank: int, wid, *, timeout: Optional[float] = 30.0
+             ) -> torch.Tensor:
+        with self._peer_locks[rank]:
+            while (rank, wid) not in self._got:
+                with self._lock:
+                    if not self._expected[rank]:
+                        raise RuntimeError(
+                            f"rank {dist.get_rank()}: {wid} from rank {rank} "
+                            "was never expected (no send of it is planned)")
+                    e = self._expected[rank].popleft()
+                buf = torch.empty(e.shape, dtype=e.dtype, device=self.device)
+                work = dist.irecv(buf, src=rank, tag=_tag(e.wid))
+                if not _completes(work, timeout):
+                    buffered = sorted(k for r, k in self._got if r == rank)
+                    raise PullTimeout(
+                        f"nothing from rank {rank} after {timeout}s while "
+                        f"receiving {e.wid}; buffered from it: {buffered}")
+                with self._lock:
+                    if _scope_of(e.wid[2]) not in self._retired:
+                        self._got[(rank, e.wid)] = buf
+            with self._lock:
+                return self._got.pop((rank, wid))
+
+    def evict(self, scope: str) -> List[Tuple[str, str, str]]:
+        """Drop what was received under ``scope`` and never pulled; what
+        is still to come under it is received and dropped in turn, so the
+        order of later messages holds."""
+        with self._lock:
+            self._retired.add(scope)
+            gone = [k for k in self._got if _scope_of(k[1][2]) == scope]
+            for k in gone:
+                del self._got[k]
+        return [k[1] for k in gone]
+
+    def close(self, timeout: float = 30.0) -> None:
+        with self._lock:
+            sent, self._sent = self._sent, []
+        for _, work, _, wid, rank in sent:
+            if not _completes(work, timeout):   # a peer that never received
+                _log.warning("send of %s to rank %d not received by close",
+                             wid, rank)
 
 
 def _axis0_contiguous(metas: Dict[int, Meta]) -> Optional[List[int]]:

@@ -12,6 +12,12 @@ its worker makes current inside its thread (PyTorch's current stream is
 per thread).  This is how a compound workload runs on one H100; on the
 CPU the sections share the host.  ``repro_torch.analysis.affinity``
 checks that wiring: each worker marks its thread in ``worker_section``.
+
+Carved by ``ranks`` instead, the sections run on section meshes over
+``torch.distributed``, one process a rank (the reference is one controller
+over every mesh; the port is MPMD): every rank builds every section's
+mesh, keeps a worker only for the sections it belongs to, and runs only
+their tasks.
 """
 from __future__ import annotations
 
@@ -22,10 +28,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis.affinity import worker_section
 from repro_torch.core.graph import SectionGraph
-from repro_torch.core.messages import MessageQueue
+from repro_torch.core.messages import MessageQueue, PeerTransport
 
 
 def visible_devices() -> List[torch.device]:
@@ -35,25 +42,70 @@ def visible_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def carve_sections(graph: SectionGraph, devices: Optional[Sequence] = None
-                   ) -> Dict[str, torch.device]:
-    """Give each section, in graph order, the next device of the list, as
-    the JAX package carves its meshes.  Every section runs on one device:
-    a section whose ParallelConfig asks for more raises (the multi-device
-    sections are ROADMAP.md, A6).
+def carve_sections(graph: SectionGraph, devices: Optional[Sequence] = None,
+                   *, ranks: Optional[Sequence[int]] = None):
+    """Without ``ranks``: give each section, in graph order, the next device
+    of the list, as the JAX package carves its meshes, and return
+    ``{section: device}``.  Every section runs on one device: a section
+    whose ParallelConfig asks for more raises (its ranks are the way to
+    several devices).  ``devices=None`` means every visible card.  A list
+    may name one device more than once (``[torch.device("cuda:0")] * 2``
+    runs two sections on one card, ``["cpu"] * 2`` on the host).
 
-    ``devices=None`` means every visible card.  A list may name one device
-    more than once (``[torch.device("cuda:0")] * 2`` runs two sections on
-    one card, ``["cpu"] * 2`` on the host)."""
+    With ``ranks`` (process ranks of the default group): give each section,
+    in graph order, the next ``parallel.devices`` ranks and return
+    ``(meshes, parallels)`` as the reference does, each mesh built by
+    ``dist.sharding.section_mesh``.  Building a mesh is collective over the
+    world, so every rank carves every section.  A rank may sit in two
+    sections only on a one-rank world (the card's case: each section then
+    runs from its own thread); otherwise overlapping ranges raise
+    ``ValueError``, and so does a list too short for every section."""
+    if ranks is None:
+        return _carve_devices(graph, devices)
+    from repro_torch.dist.sharding import section_mesh
+
+    ranks = [int(r) for r in ranks]
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else None)
+    owner: Dict[int, str] = {}
+    slices: Dict[str, List[int]] = {}
+    parallels: Dict[str, Any] = {}
+    off = 0
+    for name, sec in graph.sections.items():
+        par = sec.parallel
+        n = par.devices
+        if off + n > len(ranks):
+            raise ValueError(
+                f"section {name!r}: needs ranks [{off}, {off + n}) of the "
+                f"list but only {len(ranks)} are given")
+        mine = ranks[off:off + n]
+        for r in mine:
+            if world is not None and not 0 <= r < world:
+                raise ValueError(f"section {name!r}: rank {r} is outside "
+                                 f"the world of {world}")
+            if r in owner and world != 1:
+                raise ValueError(
+                    f"rank {r} is in sections {owner[r]!r} and {name!r}: "
+                    "section ranks may overlap only on a one-rank world")
+            owner.setdefault(r, name)
+        slices[name] = mine
+        parallels[name] = par
+        off += n
+    meshes = {name: section_mesh(slices[name], parallels[name], name)
+              for name in graph.sections}
+    return meshes, parallels
+
+
+def _carve_devices(graph: SectionGraph, devices: Optional[Sequence]
+                   ) -> Dict[str, torch.device]:
     devices = [torch.device(d) for d in
                (devices if devices is not None else visible_devices())]
     out: Dict[str, torch.device] = {}
     for off, (name, sec) in enumerate(graph.sections.items()):
         if sec.parallel.devices != 1:
             raise NotImplementedError(
-                f"section {name!r}: {sec.parallel.devices} devices need the "
-                "multi-device regimes, which are not ported yet; see "
-                "ROADMAP.md, A6")
+                f"section {name!r}: {sec.parallel.devices} devices need "
+                "section meshes: carve it by ranks= (ROADMAP.md, A6.2)")
         if off >= len(devices):
             raise ValueError(
                 f"section {name!r}: needs device {off} but only "
@@ -62,6 +114,31 @@ def carve_sections(graph: SectionGraph, devices: Optional[Sequence] = None
                 "(devices=[torch.device('cuda:0')] * n_sections)")
         out[name] = devices[off]
     return out
+
+
+#: runtimes of this process whose workers hold CUDA streams
+_live_cuda = 0
+_live_lock = threading.Lock()
+
+
+def release_blas_workspaces() -> None:
+    """Free the cuBLAS workspaces of this process.  PyTorch keeps one for
+    every (cuBLAS handle, stream) pair that has run a GEMM, for the life of
+    the process; a worker's stream is new with each runtime, so without
+    this every runtime built after another leaves its workers' workspaces
+    behind, each pinning the cached segment it sits in.  A workspace that
+    is still needed is made again at the next GEMM on its stream."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
+def rank_device() -> torch.device:
+    """This rank's device under the default process group: its current
+    card under NCCL, the host otherwise."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 @dataclass
@@ -157,26 +234,74 @@ class SectionWorker:
 
 class MaestroRuntime:
     """Wires sections, their devices, workers and the message queue
-    together."""
+    together.
+
+    Without ``ranks`` every section is local and runs on its carved
+    device.  With ``ranks`` the sections run on section meshes over the
+    default process group (one process a rank): this rank keeps a worker
+    for each section whose mesh holds it (``local_sections``), on its own
+    device (:func:`rank_device`), and the message queue carries tensors to
+    sections on other ranks point to point."""
 
     def __init__(self, graph: SectionGraph,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None, *,
+                 ranks: Optional[Sequence[int]] = None):
         graph.validate()
         self.graph = graph
-        self.section_devices = carve_sections(graph, devices)
-        self.queue = MessageQueue()
+        if ranks is None:
+            self.meshes = None
+            self.parallels = {n: s.parallel
+                              for n, s in graph.sections.items()}
+            self.section_devices = carve_sections(graph, devices)
+            self.local_sections = list(graph.sections)
+            self.queue = MessageQueue()
+        else:
+            self.meshes, self.parallels = carve_sections(graph, ranks=ranks)
+            self.local_sections = [n for n, m in self.meshes.items()
+                                   if m.get_coordinate() is not None]
+            dev = rank_device()
+            self.section_devices = {n: dev for n in self.local_sections}
+            self.queue = MessageQueue(transport=PeerTransport(dev))
         self.workers = {name: SectionWorker(name, self.device(name))
-                        for name in graph.sections}
+                        for name in self.local_sections}
+        #: the cards this runtime's workers run on
+        self._cards = sorted({w.device.index or 0
+                              for w in self.workers.values()
+                              if w.device is not None
+                              and w.device.type == "cuda"})
+        self._closed = False
+        if self._cards:
+            global _live_cuda
+            with _live_lock:
+                _live_cuda += 1
 
     def device(self, section: str) -> torch.device:
-        """The device the section runs on."""
+        """The device the section runs on (a local section's)."""
         return self.section_devices[section]
 
+    def mesh(self, section: str):
+        """The section's ``DeviceMesh`` (a runtime carved by ranks)."""
+        if self.meshes is None:
+            raise ValueError("this runtime was carved by devices, not ranks: "
+                             "its sections have no meshes")
+        return self.meshes[section]
+
+    def parallel(self, section: str):
+        """The section's effective ParallelConfig."""
+        return self.parallels[section]
+
     def build_train_step(self, section: str, model, shape, **kw):
-        raise NotImplementedError(
-            f"MaestroRuntime.build_train_step({section!r}): a train step on "
-            "a section's carved device group needs the multi-device "
-            "regimes, which are not ported yet; see ROADMAP.md, A6")
+        """``train.step.build_train_step`` on the section's mesh and
+        ParallelConfig (a runtime carved by ranks)."""
+        if self.meshes is None:
+            raise NotImplementedError(
+                f"MaestroRuntime.build_train_step({section!r}): a train step "
+                "on a section's ranks needs its mesh: carve the runtime by "
+                "ranks= (ROADMAP.md, A6.2)")
+        from repro_torch.train import step as step_mod
+        return step_mod.build_train_step(model, self.parallel(section),
+                                         shape, mesh=self.mesh(section),
+                                         **kw)
 
     def executor(self):
         """A :class:`repro_torch.core.executor.CompoundExecutor` over this
@@ -185,8 +310,24 @@ class MaestroRuntime:
         return CompoundExecutor(graph=self.graph, runtime=self)
 
     def shutdown(self):
+        """Stop the workers and close the queue.  The last runtime of the
+        process with CUDA workers to shut down also releases the cuBLAS
+        workspaces (:func:`release_blas_workspaces`) once its streams'
+        work is done; runtimes still alive would race it for them."""
+        if self._closed:
+            return
+        self._closed = True
         for w in self.workers.values():
             w.stop()
+        self.queue.close()
+        if self._cards:
+            global _live_cuda
+            for card in self._cards:
+                torch.cuda.synchronize(card)
+            with _live_lock:
+                _live_cuda -= 1
+                if _live_cuda == 0:
+                    release_blas_workspaces()
 
     def __enter__(self):
         return self

@@ -60,8 +60,36 @@ before every section stream that reads it by an event recorded at
 submit; cross-section tensors carry their producer stream's event
 through the queue.  The optimizer updates in place (``optim/adamw.py``),
 so ``train_iteration(params, opts, ...)`` advances the caller's
-optimizer-state tensors.  DP/TP/PP/CP sections and gradient compression
-are the multi-device regimes, not ported yet (ROADMAP.md, A6).
+optimizer-state tensors.
+
+Section meshes (``ranks=``): each section runs on its own ranks of the
+default process group, one process a rank, with its own data degree
+(paper: "each section independently configures its parallelism strategy,
+micro-batch size, and data-parallel degree").  A rank runs only its
+sections' tasks, on its rows of each microbatch (the reference is one
+controller over every mesh; the port is MPMD):
+
+* parameters and optimizer state rest as blocks under
+  ``dist.sharding.param_shardings``/``opt_state_shardings`` (ZeRO), and
+  each section's first task of an iteration gathers the full parameters;
+* the critical section's loss on a rank is weighted by its share of the
+  microbatch's mask total (1.0 on one data rank), so losses, gradients and
+  cotangents sum over the data ranks to the global mean's; a loss whose
+  terms are means over other masks weights them itself
+  (``SectionSpec.loss_share``);
+* ``upd`` reduce-scatters the float32 accumulators into the optimizer
+  blocks (or, with ``grad_compress``, runs ``ef_compress_tree(...,
+  mean=False)`` with a residual carried per section), runs AdamW on the
+  blocks and all-gathers the new parameter blocks;
+* the joint grad norm: each section's per-leaf sums of squares reduced
+  over its ranks with each element counted once, exchanged between the
+  trainable sections' origins and ranks, summed in sorted-section order —
+  bitwise the colocated threshold on one rank;
+* a port crosses to another section's ranks point to point: each producer
+  rank sends its fragment to every consumer rank whose rows it overlaps,
+  and cotangents go back the same way (``_Exchange``).
+DP is the one regime: a ``pipe``, ``seq`` or ``model`` axis above 1 raises
+(ROADMAP.md, A6.4, A6.3, A6.4).
 """
 from __future__ import annotations
 
@@ -84,9 +112,12 @@ from repro_torch.core.runtime import MaestroRuntime
 from repro_torch.core.scheduler import ScheduleResult
 from repro_torch.core.types import (H100, ArchConfig, ParallelConfig,
                                     SectionConfig)
+from repro_torch.dist import sharding as shd
 from repro_torch.models import common as cm
-from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.common import (tree_leaves, tree_like, tree_map,
+                                       tree_unflatten)
 from repro_torch.optim import adamw, schedules
+from repro_torch.optim import compression as gcomp
 
 #: symbolic sequence-length dim in Field / Port shapes, resolved to the
 #: workload's seq_len at build time (static dims stay ints)
@@ -164,7 +195,21 @@ class SectionSpec:
       ``"<section>.act_idx"`` (int64) / ``"<section>.act_valid"`` when
       that producer has a predicate (for scattering capacity rows back to
       sample slots);
-    * every declared const under its name.
+    * every declared const under its name;
+    * ``"loss_share"`` on section meshes when the section declares
+      ``loss_share=True`` (see below).
+
+    On section meshes the critical loss runs on each data rank's rows, so
+    each rank's loss must be its share of the microbatch's global value.
+    By default the runtime weights the whole loss by the rank's share of
+    ``loss_mask`` (of the rows, without one), which is right for a mean
+    over that mask.  A loss with a term that is a mean over another mask
+    declares ``loss_share=True`` and weights its terms itself:
+    ``inputs["loss_share"](*masks)`` returns, per mask, this rank's sum
+    over the sum across the section's data ranks (exactly 1.0 on one data
+    rank, 0 where the total is 0), and the fn multiplies each mean term by
+    its mask's share.  Without meshes the key is absent and the fn takes
+    its means as they are.
     """
     name: str
     arch: ArchConfig
@@ -181,6 +226,7 @@ class SectionSpec:
     critical: bool = False
     seq_len: Optional[int] = None             # section sequence length
     consts: Mapping[str, Field] = field(default_factory=dict)
+    loss_share: bool = False
 
     @property
     def trainable(self) -> bool:
@@ -381,25 +427,50 @@ _AXES = (("dp", "data"), ("pp", "pipe"), ("cp", "seq"), ("tp", "model"))
 
 
 def validate_section_parallel(name: str, arch: ArchConfig,
-                              parallel: ParallelConfig) -> str:
-    """ONE validation path for a section's ``C^s``: the port runs each
-    section on one device (the plain regime) and raises for every knob
-    that needs the multi-device regimes, naming the section and the mesh
-    axis it would size.  Returns the regime (``"plain"``)."""
+                              parallel: ParallelConfig, mesh=None) -> str:
+    """ONE validation path for a section's ``C^s``.
+
+    With ``mesh`` (the section's ``DeviceMesh``, or its ``{axis: size}``
+    shape) it routes through ``train.step.parallel_regime``, the dispatch
+    the sharded step uses: dp > 1 and ``grad_compress`` run, and a
+    ``pipe``, ``seq`` or ``model`` axis above 1 raises naming its ROADMAP
+    item (A6.4, A6.3, A6.4).  Without one the section runs on one device
+    (the plain regime), and every knob that needs a mesh raises, naming
+    the section and the mesh axis it would size.  Returns the regime
+    (``"plain"``)."""
+    if mesh is not None:
+        from repro_torch.train.step import parallel_regime
+        try:
+            regime = parallel_regime(mesh, parallel)
+        except (ValueError, NotImplementedError) as e:
+            raise type(e)(f"section {name!r}: {e}") from None
+        compress = parallel.grad_compress or "none"
+        if compress not in gcomp.METHODS:
+            raise ValueError(
+                f"section {name!r}: grad_compress={compress!r}: expected "
+                f"one of {gcomp.METHODS}")
+        return regime
     multi = [f"{k}={getattr(parallel, k)} (mesh axis {axis!r})"
              for k, axis in _AXES if getattr(parallel, k) != 1]
     if multi:
         raise NotImplementedError(
-            f"section {name!r} ({arch.name}): {', '.join(multi)} needs the "
-            "multi-device regimes (data, pipeline, context and tensor "
-            "parallel sections), which are not ported yet; see "
-            "ROADMAP.md, A6")
+            f"section {name!r} ({arch.name}): {', '.join(multi)} needs a "
+            "section mesh: carve the runtime by ranks= (ROADMAP.md, A6.2; "
+            "pipeline, context and tensor parallel sections are A6.4, "
+            "A6.3, A6.4)")
     if (parallel.grad_compress or "none") != "none":
         raise NotImplementedError(
             f"section {name!r}: grad_compress={parallel.grad_compress!r} "
-            "compresses the data-parallel all-reduce, which is not ported "
-            "yet; see ROADMAP.md, A6")
+            "compresses the data-parallel reduction of a section mesh: "
+            "carve the runtime by ranks= (ROADMAP.md, A6.2)")
     return "plain"
+
+
+def _mesh_sizes(parallel: ParallelConfig) -> Dict[str, int]:
+    """The ``{axis: size}`` shape of the section mesh ``parallel`` asks
+    for (``dist.sharding.section_mesh``'s axes)."""
+    return {"data": parallel.dp, "pipe": parallel.pp, "seq": parallel.cp,
+            "model": parallel.tp}
 
 
 # --------------------------------------------------------------------------- #
@@ -501,7 +572,7 @@ class _Inflight:
     """Host-side record of one submitted-not-yet-retired iteration."""
 
     __slots__ = ("seq", "scope", "step_idx", "plan", "return_grads",
-                 "ctx", "acc", "crit_acc", "ready")
+                 "ctx", "acc", "crit_acc", "ready", "full")
 
     def __init__(self, seq: int, scope: str, step_idx, plan: IterationPlan,
                  return_grads: bool, trainable: Sequence[str]):
@@ -517,6 +588,208 @@ class _Inflight:
         # device -> event on the main thread's stream after everything it
         # wrote for this iteration
         self.ready: Dict[torch.device, Any] = {}
+        # section -> its full parameters, gathered from the blocks by the
+        # section's first task of the iteration (section meshes)
+        self.full: Dict[str, Any] = {}
+
+
+class _Exchange:
+    """One iteration's traffic with sections on other ranks (section
+    meshes): which rows each rank holds, which ranks exchange what, in
+    which order, and the sends and receives themselves.
+
+    A section of data degree ``dp`` splits each microbatch of ``m`` rows
+    into ``dp`` contiguous blocks, block ``d`` on its data rank ``d``.  A
+    producer's rows are its capacity rows when it has an activation
+    predicate (valid rows first, in sample order), else the samples.  A
+    consumer rank needs the producer rows :meth:`need` names, always one
+    contiguous range; each producer rank sends its whole fragment to every
+    consumer rank whose range it overlaps (:meth:`pairs`), and a consumer
+    rank sends each such producer rank the cotangent of that fragment.
+    :meth:`messages` lists every send in its sender's order, so that a
+    receiver posts its receives in that order (:meth:`expect`)."""
+
+    def __init__(self, rt: "CompoundRuntime", plan: IterationPlan,
+                 disp: Dict[str, set], it: str, timeout: float):
+        self.rt, self.plan, self.disp = rt, plan, disp
+        self.it, self.timeout = it, timeout
+        self.m = plan.mbs
+        self.q = rt.rt.queue
+
+    # ---- rows ---------------------------------------------------------- #
+    def own(self, name: str, d: int) -> Tuple[int, int]:
+        n = self.m // self.rt._dp[name]
+        return d * n, (d + 1) * n
+
+    def need(self, src: str, dst: str, i: int, r: int) -> Tuple[int, int]:
+        """The producer rows ``[a, b)`` consumer rank ``r`` takes."""
+        act = self.plan.activation.get(src)
+        lo, hi = self.own(dst, r)
+        if act is None:
+            return lo, hi
+        if self.rt._dp[dst] == 1:
+            return 0, self.m                 # the capacity layout as it is
+        valid = act.valid[i] > 0
+        rows = np.nonzero(valid & (act.idx[i] >= lo) & (act.idx[i] < hi))[0]
+        if not len(rows):
+            return 0, 0
+        return int(rows[0]), int(rows[-1]) + 1
+
+    def pairs(self, src: str, dst: str, i: int) -> List[Tuple[int, int]]:
+        """(producer rank, consumer rank) pairs whose rows overlap."""
+        out = []
+        for r in range(self.rt._dp[dst]):
+            a, b = self.need(src, dst, i, r)
+            for q in range(self.rt._dp[src]):
+                q0, q1 = self.own(src, q)
+                if max(a, q0) < min(b, q1):
+                    out.append((q, r))
+        return sorted(out)
+
+    def local_capacity(self, src: str, dst: str, act: SectionActivation):
+        """The capacity layout (``act_idx``, ``act_valid`` [n_mb, rows])
+        of activated producer ``src`` as consumer ``dst`` sees it on this
+        rank: the whole layout on one data rank, else the rows of its own
+        samples, first, with indices local to its rows."""
+        rt = self.rt
+        if rt._dp[dst] == 1:
+            return act.idx, act.valid
+        n = self.m // rt._dp[dst]
+        lo = rt._me[dst] * n
+        idx = np.zeros((len(act.idx), n), np.int32)
+        valid = np.zeros((len(act.idx), n), np.float32)
+        for i in range(len(act.idx)):
+            a, b = self.need(src, dst, i, rt._me[dst])
+            idx[i, :b - a] = act.idx[i, a:b] - lo
+            valid[i, :b - a] = 1.0
+        return idx, valid
+
+    # ---- the send order ---------------------------------------------- #
+    def _shape(self, port: Port, name: str) -> Tuple[int, ...]:
+        """One data rank's fragment of ``port`` in section ``name``."""
+        return ((self.m // self.rt._dp[name],)
+                + _resolve_shape(tuple(port.shape), self.rt.S))
+
+    def messages(self, name: str):
+        """Every message section ``name``'s ranks send in this iteration,
+        in each rank's send order (its dispatch order): tuples ``(dst,
+        key, sender's data rank, receiver's data rank, shape, dtype)``.
+        The senders below follow the same loops."""
+        rt, disp, it = self.rt, self.disp, self.it
+        s = rt.spec.section(name)
+
+        def cts(i):
+            for c in s.consumes:
+                if c.key in rt._ct_keys(s) and i in disp[c.section]:
+                    for q, r in self.pairs(c.section, name, i):
+                        yield (c.section, f"{it}/ct.{c.key}.{i}", r, q,
+                               self._shape(c.port, c.section),
+                               _torch_dtype(c.port.dtype))
+
+        if name != rt._crit:
+            for i in sorted(disp[name]):
+                for p in s.emits:
+                    for cname in rt.spec.consumers_of(name, p.name):
+                        if i not in disp.get(cname, ()):
+                            continue
+                        for q, r in self.pairs(name, cname, i):
+                            yield (cname, f"{it}/{name}.{p.name}.{i}", q, r,
+                                   self._shape(p, name),
+                                   _torch_dtype(p.dtype))
+        else:
+            for i in range(self.plan.n_mb):
+                yield from cts(i)
+        if s.trainable and name != rt._crit:
+            for i in sorted(disp[name]):
+                yield from cts(i)
+        if s.trainable:
+            n_leaves = len(tree_leaves(s.params))
+            for peer in rt._trainable:
+                if peer != name:
+                    for r in range(rt._dp[peer]):
+                        yield (peer, f"{it}/gnorm.{name}", 0, r,
+                               (n_leaves,), torch.float32)
+
+    def expect(self) -> None:
+        """Post this iteration's receives from sections on other ranks,
+        in their senders' order."""
+        rt = self.rt
+        for name in rt._topo:
+            if name in rt._device:
+                continue
+            for dst, key, src_d, dst_d, shape, dtype in self.messages(name):
+                if dst in rt._device and dst_d == rt._me[dst]:
+                    self.q.expect(name, dst, key, rt._ranks[name][src_d],
+                                  shape, dtype)
+
+    # ---- sends and receives ------------------------------------------ #
+    def send_port(self, src: str, dst: str, key: str, i: int, value):
+        """A producer rank's fragment to every consumer rank whose rows
+        it overlaps; the producer's origin counts the key once."""
+        me = self.rt._me[src]
+        for qq, r in self.pairs(src, dst, i):
+            if qq == me:
+                self.q.send(src, dst, key, value,
+                            rank=self.rt._ranks[dst][r])
+        if me == 0:
+            self.q.count_push(value)
+
+    def recv_port(self, src: str, dst: str, ckey: str, i: int):
+        """This rank's rows of port ``ckey`` that ``src``'s ranks sent."""
+        rt, me = self.rt, self.rt._me[dst]
+        qs = [qq for qq, r in self.pairs(src, dst, i) if r == me]
+        got = self.q.recv(src, dst, f"{self.it}/{ckey}.{i}",
+                          [rt._ranks[src][qq] for qq in qs],
+                          timeout=self.timeout)
+        shp, dt = rt._port_zero[dst][ckey]
+        if not qs:
+            return torch.zeros(shp, dtype=dt, device=rt._device[dst])
+        frags = torch.cat([got[rt._ranks[src][qq]] for qq in qs])
+        a, b = self.need(src, dst, i, me)
+        x = frags.narrow(0, a - self.own(src, qs[0])[0], b - a)
+        if x.shape[0] < shp[0]:          # a consumer's capacity rows
+            x = torch.cat([x, x.new_zeros((shp[0] - x.shape[0],)
+                                          + tuple(x.shape[1:]))])
+        return x
+
+    def send_ct(self, name: str, c: Consume, i: int, g):
+        """A consumer rank's cotangent of its rows back to each producer
+        rank whose fragment they overlap, fragment-shaped."""
+        rt, me = self.rt, self.rt._me[name]
+        key = f"{self.it}/ct.{c.key}.{i}"
+        a, b = self.need(c.section, name, i, me)
+        for qq, r in self.pairs(c.section, name, i):
+            if r != me:
+                continue
+            q0, q1 = self.own(c.section, qq)
+            lo, hi = max(a, q0), min(b, q1)
+            part = g.narrow(0, lo - a, hi - lo)
+            if (lo, hi) != (q0, q1):
+                full = part.new_zeros((q1 - q0,) + tuple(g.shape[1:]))
+                full[lo - q0:hi - q0] = part
+                part = full
+            self.q.send(name, c.section, key, part,
+                        rank=rt._ranks[c.section][qq])
+        if me == 0:
+            self.q.count_push(g)
+
+    def recv_ct(self, name: str, p: Port, consumer: str, i: int):
+        """The cotangent of this rank's fragment of ``p``: the sum of what
+        the overlapping consumer ranks sent (zero where none did)."""
+        rt, me = self.rt, self.rt._me[name]
+        rs = [r for qq, r in self.pairs(name, consumer, i) if qq == me]
+        got = self.q.recv(consumer, name, f"{self.it}/ct.{name}.{p.name}.{i}",
+                          [rt._ranks[consumer][r] for r in rs],
+                          timeout=self.timeout)
+        if not rs:
+            return torch.zeros(self._shape(p, name),
+                               dtype=_torch_dtype(p.dtype),
+                               device=rt._device[name])
+        parts = [got[rt._ranks[consumer][r]] for r in rs]
+        out = parts[0]
+        for x in parts[1:]:
+            out = out + x
+        return out
 
 
 class CompoundRuntime:
@@ -525,24 +798,31 @@ class CompoundRuntime:
 
     ``devices``: the device list the sections are carved from, in spec
     order (default: every visible card; name one card once per section
-    to share it).  The cost model plans the wavefront order for the
-    H100."""
+    to share it).  ``ranks``: carve section meshes over the default
+    process group instead, each section taking the next
+    ``parallel.devices`` ranks (see the module docstring, "Section
+    meshes").  The cost model plans the wavefront order for the H100."""
 
-    def __init__(self, spec: WorkloadSpec, *, devices=None,
+    def __init__(self, spec: WorkloadSpec, *, devices=None, ranks=None,
                  lr_schedule=None,
                  opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
                  lookahead: int = 0):
         spec.validate()
+        self._mesh_mode = ranks is not None
         for s in spec.sections:
-            validate_section_parallel(s.name, s.arch, s.parallel)
+            validate_section_parallel(
+                s.name, s.arch, s.parallel,
+                _mesh_sizes(s.parallel) if self._mesh_mode else None)
         self.spec = spec
         self.opt_cfg = opt_cfg
         self.lr_fn = lr_schedule or functools.partial(schedules.constant,
                                                       peak_lr=1e-3)
         self.graph = spec.to_graph()
-        self.rt = MaestroRuntime(self.graph, devices)
+        self._compress = self._compressed_sections() if self._mesh_mode \
+            else {}
+        self.rt = MaestroRuntime(self.graph, devices, ranks=ranks)
         # section-stream affinity (repro_torch.analysis.affinity): one
-        # live worker a section, each on a CUDA stream of its own
+        # live worker a local section, each on a CUDA stream of its own
         wiring = affinity.check_wiring(self.rt)
         if not wiring.ok:
             self.rt.shutdown()
@@ -560,26 +840,81 @@ class CompoundRuntime:
         self._retired: "collections.deque[dict]" = collections.deque()
         self._params: Dict[str, Any] = {}
         self._opts: Dict[str, Any] = {}
+        #: per compressed section: this rank's error-feedback residual,
+        #: zero at the first install(), then carried by its upd task
+        self._ef: Dict[str, Any] = {}
         self._installed = False
         self._topo = spec.topo_order()
         self._crit = spec.critical.name
         self._trainable = [s.name for s in spec.sections if s.trainable]
-        self._device = {s.name: self.rt.device(s.name)
-                        for s in spec.sections}
+        self._local = list(self.rt.local_sections)
+        self._device = {n: self.rt.device(n) for n in self._local}
+        # per section: its ranks in data-coordinate order, its data degree
+        # and this rank's data coordinate (one device a section, rank 0 of
+        # its own, without meshes)
+        self._ranks: Dict[str, List[int]] = {}
+        self._dp: Dict[str, int] = {}
+        self._me: Dict[str, int] = {}
+        self._p_spec: Dict[str, Any] = {}
+        self._o_spec: Dict[str, Any] = {}
+        for s in spec.sections:
+            if not self._mesh_mode:
+                self._dp[s.name], self._me[s.name] = 1, 0
+                continue
+            mesh = self.rt.mesh(s.name)
+            self._ranks[s.name] = [int(r) for r in mesh.mesh.flatten()]
+            self._dp[s.name] = s.parallel.dp
+            coord = mesh.get_coordinate()
+            if coord is not None:
+                self._me[s.name] = int(coord[0])
+            rules = shd.rules_for(s.arch, mesh, teacher=not s.trainable)
+            self._p_spec[s.name] = shd.param_shardings(s.params, mesh, rules)
+            if s.trainable:
+                self._o_spec[s.name] = shd.opt_state_shardings(
+                    s.params, mesh, rules)
         self._built: Optional[Tuple[int, int, int]] = None
         if spec.global_batch is not None and spec.seq_len is not None:
             self._build(spec.global_batch, spec.seq_len,
                         spec.mbs or spec.global_batch)
 
+    def _compressed_sections(self) -> Dict[str, str]:
+        """The sections whose data-parallel reduction is compressed, and
+        how (the reference's refusals)."""
+        out = {}
+        by = {x.name: x for x in self.spec.sections}
+        for s in self.spec.sections:
+            method = s.parallel.grad_compress or "none"
+            if method == "none":
+                continue
+            if not s.trainable:
+                raise ValueError(
+                    f"section {s.name!r}: grad_compress on a fwd_only "
+                    "section — frozen sections produce no gradients")
+            for c in s.consumes:
+                if by[c.section].activation is not None:
+                    raise NotImplementedError(
+                        f"section {s.name!r}: grad_compress on a consumer "
+                        f"of activation-predicated section {c.section!r} is "
+                        "refused, as in the reference")
+            out[s.name] = method
+        return out
+
     # ------------------------------------------------------------------ #
     # params / optimizer state
     # ------------------------------------------------------------------ #
+    @property
+    def local_sections(self) -> List[str]:
+        """The sections this process runs (all of them without meshes)."""
+        return list(self._local)
+
     def init(self, seed: int = 0):
-        """Init + place every section's params (section ``i`` of the spec
-        from a ``torch.Generator`` seeded ``seed + i`` on its device) and
-        matching optimizer states for the trainable sections."""
+        """Init + place every local section's params (section ``i`` of the
+        spec from a ``torch.Generator`` seeded ``seed + i`` on its device)
+        and matching optimizer states for the trainable ones."""
         params = {}
         for i, s in enumerate(self.spec.sections):
+            if s.name not in self._device:
+                continue
             dev = self._device[s.name]
             gen = torch.Generator(device=dev).manual_seed(seed + i)
             params[s.name] = cm.init_params(s.params, gen, dev)
@@ -588,11 +923,27 @@ class CompoundRuntime:
     def place(self, params: Dict[str, Any]):
         """Move per-section param trees onto their sections' devices (a
         tree already there is taken as it is, not copied) and build
-        matching optimizer states."""
-        placed = {n: tree_map(lambda x, d=self._device[n]:
-                              x.detach().to(d), params[n])
-                  for n in params}
-        opts = {n: adamw.init(placed[n]) for n in self._trainable}
+        matching optimizer states.  On section meshes the trees are full
+        and this rank keeps its blocks (``dist.sharding.shard_tree`` under
+        the section's parameter and ZeRO optimizer-state specs); sections
+        not on this rank are left out."""
+        placed, opts = {}, {}
+        for n in params:
+            if n not in self._device:
+                continue
+            full = tree_map(lambda x, d=self._device[n]: x.detach().to(d),
+                            params[n])
+            if not self._mesh_mode:
+                placed[n] = full
+                if n in self._trainable:
+                    opts[n] = adamw.init(full)
+                continue
+            mesh = self.rt.mesh(n)
+            placed[n] = shd.shard_tree(full, tree_like(full,
+                                                       self._p_spec[n]), mesh)
+            if n in self._trainable:
+                opts[n] = adamw.init(shd.shard_tree(
+                    full, tree_like(full, self._o_spec[n].master), mesh))
         return placed, opts
 
     # ------------------------------------------------------------------ #
@@ -627,13 +978,20 @@ class CompoundRuntime:
             raise RuntimeError(
                 "cannot rebind workload shapes with iterations in "
                 "flight — drain() first")
+        for s in self.spec.sections:
+            if mbs % self._dp[s.name]:
+                raise ValueError(
+                    f"section {s.name!r}: the microbatch size ({mbs}) must "
+                    f"divide its data axis ({self._dp[s.name]}) so that "
+                    "every data rank owns a real slice of it")
         self.B, self.S, self.mbs = global_batch, seq_len, mbs
         self.n_mb = global_batch // mbs
-        # the exact-zero fill a consumer takes for an inactive producer
+        # the exact-zero fill a consumer takes for an inactive producer,
+        # at this rank's rows
         self._port_zero: Dict[str, Dict[str, Tuple[Tuple[int, ...],
                                                    torch.dtype]]] = {
-            s.name: {c.key: ((mbs,) + _resolve_shape(tuple(c.port.shape),
-                                                     seq_len),
+            s.name: {c.key: ((mbs // self._dp[s.name],)
+                             + _resolve_shape(tuple(c.port.shape), seq_len),
                              _torch_dtype(c.port.dtype))
                      for c in s.consumes}
             for s in self.spec.sections}
@@ -651,7 +1009,8 @@ class CompoundRuntime:
     def plan_iteration(self, host, *, reorder: bool = True) -> IterationPlan:
         """Activation predicates → cost-model 6-tuples → wavefront (or
         FIFO) sample order → per-section capacity layouts.  ``host`` is
-        the batch (numpy arrays or tensors)."""
+        the batch (numpy arrays or tensors).  Every rank computes the same
+        plan from the same batch."""
         assert self._built is not None, "runtime not shape-bound yet"
         view = _numpy_view(_host_batch(host))
         flags: Dict[str, np.ndarray] = {}
@@ -699,20 +1058,25 @@ class CompoundRuntime:
     # ------------------------------------------------------------------ #
     def install(self, params: Dict[str, Any],
                 opts: Dict[str, Any]) -> None:
-        """Adopt per-section params (every section) and optimizer states
-        (at least every trainable section) as the runtime's streaming
-        state.  Worker-side ``upd`` tasks advance this state (the
-        optimizer state in place); read it back with :meth:`state`.
-        Requires a quiescent runtime (nothing in flight)."""
+        """Adopt per-section params (every local section) and optimizer
+        states (at least every local trainable section) as the runtime's
+        streaming state: blocks on section meshes, as :meth:`place` gives
+        them.  Worker-side ``upd`` tasks advance this state (the optimizer
+        state in place); read it back with :meth:`state` or
+        :meth:`blocks`.  Requires a quiescent runtime (nothing in
+        flight)."""
         if self._inflight:
             raise RuntimeError(
                 "install() requires a quiescent runtime — retire()/"
                 "drain() the in-flight iterations first")
-        missing = {s.name for s in self.spec.sections} - set(params)
+        params = {n: t for n, t in params.items() if n in self._device}
+        opts = {n: t for n, t in opts.items() if n in self._device}
+        missing = set(self._local) - set(params)
         if missing:
             raise ValueError(f"install: missing params for sections "
                              f"{sorted(missing)}")
-        missing_o = set(self._trainable) - set(opts)
+        missing_o = {n for n in self._trainable if n in self._device} - set(
+            opts)
         if missing_o:
             raise ValueError(f"install: missing optimizer state for "
                              f"trainable sections {sorted(missing_o)}")
@@ -733,18 +1097,124 @@ class CompoundRuntime:
                     opts.get(name, {})):
                 if isinstance(x, torch.Tensor) and x.is_cuda:
                     x.record_stream(stream)
+        for name in self._compress:
+            if name in self._device and name not in self._ef:
+                self._ef[name] = tree_map(
+                    lambda sp, d=self._device[name]: torch.zeros(
+                        tuple(sp.shape), dtype=torch.float32, device=d),
+                    tree_like(params[name], self.spec.section(name).params))
         self._params = dict(params)
         self._opts = dict(opts)
         self._installed = True
 
-    def state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """Snapshot of the current (params, opts) streaming state.  Only
-        consistent across sections when nothing is in flight."""
+    def blocks(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The current (params, opts) streaming state as held: this rank's
+        blocks of its local sections on section meshes.  Only consistent
+        across sections when nothing is in flight."""
         return dict(self._params), dict(self._opts)
+
+    def state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Snapshot of the current (params, opts) streaming state as full
+        trees of the local sections.  On section meshes it gathers them
+        (collective over each local section's ranks: all of them call it).
+        Only consistent across sections when nothing is in flight."""
+        if not self._mesh_mode:
+            return self.blocks()
+        params, opts = {}, {}
+        for n, blocks in self._params.items():
+            mesh = self.rt.mesh(n)
+            with torch.no_grad():
+                params[n] = shd.gather_tree(
+                    blocks, tree_like(blocks, self._p_spec[n]), mesh)
+                if n in self._opts:
+                    o = self._opts[n]
+                    sp = tree_like(o.master, self._o_spec[n].master)
+                    opts[n] = adamw.AdamWState(
+                        o.step, *(shd.gather_tree(t, sp, mesh)
+                                  for t in (o.mu, o.nu, o.master)))
+        return params, opts
+
+    def transfer(self, src: str, dst: str, key: str, value, shape,
+                 dtype) -> Optional[torch.Tensor]:
+        """Hand a tensor that section ``src`` holds (``value``, None where
+        ``src`` is not local) to every rank of section ``dst``: returns it
+        on this rank's device where ``dst`` is local, else None.  On
+        section meshes ``src``'s origin sends it point to point; every
+        rank calls this, with nothing in flight."""
+        if self._inflight:
+            raise RuntimeError("transfer() requires a quiescent runtime")
+        if dst not in self._device:
+            if self._mesh_mode and src in self._device \
+                    and self._me[src] == 0:
+                for r in self._ranks[dst]:
+                    self.rt.queue.send(src, dst, key, value, rank=r)
+            return None
+        if src in self._device:
+            return value.to(self._device[dst])
+        q = self.rt.queue
+        origin = self._ranks[src][0]
+        q.expect(src, dst, key, origin, tuple(shape), _torch_dtype(dtype))
+        return q.recv(src, dst, key, [origin])[origin]
 
     @property
     def in_flight(self) -> int:
         return len(self._inflight)
+
+    # ------------------------------------------------------------------ #
+    # section meshes: this rank's view of an iteration
+    # ------------------------------------------------------------------ #
+    def _full_params(self, name: str, rec: _Inflight):
+        """The section's full parameters for this iteration: its tree
+        without meshes, else gathered once from the blocks by the first
+        task that asks (every rank of the section runs the same tasks in
+        the same order, so the gathers pair up)."""
+        if not self._mesh_mode:
+            return self._params[name]
+        full = rec.full.get(name)
+        if full is None:
+            blocks = self._params[name]
+            with torch.no_grad():
+                full = shd.gather_tree(blocks,
+                                       tree_like(blocks, self._p_spec[name]),
+                                       self.rt.mesh(name))
+            rec.full[name] = full
+        return full
+
+    def _loss_weights(self, host, plan: IterationPlan) -> List[float]:
+        """Per microbatch: the critical section's share of the mask total
+        on this rank, n_local / n_all (exactly 1.0 on one data rank).  Its
+        loss is a mean over ``loss_mask`` (or over every token), so the
+        weighted losses and gradients sum over the data ranks to the
+        global mean's."""
+        s = self.spec.critical
+        m, lo = plan.mbs, self._me[s.name] * (plan.mbs // self._dp[s.name])
+        hi = lo + plan.mbs // self._dp[s.name]
+        order = np.asarray(plan.order)
+        if "loss_mask" in s.inputs:
+            mask = host["loss_mask"].double().numpy()[order]
+        else:
+            mask = np.ones((len(order), 1))
+        out = []
+        for i in range(plan.n_mb):
+            mb = mask[i * m:(i + 1) * m].reshape(m, -1)
+            total, mine = float(mb.sum()), float(mb[lo:hi].sum())
+            out.append(1.0 if mine == total else mine / total)
+        return out
+
+    def _loss_share(self, name: str):
+        """``inputs["loss_share"]`` of a critical section that weights its
+        own terms: per mask, this rank's sum over the sum across the
+        section's data ranks (one all-reduce a call, on the calling
+        worker's stream; every data rank calls it in the same order)."""
+        mesh = self.rt.mesh(name)
+
+        def share(*masks: torch.Tensor) -> torch.Tensor:
+            with torch.no_grad():
+                local = torch.stack([m.float().sum() for m in masks])
+                total = shd.all_reduce_mesh(local.clone(), mesh)
+                return local / torch.where(total > 0, total,
+                                           torch.ones_like(total))
+        return share
 
     # ------------------------------------------------------------------ #
     # one training iteration on the executor (streaming)
@@ -762,7 +1232,9 @@ class CompoundRuntime:
         inputs and consts onto the sections' devices and blocks beyond
         that only at the ``lookahead`` gate (when more than ``lookahead``
         iterations are already in flight, the oldest is retired first and
-        its metrics buffered for the next :meth:`retire`)."""
+        its metrics buffered for the next :meth:`retire`).  On section
+        meshes every rank submits the same batch; each dispatches its
+        local sections' tasks on its rows."""
         assert self._installed, \
             "call install(params, opts) before submit_iteration()"
         while len(self._inflight) > self.lookahead:
@@ -783,8 +1255,19 @@ class CompoundRuntime:
         it = rec.scope     # iteration-scoped tag namespace (evicted on
         #                    retirement: cross-iteration prefetch cannot
         #                    alias message keys across iterations)
+        mesh_mode = self._mesh_mode
+        ex = _Exchange(self, plan, disp, it, timeout)
+        if mesh_mode:
+            ex.expect()
+            crit = self.spec.critical
+            weights = share = None
+            if crit.name in self._device:
+                if crit.loss_share:
+                    share = self._loss_share(crit.name)
+                else:
+                    weights = self._loss_weights(host, plan)
 
-        # ---- main thread: every section's inputs on its device --------- #
+        # ---- main thread: every local section's inputs on its device --- #
         order_t = torch.as_tensor(plan.order, dtype=torch.int64)
         on_device: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
@@ -796,7 +1279,10 @@ class CompoundRuntime:
 
         prepared: Dict[str, Dict[int, Dict[str, Any]]] = {}
         for s in self.spec.sections:
+            if s.name not in self._device:
+                continue
             dev = self._device[s.name]
+            mine = slice(*ex.own(s.name, self._me[s.name]))
             given = (consts or {}).get(s.name, {})
             missing = set(s.consts) - set(given)
             if missing:
@@ -814,21 +1300,21 @@ class CompoundRuntime:
             for c in s.consumes:
                 sa = plan.activation.get(c.section)
                 if sa is not None:
+                    idx, valid = ex.local_capacity(c.section, s.name, sa)
                     cons_act[c.section] = (
-                        torch.as_tensor(sa.idx, dtype=torch.int64,
-                                        device=dev),
-                        torch.as_tensor(sa.valid, device=dev))
+                        torch.as_tensor(idx, dtype=torch.int64, device=dev),
+                        torch.as_tensor(valid, device=dev))
             per_mb: Dict[int, Dict[str, Any]] = {}
             for i in sorted(disp[s.name]):
-                rows = slice(i * m, (i + 1) * m)
+                mb_rows = slice(i * m, (i + 1) * m)
                 out = {}
                 for k in s.inputs:
-                    v = ordered(k, dev)[rows]
+                    v = ordered(k, dev)[mb_rows]
                     if act is not None:
                         v = v.index_select(0, act_idx[i])
-                    out[k] = v
+                    out[k] = v[mine]
                 if act is not None:
-                    out["act_valid"] = act_valid[i]
+                    out["act_valid"] = act_valid[i][mine]
                 for src, (idx_t, valid_t) in cons_act.items():
                     out[f"{src}.act_idx"] = idx_t[i]
                     out[f"{src}.act_valid"] = valid_t[i]
@@ -855,34 +1341,59 @@ class CompoundRuntime:
             dev = self._device[s.name]
             pulled, stalled = {}, False
             for c in s.consumes:
-                if i in disp.get(c.section, ()):
-                    pulled[c.key] = q.pull(
-                        c.section, s.name, f"{it}/{c.key}.{i}",
-                        device=dev, timeout=timeout)
-                    stalled = True
-                else:
+                key = f"{it}/{c.key}.{i}"
+                if i not in disp.get(c.section, ()):
                     # inactive producer: the port's contribution is the
                     # exact zero a colocated step computes
                     shp, dt = self._port_zero[s.name][c.key]
                     pulled[c.key] = torch.zeros(shp, dtype=dt, device=dev)
+                    continue
+                if c.section in self._device:
+                    pulled[c.key] = q.pull(c.section, s.name, key,
+                                           device=dev, timeout=timeout)
+                else:
+                    pulled[c.key] = ex.recv_port(c.section, s.name, c.key, i)
+                stalled = True
             if stalled:
                 mark_start()      # dependency wait is idle, not busy
             return pulled
+
+        def push_port(s: SectionSpec, cname: str, key: str, i: int, value):
+            """A producer's port to consumer ``cname``, in process or to
+            its ranks."""
+            if cname in self._device:
+                q.push(s.name, cname, key, value)
+            else:
+                ex.send_port(s.name, cname, key, i, value)
+
+        def push_ct(s: SectionSpec, c: Consume, i: int, g):
+            """A consumer's cotangent back to producer ``c.section``."""
+            if c.section in self._device:
+                q.push(s.name, c.section, f"{it}/ct.{c.key}.{i}", g)
+            else:
+                ex.send_ct(s.name, c, i, g)
+
+        def pull_ct(s: SectionSpec, p: Port, consumer: str, i: int):
+            if consumer in self._device:
+                return q.pull(consumer, s.name,
+                              f"{it}/ct.{s.name}.{p.name}.{i}",
+                              device=self._device[s.name], timeout=timeout)
+            return ex.recv_ct(s.name, p, consumer, i)
 
         def fwd_task(s: SectionSpec, i: int):
             def fn():
                 pulled = pull_consumed(s, i)
                 inputs = {**mb_inputs(s, i), **pulled}
                 with torch.no_grad():
-                    out = s.fn(self._params[s.name], inputs)
+                    out = s.fn(self._full_params(s.name, rec), inputs)
                 if s.trainable:
                     rec.ctx[(s.name, i)] = inputs
                 for p in s.emits:
                     for cname in self.spec.consumers_of(s.name, p.name):
                         if i in disp.get(cname, ()):
-                            q.push(s.name, cname,
-                                   f"{it}/{s.name}.{p.name}.{i}",
-                                   out[p.name])
+                            push_port(s, cname,
+                                      f"{it}/{s.name}.{p.name}.{i}", i,
+                                      out[p.name])
                 return out
             return fn
 
@@ -895,19 +1406,25 @@ class CompoundRuntime:
                 rest = {**mb_inputs(s, i),
                         **{k: v for k, v in pulled.items()
                            if k not in ct_keys}}
-                params = _grad_leaves(self._params[s.name])
+                params = _grad_leaves(self._full_params(s.name, rec))
                 p_leaves = tree_leaves(params)
                 cts = {k: pulled[k].detach().requires_grad_()
                        for k in ct_keys}
+                if mesh_mode and share is not None:
+                    rest["loss_share"] = share
                 val = s.fn(params, {**rest, **cts})
                 loss, aux = (val if s.loss_aux else (val, None))
+                if mesh_mode and weights is not None:
+                    # this rank's share of the microbatch's global mean
+                    loss = loss * weights[i]
+                    if aux is not None:
+                        aux = {k: v * weights[i] for k, v in aux.items()}
                 grads = _grads([loss], p_leaves + list(cts.values()))
                 g_p, g_c = grads[:len(p_leaves)], dict(
                     zip(cts, grads[len(p_leaves):]))
                 for c in s.consumes:
                     if c.key in g_c and i in disp.get(c.section, ()):
-                        q.push(s.name, c.section,
-                               f"{it}/ct.{c.key}.{i}", g_c[c.key])
+                        push_ct(s, c, i, g_c[c.key])
                 loss = loss.detach()
                 a = rec.crit_acc
                 a["loss"] = (torch.zeros((), dtype=torch.float32,
@@ -926,18 +1443,15 @@ class CompoundRuntime:
             ct_keys = self._ct_keys(s)
 
             def fn():
-                dev = self._device[s.name]
                 cts = {}
                 for p in s.emits:
                     consumer = self.spec.consumers_of(s.name, p.name)[0]
-                    cts[p.name] = q.pull(
-                        consumer, s.name, f"{it}/ct.{s.name}.{p.name}.{i}",
-                        device=dev, timeout=timeout)
+                    cts[p.name] = pull_ct(s, p, consumer, i)
                 mark_start()
                 inputs = rec.ctx.pop((s.name, i))
                 # the vjp recomputes the forward under autograd, here on
                 # the producer's worker and stream
-                params = _grad_leaves(self._params[s.name])
+                params = _grad_leaves(self._full_params(s.name, rec))
                 p_leaves = tree_leaves(params)
                 cin = {k: inputs[k].detach().requires_grad_()
                        for k in ct_keys}
@@ -950,8 +1464,7 @@ class CompoundRuntime:
                 g_c = dict(zip(cin, grads[len(p_leaves):]))
                 for c in s.consumes:
                     if c.key in g_c and i in disp.get(c.section, ()):
-                        q.push(s.name, c.section,
-                               f"{it}/ct.{c.key}.{i}", g_c[c.key])
+                        push_ct(s, c, i, g_c[c.key])
                 rec.acc[s.name]["g"] = _accumulate(rec.acc[s.name]["g"],
                                                    g_p)
                 return True
@@ -960,36 +1473,95 @@ class CompoundRuntime:
         n_mb = plan.n_mb
         trainable = list(self._trainable)
 
-        def upd_task(name: str):
+        def exchange_norms(name: str, vec: torch.Tensor) -> Dict[str, Any]:
+            """Joint grad-norm rendezvous: every trainable section hands
+            its per-leaf sum-of-squares vector to every peer BEFORE taking
+            any (pushes never block → no wait cycle), then all of them
+            reduce the identical host vector in sorted-section order —
+            bitwise the one global clip threshold of a colocated step.  A
+            peer on other ranks gets it from the section's origin."""
             peers = [n for n in trainable if n != name]
+            for p in peers:
+                key = f"{it}/gnorm.{name}"
+                if p in self._device:
+                    q.push(name, p, key, vec)
+                elif self._me[name] == 0:
+                    for r in self._ranks[p]:
+                        q.send(name, p, key, vec, rank=r)
+                    q.count_push(vec)
+            vecs = {name: vec.cpu().numpy()}
+            for p in peers:
+                key = f"{it}/gnorm.{p}"
+                if p in self._device:
+                    got = q.pull(p, name, key, timeout=timeout)
+                else:
+                    origin = self._ranks[p][0]
+                    got = q.recv(p, name, key, [origin],
+                                 timeout=timeout)[origin]
+                vecs[p] = got.cpu().numpy()
+            if peers:
+                mark_start()   # rendezvous wait is idle, not busy
+            return vecs
 
+        def finalize_plain(name: str, g):
+            """Device carving: the f32 accumulators → mean gradients in
+            the parameters' dtypes, and their per-leaf sums of squares."""
+            leaves = tree_leaves(self._params[name])
+            if g is None:      # section never dispatched: zero
+                g = [torch.zeros(x.shape, dtype=torch.float32,
+                                 device=x.device) for x in leaves]
+            gs = [(a / n_mb).to(x.dtype) for a, x in zip(g, leaves)]
+            return gs, torch.stack([x.float().square().sum() for x in gs])
+
+        def finalize_mesh(name: str, g):
+            """Section meshes: the f32 accumulators reduced over the data
+            ranks into this rank's optimizer-state blocks (compressed when
+            the section asks), and per-leaf sums of squares over the
+            section with each element counted once."""
+            blocks = self._params[name]
+            leaves = tree_leaves(blocks)
+            mesh = self.rt.mesh(name)
+            o_list = tree_leaves(tree_like(blocks,
+                                           self._o_spec[name].master))
+            pspecs = tree_leaves(tree_like(blocks,
+                                           self.spec.section(name).params))
+            dev = self._device[name]
+            if g is None:
+                g = [torch.zeros(tuple(sp.shape), dtype=torch.float32,
+                                 device=dev) for sp in pspecs]
+            if name in self._compress:
+                red, ef = gcomp.ef_compress_tree(
+                    tree_unflatten(blocks, [a / n_mb for a in g]),
+                    gcomp.ErrorFeedback(self._ef[name]),
+                    mesh.get_group(shd.AXIS_DATA), self._compress[name],
+                    mean=False)
+                self._ef[name] = ef.residual
+                gs = [shd.shard(r.to(x.dtype), o, mesh) for r, o, x in
+                      zip(tree_leaves(red), o_list, leaves)]
+            else:
+                axes = shd.dp_axes(mesh)
+                gs = [(shd.reduce_to(a, o, mesh, axes) / n_mb).to(x.dtype)
+                      for a, o, x in zip(g, o_list, leaves)]
+            vec = torch.stack([
+                x.float().square().sum() if shd.counted_here(o, mesh)
+                else torch.zeros((), dtype=torch.float32, device=dev)
+                for x, o in zip(gs, o_list)])
+            shd.all_reduce_mesh(vec, mesh)
+            return gs, vec
+
+        def upd_task(name: str):
             def fn():
+                rec.full.pop(name, None)       # the gathered parameters
                 params = self._params[name]
-                leaves = tree_leaves(params)
-                g = rec.acc[name]["g"]
                 with torch.no_grad():
-                    if g is None:      # section never dispatched: zero
-                        g = [torch.zeros(x.shape, dtype=torch.float32,
-                                         device=x.device) for x in leaves]
-                    gs = [(a / n_mb).to(x.dtype) for a, x in zip(g, leaves)]
+                    g = rec.acc[name]["g"]
                     # the f32 accumulators (4 bytes a parameter) are not
                     # read again: free them before the update's temporaries
-                    rec.acc[name]["g"] = g = None
-                    # joint grad-norm rendezvous: every trainable section
-                    # pushes its per-leaf sum-of-squares vector to every
-                    # peer BEFORE pulling any (pushes never block → no
-                    # wait cycle), then all of them reduce the identical
-                    # host vector in sorted-section order — bitwise the
-                    # one global clip threshold of a colocated step
-                    vec = torch.stack([x.float().square().sum() for x in gs])
-                    for p in peers:
-                        q.push(name, p, f"{it}/gnorm.{name}", vec)
-                    vecs = {name: vec.cpu().numpy()}
-                    for p in peers:
-                        vecs[p] = q.pull(p, name, f"{it}/gnorm.{p}",
-                                         timeout=timeout).cpu().numpy()
-                    if peers:
-                        mark_start()   # rendezvous wait is idle, not busy
+                    rec.acc[name]["g"] = None
+                    gs, vec = (finalize_mesh if mesh_mode
+                               else finalize_plain)(name, g)
+                    del g
+                    vecs = exchange_norms(name, vec)
                     gnorm = torch.sqrt(torch.from_numpy(np.concatenate(
                         [vecs[n] for n in sorted(vecs)])).sum()).to(
                             self._device[name])
@@ -1001,15 +1573,34 @@ class CompoundRuntime:
                 else:
                     p2, o2, _ = adamw.update(grads, self._opts[name], lr,
                                              self.opt_cfg)
-                self._params[name], self._opts[name] = p2, o2
                 out = {"grad_norm": gnorm, "lr": lr}
+                if mesh_mode:
+                    mesh = self.rt.mesh(name)
+                    specs = tree_leaves(tree_like(params, self._p_spec[name]))
+                    o_sp = tree_leaves(tree_like(
+                        params, self._o_spec[name].master))
+                    with torch.no_grad():
+                        p2 = tree_unflatten(params, [
+                            shd.regather(x, o, sp, mesh) for x, o, sp in
+                            zip(tree_leaves(p2), o_sp, specs)])
+                        if rec.return_grads:
+                            grads = tree_unflatten(params, [
+                                shd.gather(x, o, mesh) for x, o in
+                                zip(gs, o_sp)])
+                self._params[name], self._opts[name] = p2, o2
                 if rec.return_grads:
                     out["grads"] = grads
                 if name == self._crit:
-                    out["loss"] = (rec.crit_acc["loss"] / n_mb).float()
-                    if rec.crit_acc["aux"] is not None:
-                        out["aux"] = {k: (v / n_mb).float() for k, v
-                                      in rec.crit_acc["aux"].items()}
+                    a = rec.crit_acc
+                    keys = sorted(a["aux"] or {})
+                    packed = torch.stack(
+                        [a["loss"]] + [a["aux"][k].float() for k in keys])
+                    if mesh_mode:
+                        shd.all_reduce_mesh(packed, self.rt.mesh(name))
+                    vals = [(v / n_mb).float() for v in packed.unbind(0)]
+                    out["loss"] = vals[0]
+                    if a["aux"] is not None:
+                        out["aux"] = dict(zip(keys, vals[1:]))
                 return out
             return fn
 
@@ -1045,6 +1636,8 @@ class CompoundRuntime:
             if by_name[name].trainable:
                 dispatches.append(Dispatch(name, "upd", on_stream(
                     name, upd_task(name))))
+        # a rank dispatches its local sections' tasks only (the executor
+        # drops the others)
         self._session.submit(rec.seq, dispatches)
         self._inflight.append(rec)
         return rec.seq
@@ -1057,6 +1650,9 @@ class CompoundRuntime:
         try:
             execution = self._session.retire(rec.seq, timeout=timeout)
         finally:
+            rec.full.clear()
+            if self.rt.queue.transport is not None:
+                self.rt.queue.transport.settle(rec.scope)
             leftovers = self.rt.queue.evict_scope(rec.scope)
             if leftovers:
                 _log.warning(
@@ -1064,16 +1660,22 @@ class CompoundRuntime:
                     "(producer pushed, no consumer pulled): %s",
                     rec.step_idx, leftovers)
         self.last_execution = execution
-        upd = {n: execution.results[(n, "upd")] for n in self._trainable}
-        crit = upd[self._crit]
-        metrics = {"loss": crit["loss"], "grad_norm": crit["grad_norm"],
-                   "lr": crit["lr"], "execution": execution,
+        upd = {n: execution.results[(n, "upd")] for n in self._trainable
+               if n in self._device}
+        metrics = {"lr": self.lr_fn(rec.step_idx), "execution": execution,
                    "plan": rec.plan, "n_tasks": execution.task_counts}
-        for k, v in crit.get("aux", {}).items():
-            metrics[k] = v
+        # the critical section's metrics where it runs; the joint grad
+        # norm from any local trainable section (every one has it)
+        first = upd.get(self._crit) or next(iter(upd.values()), None)
+        if first is not None:
+            metrics.update(grad_norm=first["grad_norm"], lr=first["lr"])
+        crit = upd.get(self._crit)
+        if crit is not None:
+            metrics["loss"] = crit["loss"]
+            for k, v in crit.get("aux", {}).items():
+                metrics[k] = v
         if rec.return_grads:
-            metrics["grads"] = {n: upd[n]["grads"]
-                                for n in self._trainable}
+            metrics["grads"] = {n: u["grads"] for n, u in upd.items()}
         return metrics
 
     def retire(self, *, timeout: float = 300.0) -> dict:
@@ -1081,7 +1683,9 @@ class CompoundRuntime:
         return its metrics dict (loss / joint grad_norm / lr / aux
         scalars / realized ``execution`` timeline / ``plan`` /
         per-section ``n_tasks``).  Iterations auto-retired by the
-        lookahead gate are returned first, in order."""
+        lookahead gate are returned first, in order.  On section meshes a
+        rank reports what its sections computed: the loss where the
+        critical section runs, the grad norm where a trainable one does."""
         if self._retired:
             return self._retired.popleft()
         if not self._inflight:
@@ -1110,9 +1714,9 @@ class CompoundRuntime:
                         timeout: float = 300.0):
         """One serialized global-batch iteration: ``install`` the given
         state, ``submit_iteration``, ``retire``, and return ``(params,
-        opts, metrics)``.  Exactly the streaming path at lookahead
-        depth 0 — there is no second execution mode.  ``opts``' tensors
-        are updated in place."""
+        opts, metrics)`` as :meth:`blocks` holds them.  Exactly the
+        streaming path at lookahead depth 0 — there is no second execution
+        mode.  ``opts``' tensors are updated in place."""
         if self._inflight or self._retired:
             raise RuntimeError(
                 "train_iteration() is the serialized wrapper; it cannot "
@@ -1123,7 +1727,7 @@ class CompoundRuntime:
                               consts=consts, return_grads=return_grads,
                               timeout=timeout)
         metrics = self.retire(timeout=timeout)
-        new_params, new_opts = self.state()
+        new_params, new_opts = self.blocks()
         return new_params, new_opts, metrics
 
     # ------------------------------------------------------------------ #

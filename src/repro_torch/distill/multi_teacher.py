@@ -20,7 +20,9 @@ scattering ``act_valid`` — an all-generalist microbatch contributes an
 exact-zero KL_b.
 
 :func:`multi_teacher_spec` is run by the generic
-:class:`repro_torch.core.workload.CompoundRuntime`;
+:class:`repro_torch.core.workload.CompoundRuntime` (on devices, or on
+section meshes with ``ranks=``; :func:`student_consts` hands the teachers'
+output layers to the student either way);
 :func:`build_colocated_step` is the one-device oracle (a Python loop over
 the microbatches of :func:`colocated_batch`) the runtime is held against.
 """
@@ -57,10 +59,14 @@ def specialist_hidden(pt, tb_cfg: ArchConfig, tokens: torch.Tensor,
 
 def student_mt_loss(ps, s_cfg: ArchConfig, batch: dict, h_a, w_a, h_b,
                     b_idx, b_valid, w_b, *, alpha: float,
-                    temperature: float):
+                    temperature: float, share=None):
     """CE + α·T²·(KL vs generalist + domain-masked KL vs specialist).
     h_b arrives in capacity layout and is scattered back to sample slots
-    by ``b_idx``; the KL_b mask is the scattered ``b_valid``."""
+    by ``b_idx``; the KL_b mask is the scattered ``b_valid``.  ``share``
+    (a section mesh's ``inputs["loss_share"]``) weights CE and KL_a by
+    this rank's share of ``loss_mask`` and KL_b by its share of the KL_b
+    mask, so that the terms sum over the student's data ranks to the
+    global means (the specialist's rows need not fall evenly)."""
     h_s, _ = tf.lm_forward(ps, s_cfg, batch, remat=True, logits_out=False)
     logits = tf.unembed(ps, s_cfg, h_s)
     ce = cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
@@ -80,6 +86,9 @@ def student_mt_loss(ps, s_cfg: ArchConfig, batch: dict, h_a, w_a, h_b,
     mask_b = (batch["loss_mask"] * mb[:, None]).reshape(B * S)
     kl_b = kops.distill_kl(hsf, w_s, hb.reshape(B * S, -1), w_b.detach(),
                            mask=mask_b, temperature=T)
+    if share is not None:
+        s_lm, s_b = share(lm, mask_b).unbind(0)
+        ce, kl_a, kl_b = ce * s_lm, kl_a * s_lm, kl_b * s_b
     loss = (1 - alpha) * ce + alpha * T * T * (kl_a + kl_b)
     return loss, {"ce": ce, "kl_a": kl_a, "kl_b": kl_b}
 
@@ -113,7 +122,7 @@ def multi_teacher_spec(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
             ps, s_cfg, batch, x["teacher_a.hidden"], x["w_a"],
             x["teacher_b.hidden"], x["teacher_b.act_idx"],
             x["teacher_b.act_valid"], x["w_b"], alpha=alpha,
-            temperature=temperature)
+            temperature=temperature, share=x.get("loss_share"))
 
     tok = {"tokens": wl.Field((wl.SEQ,), "int32")}
     teacher_a = wl.SectionSpec(
@@ -130,7 +139,7 @@ def multi_teacher_spec(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
                 "loss_mask": wl.Field((wl.SEQ,), "float32")},
         consumes=(wl.Consume("teacher_a", h_a),
                   wl.Consume("teacher_b", h_b)),
-        loss=True, loss_aux=True, critical=True,
+        loss=True, loss_aux=True, critical=True, loss_share=True,
         consts={"w_a": wl.Field((ta_cfg.d_model, ta_cfg.padded_vocab),
                                 ta_cfg.dtype),
                 "w_b": wl.Field((tb_cfg.d_model, tb_cfg.padded_vocab),
@@ -145,6 +154,23 @@ def teacher_unembed(params_t, t_cfg: ArchConfig, device) -> torch.Tensor:
     """A teacher's (student-colocated) output layer, on the student
     section's device."""
     return teacher_unembedding(params_t, t_cfg).to(device)
+
+
+def student_consts(rt: wl.CompoundRuntime, params: dict, ta_cfg: ArchConfig,
+                   tb_cfg: ArchConfig) -> dict:
+    """The ``consts`` of :meth:`CompoundRuntime.submit_iteration`: both
+    teachers' output layers on the student's device.  On section meshes
+    (``ranks=``) each teacher's origin sends its own to the student's
+    ranks: every rank calls this with the params it holds, and a rank
+    without the student gets ``{}``."""
+    out = {}
+    for sec, cfg, key in (("teacher_a", ta_cfg, "w_a"),
+                          ("teacher_b", tb_cfg, "w_b")):
+        p = params.get(sec)
+        w = teacher_unembedding(p, cfg) if p is not None else None
+        out[key] = rt.transfer(sec, "student", key, w,
+                               (cfg.d_model, cfg.padded_vocab), cfg.dtype)
+    return {"student": out} if "student" in rt.local_sections else {}
 
 
 # --------------------------------------------------------------------------- #

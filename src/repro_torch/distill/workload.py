@@ -155,6 +155,10 @@ def distill_spec(t_cfg: ArchConfig, s_cfg: ArchConfig, *,
     return wl.WorkloadSpec("distill", (teacher, student))
 
 
+#: ``train_iteration``'s default ``w_t``: take the teacher's output layer
+_UNSET = object()
+
+
 class DistillRuntime:
     """Teacher and student sections on their own devices, hidden states
     flowing through the message queue: a thin declaration over
@@ -163,14 +167,23 @@ class DistillRuntime:
 
     ``devices`` lists the teacher's device, then the student's (default:
     every visible card; ``[torch.device("cuda:0")] * 2`` shares one card,
-    ``["cpu", "cpu"]`` runs on the host).  ``train_iteration`` updates
-    ``opt``'s tensors in place."""
+    ``["cpu", "cpu"]`` runs on the host).  ``ranks`` carves section meshes
+    instead (the teacher's ranks, then the student's), whose data degrees
+    must satisfy the paper's eq. 1, ``DP^s = fanout · DP^t``.
+    ``train_iteration`` updates ``opt``'s tensors in place."""
 
     def __init__(self, t_cfg: ArchConfig, s_cfg: ArchConfig, *,
                  teacher_parallel: ParallelConfig,
                  student_parallel: ParallelConfig,
-                 devices=None, alpha: float = 0.5, temperature: float = 2.0,
-                 lr: float = 1e-3):
+                 devices=None, ranks=None, alpha: float = 0.5,
+                 temperature: float = 2.0, lr: float = 1e-3):
+        fanout = student_parallel.dp // teacher_parallel.dp
+        if teacher_parallel.dp * fanout != student_parallel.dp:
+            raise ValueError(
+                f"fanout constraint (paper eq. 1) violated: the student's "
+                f"dp={student_parallel.dp} is not a multiple of the "
+                f"teacher's dp={teacher_parallel.dp}")
+        self.fanout = fanout
         self.t_cfg, self.s_cfg = t_cfg, s_cfg
         self.alpha, self.temperature = alpha, temperature
         self.spec = distill_spec(t_cfg, s_cfg,
@@ -178,7 +191,7 @@ class DistillRuntime:
                                  student_parallel=student_parallel,
                                  alpha=alpha, temperature=temperature)
         self.runtime = wl.CompoundRuntime(
-            self.spec, devices=devices,
+            self.spec, devices=devices, ranks=ranks,
             lr_schedule=functools.partial(schedules.constant, peak_lr=lr))
         self.rt = self.runtime.rt
         self.graph = self.runtime.graph
@@ -187,29 +200,43 @@ class DistillRuntime:
 
     # ------------------------------------------------------------------ #
     def init(self, seed: int = 0) -> Tuple:
+        """(teacher params, student params, student optimizer state): on
+        section meshes this rank's blocks, None for a section it does not
+        run."""
         params, opts = self.runtime.init(seed)
-        return params["teacher"], params["student"], opts["student"]
+        return (params.get("teacher"), params.get("student"),
+                opts.get("student"))
 
     def teacher_unembed(self, params_t) -> torch.Tensor:
-        """The teacher's output layer, on the student section's device."""
-        return teacher_unembedding(params_t, self.t_cfg).to(
-            self.rt.device("student"))
+        """The teacher's output layer, on the student section's device (on
+        section meshes: the teacher's origin sends it to every student
+        rank; every rank calls this, and the ranks without the student get
+        None)."""
+        w = (teacher_unembedding(params_t, self.t_cfg)
+             if params_t is not None else None)
+        return self.runtime.transfer(
+            "teacher", "student", "w_t", w,
+            (self.t_cfg.d_model, self.t_cfg.padded_vocab), self.t_cfg.dtype)
 
     def train_iteration(self, params_t, params_s, opt, batch, step_idx, *,
-                        w_t=None, timeout: float = 300.0):
+                        w_t=_UNSET, timeout: float = 300.0):
         """One global-batch iteration on the compound executor: teacher
         fwd (its own worker) → hidden-state push → student pull +
         loss/grads → the student's AdamW update on its worker, with the
         realized timeline on ``last_execution``.  Returns (params_s, opt,
-        metrics)."""
-        if w_t is None:
+        metrics).  ``w_t`` is what :meth:`teacher_unembed` gave (on
+        section meshes, None on a rank without the student); left out,
+        every rank takes it again."""
+        if w_t is _UNSET or (w_t is None and self.rt.meshes is None):
             w_t = self.teacher_unembed(params_t)
+        params = {n: p for n, p in (("teacher", params_t),
+                                    ("student", params_s)) if p is not None}
+        opts = {} if opt is None else {"student": opt}
         params, opts, metrics = self.runtime.train_iteration(
-            {"teacher": params_t, "student": params_s},
-            {"student": opt}, batch, step_idx,
+            params, opts, batch, step_idx,
             consts={"student": {"w_t": w_t}}, timeout=timeout)
         self.last_execution = metrics["execution"]
-        return params["student"], opts["student"], metrics
+        return params.get("student"), opts.get("student"), metrics
 
     def shutdown(self):
         self.runtime.shutdown()

@@ -246,13 +246,16 @@ def mllm_spec(vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
 
 
 def _sections(tree):
-    """``{"vit", "lm"}`` → the spec's ``{"vit", "llm"}``."""
-    return {"vit": tree["vit"], "llm": tree["lm"]}
+    """``{"vit", "lm"}`` → the spec's ``{"vit", "llm"}`` (on section
+    meshes a rank holds only its own sections' trees)."""
+    return {s: tree[j] for j, s in (("vit", "vit"), ("lm", "llm"))
+            if tree.get(j) is not None}
 
 
 def _joint(tree):
     """The spec's ``{"vit", "llm"}`` → ``{"vit", "lm"}``."""
-    return {"vit": tree["vit"], "lm": tree["llm"]}
+    return {j: tree[s] for j, s in (("vit", "vit"), ("lm", "llm"))
+            if s in tree}
 
 
 class MLLMRuntime:
@@ -265,14 +268,14 @@ class MLLMRuntime:
 
     ``devices`` lists the ViT's device, then the LLM's (default: every
     visible card; ``[torch.device("cuda:0")] * 2`` shares one card,
-    ``["cpu", "cpu"]`` runs on the host).  Each section runs on one
-    device; the ViT's context parallelism waits for the multi-device
-    regimes (ROADMAP.md, A6)."""
+    ``["cpu", "cpu"]`` runs on the host).  ``ranks`` carves section
+    meshes instead (the ViT's ranks, then the LM's), each section at its
+    own data degree; the ViT's context parallelism is ROADMAP.md, A6.3."""
 
     def __init__(self, vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
                  vit_parallel: ParallelConfig, lm_parallel: ParallelConfig,
                  global_batch: int, seq_len: int, mbs: int,
-                 devices=None, lr_schedule=None,
+                 devices=None, ranks=None, lr_schedule=None,
                  opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
                  lookahead: int = 0):
         self.vit_cfg, self.lm_cfg = vit_cfg, lm_cfg
@@ -281,7 +284,7 @@ class MLLMRuntime:
                               global_batch=global_batch, seq_len=seq_len,
                               mbs=mbs)
         self._crt = wl.CompoundRuntime(
-            self.spec, devices=devices,
+            self.spec, devices=devices, ranks=ranks,
             lr_schedule=lr_schedule or functools.partial(
                 schedules.constant, peak_lr=1e-3),
             opt_cfg=opt_cfg, lookahead=lookahead)
@@ -293,7 +296,10 @@ class MLLMRuntime:
     def init(self, seed: int = 0):
         """Init + place both sections' params (as
         :func:`init_compound_params` draws them) and their optimizer
-        states."""
+        states (on section meshes, this rank's sections' blocks)."""
+        if self.rt.meshes is not None:
+            p, o = self._crt.init(seed)
+            return _joint(p), _joint(o)
         return self.place(init_compound_params(
             self.vit_cfg, self.lm_cfg, seed=seed,
             device=self.rt.device("vit")))
@@ -316,8 +322,9 @@ class MLLMRuntime:
     def _remap_metrics(metrics):
         # n_vit_tasks counts the data-dependent compute tasks only: the
         # worker-side ``upd``, which every trainable section runs, is left
-        # out
-        metrics["n_vit_tasks"] = metrics["n_tasks"].get("vit", 0) - 1
+        # out (None on a rank that does not run the ViT)
+        n = metrics["n_tasks"].get("vit")
+        metrics["n_vit_tasks"] = None if n is None else n - 1
         if "grads" in metrics:
             metrics["grads"] = _joint(metrics["grads"])
         return metrics

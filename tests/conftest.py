@@ -34,3 +34,8 @@ def toy_batch(cfg, B=2, S=32, seed=0):
 @pytest.fixture
 def rng_key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where there is none")

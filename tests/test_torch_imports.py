@@ -1,7 +1,8 @@
 """Import hygiene and dispatch of the PyTorch port.
 
-The port (``src/repro_torch``), ``chip_smoke.py`` and the port's
-multi-rank drivers (``tests/torch_drivers``) import neither JAX nor
+The port (``src/repro_torch``), ``chip_smoke.py``, the port's
+multi-rank drivers (``tests/torch_drivers``) and its examples
+(``examples/*_torch.py``) import neither JAX nor
 anything of the JAX package ``repro``; CPU tensors reach the plain version
 and never the CUDA kernel's wrapper.
 """
@@ -142,7 +143,8 @@ _FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|"
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"]
-                         + sorted(DRIVERS.glob("*.py")),
+                         + sorted(DRIVERS.glob("*.py"))
+                         + sorted((ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     assert _FORBIDDEN.search(path.read_text()) is None
@@ -154,7 +156,7 @@ def test_the_port_drivers_import_no_jax_and_no_repro():
     ``sys.modules``."""
     names = sorted(p.stem for p in DRIVERS.glob("*.py"))
     assert {"dist_util", "driver_dp", "driver_compression",
-            "driver_elastic"} <= set(names)
+            "driver_elastic", "driver_sections"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
