@@ -122,7 +122,32 @@ CUDA kernels from the sources in this checkout.  Phases:
    affinity pass (ROADMAP.md, C10); and the device-carved runtime at a
    reduced size built, run and shut down four times, after which the
    card's reserved memory must not grow (with the runtime's release of
-   the cuBLAS workspaces turned off it must: the planted fault).  Then the
+   the cuBLAS workspaces turned off it must: the planted fault).  Then
+   context parallelism at world size 1 (``phase_cp``, a one-rank NCCL
+   group whose mesh has a ``seq`` axis of 1, all one H100 allows; every
+   mode runs ulysses there): (a) ``dist.context.cp_attention`` against
+   ``ops.flash_attention``, forward and (dq, dk, dv), float32 and bf16
+   within GRAD_TOL, o also within SHAPE_REL_TOL of its scale and row by
+   row (a planted o * 0.9 must fail), in the ulysses mode with 1 and 4
+   chunks (4 flash launches a call, each on the chunk's keys with their
+   ``kv_positions``, merged by ``merge_flash_partials``), at the MLLM
+   ViT's non-causal (2, 4096, 4096, 16, 16, 64) and qwen1.5-0.5b's causal
+   (4, 2048, 2048, 16, 16, 64), each call timed beside the plain call;
+   (b) qwen1.5-0.5b at full width with ``cp_attention_impl(mesh,
+   mode="ulysses", overlap_chunks=4)`` installed through the attention
+   hook, against the same model without it: loss and every gradient leaf
+   at 2 layers in float32 within CP_GRAD_TOL; at full depth in bf16,
+   batch 4 x 2048, every gradient leaf of the first batch within
+   CP_BF16_GRAD_TOL (with one chunk's lse planted ln 2 high in the merge
+   it must fail), then one train step, its loss within RT_TOL and its
+   warm ms beside the plain step's; (c) ``MLLMRuntime(..., ranks=[0,
+   0])`` with the ViT at ``cp=1`` against the device-carved runtime, bit
+   for bit (the cp-aware exchange between sections changes nothing at
+   world size 1).  The flash kernel is also checked and timed at the
+   chunks' shapes through ``phase_flash_shape``, (2, 4096, 1024, 16, 16,
+   64) non-causal and (4, 2048, 512, 16, 16, 64) causal, with the strided
+   key positions of cp 4 and 4 chunks, beside SDPA with a boolean mask.
+   Then the
    two-stage planner (``phase_plan``) with the H100's
    numbers for the compound configurations at the JAX package's test
    budgets (every section fits, eq. 2 on every edge) and for qwen1.5-0.5b
@@ -211,6 +236,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -485,7 +511,8 @@ def phase_sweep(rng) -> None:
 
 
 def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
-                      window: int = 0, rows: int = 0) -> dict:
+                      window: int = 0, rows: int = 0,
+                      positions=None) -> dict:
     """The kernel at one main-path shape (bf16; causal, or bidirectional as
     in the ViT and whisper's encoder, or cross-attention with S != T; with
     a sliding ``window``): checked against its plain version within
@@ -496,12 +523,14 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
     runs over that many query rows at a time (``plain_rows``).  With a
     window the kernel run without it must fail the same limit, and it is
     timed without it too (``nowindow_ms``: what skipping the tiles outside
-    the window saves)."""
+    the window saves).  ``positions`` are explicit key positions (a CP
+    chunk's, ``cp_positions``); SDPA then takes their boolean mask."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref, visible_mask
     B, S, T, H, KV, D = shape
     q, k, v, o, o_ref, err = run_case(rng, shape, torch.bfloat16, causal,
-                                      window, rows=rows)
+                                      window, positions=positions, rows=rows)
+    kw = dict(causal=causal, window=window, kv_positions=positions)
     top = o_ref.float().abs().max().item()
     tol = min(TOL[torch.bfloat16], SHAPE_REL_TOL * top)
     planted = (0.9 * o.float() - o_ref.float()).abs().max().item()
@@ -528,7 +557,8 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
           f"passes o*0.9 on rows >= {s0} ({rplanted:.3e})")
     out = {}
     if window:
-        o_nw = fa.flash_fwd(q, k, v, causal=causal)[0]
+        o_nw = fa.flash_fwd(q, k, v, causal=causal,
+                            kv_positions=positions)[0]
         unwindowed = (o_nw.float() - o_ref.float()).abs().max().item()
         rnw = row_rel_err(o_nw, o_ref)
         del o_nw
@@ -538,20 +568,20 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
               f"flash at {shape}: the limits pass the kernel run without "
               f"its window ({unwindowed:.3e}, row by row {rnw:.3e})")
         out["nowindow_ms"] = time_ms(
-            lambda: fa.flash_fwd(q, k, v, causal=causal), iters=10)
-    ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal, window=window),
-                 iters=10)
+            lambda: fa.flash_fwd(q, k, v, causal=causal,
+                                 kv_positions=positions), iters=10)
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, **kw), iters=10)
     plain = (functools.partial(plain_rows, rows=rows) if rows
              else flash_attention_ref)
-    plain_ms = time_ms(lambda: plain(q, k, v, causal=causal, window=window),
-                       iters=3, warmup=1)
+    plain_ms = time_ms(lambda: plain(q, k, v, **kw), iters=3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q.transpose(1, 2)
-    if window:
+    # the rows with a visible key (SDPA gives NaN on the others)
+    vis = visible_mask(S, T, **kw, device=q.device).any(dim=1)
+    if window or positions is not None:
         # a boolean mask, and K/V repeated to H heads beforehand: the
         # backend that takes an arbitrary mask takes no grouped heads
-        mask = visible_mask(S, T, causal=causal, window=window,
-                            device=q.device)
+        mask = visible_mask(S, T, **kw, device=q.device)
         kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2)
                   for x in (k, v))
 
@@ -563,28 +593,29 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
         def library():
             return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
-    lib_err = (library().transpose(1, 2).float() - o.float()).abs().max().item()
+    lib_err = (library().transpose(1, 2).float()
+               - o.float())[:, vis].abs().max().item()
     library_ms = time_ms(library, iters=10)
     if bwd:
         # the plain-PyTorch blockwise backward that training runs after the
         # kernel's forward (ROADMAP B2), for the device-time account
-        _, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
+        _, lse = fa.flash_fwd(q, k, v, **kw)
         do = torch.randn_like(o)
         out["plain_bwd_ms"] = time_ms(
-            lambda: fa.flash_bwd(q, k, v, o, lse, do, causal=causal,
-                                 window=window),
+            lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw),
             iters=3, warmup=1)
     # query-key pairs the mask lets through
-    pairs = int(visible_mask(S, T, causal=causal, window=window,
-                             device=q.device).sum())
+    pairs = int(visible_mask(S, T, **kw, device=q.device).sum())
     flops = 4 * B * H * D * pairs
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * KV * D) + 4 * B * S * H
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * KV * D) + 4 * B * S * H \
+        + (4 * T if positions is not None else 0)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"flash at {shape} bf16 {'causal' if causal else 'non-causal'}"
-          f"{f' window {window}' if window else ''}: kernel {ms:.3f} ms "
+          f"{f' window {window}' if window else ''}"
+          f"{' kv_positions' if positions is not None else ''}: kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
           f"sdpa {library_ms:.3f} ms (|sdpa-kernel| {lib_err:.3e}), "
           f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
@@ -2208,6 +2239,357 @@ def phase_sections() -> tuple[int, int]:
         f"{k} {v:.1f}" for k, v in parts.items())
         + f"; phase {time.perf_counter() - t_phase:.1f}")
     return got[3][0], got[3][1]
+
+
+# --------------------------------------------------------------------------- #
+# Context parallelism at world size 1
+# --------------------------------------------------------------------------- #
+CP_CHUNKS = 4
+# the chunk shapes of cp 4 with 4 chunks: the ViT's 4096 keys and the
+# training shape's 2048, a quarter of each after the all-to-all
+CP_CHUNK_SHAPES = (((2, 4096, 1024, 16, 16, 64), False),
+                   ((4, 2048, 512, 16, 16, 64), True))
+CP_CHUNK_DEGREE = 4
+# float32 gradients of 2 full-width layers, chunked and merged against one
+# flash call: the two sum the same terms in other orders
+CP_GRAD_TOL = 1e-4
+# bf16 gradients of the first batch at full depth with and without the CP
+# impl, the worst leaf's |g_cp - g| / |g| (Frobenius norms), NOISE_LEAVES
+# left out: on an H100 80GB HBM3 at 700 W the first layer's wq at
+# 2.117e-2 (the chunks' bf16 partials rounded through 24 layers), and
+# 4.872e-1 with chunk 1's lse planted ln 2 high; the limit is 3x the first
+CP_BF16_GRAD_TOL = 2.0 ** -4
+
+
+def cp_positions(cp: int, shard: int, j: int, cl: int) -> torch.Tensor:
+    """The key positions of chunk ``j`` after the all-to-all at degree
+    ``cp`` (``dist.context``'s layout), as a contiguous int32 tensor."""
+    pos = (np.arange(cp)[:, None] * shard + j * cl
+           + np.arange(cl)[None, :]).reshape(-1)
+    return torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def _cp_case(rng, mesh, shape, causal, dtype, chunks) -> dict:
+    """cp_attention (ulysses, ``chunks`` chunks) against
+    ops.flash_attention on the same inputs: the forward and (dq, dk, dv)
+    of sum(o * do) within GRAD_TOL of 1 + |ref|, o also within
+    SHAPE_REL_TOL of max|o_ref| and, row by row, of each row's own scale
+    (a planted o * 0.9, and o * 0.9 on the second half of the rows, must
+    fail them), and the launches a call."""
+    from repro_torch.dist import context as cpx
+    from repro_torch.kernels import ops
+    B, S, T, H, KV, D = shape
+    leaves = [_randn(rng, s, dtype).requires_grad_()
+              for s in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+    do = _randn(rng, (B, S, H, D), torch.float32)
+
+    def cp_call(*x):
+        return cpx.cp_attention(*x, mesh, mode="ulysses", causal=causal,
+                                overlap_chunks=chunks)
+
+    reset_counts()
+    o = cp_call(*leaves)
+    torch.cuda.synchronize()
+    launches = read_counts()[0]
+    got = torch.autograd.grad((o.float() * do).sum(), leaves)
+    o_ref = ops.flash_attention(*leaves, causal=causal)
+    want = torch.autograd.grad((o_ref.float() * do).sum(), leaves)
+    worst = 0.0
+    for name, g, w in (("o", o, o_ref), *zip(("dq", "dk", "dv"), got, want)):
+        err = ((g.float() - w.float()).abs()
+               / (1 + w.float().abs())).max().item()
+        worst = max(worst, err)
+        check(err <= GRAD_TOL[dtype], f"cp_attention chunks={chunks} "
+              f"{shape} {dtype} {name}: {err:.3e} > {GRAD_TOL[dtype]}")
+    # o on its own scale: at the ViT's shape |o| is about 0.2 at most, so
+    # GRAD_TOL's 1 + |ref| would pass a scaled epilogue (SHAPE_REL_TOL)
+    top = o_ref.float().abs().max().item()
+    tol = SHAPE_REL_TOL * top
+    oerr = (o.float() - o_ref.float()).abs().max().item()
+    planted = (0.9 * o.float() - o_ref.float()).abs().max().item()
+    rerr = row_rel_err(o.detach(), o_ref.detach())
+    bad = o.detach().clone()
+    bad[:, shape[1] // 2:] *= 0.9
+    rplanted = row_rel_err(bad, o_ref.detach())
+    del bad
+    for cond, what in (
+            (oerr <= tol, f"max|o-ref| {oerr:.3e} > {tol:.3e}"),
+            (planted > tol, f"the limit {tol:.3e} passes o*0.9 "
+                            f"({planted:.3e})"),
+            (rerr <= SHAPE_REL_TOL, f"a row's max|o-ref| is {rerr:.3e} of "
+                                    f"its max|o_ref|"),
+            (rplanted > SHAPE_REL_TOL, f"the row limit passes o*0.9 on the "
+                                       f"second half ({rplanted:.3e})")):
+        check(cond, f"cp_attention chunks={chunks} {shape} {dtype}: {what}")
+    check(launches == chunks, f"cp_attention chunks={chunks} launched "
+          f"flash {launches} times, expected {chunks}")
+    with torch.no_grad():
+        ms = time_ms(lambda: cp_call(*leaves), iters=5)
+        plain_ms = time_ms(lambda: ops.flash_attention(*leaves,
+                                                       causal=causal),
+                           iters=5)
+    return {"err": worst, "o_err": oerr, "o_tol": tol, "o_planted": planted,
+            "row_err": rerr, "row_planted": rplanted, "launches": launches,
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_cp(rng) -> int:
+    """Context parallelism on a one-rank NCCL group (see the module
+    docstring, ``phase_cp``); returns the flash launches of the bf16 train
+    step run under ``cp_attention_impl``."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.dist import context as cpx
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models import attention as att
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = shd.section_mesh([0], ParallelConfig())
+        check(shd.mesh_shape(mesh)["seq"] == 1, "the mesh's seq axis")
+        # (a) the CP attention modes against one flash call
+        for shape, causal in ((MLLM_VIT_ATTN, False), (TRAIN_ATTN, True)):
+            for dtype in (torch.float32, torch.bfloat16):
+                for chunks in (1, CP_CHUNKS):
+                    r = _cp_case(rng, mesh, shape, causal, dtype, chunks)
+                    print(f"cp_attention {shape} {str(dtype)[6:]} "
+                          f"{'causal' if causal else 'non-causal'} ulysses "
+                          f"chunks={chunks}: worst |x - ref| / (1 + |ref|) "
+                          f"over o, dq, dk, dv {r['err']:.3e} (tol "
+                          f"{GRAD_TOL[dtype]:.0e}); max|o-ref| "
+                          f"{r['o_err']:.3e} (limit {r['o_tol']:.3e}, "
+                          f"planted o*0.9 {r['o_planted']:.3e}), row by row "
+                          f"{r['row_err']:.3e} (limit {SHAPE_REL_TOL:.3e}, "
+                          f"planted {r['row_planted']:.3e}); flash launches "
+                          f"a call {r['launches']}; forward {r['ms']:.3f} ms"
+                          f" against one flash call {r['plain_ms']:.3f} ms")
+        free()
+        # (b1) qwen1.5-0.5b at full width, 2 layers, float32: the loss and
+        # every gradient leaf under the CP impl against without it
+        impl = cpx.cp_attention_impl(mesh, mode="ulysses",
+                                     overlap_chunks=CP_CHUNKS)
+        cfg = get_config(TRAIN_ARCH).replace(num_layers=2, dtype="float32")
+        params = tree_map(lambda p: p.detach().float(),
+                          build_model(cfg, device="cuda", seed=0)
+                          .param_tree())
+        Bg, Sg = 2, TRAIN_S
+        toks = rng.integers(0, cfg.vocab_size, (Bg, Sg + 1))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+                 "labels": torch.from_numpy(toks[:, 1:]).cuda(),
+                 "loss_mask": torch.from_numpy((rng.random((Bg, Sg)) < 0.9)
+                                               .astype(np.float32)).cuda()}
+        model = build_model(cfg, params, device="cuda")
+
+        def grads(with_impl: bool):
+            p = tree_map(lambda x: x.detach().requires_grad_(), params)
+            reset_counts()
+            ctx = att.attention_impl(impl) if with_impl else \
+                contextlib.nullcontext()
+            with ctx:
+                loss, _ = model.loss(batch, params=p)
+            g = torch.autograd.grad(loss, tree_leaves(p))
+            torch.cuda.synchronize()
+            return loss.detach(), g, read_counts()[0]
+
+        loss_cp, g_cp, n_cp = grads(True)
+        loss_pl, g_pl, n_pl = grads(False)
+        rel = grad_rel_err(g_cp, [g.cpu() for g in g_pl])
+        dl = abs(loss_cp.item() - loss_pl.item()) / abs(loss_pl.item())
+        print(f"cp {cfg.name} 2 layers f32 B={Bg} S={Sg}: loss "
+              f"{loss_cp.item():.7f} (cp impl, ulysses {CP_CHUNKS} chunks) "
+              f"vs {loss_pl.item():.7f}, relative {dl:.3e}; max per-leaf "
+              f"|dg| / max|g| {rel:.3e} (tol {CP_GRAD_TOL:.0e}) over "
+              f"{len(g_pl)} leaves; flash launches {n_cp} vs {n_pl}")
+        check(dl <= CP_GRAD_TOL and rel <= CP_GRAD_TOL,
+              "the CP impl changes qwen's loss or gradients at cp 1")
+        check(n_cp == cfg.num_layers * 2 * CP_CHUNKS
+              and n_pl == cfg.num_layers * 2,
+              f"flash launched {n_cp} (cp) and {n_pl} times, expected "
+              f"layers x 2 x {CP_CHUNKS} and layers x 2")
+        del model, params, g_cp, g_pl
+        free()
+        # (b2) qwen1.5-0.5b at full depth in bf16, 4 x 2048: the first
+        # batch's gradients, leaf by leaf, with the impl against without
+        # it; with the impl and a planted fault (chunk 1's lse shifted by
+        # ln 2 in the merge, so that chunk weighs twice) they must fail
+        cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+        gen_b = [{"tokens": torch.from_numpy(t[:, :-1]),
+                  "labels": torch.from_numpy(t[:, 1:]),
+                  "loss_mask": torch.ones(TRAIN_B, TRAIN_S)}
+                 for t in (rng.integers(0, cfg.vocab_size,
+                                        (TRAIN_B, TRAIN_S + 1))
+                           for _ in range(2))]
+        model = build_model(cfg, device="cuda", seed=0)
+        p0 = model.param_tree()
+        b0 = {k: v.cuda() for k, v in gen_b[0].items()}
+        merge = cpx.merge_flash_partials
+
+        def shifted(parts_o, parts_lse):
+            parts_lse = list(parts_lse)
+            parts_lse[1] = parts_lse[1] + math.log(2.0)
+            return merge(parts_o, parts_lse)
+
+        def bf16_grads(with_impl: bool, planted: bool = False):
+            p = tree_map(lambda x: x.detach().requires_grad_(), p0)
+            ctx = att.attention_impl(impl) if with_impl else \
+                contextlib.nullcontext()
+            cpx.merge_flash_partials = shifted if planted else merge
+            try:
+                with ctx:
+                    loss, _ = model.loss(b0, params=p)
+                    g = torch.autograd.grad(loss, tree_leaves(p))
+            finally:
+                cpx.merge_flash_partials = merge
+            return g
+
+        names = [path for path, _ in _named_leaves(p0)]
+
+        def leaf_gap(ga, gb) -> tuple[float, str, float]:
+            """The worst leaf's gap and name, and the NOISE_LEAVES' worst
+            (a key bias's gradient is zero but for rounding: softmax
+            ignores a shift shared by a row's keys)."""
+            worst, name, noise = 0.0, "", 0.0
+            for path, a, b in zip(names, ga, gb):
+                gap = ((a.float() - b.float()).norm()
+                       / b.float().norm().clamp_min(1e-30)).item()
+                if path.rsplit("/", 1)[-1] in NOISE_LEAVES:
+                    noise = max(noise, gap)
+                elif gap > worst:
+                    worst, name = gap, path
+            return worst, name, noise
+
+        g_pl = bf16_grads(False)
+        gap, leaf, noise = leaf_gap(bf16_grads(True), g_pl)
+        gap_bad, leaf_bad, _ = leaf_gap(bf16_grads(True, planted=True), g_pl)
+        print(f"cp {TRAIN_ARCH} bf16 full depth {TRAIN_B} x {TRAIN_S}: "
+              f"first-batch gradients, worst leaf |g_cp - g| / |g| {gap:.3e}"
+              f" ({leaf}; limit {CP_BF16_GRAD_TOL:.3e}; {NOISE_LEAVES} "
+              f"{noise:.3e}); planted (chunk 1's lse + ln 2) {gap_bad:.3e} "
+              f"({leaf_bad})")
+        check(gap <= CP_BF16_GRAD_TOL, f"the bf16 gradients under the CP "
+              f"impl differ by {gap:.3e} at {leaf} > {CP_BF16_GRAD_TOL:.3e}")
+        check(gap_bad > CP_BF16_GRAD_TOL, f"the bf16 gradient limit passes "
+              f"a chunk weighted twice ({gap_bad:.3e})")
+        del model, p0, b0, g_pl
+        free()
+        # then one bf16 train step with and without the impl, each from the
+        # same initial state; the second step of each is the warm one
+        out = {}
+        for with_impl in (True, False):
+            model = build_model(cfg, device="cuda", seed=0)
+            step = tstep.build_train_step(
+                model, ParallelConfig(mbs=TRAIN_B),
+                ShapeConfig("t", "train", TRAIN_S, TRAIN_B))
+            p = model.param_tree()
+            opt = adamw.init(p)
+            ctx = att.attention_impl(impl) if with_impl else \
+                contextlib.nullcontext()
+            losses, launches = [], 0
+            with ctx:
+                for i, b in enumerate(gen_b):
+                    b = {k: v.cuda() for k, v in b.items()}
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    p, opt, met = step(p, opt, b, i)
+                    losses.append(float(met["loss"]))
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    if i == 0:
+                        launches = read_counts()[0]
+            out[with_impl] = (losses, ms, launches)
+            del model, step, p, opt
+            free()
+        (l_cp, ms_cp, n_cp), (l_pl, ms_pl, n_pl) = out[True], out[False]
+        close = all(_rt_close(a, b) for a, b in zip(l_cp, l_pl))
+        print(f"cp {TRAIN_ARCH} bf16 full depth {TRAIN_B} x {TRAIN_S}: "
+              f"losses {l_cp} (cp impl) vs {l_pl}; warm step ms {ms_cp:.1f}"
+              f" vs {ms_pl:.1f} on {card()}; flash launches a step {n_cp} "
+              f"vs {n_pl}")
+        check(_finite(l_cp) and close, f"the bf16 step's losses under the "
+              f"CP impl {l_cp} are not within {RT_TOL} of {l_pl}")
+        check(n_cp == cfg.num_layers * 2 * CP_CHUNKS
+              and n_pl == cfg.num_layers * 2,
+              f"flash launched {n_cp} (cp) and {n_pl} times a step")
+        # (c) the cp-aware exchange between sections at world size 1
+        _cp_sections_bitwise()
+    finally:
+        dist.destroy_process_group()
+    print(f"cp: phase {time.perf_counter() - t_phase:.1f} s")
+    return n_cp
+
+
+def _cp_sections_bitwise() -> None:
+    """``MLLMRuntime(..., ranks=[0, 0])`` with the ViT at ``cp=1`` against
+    ``MLLMRuntime(devices=[cuda:0] * 2)``, two iterations at a reduced
+    size (pixtral-12b's reduced LM, a 2-layer ViT; float32) under
+    deterministic algorithms: losses, grad norms and both sections'
+    parameters equal bit for bit, and the ViT run on the same
+    microbatches."""
+    import os
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.core.types import ParallelConfig
+    from repro_torch.data.synthetic import vlm_batches
+    from repro_torch.mllm import workload as mw
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.vlm import vit_config
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    lm = get_reduced("pixtral-12b").replace(
+        dtype="float32", vocab_size=1024, vision_dim=64, max_image_tokens=8)
+    vit = vit_config(num_layers=2, d_model=64, num_heads=4, d_ff=128,
+                     patch_dim=16, downsample=4, out_dim=64,
+                     name="vit-tiny").replace(dtype="float32")
+    shape = dict(global_batch=16, seq_len=256, mbs=4)
+    data = vlm_batches(batch=16, seq_len=256, vocab=1024, vision_ratio=0.5,
+                       image_tokens=8, patch_dim=16, seed=0, device="cpu")
+    batches = [next(data) for _ in range(2)]
+    dev = torch.device("cuda", 0)
+    runs = {}
+    try:
+        for name, where in (("device-carved", dict(devices=[dev, dev])),
+                            ("section meshes", dict(ranks=[0, 0]))):
+            with mw.MLLMRuntime(vit, lm, vit_parallel=ParallelConfig(cp=1),
+                                lm_parallel=ParallelConfig(), **shape,
+                                **where) as rt:
+                params, opts = rt.init(0)
+                mets, vit_tasks = [], []
+                reset_counts()
+                for i, b in enumerate(batches):
+                    params, opts, m = rt.train_iteration(params, opts, b, i)
+                    mets.append((m["loss"], m["grad_norm"]))
+                    vit_tasks.append(m["n_vit_tasks"])
+                launches = read_counts()[0]
+                state = rt.state()[0]
+                runs[name] = (mets, [x.clone() for sec in ("vit", "lm")
+                                     for x in tree_leaves(state[sec])],
+                              vit_tasks, launches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    a, b = runs["device-carved"], runs["section meshes"]
+    same = all(torch.equal(x, y) for ma, mb in zip(a[0], b[0])
+               for x, y in zip(ma, mb))
+    diff = sum(not torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    print(f"cp sections: MLLMRuntime ranks=[0, 0] (ViT cp=1) against "
+          f"device carving: losses and grad norms bitwise equal {same}, "
+          f"leaves differing {diff} of {len(a[1])}, ViT tasks {b[2]} vs "
+          f"{a[2]}, flash launches {b[3]} vs {a[3]}")
+    check(same and diff == 0 and a[2] == b[2] and a[3] == b[3],
+          "the section-mesh MLLMRuntime differs from the device-carved one")
 
 
 def phase_multi_teacher() -> tuple[int, int]:
@@ -3987,6 +4369,17 @@ def main() -> int:
     free()
     sec_launches, sec_kl_launches = timed(phase_sections)
     free()
+    cp_launches = timed(phase_cp, rng)
+    free()
+    for name, (shape, causal) in zip(("cp_vit_chunk", "cp_train_chunk"),
+                                     CP_CHUNK_SHAPES):
+        S, T = shape[1:3]
+        pos = cp_positions(CP_CHUNK_DEGREE, S // CP_CHUNK_DEGREE, 1,
+                           T // CP_CHUNK_DEGREE)
+        flash_at[name] = {**timed(phase_flash_shape, rng, shape, causal,
+                                  bwd=False, positions=pos),
+                          "kv_positions": f"cp {CP_CHUNK_DEGREE} chunk 1"}
+    free()
     timed(phase_plan, calib)
     mt_launches, mt_kl_launches = timed(phase_multi_teacher)
     free()
@@ -4019,6 +4412,7 @@ def main() -> int:
              f"train {MAMBA}", f"serve {MAMBA}",
              f"distill-runtime {TRAIN_ARCH}",
              f"distill-sections {TRAIN_ARCH} world 1",
+             f"cp {TRAIN_ARCH} world 1",
              f"multi-teacher {TRAIN_ARCH}",
              "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
              f"train {MOONSHOT} {MOONSHOT_LAYERS}L", f"train {WHISPER}",
@@ -4026,14 +4420,14 @@ def main() -> int:
     per_path = {
         "flash": (serve_launches, train_launches, resume_launches,
                   dp_launches, distill_launches, 0, 0, rt_launches,
-                  sec_launches, mt_launches,
+                  sec_launches, cp_launches, mt_launches,
                   mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
         "kl": (0, 0, 0, 0, kl_launches, 0, 0, rt_kl_launches,
-               sec_kl_launches, mt_kl_launches, 0, 0, 0, 0, 0, 0),
+               sec_kl_launches, 0, mt_kl_launches, 0, 0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
-                0, 0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
+                0, 0, 0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

@@ -214,6 +214,10 @@ def check_wiring(runtime) -> AnalysisReport:
 # cudaMemcpyAsync, ...): the profiler gives it the id of the device work
 # it launched, and nests it under the operator that made it
 _LAUNCH = re.compile(r"^cu(da)?[A-Z]")
+# the span the profiler records when CUPTI asks it for a fresh activity
+# buffer in the middle of recording a launch: it files that one launch
+# call, with no operator above it, under its own thread (ROADMAP.md, C10)
+_BUFFER_REQUEST = "Activity Buffer Request"
 
 
 def _enclosing(call) -> Tuple[Optional[str], int]:
@@ -242,7 +246,10 @@ def check_profile(prof, runtime) -> AnalysisReport:
     task range enclosing it on its thread, or, in a backward node run by
     autograd's device thread, to the section whose worker thread ran the
     node's forward (``fwd_thread``), or to the section whose task ranges
-    ran on its thread; else to the main thread."""
+    ran on its thread; else to the main thread.  A launch call with no
+    operator above it whose thread's next event is the profiler's
+    activity buffer request was filed under the profiler's thread, not
+    its launcher's: it is counted apart."""
     rt = getattr(runtime, "rt", runtime)
     sections = set(getattr(rt, "workers", {}))
     rep = AnalysisReport("affinity")
@@ -290,16 +297,28 @@ def check_profile(prof, runtime) -> AnalysisReport:
     backward_threads = {e.thread for e in events
                         if e.device_type == DeviceType.CPU
                         and getattr(e, "fwd_thread", 0) not in (0, e.thread)}
+
+    def buffered(call) -> bool:
+        t = call.time_range.start
+        after = [e for e in events if e.device_type == DeviceType.CPU
+                 and e.thread == call.thread and e is not call
+                 and e.time_range.start >= t]
+        return bool(after) and min(
+            after, key=lambda e: e.time_range.start).name == _BUFFER_REQUEST
+
     # (owner, stream) -> kernel count, and the first such kernel with the
     # chain of operators that launched it; owner None is the main thread
     launched: Dict[Tuple[Optional[str], int], int] = collections.Counter()
     example: Dict[Tuple[Optional[str], int], str] = {}
-    unresolved = 0
+    unresolved = refiled = 0
     for sid, kernel, call, name, fwd in found:
         owner = name or section_threads.get(fwd) \
             or section_threads.get(call.thread)
         if owner is None and call.thread in backward_threads:
             unresolved += 1
+            continue
+        if owner is None and call.cpu_parent is None and buffered(call):
+            refiled += 1
             continue
         key = (owner if owner in sections else None, sid)
         launched[key] += 1
@@ -360,7 +379,8 @@ def check_profile(prof, runtime) -> AnalysisReport:
                 f"{sum(main.values())} kernels launched outside the "
                 f"sections, on streams {sorted(main)}; {unlinked} without "
                 f"a launch call in the trace, {unresolved} launched by "
-                "autograd outside any backward node")
+                f"autograd outside any backward node, {refiled} filed by "
+                "the profiler beside an activity buffer request")
     return rep
 
 

@@ -109,9 +109,9 @@ def build_vlm_graph(vit: ArchConfig, lm: ArchConfig, *, fanout: int = 1,
                     lm_parallel: Optional[ParallelConfig] = None
                     ) -> SectionGraph:
     """VLM: ViT encoder section (CP-heavy, long visual-token sequences) →
-    LLM backbone (critical).  The default ViT ``cp=2`` is the paper's;
-    the port's runtime runs one device a section (ROADMAP.md, A6), so its
-    callers pass ``vit_parallel``."""
+    LLM backbone (critical).  The default ViT ``cp=2`` is the paper's; it
+    runs on section meshes (``ranks=``, ROADMAP.md A6.3), and a runtime
+    carved by devices, one device a section, takes ``vit_parallel``."""
     g = SectionGraph()
     g.add(SectionConfig("vit", vit,
                         vit_parallel or ParallelConfig(cp=2),

@@ -81,6 +81,10 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def is_attn_layer(self, i: int) -> bool:
         if self.family == "ssm":
             return False
@@ -173,9 +177,11 @@ class ShapeConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Per-section training configuration C^s (paper §3.2): the fields of
-    the JAX package's that the port reads so far.  Its train steps and
-    sections run dp = tp = pp = cp = 1 and raise on anything else
-    (ROADMAP.md, A6), which adds the remaining fields."""
+    the JAX package's that the port reads.  A step runs dp and cp above 1
+    on a section mesh and raises for tp or pp above 1 (ROADMAP.md, A6.4).
+    The reference's ``cp_impl`` picks a kernel tier; the port dispatches
+    by device and has none.  ``sequence_parallel`` is an XLA layout knob
+    and is not ported either."""
     dp: int = 1
     tp: int = 1
     pp: int = 1
@@ -185,6 +191,12 @@ class ParallelConfig:
     remat: bool = True
     zero_opt: bool = True   # shard optimizer state over the data axis
     grad_compress: str = "none"   # "none" | "bf16" | "int8"
+    # --- CP attention (dist.context; active when cp > 1) ---
+    cp_mode: str = "auto"         # "auto" | "ulysses" | "ulysses_mqa" |
+    #   "allgather" -- auto picks ulysses when heads divide, else the
+    #   comm-model-cheaper of ulysses_mqa / allgather
+    cp_overlap_chunks: int = 1    # >1: per-chunk K/V all-to-alls under
+    #   ulysses, partial flash outputs merged exactly; must divide S/cp
 
     @property
     def devices(self) -> int:

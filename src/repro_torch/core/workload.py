@@ -86,14 +86,21 @@ controller over every mesh; the port is MPMD):
   trainable sections' origins and ranks, summed in sorted-section order —
   bitwise the colocated threshold on one rank;
 * a port crosses to another section's ranks point to point: each producer
-  rank sends its fragment to every consumer rank whose rows it overlaps,
-  and cotangents go back the same way (``_Exchange``).
-DP is the one regime: a ``pipe``, ``seq`` or ``model`` axis above 1 raises
-(ROADMAP.md, A6.4, A6.3, A6.4).
+  rank sends its fragment to every consumer rank whose rows and sequence
+  positions it overlaps, and cotangents go back the same way
+  (``_Exchange``);
+* a section whose ``seq`` axis is above 1 (``cp``) runs its tasks under
+  ``dist.context.cp_attention_impl``: each of its ranks holds its data
+  rows and its sequence columns -- dim 1 of every input, consumed port and
+  emitted port, split evenly over ``seq`` -- and its gradients are summed
+  over the data and sequence ranks (parameters are replicated over
+  ``seq``).
+A ``pipe`` or ``model`` axis above 1 raises (ROADMAP.md, A6.4).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import logging
 from dataclasses import dataclass, field
@@ -113,6 +120,7 @@ from repro_torch.core.scheduler import ScheduleResult
 from repro_torch.core.types import (H100, ArchConfig, ParallelConfig,
                                     SectionConfig)
 from repro_torch.dist import sharding as shd
+from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models.common import (tree_leaves, tree_like, tree_map,
                                        tree_unflatten)
@@ -432,16 +440,20 @@ def validate_section_parallel(name: str, arch: ArchConfig,
 
     With ``mesh`` (the section's ``DeviceMesh``, or its ``{axis: size}``
     shape) it routes through ``train.step.parallel_regime``, the dispatch
-    the sharded step uses: dp > 1 and ``grad_compress`` run, and a
-    ``pipe``, ``seq`` or ``model`` axis above 1 raises naming its ROADMAP
-    item (A6.4, A6.3, A6.4).  Without one the section runs on one device
-    (the plain regime), and every knob that needs a mesh raises, naming
-    the section and the mesh axis it would size.  Returns the regime
-    (``"plain"``)."""
+    the sharded step uses: dp > 1, cp > 1 and ``grad_compress`` run, a
+    ``pipe`` or ``model`` axis above 1 raises naming ROADMAP.md, A6.4,
+    and so do the families the cp regime refuses.  Without one the
+    section runs on one device (the plain regime), and every knob that
+    needs a mesh raises, naming the section and the mesh axis it would
+    size.  Returns the regime (``"plain"`` or ``"cp"``)."""
     if mesh is not None:
-        from repro_torch.train.step import parallel_regime
+        from repro_torch.train.step import (_check_pp_cp_support,
+                                            check_router_stats,
+                                            parallel_regime)
         try:
             regime = parallel_regime(mesh, parallel)
+            _check_pp_cp_support(arch, regime)
+            check_router_stats(arch, 1, parallel.cp, arch.name)
         except (ValueError, NotImplementedError) as e:
             raise type(e)(f"section {name!r}: {e}") from None
         compress = parallel.grad_compress or "none"
@@ -456,8 +468,8 @@ def validate_section_parallel(name: str, arch: ArchConfig,
         raise NotImplementedError(
             f"section {name!r} ({arch.name}): {', '.join(multi)} needs a "
             "section mesh: carve the runtime by ranks= (ROADMAP.md, A6.2; "
-            "pipeline, context and tensor parallel sections are A6.4, "
-            "A6.3, A6.4)")
+            "context parallel sections run there, A6.3; pipeline and "
+            "tensor parallel ones are A6.4)")
     if (parallel.grad_compress or "none") != "none":
         raise NotImplementedError(
             f"section {name!r}: grad_compress={parallel.grad_compress!r} "
@@ -595,19 +607,24 @@ class _Inflight:
 
 class _Exchange:
     """One iteration's traffic with sections on other ranks (section
-    meshes): which rows each rank holds, which ranks exchange what, in
-    which order, and the sends and receives themselves.
+    meshes): which rows and sequence positions each rank holds, which
+    ranks exchange what, in which order, and the sends and receives
+    themselves.
 
     A section of data degree ``dp`` splits each microbatch of ``m`` rows
-    into ``dp`` contiguous blocks, block ``d`` on its data rank ``d``.  A
-    producer's rows are its capacity rows when it has an activation
+    into ``dp`` contiguous blocks, block ``d`` on its data rank ``d``; at
+    context degree ``cp`` it also splits dim 1 of each port (length ``L``)
+    into ``cp`` contiguous blocks, block ``c`` on its sequence rank ``c``.
+    A producer's rows are its capacity rows when it has an activation
     predicate (valid rows first, in sample order), else the samples.  A
-    consumer rank needs the producer rows :meth:`need` names, always one
-    contiguous range; each producer rank sends its whole fragment to every
-    consumer rank whose range it overlaps (:meth:`pairs`), and a consumer
-    rank sends each such producer rank the cotangent of that fragment.
+    consumer rank ``(r, b)`` needs the producer rows :meth:`need` names
+    (always one contiguous range) and its own columns; each producer rank
+    ``(q, a)`` sends its whole fragment to every consumer rank whose
+    rectangle it overlaps (:meth:`pairs`), and a consumer rank sends each
+    such producer rank the cotangent of that fragment, fragment-shaped.
     :meth:`messages` lists every send in its sender's order, so that a
-    receiver posts its receives in that order (:meth:`expect`)."""
+    receiver posts its receives in that order (:meth:`expect`).  Where
+    neither side splits the sequence, no column is sliced."""
 
     def __init__(self, rt: "CompoundRuntime", plan: IterationPlan,
                  disp: Dict[str, set], it: str, timeout: float):
@@ -616,13 +633,18 @@ class _Exchange:
         self.m = plan.mbs
         self.q = rt.rt.queue
 
-    # ---- rows ---------------------------------------------------------- #
+    # ---- rows and columns -------------------------------------------- #
     def own(self, name: str, d: int) -> Tuple[int, int]:
         n = self.m // self.rt._dp[name]
         return d * n, (d + 1) * n
 
+    def cols(self, name: str, c: int, length: int) -> Tuple[int, int]:
+        """Sequence rank ``c``'s positions ``[a, b)`` of a dim-1 length."""
+        n = length // self.rt._cp[name]
+        return c * n, (c + 1) * n
+
     def need(self, src: str, dst: str, i: int, r: int) -> Tuple[int, int]:
-        """The producer rows ``[a, b)`` consumer rank ``r`` takes."""
+        """The producer rows ``[a, b)`` consumer data rank ``r`` takes."""
         act = self.plan.activation.get(src)
         lo, hi = self.own(dst, r)
         if act is None:
@@ -635,15 +657,27 @@ class _Exchange:
             return 0, 0
         return int(rows[0]), int(rows[-1]) + 1
 
-    def pairs(self, src: str, dst: str, i: int) -> List[Tuple[int, int]]:
-        """(producer rank, consumer rank) pairs whose rows overlap."""
+    def _split(self, src: str, dst: str) -> bool:
+        return self.rt._cp[src] > 1 or self.rt._cp[dst] > 1
+
+    def pairs(self, src: str, dst: str, i: int) -> List[Tuple[int, ...]]:
+        """``(q, a, r, b)``: producer rank ``(q, a)`` and consumer rank
+        ``(r, b)`` (data, sequence coordinates) whose rows and columns
+        overlap."""
+        cp_s, cp_d = self.rt._cp[src], self.rt._cp[dst]
         out = []
         for r in range(self.rt._dp[dst]):
             a, b = self.need(src, dst, i, r)
             for q in range(self.rt._dp[src]):
                 q0, q1 = self.own(src, q)
-                if max(a, q0) < min(b, q1):
-                    out.append((q, r))
+                if max(a, q0) >= min(b, q1):
+                    continue
+                # columns overlap on a common grid of cp_s * cp_d blocks
+                for sa in range(cp_s):
+                    for sb in range(cp_d):
+                        if max(sa * cp_d, sb * cp_s) < min(
+                                (sa + 1) * cp_d, (sb + 1) * cp_s):
+                            out.append((q, sa, r, sb))
         return sorted(out)
 
     def local_capacity(self, src: str, dst: str, act: SectionActivation):
@@ -666,23 +700,27 @@ class _Exchange:
 
     # ---- the send order ---------------------------------------------- #
     def _shape(self, port: Port, name: str) -> Tuple[int, ...]:
-        """One data rank's fragment of ``port`` in section ``name``."""
-        return ((self.m // self.rt._dp[name],)
-                + _resolve_shape(tuple(port.shape), self.rt.S))
+        """One rank's fragment of ``port`` in section ``name``."""
+        shp = _resolve_shape(tuple(port.shape), self.rt.S)
+        if self.rt._cp[name] > 1:
+            shp = (shp[0] // self.rt._cp[name],) + shp[1:]
+        return (self.m // self.rt._dp[name],) + shp
 
     def messages(self, name: str):
         """Every message section ``name``'s ranks send in this iteration,
         in each rank's send order (its dispatch order): tuples ``(dst,
-        key, sender's data rank, receiver's data rank, shape, dtype)``.
-        The senders below follow the same loops."""
+        key, sender's rank, receiver's rank, shape, dtype)``.  The senders
+        below follow the same loops."""
         rt, disp, it = self.rt, self.disp, self.it
         s = rt.spec.section(name)
 
         def cts(i):
             for c in s.consumes:
                 if c.key in rt._ct_keys(s) and i in disp[c.section]:
-                    for q, r in self.pairs(c.section, name, i):
-                        yield (c.section, f"{it}/ct.{c.key}.{i}", r, q,
+                    for q, a, r, b in self.pairs(c.section, name, i):
+                        yield (c.section, f"{it}/ct.{c.key}.{i}",
+                               rt._rank(name, r, b),
+                               rt._rank(c.section, q, a),
                                self._shape(c.port, c.section),
                                _torch_dtype(c.port.dtype))
 
@@ -692,8 +730,10 @@ class _Exchange:
                     for cname in rt.spec.consumers_of(name, p.name):
                         if i not in disp.get(cname, ()):
                             continue
-                        for q, r in self.pairs(name, cname, i):
-                            yield (cname, f"{it}/{name}.{p.name}.{i}", q, r,
+                        for q, a, r, b in self.pairs(name, cname, i):
+                            yield (cname, f"{it}/{name}.{p.name}.{i}",
+                                   rt._rank(name, q, a),
+                                   rt._rank(cname, r, b),
                                    self._shape(p, name),
                                    _torch_dtype(p.dtype))
         else:
@@ -706,9 +746,10 @@ class _Exchange:
             n_leaves = len(tree_leaves(s.params))
             for peer in rt._trainable:
                 if peer != name:
-                    for r in range(rt._dp[peer]):
-                        yield (peer, f"{it}/gnorm.{name}", 0, r,
-                               (n_leaves,), torch.float32)
+                    for r in rt._ranks[peer]:
+                        yield (peer, f"{it}/gnorm.{name}",
+                               rt._ranks[name][0], r, (n_leaves,),
+                               torch.float32)
 
     def expect(self) -> None:
         """Post this iteration's receives from sections on other ranks,
@@ -717,75 +758,104 @@ class _Exchange:
         for name in rt._topo:
             if name in rt._device:
                 continue
-            for dst, key, src_d, dst_d, shape, dtype in self.messages(name):
-                if dst in rt._device and dst_d == rt._me[dst]:
-                    self.q.expect(name, dst, key, rt._ranks[name][src_d],
-                                  shape, dtype)
+            for dst, key, src_r, dst_r, shape, dtype in self.messages(name):
+                if dst in rt._device and dst_r == rt._rank_me:
+                    self.q.expect(name, dst, key, src_r, shape, dtype)
 
     # ---- sends and receives ------------------------------------------ #
     def send_port(self, src: str, dst: str, key: str, i: int, value):
         """A producer rank's fragment to every consumer rank whose rows
-        it overlaps; the producer's origin counts the key once."""
-        me = self.rt._me[src]
-        for qq, r in self.pairs(src, dst, i):
-            if qq == me:
-                self.q.send(src, dst, key, value,
-                            rank=self.rt._ranks[dst][r])
-        if me == 0:
+        and columns it overlaps; the producer's origin counts the key
+        once."""
+        rt = self.rt
+        me = (rt._me[src], rt._seq[src])
+        for q, a, r, b in self.pairs(src, dst, i):
+            if (q, a) == me:
+                self.q.send(src, dst, key, value, rank=rt._rank(dst, r, b))
+        if rt._origin[src]:
             self.q.count_push(value)
 
     def recv_port(self, src: str, dst: str, ckey: str, i: int):
-        """This rank's rows of port ``ckey`` that ``src``'s ranks sent."""
-        rt, me = self.rt, self.rt._me[dst]
-        qs = [qq for qq, r in self.pairs(src, dst, i) if r == me]
+        """This rank's rows and columns of port ``ckey`` that ``src``'s
+        ranks sent."""
+        rt = self.rt
+        me = (rt._me[dst], rt._seq[dst])
+        senders = [(q, a) for q, a, r, b in self.pairs(src, dst, i)
+                   if (r, b) == me]
         got = self.q.recv(src, dst, f"{self.it}/{ckey}.{i}",
-                          [rt._ranks[src][qq] for qq in qs],
+                          [rt._rank(src, q, a) for q, a in senders],
                           timeout=self.timeout)
         shp, dt = rt._port_zero[dst][ckey]
-        if not qs:
+        if not senders:
             return torch.zeros(shp, dtype=dt, device=rt._device[dst])
-        frags = torch.cat([got[rt._ranks[src][qq]] for qq in qs])
-        a, b = self.need(src, dst, i, me)
+        qs = sorted({q for q, _ in senders})
+        seqs = sorted({a for _, a in senders})
+        rows = [torch.cat([got[rt._rank(src, q, a)] for a in seqs], dim=1)
+                if len(seqs) > 1 else got[rt._rank(src, q, seqs[0])]
+                for q in qs]
+        frags = torch.cat(rows) if len(rows) > 1 else rows[0]
+        a, b = self.need(src, dst, i, me[0])
         x = frags.narrow(0, a - self.own(src, qs[0])[0], b - a)
+        if self._split(src, dst):
+            length = frags.shape[1] * rt._cp[src] // len(seqs)
+            c0, c1 = self.cols(dst, me[1], length)
+            x = x.narrow(1, c0 - self.cols(src, seqs[0], length)[0],
+                         c1 - c0)
         if x.shape[0] < shp[0]:          # a consumer's capacity rows
             x = torch.cat([x, x.new_zeros((shp[0] - x.shape[0],)
                                           + tuple(x.shape[1:]))])
         return x
 
     def send_ct(self, name: str, c: Consume, i: int, g):
-        """A consumer rank's cotangent of its rows back to each producer
-        rank whose fragment they overlap, fragment-shaped."""
-        rt, me = self.rt, self.rt._me[name]
+        """A consumer rank's cotangent of its rows and columns back to
+        each producer rank whose fragment they overlap, fragment-shaped
+        (zero outside the overlap)."""
+        rt = self.rt
+        me = (rt._me[name], rt._seq[name])
         key = f"{self.it}/ct.{c.key}.{i}"
-        a, b = self.need(c.section, name, i, me)
-        for qq, r in self.pairs(c.section, name, i):
-            if r != me:
+        a, b = self.need(c.section, name, i, me[0])
+        split = self._split(c.section, name)
+        if split:
+            length = g.shape[1] * rt._cp[name]
+            m0, m1 = self.cols(name, me[1], length)
+        for q, sa, r, sb in self.pairs(c.section, name, i):
+            if (r, sb) != me:
                 continue
-            q0, q1 = self.own(c.section, qq)
+            q0, q1 = self.own(c.section, q)
             lo, hi = max(a, q0), min(b, q1)
             part = g.narrow(0, lo - a, hi - lo)
-            if (lo, hi) != (q0, q1):
-                full = part.new_zeros((q1 - q0,) + tuple(g.shape[1:]))
-                full[lo - q0:hi - q0] = part
+            shape = (q1 - q0,) + tuple(g.shape[1:])
+            dst = (slice(lo - q0, hi - q0),)
+            if split:
+                p0, p1 = self.cols(c.section, sa, length)
+                c0, c1 = max(m0, p0), min(m1, p1)
+                part = part.narrow(1, c0 - m0, c1 - c0)
+                shape = shape[:1] + (p1 - p0,) + shape[2:]
+                dst = dst + (slice(c0 - p0, c1 - p0),)
+            if tuple(part.shape) != shape:
+                full = part.new_zeros(shape)
+                full[dst] = part
                 part = full
             self.q.send(name, c.section, key, part,
-                        rank=rt._ranks[c.section][qq])
-        if me == 0:
+                        rank=rt._rank(c.section, q, sa))
+        if rt._origin[name]:
             self.q.count_push(g)
 
     def recv_ct(self, name: str, p: Port, consumer: str, i: int):
         """The cotangent of this rank's fragment of ``p``: the sum of what
         the overlapping consumer ranks sent (zero where none did)."""
-        rt, me = self.rt, self.rt._me[name]
-        rs = [r for qq, r in self.pairs(name, consumer, i) if qq == me]
+        rt = self.rt
+        me = (rt._me[name], rt._seq[name])
+        rs = [(r, b) for q, a, r, b in self.pairs(name, consumer, i)
+              if (q, a) == me]
         got = self.q.recv(consumer, name, f"{self.it}/ct.{name}.{p.name}.{i}",
-                          [rt._ranks[consumer][r] for r in rs],
+                          [rt._rank(consumer, r, b) for r, b in rs],
                           timeout=self.timeout)
         if not rs:
             return torch.zeros(self._shape(p, name),
                                dtype=_torch_dtype(p.dtype),
                                device=rt._device[name])
-        parts = [got[rt._ranks[consumer][r]] for r in rs]
+        parts = [got[rt._rank(consumer, r, b)] for r, b in rs]
         out = parts[0]
         for x in parts[1:]:
             out = out + x
@@ -809,10 +879,11 @@ class CompoundRuntime:
                  lookahead: int = 0):
         spec.validate()
         self._mesh_mode = ranks is not None
-        for s in spec.sections:
-            validate_section_parallel(
+        self._regime = {
+            s.name: validate_section_parallel(
                 s.name, s.arch, s.parallel,
                 _mesh_sizes(s.parallel) if self._mesh_mode else None)
+            for s in spec.sections}
         self.spec = spec
         self.opt_cfg = opt_cfg
         self.lr_fn = lr_schedule or functools.partial(schedules.constant,
@@ -849,24 +920,45 @@ class CompoundRuntime:
         self._trainable = [s.name for s in spec.sections if s.trainable]
         self._local = list(self.rt.local_sections)
         self._device = {n: self.rt.device(n) for n in self._local}
-        # per section: its ranks in data-coordinate order, its data degree
-        # and this rank's data coordinate (one device a section, rank 0 of
-        # its own, without meshes)
+        # per section: its ranks in mesh order (data major, then seq), its
+        # data and context degrees, this rank's data and sequence
+        # coordinates and whether it is the section's origin (one device a
+        # section, rank 0 of its own, without meshes); the attention its
+        # tasks run under
         self._ranks: Dict[str, List[int]] = {}
         self._dp: Dict[str, int] = {}
+        self._cp: Dict[str, int] = {}
         self._me: Dict[str, int] = {}
+        self._seq: Dict[str, int] = {}
+        self._origin: Dict[str, bool] = {}
+        self._attn: Dict[str, Any] = {}
         self._p_spec: Dict[str, Any] = {}
         self._o_spec: Dict[str, Any] = {}
+        self._rank_me = torch.distributed.get_rank() if self._mesh_mode \
+            else 0
         for s in spec.sections:
+            self._attn[s.name] = contextlib.nullcontext
             if not self._mesh_mode:
                 self._dp[s.name], self._me[s.name] = 1, 0
+                self._cp[s.name], self._seq[s.name] = 1, 0
+                self._origin[s.name] = True
                 continue
             mesh = self.rt.mesh(s.name)
             self._ranks[s.name] = [int(r) for r in mesh.mesh.flatten()]
-            self._dp[s.name] = s.parallel.dp
+            self._dp[s.name], self._cp[s.name] = s.parallel.dp, s.parallel.cp
             coord = mesh.get_coordinate()
             if coord is not None:
-                self._me[s.name] = int(coord[0])
+                c = dict(zip(mesh.mesh_dim_names, coord))
+                self._me[s.name] = int(c[shd.AXIS_DATA])
+                self._seq[s.name] = int(c[shd.AXIS_SEQ])
+                self._origin[s.name] = all(int(x) == 0 for x in coord)
+                if self._regime[s.name] == "cp":
+                    from repro_torch.dist.context import cp_attention_impl
+                    self._attn[s.name] = functools.partial(
+                        att.attention_impl, cp_attention_impl(
+                            mesh, mode=s.parallel.cp_mode,
+                            overlap_chunks=s.parallel.cp_overlap_chunks,
+                            section=s.name))
             rules = shd.rules_for(s.arch, mesh, teacher=not s.trainable)
             self._p_spec[s.name] = shd.param_shardings(s.params, mesh, rules)
             if s.trainable:
@@ -876,6 +968,11 @@ class CompoundRuntime:
         if spec.global_batch is not None and spec.seq_len is not None:
             self._build(spec.global_batch, spec.seq_len,
                         spec.mbs or spec.global_batch)
+
+    def _rank(self, name: str, d: int, c: int = 0) -> int:
+        """The rank at data coordinate ``d`` and sequence coordinate ``c``
+        of section ``name``'s mesh."""
+        return self._ranks[name][d * self._cp[name] + c]
 
     def _compressed_sections(self) -> Dict[str, str]:
         """The sections whose data-parallel reduction is compressed, and
@@ -890,6 +987,12 @@ class CompoundRuntime:
                 raise ValueError(
                     f"section {s.name!r}: grad_compress on a fwd_only "
                     "section — frozen sections produce no gradients")
+            if s.parallel.cp > 1:
+                raise NotImplementedError(
+                    f"section {s.name!r}: grad_compress requires the plain "
+                    "regime on a dp-only mesh — the compressed all-reduce "
+                    "runs over the data axis alone and cannot take the cp "
+                    "regime's sum over the seq axis")
             for c in s.consumes:
                 if by[c.section].activation is not None:
                     raise NotImplementedError(
@@ -984,14 +1087,38 @@ class CompoundRuntime:
                     f"section {s.name!r}: the microbatch size ({mbs}) must "
                     f"divide its data axis ({self._dp[s.name]}) so that "
                     "every data rank owns a real slice of it")
+            cp = self._cp[s.name]
+            if cp == 1:
+                continue
+            sec_seq = s.seq_len if s.seq_len is not None else seq_len
+            if sec_seq is None or sec_seq % cp:
+                raise ValueError(
+                    f"section {s.name!r}: sequence length {sec_seq} does "
+                    f"not divide the mesh {shd.AXIS_SEQ!r} axis ({cp})")
+            # every tensor a cp section's rank holds is split on dim 1
+            shapes = [(f"input {k!r}", f.shape) for k, f in s.inputs.items()]
+            shapes += [(f"port {c.key!r}", c.port.shape) for c in s.consumes]
+            shapes += [(f"port {p.name!r}", p.shape) for p in s.emits]
+            for what, shp in shapes:
+                dims = _resolve_shape(tuple(shp), seq_len)
+                if not dims or dims[0] % cp:
+                    raise ValueError(
+                        f"section {s.name!r}: {what} of shape {dims} has no "
+                        f"dim 1 that splits over the mesh "
+                        f"{shd.AXIS_SEQ!r} axis ({cp})")
         self.B, self.S, self.mbs = global_batch, seq_len, mbs
         self.n_mb = global_batch // mbs
+
+        def local(name, shape):
+            dims = _resolve_shape(tuple(shape), seq_len)
+            if self._cp[name] > 1:
+                dims = (dims[0] // self._cp[name],) + dims[1:]
+            return (mbs // self._dp[name],) + dims
         # the exact-zero fill a consumer takes for an inactive producer,
-        # at this rank's rows
+        # at this rank's rows and columns
         self._port_zero: Dict[str, Dict[str, Tuple[Tuple[int, ...],
                                                    torch.dtype]]] = {
-            s.name: {c.key: ((mbs // self._dp[s.name],)
-                             + _resolve_shape(tuple(c.port.shape), seq_len),
+            s.name: {c.key: (local(s.name, c.port.shape),
                              _torch_dtype(c.port.dtype))
                      for c in s.consumes}
             for s in self.spec.sections}
@@ -1145,7 +1272,7 @@ class CompoundRuntime:
             raise RuntimeError("transfer() requires a quiescent runtime")
         if dst not in self._device:
             if self._mesh_mode and src in self._device \
-                    and self._me[src] == 0:
+                    and self._origin[src]:
                 for r in self._ranks[dst]:
                     self.rt.queue.send(src, dst, key, value, rank=r)
             return None
@@ -1182,9 +1309,9 @@ class CompoundRuntime:
 
     def _loss_weights(self, host, plan: IterationPlan) -> List[float]:
         """Per microbatch: the critical section's share of the mask total
-        on this rank, n_local / n_all (exactly 1.0 on one data rank).  Its
-        loss is a mean over ``loss_mask`` (or over every token), so the
-        weighted losses and gradients sum over the data ranks to the
+        on this rank, n_local / n_all (exactly 1.0 on one rank).  Its loss
+        is a mean over ``loss_mask`` (or over every token), so the weighted
+        losses and gradients sum over the data and sequence ranks to the
         global mean's."""
         s = self.spec.critical
         m, lo = plan.mbs, self._me[s.name] * (plan.mbs // self._dp[s.name])
@@ -1193,11 +1320,13 @@ class CompoundRuntime:
         if "loss_mask" in s.inputs:
             mask = host["loss_mask"].double().numpy()[order]
         else:
-            mask = np.ones((len(order), 1))
+            mask = np.ones((len(order), self._cp[s.name]))
+        n = mask.shape[1] // self._cp[s.name]
+        cols = slice(self._seq[s.name] * n, (self._seq[s.name] + 1) * n)
         out = []
         for i in range(plan.n_mb):
             mb = mask[i * m:(i + 1) * m].reshape(m, -1)
-            total, mine = float(mb.sum()), float(mb[lo:hi].sum())
+            total, mine = float(mb.sum()), float(mb[lo:hi, cols].sum())
             out.append(1.0 if mine == total else mine / total)
         return out
 
@@ -1283,6 +1412,7 @@ class CompoundRuntime:
                 continue
             dev = self._device[s.name]
             mine = slice(*ex.own(s.name, self._me[s.name]))
+            cp, sq = self._cp[s.name], self._seq[s.name]
             given = (consts or {}).get(s.name, {})
             missing = set(s.consts) - set(given)
             if missing:
@@ -1312,7 +1442,11 @@ class CompoundRuntime:
                     v = ordered(k, dev)[mb_rows]
                     if act is not None:
                         v = v.index_select(0, act_idx[i])
-                    out[k] = v[mine]
+                    v = v[mine]
+                    if cp > 1:
+                        n = v.shape[1] // cp
+                        v = v[:, sq * n:(sq + 1) * n]
+                    out[k] = v
                 if act is not None:
                     out["act_valid"] = act_valid[i][mine]
                 for src, (idx_t, valid_t) in cons_act.items():
@@ -1384,7 +1518,7 @@ class CompoundRuntime:
             def fn():
                 pulled = pull_consumed(s, i)
                 inputs = {**mb_inputs(s, i), **pulled}
-                with torch.no_grad():
+                with torch.no_grad(), self._attn[s.name]():
                     out = s.fn(self._full_params(s.name, rec), inputs)
                 if s.trainable:
                     rec.ctx[(s.name, i)] = inputs
@@ -1412,7 +1546,8 @@ class CompoundRuntime:
                        for k in ct_keys}
                 if mesh_mode and share is not None:
                     rest["loss_share"] = share
-                val = s.fn(params, {**rest, **cts})
+                with self._attn[s.name]():
+                    val = s.fn(params, {**rest, **cts})
                 loss, aux = (val if s.loss_aux else (val, None))
                 if mesh_mode and weights is not None:
                     # this rank's share of the microbatch's global mean
@@ -1455,7 +1590,8 @@ class CompoundRuntime:
                 p_leaves = tree_leaves(params)
                 cin = {k: inputs[k].detach().requires_grad_()
                        for k in ct_keys}
-                out = s.fn(params, {**inputs, **cin})
+                with self._attn[s.name]():
+                    out = s.fn(params, {**inputs, **cin})
                 names = list(cts)
                 grads = _grads([out[n] for n in names],
                                p_leaves + list(cin.values()),
@@ -1485,7 +1621,7 @@ class CompoundRuntime:
                 key = f"{it}/gnorm.{name}"
                 if p in self._device:
                     q.push(name, p, key, vec)
-                elif self._me[name] == 0:
+                elif self._origin[name]:
                     for r in self._ranks[p]:
                         q.send(name, p, key, vec, rank=r)
                     q.count_push(vec)
@@ -1539,7 +1675,10 @@ class CompoundRuntime:
                 gs = [shd.shard(r.to(x.dtype), o, mesh) for r, o, x in
                       zip(tree_leaves(red), o_list, leaves)]
             else:
-                axes = shd.dp_axes(mesh)
+                # parameters are replicated over seq: a cp section's
+                # gradients sum over its sequence ranks too
+                axes = shd.dp_axes(mesh) + (
+                    (shd.AXIS_SEQ,) if self._cp[name] > 1 else ())
                 gs = [(shd.reduce_to(a, o, mesh, axes) / n_mb).to(x.dtype)
                       for a, o, x in zip(g, o_list, leaves)]
             vec = torch.stack([

@@ -169,14 +169,17 @@ class DistillRuntime:
     every visible card; ``[torch.device("cuda:0")] * 2`` shares one card,
     ``["cpu", "cpu"]`` runs on the host).  ``ranks`` carves section meshes
     instead (the teacher's ranks, then the student's), whose data degrees
-    must satisfy the paper's eq. 1, ``DP^s = fanout · DP^t``.
+    must satisfy the paper's eq. 1, ``DP^s = fanout · DP^t``; the student
+    may also split the sequence over a ``seq`` axis (``student_parallel
+    .cp``), each of its ranks taking the KL of its own tokens.
     ``train_iteration`` updates ``opt``'s tensors in place."""
 
     def __init__(self, t_cfg: ArchConfig, s_cfg: ArchConfig, *,
                  teacher_parallel: ParallelConfig,
                  student_parallel: ParallelConfig,
                  devices=None, ranks=None, alpha: float = 0.5,
-                 temperature: float = 2.0, lr: float = 1e-3):
+                 temperature: float = 2.0, lr: float = 1e-3,
+                 opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()):
         fanout = student_parallel.dp // teacher_parallel.dp
         if teacher_parallel.dp * fanout != student_parallel.dp:
             raise ValueError(
@@ -192,7 +195,8 @@ class DistillRuntime:
                                  alpha=alpha, temperature=temperature)
         self.runtime = wl.CompoundRuntime(
             self.spec, devices=devices, ranks=ranks,
-            lr_schedule=functools.partial(schedules.constant, peak_lr=lr))
+            lr_schedule=functools.partial(schedules.constant, peak_lr=lr),
+            opt_cfg=opt_cfg)
         self.rt = self.runtime.rt
         self.graph = self.runtime.graph
         self.executor = self.runtime.executor

@@ -258,3 +258,27 @@ class FlashAttentionLse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         return _grads(ctx, do, dlse)
+
+
+def merge_flash_partials(o_parts, lse_parts):
+    """Online-softmax merge of flash partials over disjoint KV chunks;
+    port of ``repro/kernels/flash_attention.py::merge_flash_partials``.
+
+    ``o_parts`` [N,B,S,H,D] (or a list of [B,S,H,D]), ``lse_parts``
+    [N,B,S,H] (or a list of [B,S,H]) -> (o, lse) over the union of the
+    chunks.  Exact: each partial is its chunk's softmax-weighted value sum
+    with its log-sum-exp, so reweighting by ``exp(lse_i - lse)``
+    rebuilds the global softmax.  A fully masked chunk carries lse <=
+    -1e29 and merges with weight 0.  Plain torch in float32, which
+    autograd differentiates; the chunks' Functions take the resulting
+    (do_i, dlse_i) cotangents."""
+    if isinstance(o_parts, (list, tuple)):
+        o_parts = torch.stack(list(o_parts))
+    if isinstance(lse_parts, (list, tuple)):
+        lse_parts = torch.stack(list(lse_parts))
+    m = lse_parts.amax(dim=0)
+    w = torch.exp(lse_parts - m[None])
+    total = w.sum(dim=0).clamp_min(1e-30)
+    lse = m + torch.log(total)
+    o = (o_parts.float() * (w / total[None])[..., None]).sum(dim=0)
+    return o.to(o_parts.dtype), lse

@@ -213,7 +213,14 @@ def mllm_spec(vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
     devices and streams, AdamW, the joint grad-norm, wavefront dispatch —
     is the generic :class:`repro_torch.core.workload.CompoundRuntime`."""
     K, Vd = lm_cfg.max_image_tokens, lm_cfg.vision_dim
-    P = K * vlm.downsample_factor(vit_cfg)
+    ds = vlm.downsample_factor(vit_cfg)
+    P = K * ds
+    if K % vit_parallel.cp:
+        raise ValueError(
+            f"section 'vit': cp={vit_parallel.cp} splits its {P} patches into "
+            f"shards of {P / vit_parallel.cp:g}, not a multiple of the "
+            f"downsample factor {ds}: the merge would join tokens across a "
+            "shard boundary")
     emb = wl.Port("emb", (K, Vd), vit_cfg.dtype)
 
     def vit_fn(pv, x):
@@ -270,7 +277,11 @@ class MLLMRuntime:
     visible card; ``[torch.device("cuda:0")] * 2`` shares one card,
     ``["cpu", "cpu"]`` runs on the host).  ``ranks`` carves section
     meshes instead (the ViT's ranks, then the LM's), each section at its
-    own data degree; the ViT's context parallelism is ROADMAP.md, A6.3."""
+    own data degree; the ViT may also split its patch sequence over a
+    ``seq`` axis (``vit_parallel.cp``, the reference's default of 2 in
+    ``build_vlm_graph``), each rank merging the tokens of its own shard.
+    The LM's image splice takes global positions, so an LM at ``cp`` > 1
+    raises (ROADMAP.md, A6.3 remainder)."""
 
     def __init__(self, vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
                  vit_parallel: ParallelConfig, lm_parallel: ParallelConfig,
@@ -354,6 +365,12 @@ class MLLMRuntime:
 
     def state(self):
         p, o = self._crt.state()
+        return _joint(p), _joint(o)
+
+    def blocks(self):
+        """The streaming state as held (on section meshes this rank's
+        blocks, which ``train_iteration`` and ``install`` take)."""
+        p, o = self._crt.blocks()
         return _joint(p), _joint(o)
 
     @property

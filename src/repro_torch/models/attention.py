@@ -14,9 +14,24 @@ Unlike the JAX package, whose arrays are immutable, the cache is allocated
 once (by the caller, or here when it passes none) and both prefill and
 decode write into it in place; ``attention_decode`` returns the same
 tensors it was given.
+
+``attention_impl(fn)`` installs a full-sequence attention implementation
+for the calling thread, as the reference's does for its trace: the train
+step and the compound runtime install ``dist.context.cp_attention_impl``
+on a context-parallel section, so every self-attention call of the model
+runs over the sequence shards without the model knowing about meshes.
+The contract is the reference's, ``fn(q, k, v, *, causal, window,
+segment_q, segment_kv, scale) -> o``, plus ``fn.positions(S, device)``:
+the global positions of this rank's S rows, which RoPE takes (the port's
+tensors are the rank's shard, where the reference's are global).  The
+setting is per thread, because sections run on worker threads of one
+process; :func:`remat_context` carries it into a checkpointed layer's
+recompute, which autograd may run on another thread.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -26,6 +41,32 @@ from repro_torch.core.types import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamSpec, torch_dtype
+
+
+_IMPL = threading.local()
+
+
+@contextlib.contextmanager
+def attention_impl(fn):
+    """Install ``fn`` as this thread's full-sequence attention for the
+    duration of the context (serving paths are unaffected)."""
+    prev = getattr(_IMPL, "fn", None)
+    _IMPL.fn = fn
+    try:
+        yield
+    finally:
+        _IMPL.fn = prev
+
+
+def current_impl():
+    """The attention implementation installed on this thread, or None."""
+    return getattr(_IMPL, "fn", None)
+
+
+def remat_context():
+    """``context_fn`` for ``torch.utils.checkpoint``: the recompute runs
+    under the implementation that was installed when the forward ran."""
+    return contextlib.nullcontext(), attention_impl(current_impl())
 
 
 def attn_specs(cfg: ArchConfig) -> dict:
@@ -112,16 +153,23 @@ def attention(p, x, cfg: ArchConfig, *, causal: bool = True,
     same numbers."""
     B, S, _ = x.shape
     H = cfg.num_heads
+    impl = current_impl()
     if kv_override is None:
-        positions = torch.arange(S, device=x.device)[None, :]
+        positions = (impl.positions(S, x.device) if impl is not None
+                     else torch.arange(S, device=x.device))[None, :]
         q, k, v = _project_qkv(p, x, cfg, positions)
     else:                                             # cross-attention
         q = _project_q(p, x, cfg, None, rope=False)
         k, v = kv_override
     q = cm.shard_act(_pad_q_heads(q, cfg), "attn_q")
-    o = kops.flash_attention(q, k, v, causal=causal,
-                             window=cfg.sliding_window,
-                             segment_q=segment_ids, segment_kv=segment_ids)
+    if impl is not None:
+        o = impl(q, k, v, causal=causal, window=cfg.sliding_window,
+                 segment_q=segment_ids, segment_kv=segment_ids, scale=None)
+    else:
+        o = kops.flash_attention(q, k, v, causal=causal,
+                                 window=cfg.sliding_window,
+                                 segment_q=segment_ids,
+                                 segment_kv=segment_ids)
     o = _unpad_o_heads(cm.shard_act(o, "attn_q"), cfg, H)
     return _out_proj(o, p["wo"])
 

@@ -205,7 +205,8 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
             if checkpoint:
                 x, a = torch.utils.checkpoint.checkpoint(
                     _sublayer_fwd, lp, x, cfg, mixer, ffn, segment_ids,
-                    causal, use_reentrant=False)
+                    causal, use_reentrant=False,
+                    context_fn=att.remat_context)
             else:
                 x, a = _sublayer_fwd(lp, x, cfg, mixer, ffn, segment_ids,
                                      causal)

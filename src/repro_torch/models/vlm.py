@@ -66,7 +66,11 @@ def vit_encode(p, cfg: ArchConfig, patches: torch.Tensor, *,
 
     The ViT attends over the full (long) patch sequence, then merges
     ``ds`` consecutive tokens (pixel-unshuffle style) into one LM-space
-    embedding.  With ``remat`` each layer runs under
+    embedding.  Under context parallelism ``patches`` is this rank's
+    sequence shard, its attention runs through the installed
+    ``attention_impl``, and each rank merges the ``ds`` consecutive tokens
+    of its own shard (so the shard must hold a multiple of ``ds``).  With
+    ``remat`` each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant), as ``transformer.py``'s
     sub-layers do: the flash kernel runs twice per layer in a backward."""
     B, P, _ = patches.shape
@@ -75,12 +79,18 @@ def vit_encode(p, cfg: ArchConfig, patches: torch.Tensor, *,
     checkpoint = remat and torch.is_grad_enabled()
     for lp in cm.unbind_layers(p["layers"]):
         if checkpoint:
-            x = torch.utils.checkpoint.checkpoint(_layer_fwd, lp, x, cfg,
-                                                  use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(
+                _layer_fwd, lp, x, cfg, use_reentrant=False,
+                context_fn=att.remat_context)
         else:
             x = _layer_fwd(lp, x, cfg)
         x = cm.shard_act(x, "hidden")
     x = apply_norm(p["final_norm"], x, cfg)
     ds = downsample_factor(cfg)
+    if P % ds:
+        raise ValueError(
+            f"vit_encode: {P} patches (a sequence shard's, under context "
+            f"parallelism) are not a multiple of the downsample factor "
+            f"{ds}: the merge would join tokens across a shard boundary")
     x = x.reshape(B, P // ds, ds * cfg.d_model)
     return x @ p["merge_proj"]

@@ -29,21 +29,31 @@ function.
   takes and returns the error-feedback residual ``ef``, stacked ``[1, ...]``
   on each rank.
 
-Only the plain regime runs: a ``pipe``, ``seq`` or ``model`` axis above 1
-raises (ROADMAP.md, A6.4, A6.3, A6.4), and so do the MoE and hybrid
-families on more than one data rank (their load-balancing loss needs the
-router statistics, A6.4).
+* a ``seq`` axis above 1: the context-parallel regime (``"cp"``).  Each
+  rank keeps its data rows and its sequence columns of every batch leaf
+  (labels come with the batch, so no token crosses a shard), and the
+  model's attention runs through ``dist.context.cp_attention_impl``,
+  installed with ``models.attention.attention_impl``.  Each masked mean
+  divides by the mask total over the data and sequence ranks, and the
+  gradients are summed over both before the reduce-scatter into the ZeRO
+  blocks: parameters are replicated over ``seq``.
+
+A ``pipe`` or ``model`` axis above 1 raises (ROADMAP.md, A6.4), and so do
+the MoE and hybrid families on more than one data or sequence rank (their
+load-balancing loss needs the router statistics, A6.4).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.types import ParallelConfig, ShapeConfig
+from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.dist import sharding as shd
+from repro_torch.models import attention as att
 from repro_torch.models.common import (tree_leaves, tree_like, tree_map,
                                        tree_unflatten)
 from repro_torch.models.model import Model
@@ -51,7 +61,7 @@ from repro_torch.optim import adamw, schedules
 from repro_torch.optim import compression as gcomp
 
 #: ParallelConfig knobs above 1 that no step runs yet, and their slice
-_LATER = {"pp": "A6.4", "cp": "A6.3", "tp": "A6.4"}
+_LATER = {"pp": "A6.4", "tp": "A6.4"}
 
 
 def check_single_device(parallel: ParallelConfig, what: str) -> None:
@@ -63,21 +73,21 @@ def check_single_device(parallel: ParallelConfig, what: str) -> None:
                 f"{what}: {k}={getattr(parallel, k)} is not ported yet; see "
                 f"ROADMAP.md, {item}")
     compress = parallel.grad_compress or "none"
-    if parallel.dp != 1 or compress != "none":
+    if parallel.dp != 1 or parallel.cp != 1 or compress != "none":
         raise NotImplementedError(
-            f"{what}: dp={parallel.dp}, grad_compress={compress!r} run only "
-            "on a mesh: train.step.build_train_step(..., mesh=dist.sharding"
-            ".section_mesh(ranks, parallel)) under torch.distributed "
-            "(ROADMAP.md, A6.1); a compound section on several ranks is "
-            "ROADMAP.md, A6.2")
+            f"{what}: dp={parallel.dp}, cp={parallel.cp}, grad_compress="
+            f"{compress!r} run only on a mesh: train.step.build_train_step("
+            "..., mesh=dist.sharding.section_mesh(ranks, parallel)) under "
+            "torch.distributed (ROADMAP.md, A6.1, A6.3); a compound section "
+            "on several ranks is ROADMAP.md, A6.2")
 
 
 def parallel_regime(mesh, parallel: ParallelConfig) -> str:
     """Validate ``parallel`` against ``mesh`` (a ``DeviceMesh`` or an
-    ``{axis: size}`` mapping) and name the step regime.  A mismatch raises
-    ``ValueError``; a ``pipe``, ``seq`` or ``model`` axis above 1 raises
-    ``NotImplementedError`` naming its ROADMAP item.  Only ``"plain"``
-    runs."""
+    ``{axis: size}`` mapping) and name the step regime: ``"cp"`` for a
+    ``seq`` axis above 1, else ``"plain"``.  A mismatch, or a CP knob out
+    of range, raises ``ValueError``; a ``pipe`` or ``model`` axis above 1
+    raises ``NotImplementedError`` naming its ROADMAP item."""
     sizes = shd.mesh_shape(mesh)
     have = {"pp": sizes.get(shd.AXIS_PIPE, 1),
             "cp": sizes.get(shd.AXIS_SEQ, 1),
@@ -94,12 +104,53 @@ def parallel_regime(mesh, parallel: ParallelConfig) -> str:
         raise NotImplementedError(
             "pp x cp composition is not supported in the reference either; "
             "pipeline parallelism is ROADMAP.md, A6.4")
+    from repro_torch.dist.context import CP_MODES
+    if parallel.cp_mode not in CP_MODES:
+        raise ValueError(
+            f"ParallelConfig.cp_mode={parallel.cp_mode!r}: expected one "
+            f"of {CP_MODES}")
+    if parallel.cp_overlap_chunks < 1:
+        raise ValueError(
+            f"ParallelConfig.cp_overlap_chunks="
+            f"{parallel.cp_overlap_chunks}: must be >= 1")
+    if parallel.cp_overlap_chunks > 1 and parallel.cp_mode in (
+            "allgather", "ulysses_mqa"):
+        raise ValueError(
+            f"ParallelConfig.cp_overlap_chunks="
+            f"{parallel.cp_overlap_chunks} only applies to the ulysses "
+            f"mode's K/V a2a chain, but cp_mode={parallel.cp_mode!r} "
+            f"was forced")
     for k, item in _LATER.items():
         if have[k] > 1:
             raise NotImplementedError(
                 f"{k}={have[k]}: the {axis[k]} axis's regime is not ported "
                 f"yet; see ROADMAP.md, {item}")
-    return "plain"
+    return "cp" if have["cp"] > 1 else "plain"
+
+
+def _check_pp_cp_support(cfg: ArchConfig, regime: str) -> None:
+    """The families the CP regime refuses: the reference's (audio, whose
+    cross-attention has no sequence shard, and attention-free archs,
+    whose seq axis would be replicated silently), and the VLM family's
+    image splice, whose image positions are global (ROADMAP.md, A6.3
+    remainder)."""
+    if regime != "cp":
+        return
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "context parallelism is not implemented for encoder-"
+            "decoder (audio) sections (cross-attention)")
+    if cfg.attention_free:
+        raise NotImplementedError(
+            f"cp>1 on attention-free arch {cfg.name!r}: there is no "
+            "attention to sequence-shard, the seq axis would be "
+            "silently replicated")
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"cp>1 on the vlm arch {cfg.name!r}: its image embeddings are "
+            "scattered at global token positions, which a sequence shard "
+            "does not hold; see ROADMAP.md, A6.3 (remainder: the image "
+            "splice under cp)")
 
 
 def num_microbatches(shape: ShapeConfig, parallel: ParallelConfig,
@@ -252,23 +303,43 @@ def reduce_grads(grads: List[torch.Tensor], specs: list, mesh,
     return [shd.reduce_to(g, s, mesh, axes) for g, s in zip(grads, specs)]
 
 
+def check_router_stats(cfg: ArchConfig, dp_total: int, cp: int,
+                       where: str) -> None:
+    """The MoE and hybrid families on more than one data or sequence rank
+    raise: their load-balancing loss is nonlinear in the router statistics
+    of the whole batch."""
+    if (dp_total > 1 or cp > 1) and cfg.family in ("moe", "hybrid"):
+        raise NotImplementedError(
+            f"{where}: the {cfg.family} family's load-balancing loss is "
+            "nonlinear in the batch's router statistics, so per-rank values "
+            f"do not combine over {dp_total} data x {cp} sequence ranks; "
+            "the exact form needs moe(return_stats=), ROADMAP.md, A6.4")
+
+
 def _check_sharded(model: Model, parallel: ParallelConfig,
                    shape: ShapeConfig, mesh) -> tuple:
-    """The refusals of the sharded step -> (data axes, their size)."""
+    """The refusals of the sharded step -> (regime, data axes, their
+    size)."""
     cfg = model.cfg
-    parallel_regime(mesh, parallel)
+    regime = parallel_regime(mesh, parallel)
+    _check_pp_cp_support(cfg, regime)
     dp_ax = shd.dp_axes(mesh)
     dp_total = shd.axis_size(mesh, dp_ax)
-    if dp_total > 1 and cfg.family in ("moe", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's load-balancing loss is "
-            "nonlinear in the batch's router statistics, so per-rank values "
-            f"do not combine over {dp_total} data ranks; the exact form "
-            "needs moe(return_stats=), ROADMAP.md, A6.4")
+    cp = shd.mesh_shape(mesh).get(shd.AXIS_SEQ, 1)
+    check_router_stats(cfg, dp_total, cp, cfg.name)
     compress = parallel.grad_compress or "none"
     if compress not in gcomp.METHODS:
         raise ValueError(f"ParallelConfig.grad_compress={compress!r}: "
                          f"expected one of {gcomp.METHODS}")
+    if compress != "none" and regime != "plain":
+        raise NotImplementedError(
+            "grad_compress requires the plain regime on a dp-only mesh: the "
+            "compressed all-reduce runs over the data axis alone and cannot "
+            "take the cp regime's sum over the seq axis")
+    if regime == "cp" and shape.seq_len % cp:
+        raise ValueError(
+            f"sequence length {shape.seq_len} does not divide the mesh "
+            f"{shd.AXIS_SEQ!r} axis ({cp})")
     if compress != "none" and len(dp_ax) > 1:
         raise NotImplementedError(
             "grad_compress supports a single data axis (got a multi-pod dp "
@@ -279,7 +350,7 @@ def _check_sharded(model: Model, parallel: ParallelConfig,
             f"to divide the data axes ({dp_total}) so that every rank owns a "
             "real slice of it; the reference's sequence-sharded and "
             "replicated batch fallbacks are not ported")
-    return dp_ax, dp_total
+    return regime, dp_ax, dp_total
 
 
 def build_sharded_step(model: Model, parallel: ParallelConfig,
@@ -295,7 +366,7 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
     .shard_tree``); ``batch`` is the global batch, the same on every rank.
     With compression, ``step.shardings["ef_init"](params)`` gives the zero
     residual.  Every rank must call the step: it runs collectives."""
-    dp_ax, dp_total = _check_sharded(model, parallel, shape, mesh)
+    regime, dp_ax, dp_total = _check_sharded(model, parallel, shape, mesh)
     compress = parallel.grad_compress or "none"
     cfg = model.cfg
     n_micro = num_microbatches(shape, parallel, dp_total)
@@ -311,13 +382,37 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
     for a in dp_ax:
         rank = rank * sizes[a] + coord[a]
     data_group = mesh.get_group(dp_ax[0]) if compress != "none" else None
+    # the axes a gradient or a mask total sums over: data, and seq in the
+    # cp regime (parameters are replicated over seq)
+    sum_ax = dp_ax + ((shd.AXIS_SEQ,) if regime == "cp" else ())
+    cp, seq_idx = sizes.get(shd.AXIS_SEQ, 1), coord.get(shd.AXIS_SEQ, 0)
+    if regime == "cp":
+        from repro_torch.dist.context import cp_attention_impl
+        impl = cp_attention_impl(mesh, mode=parallel.cp_mode,
+                                 overlap_chunks=parallel.cp_overlap_chunks)
+        attn_ctx = functools.partial(att.attention_impl, impl)
+    else:
+        attn_ctx = contextlib.nullcontext
 
     def loss_fn(p, mb):
-        return model.loss(mb, params=p, remat=parallel.remat)
+        with attn_ctx():
+            return model.loss(mb, params=p, remat=parallel.remat)
+
+    def columns(x):
+        """This rank's sequence columns of a batch leaf (cp regime)."""
+        if x.dim() < 2 or x.shape[1] != shape.seq_len:
+            raise ValueError(
+                f"the cp regime splits dim 1 of every batch leaf over "
+                f"{cp} sequence ranks; a leaf of shape {tuple(x.shape)} has "
+                f"no sequence dim of length {shape.seq_len}")
+        n = shape.seq_len // cp
+        return x[:, seq_idx * n:(seq_idx + 1) * n]
 
     def local_microbatches(batch):
         local = tree_map(lambda x: x.reshape((dp_total, -1) + x.shape[1:])
                          [rank], batch)
+        if regime == "cp":
+            local = tree_map(columns, local)
         return [local] if n_micro == 1 else _split_microbatches(local,
                                                                 n_micro)
 
@@ -355,7 +450,7 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
         (divided by ``mean_over``) in one all-reduce."""
         keys = list(sums)
         packed = torch.stack([sums[k] for k in keys])
-        for a in dp_ax:
+        for a in sum_ax:
             dist.all_reduce(packed, group=mesh.get_group(a))
         if mean_over > 1:
             packed = packed / mean_over
@@ -366,7 +461,7 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
             mbs = local_microbatches(batch)
             counts = torch.stack([_mask_total(mb) for mb in mbs])
             totals = counts.clone()
-            for a in dp_ax:
+            for a in sum_ax:
                 dist.all_reduce(totals, group=mesh.get_group(a))
             weights = counts / totals.clamp_min(1.0)
             p_list, o_list = spec_lists(params)
@@ -376,7 +471,7 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
             del full
             with torch.no_grad():
                 g_acc = reduce_grads([g.float() for g in g_acc], o_list,
-                                     mesh, dp_ax)
+                                     mesh, sum_ax)
                 if n_micro > 1:
                     g_acc = [a / n_micro for a in g_acc]
             return finish(params, opt_state, g_acc, step_idx,

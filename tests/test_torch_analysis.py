@@ -341,6 +341,27 @@ def test_profile_launch_the_profiler_did_not_nest():
     assert rep.ok and "1 launched by autograd" in rep.findings[-1].message
 
 
+def test_profile_launch_filed_beside_a_buffer_request():
+    """CUPTI asking for a fresh activity buffer while it records a
+    student's launch: the profiler files that call on thread 1 with no
+    operator above it, its "Activity Buffer Request" the thread's next
+    event (ROADMAP.md, C10).  It is counted apart; the same parentless
+    launch without the request stays the main thread's."""
+    prof = _Prof()
+    _two_sections(prof)
+    call = prof.op("cudaLaunchKernel", 1, None, span=(40, 41))
+    prof.evs.append(SimpleNamespace(
+        id=call.id, name="k", device_type=DeviceType.CUDA,
+        is_user_annotation=False, device_resource_id=17))
+    request = prof.op(affinity._BUFFER_REQUEST, 1, span=(42, 50))
+    rep = check_profile(prof, _RT)
+    assert rep.ok, rep.render()
+    assert "1 filed by the profiler" in rep.findings[-1].message
+    request.name = "aten::empty"
+    checks = {f.check for f in check_profile(prof, _RT).errors}
+    assert checks == {"affinity.main-on-section-stream"}
+
+
 def test_profile_kernel_on_another_sections_stream():
     prof = _Prof()
     _two_sections(prof)

@@ -85,7 +85,18 @@ DP_SLICE = ["repro_torch.dist", "repro_torch.dist.sharding",
             "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
             "repro_torch.models.model"]
 
+CP_SLICE = ["repro_torch.dist.context", "repro_torch.roofline",
+            "repro_torch.roofline.analysis", "repro_torch.train.step",
+            "repro_torch.core.workload", "repro_torch.models.attention"]
+
 DRIVERS = ROOT / "tests" / "torch_drivers"
+
+
+def test_module_list_covers_the_cp_slice_and_its_examples():
+    assert set(CP_SLICE) <= set(_modules())
+    examples = {p.name for p in (ROOT / "examples").glob("*_torch.py")}
+    assert {"multi_teacher_distillation_torch.py",
+            "vlm_training_torch.py"} <= examples
 
 
 def test_module_list_covers_the_dp_slice():
@@ -156,7 +167,8 @@ def test_the_port_drivers_import_no_jax_and_no_repro():
     ``sys.modules``."""
     names = sorted(p.stem for p in DRIVERS.glob("*.py"))
     assert {"dist_util", "driver_dp", "driver_compression",
-            "driver_elastic", "driver_sections"} <= set(names)
+            "driver_elastic", "driver_sections",
+            "driver_context"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"

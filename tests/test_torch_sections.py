@@ -69,11 +69,18 @@ def test_carving_refusals():
         carve_sections(g, ranks=[0, 1, 1])
     with pytest.raises(ValueError, match="only 2 are given"):
         carve_sections(g, ranks=[0, 1])
-    for knob, item in (("pp", "A6.4"), ("cp", "A6.3"), ("tp", "A6.4")):
+    # a seq axis runs a dense section (A6.3) and still refuses the vlm
+    # family's image splice, naming A6.3
+    vlm = get_reduced("pixtral-12b")
+    for knob, item, arch in (("pp", "A6.4", cfg), ("cp", "A6.3", vlm),
+                             ("tp", "A6.4", cfg)):
         par = ParallelConfig(**{knob: 2})
         with pytest.raises(NotImplementedError, match=item):
-            wl.validate_section_parallel("student", cfg, par,
+            wl.validate_section_parallel("student", arch, par,
                                          wl._mesh_sizes(par))
+    par = ParallelConfig(cp=2)
+    assert wl.validate_section_parallel("student", cfg, par,
+                                        wl._mesh_sizes(par)) == "cp"
     par = ParallelConfig(dp=2, grad_compress="int8")
     assert wl.validate_section_parallel("student", cfg, par,
                                         wl._mesh_sizes(par)) == "plain"

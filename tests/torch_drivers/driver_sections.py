@@ -3,8 +3,9 @@ spawned gloo ranks.
 
     python tests/torch_drivers/driver_sections.py CASE WORLD IN.npz OUT
 
-``CASE`` is one of ``messages``, ``distill``, ``mllm``, ``compressed`` and
-``multi_teacher`` (the functions ``case_<name>`` below say what each
+``CASE`` is one of ``messages``, ``distill``, ``mllm``, ``compressed``,
+``multi_teacher``, and the context-parallel ``mllm_cp`` and
+``distill_cp`` (the functions ``case_<name>`` below say what each
 runs); ``IN.npz`` holds the batches (``batch<i>/<key>``) and, where a case
 starts from given parameters, ``params/<section>/<path>``.  Every rank
 that has something to report writes ``OUT.<rank>.npz``.  Prints
@@ -293,6 +294,66 @@ def case_mllm(rank, world, arrays, out):
             assert torch.equal(a, b), n
     for n, tree in p0.items():
         out.update(flat(tree, f"final/{n}/"))
+
+
+def case_mllm_cp(rank, world, arrays, out):
+    """The ViT at (dp 2, cp 2) on ranks 0-3 (each holding half of every
+    image's patches), the LM at dp 4 on 4-7: one iteration on the given
+    plan, with its gradients (tests/drivers/driver_mllm_runtime.py's
+    ViT-CP block)."""
+    vit, lm = mllm_cfgs()
+    data = batches(arrays)
+    rt = mw.MLLMRuntime(vit, lm, vit_parallel=ParallelConfig(dp=2, cp=2),
+                        lm_parallel=ParallelConfig(dp=4), ranks=range(world),
+                        opt_cfg=MLLM_OPT, **MLLM_SHAPE)
+    params, opts = rt.init(3)
+    for i, b in enumerate(data):
+        plan = rt.plan_iteration(b["has_image"].numpy())
+        params, opts, m = rt.train_iteration(params, opts, b, i, plan=plan,
+                                             return_grads=True)
+        out[f"it{i}/order"] = np.array(plan.order)
+        out[f"it{i}/image_mbs"] = np.array(plan.image_mbs)
+        out[f"it{i}/grad_norm"] = np.array([float(m["grad_norm"])])
+        if m["n_vit_tasks"] is not None:
+            out[f"it{i}/n_vit_tasks"] = np.array([m["n_vit_tasks"]])
+            out[f"it{i}/vit_order"] = np.array(
+                m["execution"].dispatch_order["vit"])
+        if "loss" in m:
+            out[f"it{i}/loss"] = np.array([float(m["loss"])])
+        for n, g in m["grads"].items():
+            out.update(flat(g, f"it{i}/grads/{n}/"))
+    final, _ = rt.state()
+    for n, tree in final.items():
+        out.update(flat(tree, f"final/{n}/"))
+    rt.shutdown()
+
+
+def case_distill_cp(rank, world, arrays, out):
+    """The teacher at dp 2 on ranks 0-1, the student at (dp 2, cp 2) on
+    2-5, from the given parameters (the same tree for both, as
+    tests/drivers/driver_train_step_dist.py's colocated CP check): one
+    iteration with that driver's optimizer."""
+    cfg = get_reduced("granite-3-8b").replace(dtype="float32", num_layers=4)
+    rt = DistillRuntime(cfg, cfg, teacher_parallel=ParallelConfig(dp=2),
+                        student_parallel=ParallelConfig(dp=2, cp=2),
+                        ranks=range(world), lr=1e-3,
+                        opt_cfg=adamw.AdamWConfig(eps=1e-3))
+    full = _as_specs(params_from_numpy(nest(arrays, "params/"),
+                                       device="cpu"),
+                     rt.spec.section("student").params)
+    placed, opts = rt.runtime.place({"teacher": full, "student": full})
+    pt, ps = placed.get("teacher"), placed.get("student")
+    opt = opts.get("student")
+    w_t = rt.teacher_unembed(pt)
+    for i, b in enumerate(batches(arrays)):
+        ps, opt, m = rt.train_iteration(pt, ps, opt, b, i, w_t=w_t)
+        if "loss" in m:
+            out[f"it{i}/metrics"] = np.array(
+                scalars(m, ("loss", "ce", "kl", "grad_norm")))
+    final, _ = rt.runtime.state()
+    if "student" in final:
+        out.update(flat(final["student"], "final/student/"))
+    rt.shutdown()
 
 
 def case_compressed(rank, world, arrays, out):
