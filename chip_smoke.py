@@ -147,7 +147,24 @@ CUDA kernels from the sources in this checkout.  Phases:
    chunks' shapes through ``phase_flash_shape``, (2, 4096, 1024, 16, 16,
    64) non-causal and (4, 2048, 512, 16, 16, 64) causal, with the strided
    key positions of cp 4 and 4 chunks, beside SDPA with a boolean mask.
-   Then the
+   Then pipeline and tensor parallelism at world size 1 (``phase_pp``, a
+   one-rank NCCL group, every axis of its mesh 1: NCCL refuses two ranks
+   on one card, so pp and tp above 1 are held on the CPU by gloo ranks):
+   ``dist.pipeline.build_pp_loss(..., n_micro=2, vocab_parallel=True)``
+   and its ``value_and_grad`` (the explicit GPipe backward, the
+   distributed logsumexp over a one-stage ``pipe`` group) on qwen1.5-0.5b
+   at full width and depth in bf16, 4 x 2048, against ``model.loss`` and
+   autograd on the whole batch: the loss within PP_BF16_LOSS_TOL, each
+   leaf within PP_BF16_GRAD_TOL of its largest gradient, flash launched 2
+   x 24 x 2 times, the warm staged value-and-gradient timed beside the
+   plain one; the same at 4 layers in float32 within the reference
+   driver's bounds, where a planted micro-batch layout (every micro-batch
+   the first's rows) must fail them; the Megatron sub-layer with a
+   one-rank model group bit for bit against the plain one, forward and
+   backward; and moonshot-v1-16b-a3b at full width with 2 of its 48
+   layers: the aux rebuilt from ``moe(..., return_stats=True)`` against
+   ``moe``'s own, and the staged loss (the aux from the micro-batches'
+   statistics) against ``model.loss``.  Then the
    two-stage planner (``phase_plan``) with the H100's
    numbers for the compound configurations at the JAX package's test
    budgets (every section fits, eq. 2 on every edge) and for qwen1.5-0.5b
@@ -1361,8 +1378,8 @@ def scaled_first_grad(step_mod, factor: float):
     that the bitwise comparison with the plain step must see."""
     reduce_grads = step_mod.reduce_grads
 
-    def planted(grads, specs, mesh, axes):
-        out = reduce_grads(grads, specs, mesh, axes)
+    def planted(grads, *args, **kw):
+        out = reduce_grads(grads, *args, **kw)
         out[0] = out[0] * factor
         return out
 
@@ -4292,6 +4309,220 @@ def phase_jamba_grad_consistency(rng) -> None:
           f"layer's gates scaled by 0.99 ({planted:.3e})")
 
 
+# pipeline and tensor parallelism at world size 1 (phase_pp): the staged
+# loss's micro-batches, its bf16 gradients accumulated in float32 against
+# the whole batch's bf16 gradient, per leaf |g_pp - g| / max |g|;
+# tests/drivers/driver_train_step_dist.py's float32 bounds (loss 1e-5,
+# gradients 5e-4 absolute) on the float32 leaves of a float32 model (its
+# norm scales are bf16 parameters, held to the bf16 rule); the staged loss
+# against model.loss in bf16 within 1e-3 relative; the aux rebuilt from
+# the router statistics within 1e-6 relative of moe's own
+PP_BF16_GRAD_TOL = 2.0 ** -4
+PP_F32_LOSS_TOL, PP_F32_GRAD_TOL = 1e-5, 5e-4
+PP_BF16_LOSS_TOL = 1e-3
+PP_AUX_TOL = 1e-6
+PP_MICRO = 2
+PP_F32_LAYERS = 4
+PP_MOONSHOT_LAYERS = 2
+
+
+def phase_pp(rng) -> int:
+    """Pipeline and tensor parallelism on a one-rank NCCL group (see the
+    module docstring, ``phase_pp``); returns the flash launches of the
+    staged bf16 value-and-gradient at full depth."""
+    import torch.distributed as dist
+    from repro_torch.core.types import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models import moe as moem
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = shd.section_mesh([0], ParallelConfig())
+        check(all(n == 1 for n in shd.mesh_shape(mesh).values()),
+              "the mesh's axes")
+
+        def lm_batch(cfg, B, S):
+            t = rng.integers(0, cfg.vocab_size, (B, S + 1))
+            return {"tokens": torch.from_numpy(t[:, :-1]).cuda(),
+                    "labels": torch.from_numpy(t[:, 1:]).cuda(),
+                    "loss_mask": torch.from_numpy(
+                        (rng.random((B, S)) < 0.9).astype(np.float32)
+                    ).cuda()}
+
+        def plain(model, params, batch):
+            p = tree_map(lambda x: x.detach().requires_grad_(), params)
+            loss, _ = model.loss(batch, params=p)
+            g = torch.autograd.grad(loss, tree_leaves(p))
+            return loss.detach(), g
+
+        def staged(loss_fn, params, batch):
+            loss, g = loss_fn.value_and_grad(loss_fn.local(params), batch)
+            return loss, tree_leaves(g)
+
+        def leaf_gaps(ga, gb, names):
+            """Per leaf max |a - b| / max |b|: the worst leaf's gap and
+            name, and the NOISE_LEAVES' worst."""
+            worst, name, noise = 0.0, "", 0.0
+            for path, a, b in zip(names, ga, gb):
+                gap = ((a.float() - b.float()).abs().max()
+                       / b.float().abs().max().clamp_min(1e-30)).item()
+                if path.rsplit("/", 1)[-1] in NOISE_LEAVES:
+                    noise = max(noise, gap)
+                elif gap > worst:
+                    worst, name = gap, path
+            return worst, name, noise
+
+        # (1) qwen1.5-0.5b at full width and depth, bf16, 4 x 2048
+        cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+        model = build_model(cfg, device="cuda", seed=0)
+        params = model.param_tree()
+        names = [p for p, _ in _named_leaves(params)]
+        batch = lm_batch(cfg, TRAIN_B, TRAIN_S)
+        loss_fn, info = pl.build_pp_loss(cfg, mesh, PP_MICRO,
+                                         vocab_parallel=True)
+        check(info["vocab_parallel"] and info["stages"] == 1,
+              f"build_pp_loss info {info}")
+        torch.cuda.synchronize()
+        reset_counts()
+        l_pp, g_pp = staged(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        n_pp = read_counts()[0]
+        l_pl, g_pl = plain(model, params, batch)
+        rel = abs(l_pp.item() - l_pl.item()) / abs(l_pl.item())
+        gap, leaf, noise = leaf_gaps(g_pp, g_pl, names)
+        want = PP_MICRO * cfg.num_layers * 2
+        print(f"pp {TRAIN_ARCH} bf16 full depth {TRAIN_B} x {TRAIN_S}, "
+              f"{PP_MICRO} micro-batches, vocab-parallel CE: loss "
+              f"{l_pp.item():.6f} vs model.loss {l_pl.item():.6f} "
+              f"(relative {rel:.3e}, tol {PP_BF16_LOSS_TOL:.0e}); worst leaf"
+              f" max|g_pp - g| / max|g| {gap:.3e} ({leaf}; tol "
+              f"{PP_BF16_GRAD_TOL:.3e}; {NOISE_LEAVES} {noise:.3e}); flash "
+              f"launches {n_pp} (micro-batches x layers x 2 = {want})")
+        check(rel <= PP_BF16_LOSS_TOL, f"the staged loss is {rel:.3e} off")
+        check(gap <= PP_BF16_GRAD_TOL, f"the staged gradients differ by "
+              f"{gap:.3e} at {leaf}")
+        check(n_pp == want, f"flash launched {n_pp} times, expected {want}")
+        del g_pp, g_pl
+        # times: the staged value-and-gradient against the plain one, the
+        # second call of each
+        times = {}
+        for which in ("staged", "plain", "staged", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (staged(loss_fn, params, batch) if which == "staged"
+                   else plain(model, params, batch))
+            torch.cuda.synchronize()
+            times[which] = (time.perf_counter() - t0) * 1e3
+            del out
+        print(f"pp {TRAIN_ARCH} bf16 {TRAIN_B} x {TRAIN_S}: warm "
+              f"value-and-gradient {times['staged']:.1f} ms staged "
+              f"({PP_MICRO} micro-batches) vs {times['plain']:.1f} ms plain "
+              f"on {card()}")
+        # (3) the Megatron sub-layer with a one-rank model group, bit for
+        # bit against the plain sub-layer, forward and backward
+        tp = pl.TensorParallel(mesh.get_group(shd.AXIS_MODEL), 1, True, True)
+        lp = tree_map(lambda x: x[0], params["layers"]["sub0"])
+        x = torch.randn((2, 512, cfg.d_model), device="cuda",
+                        dtype=torch.bfloat16)
+
+        def sublayer(with_tp):
+            p = tree_map(lambda t: t.detach().requires_grad_(), lp)
+            xi = x.clone().requires_grad_()
+            y, _ = tf._sublayer_fwd(p, xi, cfg, "attn", "mlp", None, True,
+                                    False, tp if with_tp else None)
+            g = torch.autograd.grad((y.float() ** 2).sum(),
+                                    [xi] + tree_leaves(p))
+            return [y] + list(g)
+        same = all(torch.equal(a, b) for a, b in zip(sublayer(True),
+                                                     sublayer(False)))
+        print(f"pp: Megatron sub-layer ({TRAIN_ARCH} width, bf16) with a "
+              f"one-rank model group equals the plain one bit for bit, "
+              f"forward and backward: {same}")
+        check(same, "the Megatron sub-layer at tp 1 differs from the plain")
+        del model, params, loss_fn
+        free()
+        # (2) 4 layers in float32 against model.loss; a planted fault (every
+        # micro-batch takes the first's rows) must fail
+        cfg = get_config(TRAIN_ARCH).replace(num_layers=PP_F32_LAYERS,
+                                             dtype="float32")
+        model = build_model(cfg, device="cuda", seed=0)
+        params = model.param_tree()
+        names32 = [p for p, _ in _named_leaves(params)]
+        batch = lm_batch(cfg, TRAIN_B, TRAIN_S)
+        l_pl, g_pl = plain(model, params, batch)
+        f32 = {}
+        for planted in (False, True):
+            layout = ((lambda b, t, m: pl.contiguous_microbatch(b, 0, m))
+                      if planted else pl.contiguous_microbatch)
+            fn, _ = pl.build_pp_loss(cfg, mesh, PP_MICRO,
+                                     vocab_parallel=True, mb_layout=layout)
+            l_pp, g_pp = staged(fn, params, batch)
+            is32 = [b.dtype == torch.float32 for b in g_pl]
+            f32[planted] = (
+                abs(l_pp.item() - l_pl.item()),
+                max((a - b).abs().max().item()
+                    for a, b, w in zip(g_pp, g_pl, is32) if w),
+                leaf_gaps([a for a, w in zip(g_pp, is32) if not w],
+                          [b for b, w in zip(g_pl, is32) if not w],
+                          [n for n, w in zip(names32, is32) if not w])[0])
+        (dl, dg, dg16), (dl_bad, dg_bad, _) = f32[False], f32[True]
+        print(f"pp {TRAIN_ARCH} {PP_F32_LAYERS} layers f32 {TRAIN_B} x "
+              f"{TRAIN_S}: |dloss| {dl:.3e} (tol {PP_F32_LOSS_TOL:.0e}), "
+              f"max |dg| over the float32 leaves {dg:.3e} (tol "
+              f"{PP_F32_GRAD_TOL:.0e}), the bf16 norm scales' worst max|dg|"
+              f" / max|g| {dg16:.3e} (tol {PP_BF16_GRAD_TOL:.3e}); planted "
+              f"(every micro-batch the first's rows) {dl_bad:.3e} / "
+              f"{dg_bad:.3e}")
+        check(dl <= PP_F32_LOSS_TOL and dg <= PP_F32_GRAD_TOL
+              and dg16 <= PP_BF16_GRAD_TOL,
+              "the float32 staged loss or gradients are off")
+        check(dl_bad > PP_F32_LOSS_TOL and dg_bad > PP_F32_GRAD_TOL,
+              "the float32 bounds pass a planted micro-batch layout")
+        del model, params, g_pl, g_pp
+        free()
+        # (4) moonshot-v1-16b-a3b at full width, 2 of its 48 layers, bf16
+        cfg = resolve_config(MOONSHOT, dtype="bfloat16").replace(
+            num_layers=PP_MOONSHOT_LAYERS)
+        model = build_model(cfg, device="cuda", seed=0)
+        params = model.param_tree()
+        lp = tree_map(lambda x: x[0], params["layers"]["sub0"])
+        h = torch.randn((MOONSHOT_MBS, MOONSHOT_S, cfg.d_model),
+                        device="cuda", dtype=torch.bfloat16)
+        with torch.no_grad():
+            _, aux, stats = moem.moe(lp["moe"], h, cfg, return_stats=True)
+            rebuilt = tf.aux_from_stats(stats, cfg)
+        aux_rel = abs(rebuilt.item() - aux.item()) / abs(aux.item())
+        batch = lm_batch(cfg, MOONSHOT_B, MOONSHOT_S)
+        fn, info = pl.build_pp_loss(cfg, mesh, PP_MICRO)
+        with torch.no_grad():
+            l_pp = fn(fn.local(params), batch)
+            l_pl, met = model.loss(batch, params=params)
+        rel = abs(l_pp.item() - l_pl.item()) / abs(l_pl.item())
+        print(f"pp {MOONSHOT} {PP_MOONSHOT_LAYERS} layers bf16: aux from "
+              f"router statistics {rebuilt.item():.7f} vs moe's "
+              f"{aux.item():.7f} (relative {aux_rel:.3e}, tol "
+              f"{PP_AUX_TOL:.0e}); staged loss ({PP_MICRO} micro-batches, "
+              f"{info['moe_layers_per_stage']} MoE layers) "
+              f"{l_pp.item():.6f} vs model.loss {l_pl.item():.6f} "
+              f"(relative {rel:.3e}, tol {PP_BF16_LOSS_TOL:.0e}; aux "
+              f"{float(met['aux']):.5f})")
+        check(aux_rel <= PP_AUX_TOL, "the rebuilt aux differs")
+        check(rel <= PP_BF16_LOSS_TOL, "the staged MoE loss differs")
+        del model, params
+    finally:
+        dist.destroy_process_group()
+    print(f"pp: phase {time.perf_counter() - t_phase:.1f} s")
+    return n_pp
+
+
 def timed(phase, *args, **kw):
     """Run one phase and print its wall time."""
     t = time.perf_counter()
@@ -4371,6 +4602,8 @@ def main() -> int:
     free()
     cp_launches = timed(phase_cp, rng)
     free()
+    pp_launches = timed(phase_pp, rng)
+    free()
     for name, (shape, causal) in zip(("cp_vit_chunk", "cp_train_chunk"),
                                      CP_CHUNK_SHAPES):
         S, T = shape[1:3]
@@ -4413,6 +4646,7 @@ def main() -> int:
              f"distill-runtime {TRAIN_ARCH}",
              f"distill-sections {TRAIN_ARCH} world 1",
              f"cp {TRAIN_ARCH} world 1",
+             f"pp {TRAIN_ARCH} world 1",
              f"multi-teacher {TRAIN_ARCH}",
              "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
              f"train {MOONSHOT} {MOONSHOT_LAYERS}L", f"train {WHISPER}",
@@ -4420,14 +4654,14 @@ def main() -> int:
     per_path = {
         "flash": (serve_launches, train_launches, resume_launches,
                   dp_launches, distill_launches, 0, 0, rt_launches,
-                  sec_launches, cp_launches, mt_launches,
+                  sec_launches, cp_launches, pp_launches, mt_launches,
                   mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
         "kl": (0, 0, 0, 0, kl_launches, 0, 0, rt_kl_launches,
-               sec_kl_launches, 0, mt_kl_launches, 0, 0, 0, 0, 0, 0),
+               sec_kl_launches, 0, 0, mt_kl_launches, 0, 0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
-                0, 0, 0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
+                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

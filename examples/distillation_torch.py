@@ -3,17 +3,17 @@
 
     PYTHONPATH=src python examples/distillation_torch.py --device cpu
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
-        --nproc-per-node 6 examples/distillation_torch.py --device cpu
+        --nproc-per-node 8 examples/distillation_torch.py --device cpu
     PYTHONPATH=src python examples/distillation_torch.py      # one card
 
 * the two-stage planner sizes the teacher section for the H100;
 * teacher and student run DISAGGREGATED on section meshes of their own
-  ranks with fan-out (DP^t × fanout = DP^s): the teacher at dp 2 on ranks
-  0-1, the student at dp 4 on ranks 2-5 (the reference's teacher ``tp=2``
-  is tensor parallelism, ROADMAP.md A6.4, so the teacher runs at ``tp=1``
-  here).  With ``--device cpu`` and no ``torchrun`` the script spawns the
-  six gloo ranks itself; on the card (one H100, where NCCL takes one rank)
-  both sections share rank 0, each on its own worker thread and stream;
+  ranks with fan-out (DP^t × fanout = DP^s): the teacher at dp 2 and tp
+  2 (Megatron tensor parallelism) on ranks 0-3, the student at dp 4 on
+  ranks 4-7, the reference's layout.  With ``--device cpu`` and no
+  ``torchrun`` the script spawns the eight gloo ranks itself; on the card
+  (one H100, where NCCL takes one rank) both sections share rank 0, each
+  on its own worker thread and stream;
 * only *hidden states* cross the section boundary (the teacher's output
   layer is colocated with the student; the KL runs through the
   chunked-vocabulary kernel without the teacher's logits).
@@ -35,7 +35,7 @@ from repro_torch.core.types import H100, ParallelConfig
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.distill.workload import DistillRuntime
 
-WORLD, ITERS = 6, 30
+WORLD, ITERS = 8, 30
 
 
 def run(rank: int, world: int, device: str) -> None:
@@ -54,14 +54,14 @@ def run(rank: int, world: int, device: str) -> None:
     if world == 1:          # one card: both sections on rank 0
         t_par, s_par, ranks = ParallelConfig(), ParallelConfig(), [0, 0]
     else:
-        t_par, s_par = ParallelConfig(dp=2), ParallelConfig(dp=4)
+        t_par, s_par = ParallelConfig(dp=2, tp=2), ParallelConfig(dp=4)
         ranks = range(world)
     rt = DistillRuntime(t_cfg, s_cfg, teacher_parallel=t_par,
                         student_parallel=s_par, ranks=ranks, alpha=0.5,
                         temperature=2.0, lr=2e-3)
     if rank == 0:
-        print(f"== section meshes: teacher dp {t_par.dp}, student dp "
-              f"{s_par.dp}, fanout={rt.fanout}, world {world} ==")
+        print(f"== section meshes: teacher dp {t_par.dp} tp {t_par.tp}, "
+              f"student dp {s_par.dp}, fanout={rt.fanout}, world {world} ==")
     params_t, params_s, opt = rt.init(0)
     w_t = rt.teacher_unembed(params_t)
     data = lm_batches(batch=8, seq_len=32, vocab=2048, seed=0, device="cpu")

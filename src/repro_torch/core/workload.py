@@ -94,8 +94,14 @@ controller over every mesh; the port is MPMD):
   rows and its sequence columns -- dim 1 of every input, consumed port and
   emitted port, split evenly over ``seq`` -- and its gradients are summed
   over the data and sequence ranks (parameters are replicated over
-  ``seq``).
-A ``pipe`` or ``model`` axis above 1 raises (ROADMAP.md, A6.4).
+  ``seq``);
+* a section whose ``model`` axis is above 1 (``tp``) runs its tasks
+  under Megatron tensor parallelism (``train.step.model_context``): each
+  of its ranks gathers its heads and ``d_ff`` slices of the layer weights
+  and every other leaf whole, and the ranks of one data and sequence
+  coordinate hold the same rows, so only the one at model coordinate 0
+  sends a port or a cotangent, to every model coordinate of the peer.
+A ``pipe`` axis above 1 raises, as in the reference.
 """
 from __future__ import annotations
 
@@ -120,7 +126,6 @@ from repro_torch.core.scheduler import ScheduleResult
 from repro_torch.core.types import (H100, ArchConfig, ParallelConfig,
                                     SectionConfig)
 from repro_torch.dist import sharding as shd
-from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models.common import (tree_leaves, tree_like, tree_map,
                                        tree_unflatten)
@@ -440,22 +445,31 @@ def validate_section_parallel(name: str, arch: ArchConfig,
 
     With ``mesh`` (the section's ``DeviceMesh``, or its ``{axis: size}``
     shape) it routes through ``train.step.parallel_regime``, the dispatch
-    the sharded step uses: dp > 1, cp > 1 and ``grad_compress`` run, a
-    ``pipe`` or ``model`` axis above 1 raises naming ROADMAP.md, A6.4,
-    and so do the families the cp regime refuses.  Without one the
+    the sharded step uses: dp > 1, cp > 1, tp > 1 and ``grad_compress``
+    run; a ``pipe`` axis above 1 raises as in the reference (a section fn
+    cannot be stage-partitioned), and so do cp x tp (ROADMAP.md, A6.4
+    remainder) and the families the cp regime refuses.  Without one the
     section runs on one device (the plain regime), and every knob that
     needs a mesh raises, naming the section and the mesh axis it would
     size.  Returns the regime (``"plain"`` or ``"cp"``)."""
     if mesh is not None:
         from repro_torch.train.step import (_check_pp_cp_support,
-                                            check_router_stats,
                                             parallel_regime)
         try:
             regime = parallel_regime(mesh, parallel)
-            _check_pp_cp_support(arch, regime)
-            check_router_stats(arch, 1, parallel.cp, arch.name)
         except (ValueError, NotImplementedError) as e:
             raise type(e)(f"section {name!r}: {e}") from None
+        if regime == "pp":
+            raise NotImplementedError(
+                f"section {name!r}: pipeline parallelism (mesh axis "
+                f"{shd.AXIS_PIPE!r}={parallel.pp}) is not supported for "
+                "declarative workload sections -- a section fn cannot be "
+                "stage-partitioned by build_pp_loss; use dp/tp/cp for this "
+                "section")
+        try:
+            _check_pp_cp_support(arch, regime)
+        except NotImplementedError as e:
+            raise NotImplementedError(f"section {name!r}: {e}") from None
         compress = parallel.grad_compress or "none"
         if compress not in gcomp.METHODS:
             raise ValueError(
@@ -468,8 +482,8 @@ def validate_section_parallel(name: str, arch: ArchConfig,
         raise NotImplementedError(
             f"section {name!r} ({arch.name}): {', '.join(multi)} needs a "
             "section mesh: carve the runtime by ranks= (ROADMAP.md, A6.2; "
-            "context parallel sections run there, A6.3; pipeline and "
-            "tensor parallel ones are A6.4)")
+            "context and tensor parallel sections run there, A6.3 and "
+            "A6.4)")
     if (parallel.grad_compress or "none") != "none":
         raise NotImplementedError(
             f"section {name!r}: grad_compress={parallel.grad_compress!r} "
@@ -624,7 +638,10 @@ class _Exchange:
     such producer rank the cotangent of that fragment, fragment-shaped.
     :meth:`messages` lists every send in its sender's order, so that a
     receiver posts its receives in that order (:meth:`expect`).  Where
-    neither side splits the sequence, no column is sliced."""
+    neither side splits the sequence, no column is sliced.  The ranks of a
+    section at one data and sequence coordinate (its model ranks) hold the
+    same rows: the one at model coordinate 0 sends, to every model rank of
+    the peer."""
 
     def __init__(self, rt: "CompoundRuntime", plan: IterationPlan,
                  disp: Dict[str, set], it: str, timeout: float):
@@ -718,11 +735,12 @@ class _Exchange:
             for c in s.consumes:
                 if c.key in rt._ct_keys(s) and i in disp[c.section]:
                     for q, a, r, b in self.pairs(c.section, name, i):
-                        yield (c.section, f"{it}/ct.{c.key}.{i}",
-                               rt._rank(name, r, b),
-                               rt._rank(c.section, q, a),
-                               self._shape(c.port, c.section),
-                               _torch_dtype(c.port.dtype))
+                        for m in range(rt._tp[c.section]):
+                            yield (c.section, f"{it}/ct.{c.key}.{i}",
+                                   rt._rank(name, r, b),
+                                   rt._rank(c.section, q, a, m),
+                                   self._shape(c.port, c.section),
+                                   _torch_dtype(c.port.dtype))
 
         if name != rt._crit:
             for i in sorted(disp[name]):
@@ -731,11 +749,12 @@ class _Exchange:
                         if i not in disp.get(cname, ()):
                             continue
                         for q, a, r, b in self.pairs(name, cname, i):
-                            yield (cname, f"{it}/{name}.{p.name}.{i}",
-                                   rt._rank(name, q, a),
-                                   rt._rank(cname, r, b),
-                                   self._shape(p, name),
-                                   _torch_dtype(p.dtype))
+                            for m in range(rt._tp[cname]):
+                                yield (cname, f"{it}/{name}.{p.name}.{i}",
+                                       rt._rank(name, q, a),
+                                       rt._rank(cname, r, b, m),
+                                       self._shape(p, name),
+                                       _torch_dtype(p.dtype))
         else:
             for i in range(self.plan.n_mb):
                 yield from cts(i)
@@ -770,8 +789,10 @@ class _Exchange:
         rt = self.rt
         me = (rt._me[src], rt._seq[src])
         for q, a, r, b in self.pairs(src, dst, i):
-            if (q, a) == me:
-                self.q.send(src, dst, key, value, rank=rt._rank(dst, r, b))
+            if (q, a) == me and rt._mod[src] == 0:
+                for m in range(rt._tp[dst]):
+                    self.q.send(src, dst, key, value,
+                                rank=rt._rank(dst, r, b, m))
         if rt._origin[src]:
             self.q.count_push(value)
 
@@ -819,7 +840,7 @@ class _Exchange:
             length = g.shape[1] * rt._cp[name]
             m0, m1 = self.cols(name, me[1], length)
         for q, sa, r, sb in self.pairs(c.section, name, i):
-            if (r, sb) != me:
+            if (r, sb) != me or rt._mod[name] != 0:
                 continue
             q0, q1 = self.own(c.section, q)
             lo, hi = max(a, q0), min(b, q1)
@@ -836,8 +857,9 @@ class _Exchange:
                 full = part.new_zeros(shape)
                 full[dst] = part
                 part = full
-            self.q.send(name, c.section, key, part,
-                        rank=rt._rank(c.section, q, sa))
+            for m in range(rt._tp[c.section]):
+                self.q.send(name, c.section, key, part,
+                            rank=rt._rank(c.section, q, sa, m))
         if rt._origin[name]:
             self.q.count_push(g)
 
@@ -928,11 +950,14 @@ class CompoundRuntime:
         self._ranks: Dict[str, List[int]] = {}
         self._dp: Dict[str, int] = {}
         self._cp: Dict[str, int] = {}
+        self._tp: Dict[str, int] = {}
         self._me: Dict[str, int] = {}
         self._seq: Dict[str, int] = {}
+        self._mod: Dict[str, int] = {}
         self._origin: Dict[str, bool] = {}
         self._attn: Dict[str, Any] = {}
         self._p_spec: Dict[str, Any] = {}
+        self._c_spec: Dict[str, Any] = {}
         self._o_spec: Dict[str, Any] = {}
         self._rank_me = torch.distributed.get_rank() if self._mesh_mode \
             else 0
@@ -941,24 +966,24 @@ class CompoundRuntime:
             if not self._mesh_mode:
                 self._dp[s.name], self._me[s.name] = 1, 0
                 self._cp[s.name], self._seq[s.name] = 1, 0
+                self._tp[s.name], self._mod[s.name] = 1, 0
                 self._origin[s.name] = True
                 continue
             mesh = self.rt.mesh(s.name)
             self._ranks[s.name] = [int(r) for r in mesh.mesh.flatten()]
             self._dp[s.name], self._cp[s.name] = s.parallel.dp, s.parallel.cp
+            self._tp[s.name] = s.parallel.tp
             coord = mesh.get_coordinate()
             if coord is not None:
                 c = dict(zip(mesh.mesh_dim_names, coord))
                 self._me[s.name] = int(c[shd.AXIS_DATA])
                 self._seq[s.name] = int(c[shd.AXIS_SEQ])
+                self._mod[s.name] = int(c[shd.AXIS_MODEL])
                 self._origin[s.name] = all(int(x) == 0 for x in coord)
-                if self._regime[s.name] == "cp":
-                    from repro_torch.dist.context import cp_attention_impl
-                    self._attn[s.name] = functools.partial(
-                        att.attention_impl, cp_attention_impl(
-                            mesh, mode=s.parallel.cp_mode,
-                            overlap_chunks=s.parallel.cp_overlap_chunks,
-                            section=s.name))
+                from repro_torch.train.step import model_context
+                self._attn[s.name], self._c_spec[s.name] = model_context(
+                    s.arch, s.params, mesh, self._regime[s.name],
+                    s.parallel, section=s.name)
             rules = shd.rules_for(s.arch, mesh, teacher=not s.trainable)
             self._p_spec[s.name] = shd.param_shardings(s.params, mesh, rules)
             if s.trainable:
@@ -969,10 +994,11 @@ class CompoundRuntime:
             self._build(spec.global_batch, spec.seq_len,
                         spec.mbs or spec.global_batch)
 
-    def _rank(self, name: str, d: int, c: int = 0) -> int:
-        """The rank at data coordinate ``d`` and sequence coordinate ``c``
-        of section ``name``'s mesh."""
-        return self._ranks[name][d * self._cp[name] + c]
+    def _rank(self, name: str, d: int, c: int = 0, m: int = 0) -> int:
+        """The rank at data coordinate ``d``, sequence coordinate ``c`` and
+        model coordinate ``m`` of section ``name``'s mesh."""
+        return self._ranks[name][(d * self._cp[name] + c) * self._tp[name]
+                                 + m]
 
     def _compressed_sections(self) -> Dict[str, str]:
         """The sections whose data-parallel reduction is compressed, and
@@ -987,12 +1013,12 @@ class CompoundRuntime:
                 raise ValueError(
                     f"section {s.name!r}: grad_compress on a fwd_only "
                     "section — frozen sections produce no gradients")
-            if s.parallel.cp > 1:
+            if s.parallel.cp > 1 or s.parallel.tp > 1:
                 raise NotImplementedError(
                     f"section {s.name!r}: grad_compress requires the plain "
                     "regime on a dp-only mesh — the compressed all-reduce "
                     "runs over the data axis alone and cannot take the cp "
-                    "regime's sum over the seq axis")
+                    "regime's sum over the seq axis or compose with tp")
             for c in s.consumes:
                 if by[c.section].activation is not None:
                     raise NotImplementedError(
@@ -1283,6 +1309,17 @@ class CompoundRuntime:
         q.expect(src, dst, key, origin, tuple(shape), _torch_dtype(dtype))
         return q.recv(src, dst, key, [origin])[origin]
 
+    def full_leaf(self, name: str, tree: Dict[str, Any], key: str
+                  ) -> torch.Tensor:
+        """Leaf ``key`` of section ``name``'s parameter tree whole: on
+        section meshes gathered from this rank's blocks (every rank of the
+        section calls this), else the leaf itself."""
+        if not self._mesh_mode:
+            return tree[key]
+        with torch.no_grad():
+            return shd.gather(tree[key], self._p_spec[name][key],
+                              self.rt.mesh(name))
+
     @property
     def in_flight(self) -> int:
         return len(self._inflight)
@@ -1290,20 +1327,30 @@ class CompoundRuntime:
     # ------------------------------------------------------------------ #
     # section meshes: this rank's view of an iteration
     # ------------------------------------------------------------------ #
+    def _row_axes(self, name: str) -> Tuple[str, ...]:
+        """The axes over which section ``name``'s ranks hold different
+        rows or columns, and its losses and gradients sum: data, and seq
+        for a cp section.  Its model ranks hold the same ones."""
+        return (shd.AXIS_DATA,) + ((shd.AXIS_SEQ,) if self._cp[name] > 1
+                                   else ())
     def _full_params(self, name: str, rec: _Inflight):
-        """The section's full parameters for this iteration: its tree
-        without meshes, else gathered once from the blocks by the first
-        task that asks (every rank of the section runs the same tasks in
-        the same order, so the gathers pair up)."""
+        """The section's parameters for this iteration: its tree without
+        meshes, else gathered once from the blocks by the first task that
+        asks (every rank of the section runs the same tasks in the same
+        order, so the gathers pair up) -- whole leaves, or this rank's
+        tensor-parallel slices of them (``_c_spec``)."""
         if not self._mesh_mode:
             return self._params[name]
         full = rec.full.get(name)
         if full is None:
             blocks = self._params[name]
+            mesh = self.rt.mesh(name)
             with torch.no_grad():
-                full = shd.gather_tree(blocks,
-                                       tree_like(blocks, self._p_spec[name]),
-                                       self.rt.mesh(name))
+                full = tree_unflatten(blocks, [
+                    shd.reshard(x, p, c, mesh) for x, p, c in zip(
+                        tree_leaves(blocks),
+                        tree_leaves(tree_like(blocks, self._p_spec[name])),
+                        tree_leaves(tree_like(blocks, self._c_spec[name])))])
             rec.full[name] = full
         return full
 
@@ -1340,7 +1387,8 @@ class CompoundRuntime:
         def share(*masks: torch.Tensor) -> torch.Tensor:
             with torch.no_grad():
                 local = torch.stack([m.float().sum() for m in masks])
-                total = shd.all_reduce_mesh(local.clone(), mesh)
+                total = shd.all_reduce_axes(local.clone(), mesh,
+                                            self._row_axes(name))
                 return local / torch.where(total > 0, total,
                                            torch.ones_like(total))
         return share
@@ -1662,9 +1710,11 @@ class CompoundRuntime:
             pspecs = tree_leaves(tree_like(blocks,
                                            self.spec.section(name).params))
             dev = self._device[name]
+            have = tree_leaves(tree_like(blocks, self._c_spec[name]))
             if g is None:
                 g = [torch.zeros(tuple(sp.shape), dtype=torch.float32,
                                  device=dev) for sp in pspecs]
+                have = [None] * len(g)
             if name in self._compress:
                 red, ef = gcomp.ef_compress_tree(
                     tree_unflatten(blocks, [a / n_mb for a in g]),
@@ -1677,10 +1727,9 @@ class CompoundRuntime:
             else:
                 # parameters are replicated over seq: a cp section's
                 # gradients sum over its sequence ranks too
-                axes = shd.dp_axes(mesh) + (
-                    (shd.AXIS_SEQ,) if self._cp[name] > 1 else ())
-                gs = [(shd.reduce_to(a, o, mesh, axes) / n_mb).to(x.dtype)
-                      for a, o, x in zip(g, o_list, leaves)]
+                gs = [(shd.reduce_to(a, o, mesh, self._row_axes(name),
+                                     have=h) / n_mb).to(x.dtype)
+                      for a, o, x, h in zip(g, o_list, leaves, have)]
             vec = torch.stack([
                 x.float().square().sum() if shd.counted_here(o, mesh)
                 else torch.zeros((), dtype=torch.float32, device=dev)
@@ -1720,7 +1769,7 @@ class CompoundRuntime:
                         params, self._o_spec[name].master))
                     with torch.no_grad():
                         p2 = tree_unflatten(params, [
-                            shd.regather(x, o, sp, mesh) for x, o, sp in
+                            shd.reshard(x, o, sp, mesh) for x, o, sp in
                             zip(tree_leaves(p2), o_sp, specs)])
                         if rec.return_grads:
                             grads = tree_unflatten(params, [
@@ -1735,7 +1784,8 @@ class CompoundRuntime:
                     packed = torch.stack(
                         [a["loss"]] + [a["aux"][k].float() for k in keys])
                     if mesh_mode:
-                        shd.all_reduce_mesh(packed, self.rt.mesh(name))
+                        shd.all_reduce_axes(packed, self.rt.mesh(name),
+                                            self._row_axes(name))
                     vals = [(v / n_mb).float() for v in packed.unbind(0)]
                     out["loss"] = vals[0]
                     if a["aux"] is not None:

@@ -4,8 +4,10 @@ Counterpart of ``repro/dist``.  :mod:`repro_torch.dist.sharding` holds the
 ``pod/data/pipe/seq/model`` axis contract, the logical-axis rules, the spec
 trees the sharded train step rests its parameters and optimizer state on,
 and ``section_mesh``, which builds a ``torch.distributed`` ``DeviceMesh``
-with those axis names.  Context parallelism (``context``) and the pipeline
-(``pipeline``) are not ported yet (ROADMAP.md, A6.3 and A6.4).
+with those axis names.  :mod:`repro_torch.dist.context` holds context
+parallel attention over the ``seq`` axis, and
+:mod:`repro_torch.dist.pipeline` the GPipe loss over the ``pipe`` axis and
+Megatron tensor parallelism over ``model``.
 
 The port runs one process per rank: each rank holds its own shard of each
 leaf as a plain tensor, and the step builders move shards with explicit

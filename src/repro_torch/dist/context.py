@@ -260,7 +260,10 @@ def cp_attention_impl(mesh, *, mode: str = "auto", overlap_chunks: int = 1,
     sequence shard -- that runs :func:`cp_attention` over this mesh's ``seq``
     axis, and whose ``positions(S_local, device)`` gives the shard's
     global positions for RoPE.  ``section`` names the installing section
-    in unsupported-feature errors."""
+    in unsupported-feature errors.  Its ``whole_sequence(x)`` and
+    ``own_columns(y)`` run a layer that needs the whole sequence (a Mamba
+    mixer's scan, a MoE layer's per-sample capacity) on the gathered
+    shards, every sequence rank alike, and keep the rank's columns."""
     where = f" (section {section!r})" if section else ""
 
     def _impl(q, k, v, *, causal=True, window=0, segment_q=None,
@@ -281,5 +284,19 @@ def cp_attention_impl(mesh, *, mode: str = "auto", overlap_chunks: int = 1,
         first = coordinate(mesh)[AXIS_SEQ] * shard_len
         return torch.arange(first, first + shard_len, device=device)
 
+    def whole_sequence(x: torch.Tensor) -> torch.Tensor:
+        """The shards [B, S/cp, ...] of every sequence rank, gathered into
+        [B, S, ...]; the gradient of each rank's copy sums back onto the
+        shards' owners."""
+        return _GatherSeq.apply(x, mesh.get_group(AXIS_SEQ))
+
+    def own_columns(y: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a whole-sequence [B, S, ...]."""
+        n = y.shape[1] // mesh_shape(mesh)[AXIS_SEQ]
+        first = coordinate(mesh)[AXIS_SEQ] * n
+        return y[:, first:first + n]
+
     _impl.positions = positions
+    _impl.whole_sequence = whole_sequence
+    _impl.own_columns = own_columns
     return _impl

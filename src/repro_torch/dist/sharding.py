@@ -26,7 +26,7 @@ reference's ``NamedSharding`` trees become trees of specs.
 The port runs one process per rank.  A rank holds, of each leaf, the block
 its mesh coordinate selects (:func:`shard`); a dim sharded over a tuple of
 axes is split major to minor, the first axis outermost, as in JAX.
-:func:`gather`, :func:`reduce_to` and :func:`regather` move blocks with
+:func:`gather`, :func:`reduce_to` and :func:`reshard` move blocks with
 ``torch.distributed`` collectives over the mesh's per-axis process groups,
 one leaf at a time.  They use only calls that exist, without a deprecation
 warning, in every PyTorch build the port runs on (``all_gather`` and
@@ -493,31 +493,62 @@ def gather_tree(tree, specs, mesh):
     return _zip_map(lambda x, s: gather(x, s, mesh), tree, specs)
 
 
-def regather(x: torch.Tensor, src: PartitionSpec, dst: PartitionSpec,
-             mesh) -> torch.Tensor:
-    """A block under ``src`` -> the block under ``dst``, where each dim's
-    ``dst`` axes lead its ``src`` axes (the parameter's spec against its
-    ZeRO extension): an all-gather over each extra axis, innermost first."""
+def reshard(x: torch.Tensor, src: PartitionSpec, dst: PartitionSpec,
+            mesh) -> torch.Tensor:
+    """A block under ``src`` -> the block under ``dst``.  On a dim whose
+    ``dst`` axes lead its ``src`` axes (a parameter's spec against its
+    ZeRO extension), an all-gather over each extra axis, innermost first;
+    on any other dim, an
+    all-gather over every ``src`` axis and, once every dim is gathered,
+    this rank's slice under ``dst``.  An all-None ``dst`` is
+    :func:`gather`."""
+    if not any(_axes(e) for e in dst):
+        return gather(x, src, mesh)
+    sizes, coord = mesh_shape(mesh), coordinate(mesh)
+    sliced = []
     for d in range(len(src)):
-        s_ax, d_ax = _axes(src[d]), _axes(dst[d] if d < len(dst) else None)
-        if s_ax[:len(d_ax)] != d_ax:
-            raise ValueError(f"{dst} is not a prefix of {src} on dim {d}")
-        for a in reversed(s_ax[len(d_ax):]):
+        s_ax = _axes(src[d])
+        d_ax = _axes(dst[d] if d < len(dst) else None)
+        keep = d_ax if s_ax[:len(d_ax)] == d_ax else ()
+        for a in reversed(s_ax[len(keep):]):
             x = _all_gather_dim(x, d, mesh.get_group(a))
-    return x
+        if keep != d_ax:
+            sliced.append(d)
+    for d in sliced:
+        n, idx = _block(dst[d], sizes, coord)
+        size = x.shape[d] // n
+        x = x.narrow(d, idx * size, size)
+    return x.contiguous()
 
 
 def reduce_to(x: torch.Tensor, spec: PartitionSpec, mesh,
-              axes: Sequence[str]) -> torch.Tensor:
+              axes: Sequence[str],
+              have: Optional[PartitionSpec] = None) -> torch.Tensor:
     """Sum ``x``, a full-size tensor that each rank holds a part of, over
     the mesh ``axes`` and keep this rank's block under ``spec``: a
     reduce-scatter over each of ``axes`` that splits a dim (its outermost
     axis first), an all-reduce over the others.  A split over an axis not
-    in ``axes`` is a plain slice."""
+    in ``axes`` is a plain slice.
+
+    ``have``: ``x`` is this rank's block under that spec instead (the
+    blocks a tensor-parallel or pipeline stage body computes with, whose
+    axes are not in ``axes``).  A dim whose ``have`` axes lead its
+    ``spec`` axes stays as it is; every other is all-gathered first."""
     sizes, coord = mesh_shape(mesh), coordinate(mesh)
+    done = []
+    for d, entry in enumerate(spec):
+        h = _axes(have[d] if have is not None and d < len(have) else None)
+        if set(h) & set(axes):
+            raise ValueError(f"{have} splits dim {d} over a summed axis of "
+                             f"{tuple(axes)}")
+        if _axes(entry)[:len(h)] != h:
+            for a in reversed(h):
+                x = _all_gather_dim(x, d, mesh.get_group(a))
+            h = ()
+        done.append(h)
     in_spec = set()
     for d, entry in enumerate(spec):
-        for a in _axes(entry):
+        for a in _axes(entry)[len(done[d]):]:
             if a in axes:
                 x = _reduce_scatter_dim(x, d, mesh.get_group(a))
                 in_spec.add(a)
@@ -527,6 +558,14 @@ def reduce_to(x: torch.Tensor, spec: PartitionSpec, mesh,
     for a in axes:
         if a not in in_spec:
             dist.all_reduce(x, group=mesh.get_group(a))
+    return x
+
+
+def all_reduce_axes(x: torch.Tensor, mesh, axes: Sequence[str],
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` in place over the mesh ``axes``, one after another."""
+    for a in axes:
+        dist.all_reduce(x, op=op, group=mesh.get_group(a))
     return x
 
 

@@ -216,8 +216,14 @@ class DistillRuntime:
         section meshes: the teacher's origin sends it to every student
         rank; every rank calls this, and the ranks without the student get
         None)."""
-        w = (teacher_unembedding(params_t, self.t_cfg)
-             if params_t is not None else None)
+        w = None
+        if params_t is not None:
+            # on section meshes the teacher's ranks gather it first: its
+            # vocab dim rests split over the model axis
+            key = "embed" if self.t_cfg.tie_embeddings else "unembed"
+            w = teacher_unembedding(
+                {key: self.runtime.full_leaf("teacher", params_t, key)},
+                self.t_cfg)
         return self.runtime.transfer(
             "teacher", "student", "w_t", w,
             (self.t_cfg.d_model, self.t_cfg.padded_vocab), self.t_cfg.dtype)

@@ -9,19 +9,20 @@ from a seeded ``torch.Generator``, batches from ``lm_batches`` with that
 seed).  ``--arch <id> --reduced --device cpu`` runs the reduced config on
 the CPU.
 
-``--data N`` trains data-parallel with FSDP and ZeRO sharding, one process
-per rank, launched by ``torchrun``::
+``--data N`` trains data-parallel with FSDP and ZeRO sharding and
+``--model M`` tensor-parallel (Megatron TP, ``dist.pipeline``), one
+process per rank, launched by ``torchrun``::
 
-    python -m torch.distributed.run --nproc-per-node 2 \
-        -m repro_torch.launch.train --data 2 --device cpu \
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --data 2 --model 2 --device cpu \
         --arch qwen1.5-0.5b --reduced --batch 8 --seq 32
 
 The process group comes from the environment ``torchrun`` sets (NCCL on
 ``cuda``, one card a rank, gloo on ``--device cpu``), and the world size
 must equal ``--data`` x ``--model``.  Every rank builds the same seeded
 model and draws the same global batches; the step keeps its own rows.
-Without ``torchrun``, ``--data`` above 1 raises and says how to launch;
-``--model`` above 1 raises (tensor parallelism is ROADMAP.md, A6.4).
+Without ``torchrun``, ``--data`` or ``--model`` above 1 raises and says how
+to launch.
 ``--ckpt-dir DIR`` saves ``{"params", "opt"}`` there every
 ``--ckpt-every`` steps and at the end, and a run given a directory that
 holds a checkpoint resumes from the latest one: run the same command again
@@ -106,15 +107,12 @@ def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
     group, of ``data`` x ``model`` ranks) runs the sharded step; every rank
     calls ``run`` with the same arguments, and the result's parameters and
     optimizer state are this rank's blocks."""
-    if model > 1:
-        raise NotImplementedError(
-            f"--model {model}: tensor parallelism is not ported yet; see "
-            "ROADMAP.md, A6.4")
-    if data > 1 and mesh is None:
+    if data * model > 1 and mesh is None:
         raise RuntimeError(
-            f"--data {data} runs one process per rank: launch it with "
-            f"python -m torch.distributed.run --nproc-per-node {data} -m "
-            f"repro_torch.launch.train --data {data} ... (ROADMAP.md, A6.1)")
+            f"--data {data} --model {model} runs one process per rank: "
+            f"launch it with python -m torch.distributed.run "
+            f"--nproc-per-node {data * model} -m repro_torch.launch.train "
+            f"--data {data} --model {model} ... (ROADMAP.md, A6.1, A6.4)")
     cfg = resolve_config(arch, reduced=reduced, dtype=dtype)
     shape = ShapeConfig("cli", "train", seq, batch)
     mbs = mbs or max(batch // data, 1)
@@ -182,7 +180,7 @@ def main(argv=None) -> TrainRun:
               model=args.model, dtype=args.dtype, device=args.device,
               seed=args.seed, ckpt_dir=args.ckpt_dir or None,
               ckpt_every=args.ckpt_every)
-    if "WORLD_SIZE" not in os.environ or args.model > 1:
+    if "WORLD_SIZE" not in os.environ:
         res = run(args.arch, **kw)
         print(res.summary())
         return res

@@ -20,7 +20,7 @@ axis as the reference's.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,9 +60,26 @@ def route(p, x: torch.Tensor, cfg: ArchConfig):
     return logits, torch.softmax(gate_logits, dim=-1), idx
 
 
-def moe(p, x: torch.Tensor, cfg: ArchConfig
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe(p, x: torch.Tensor, cfg: ArchConfig, *, return_stats: bool = False,
+        tp_in: Optional[Callable] = None) -> Tuple[torch.Tensor, ...]:
     """x [B, S, D] -> (y [B, S, D], aux loss scalar float32).
+
+    ``return_stats=True`` also returns the router statistics the aux loss
+    is built from, ``stats`` [2, E] float32: ``stats[0]`` = frac (mean
+    routed assignments per expert) and ``stats[1]`` = prob (mean router
+    probability per expert), token means over this call's rows.  Both
+    are linear in the token population, so a caller that splits a batch
+    (micro-batches, data or sequence ranks) averages them and rebuilds the
+    exact aux ``E * sum(frac * prob) / K``; the aux itself is nonlinear in
+    them and does not average.
+
+    ``tp_in`` (Megatron tensor parallelism, ``dist.pipeline``): the
+    expert weights hold this rank's slice of the ``mlp`` dim, so ``y`` is
+    a partial sum the caller all-reduces over the model group.  Routing
+    reads ``x`` as it is, replicated on every rank; the expert path reads
+    ``tp_in(x)`` and the combine ``tp_in(gates)``, identities whose
+    backward all-reduces the gradient over the group, so that the
+    router's and ``x``'s gradients come out whole on every rank.
 
     The reference passes the gate product through ``grad_dtype_barrier``
     (an identity whose backward casts the cotangent to the primal's
@@ -74,6 +91,8 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig
 
     with torch.profiler.record_function("moe.route"):
         logits, gates, idx = route(p, x, cfg)
+        if tp_in is not None:
+            x, gates = tp_in(x), tp_in(gates)
         # position of each (token, k) slot in its expert's buffer: a count
         # over the slots in the order s * K + k, per sample
         oh = F.one_hot(idx, E)                                  # [B,S,K,E]
@@ -110,4 +129,6 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig
         gathered = ye.index_select(0, row).reshape(B, S, K, D)
         gw = (gates * keep.float()).to(x.dtype)
         y = torch.sum(gathered * gw[..., None], dim=2)
+    if return_stats:
+        return y, aux, torch.stack([frac, prob]).float()
     return y, aux

@@ -12,8 +12,10 @@ embeddings (``batch["image_embeds"]``) into the token stream.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+import threading
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -130,16 +132,52 @@ def _layer(tree, i: int):
 # --------------------------------------------------------------------------- #
 # Forward passes
 # --------------------------------------------------------------------------- #
-def _ffn(lp, x, cfg: ArchConfig, ffn: Optional[str]):
-    """The residual FFN block -> (x, aux): aux is the MoE sub-layer's
-    load-balancing loss, None for an MLP or no FFN."""
+def _ffn(lp, x, cfg: ArchConfig, ffn: Optional[str], *,
+         collect_stats: bool = False, tp=None):
+    """The residual FFN block -> (x, aux, stats): aux is the MoE
+    sub-layer's load-balancing loss, None for an MLP or no FFN; stats its
+    router statistics with ``collect_stats`` (else None).  ``tp``: see
+    :func:`_sublayer_fwd`."""
     if ffn is None:
-        return x, None
+        return x, None, None
     h = apply_norm(lp["norm2"], x, cfg)
+    tp_ffn = tp is not None and tp.ffn
+    aux = stats = None
+    whole = _whole_sequence() if ffn == "moe" else None
+    if whole is not None:
+        h = whole[0](h)
     if ffn == "mlp":
-        return x + mlpm.mlp(lp[ffn], h, cfg), None
-    h, aux = moem.moe(lp[ffn], h, cfg)
-    return x + h, aux
+        fp = lp[ffn]
+        if tp_ffn:
+            if cfg.mlp_act == "gelu":
+                # added on every rank before the all-reduce: 1/tp each
+                fp = dict(fp, b_out=tp.enter(fp["b_out"]) / tp.size)
+            h = tp.enter(h)
+        h = mlpm.mlp(fp, h, cfg)
+    else:
+        out = moem.moe(lp[ffn], h, cfg, return_stats=collect_stats,
+                       tp_in=tp.enter if tp_ffn else None)
+        h, aux = out[0], out[1]
+        if collect_stats:
+            stats = out[2]
+    if tp_ffn:
+        h = tp.exit(h)
+    if whole is not None:
+        h = whole[1](h)
+    return x + h, aux, stats
+
+
+def _whole_sequence():
+    """Under context parallelism (an installed attention implementation
+    with ``whole_sequence``): the (gather, own columns) pair that runs a
+    layer over the whole sequence -- a Mamba mixer, whose scan carries
+    state from one sequence shard into the next, and a MoE layer, whose
+    per-sample capacity counts the sample's every token.  None
+    otherwise."""
+    impl = att.current_impl()
+    if getattr(impl, "whole_sequence", None) is None:
+        return None
+    return impl.whole_sequence, impl.own_columns
 
 
 def vision_scatter(p, cfg: ArchConfig, x: torch.Tensor,
@@ -165,17 +203,67 @@ def embed_tokens(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 
 def _sublayer_fwd(lp, x, cfg: ArchConfig, mixer: str, ffn: Optional[str],
-                  segment_ids, causal: bool = True):
+                  segment_ids, causal: bool = True,
+                  collect_stats: bool = False, tp=None):
     """One (mixer, ffn) sub-layer -> (x, aux), as the reference's; aux is
     the MoE loss, and None (the reference's constant 0) for a sub-layer
-    without a router."""
+    without a router.  With ``collect_stats`` (MoE sub-layers) -> (x, aux,
+    stats), the [2, E] router statistics of ``moe(..., return_stats=
+    True)``, the linear quantities an exact aux over a split batch is
+    rebuilt from.
+
+    ``tp`` (a ``dist.pipeline.TensorParallel``): Megatron tensor
+    parallelism.  The caller passes this rank's ``heads``/``kv_heads``
+    slices of the attention weights (``tp.attn``) and its ``mlp`` slices
+    of the FFN weights (``tp.ffn``); each region's output is then a
+    partial sum, all-reduced by ``tp.exit``, and its input enters through
+    ``tp.enter``.  Mamba mixers stay whole.
+
+    Under context parallelism a Mamba mixer and a MoE layer run over the
+    whole sequence (:func:`_whole_sequence`)."""
     h = apply_norm(lp["norm1"], x, cfg)
     if mixer == "attn":
-        h = att.attention(lp["attn"], h, cfg, causal=causal,
-                          segment_ids=segment_ids)
+        tp_attn = tp is not None and tp.attn
+        h = att.attention(lp["attn"], tp.enter(h) if tp_attn else h, cfg,
+                          causal=causal, segment_ids=segment_ids)
+        if tp_attn:
+            h = tp.exit(h)
     else:
-        h = mb.mamba(lp["mamba"], h, cfg)
-    return _ffn(lp, x + h, cfg, ffn)
+        whole = _whole_sequence()
+        h = (whole[1](mb.mamba(lp["mamba"], whole[0](h), cfg))
+             if whole is not None else mb.mamba(lp["mamba"], h, cfg))
+    x, aux, stats = _ffn(lp, x + h, cfg, ffn, collect_stats=collect_stats,
+                         tp=tp)
+    if collect_stats:
+        return x, aux, stats
+    return x, aux
+
+
+_SHARDED = threading.local()
+
+
+@contextlib.contextmanager
+def sharded_forward(*, tp=None, stats_mean: Optional[Callable] = None):
+    """Install, for this thread's :func:`lm_forward` calls, Megatron tensor
+    parallelism (``tp``, see :func:`_sublayer_fwd`; the caller passes the
+    rank's slices of the parameters) and ``stats_mean``, which averages a
+    MoE layer's router statistics over the ranks that split the batch (its
+    data and sequence ranks), so that each layer's aux is the reference's
+    over the micro-batch's global rows.  Checkpointed layers get ``tp`` as
+    an argument, so a recompute on another thread runs under it too."""
+    prev = getattr(_SHARDED, "value", (None, None))
+    _SHARDED.value = (tp, stats_mean)
+    try:
+        yield
+    finally:
+        _SHARDED.value = prev
+
+
+def aux_from_stats(stats: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A MoE layer's load-balancing loss ``E * sum(frac * prob) / K`` from
+    its [2, E] router statistics (``moe``'s aux on the same rows)."""
+    return cfg.num_experts * torch.sum(stats[0] * stats[1]) \
+        / cfg.experts_per_token
 
 
 def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
@@ -194,6 +282,7 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
     aux is the sum of every MoE sub-layer's load-balancing loss (0 for a
     model without one), as the reference's scan sums it."""
     pk, _ = group_layout(cfg)
+    tp, stats_mean = getattr(_SHARDED, "value", (None, None))
     x = cm.shard_act(embed_tokens(p, cfg, batch), "hidden")
     segment_ids = batch.get("segment_ids")
     checkpoint = remat and torch.is_grad_enabled()
@@ -202,14 +291,17 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
         for j, (mixer, ffn) in enumerate(pk):
             _check_kind(mixer, ffn)
             lp = period[f"sub{j}"]
+            stats = stats_mean is not None and ffn == "moe"
+            args = (lp, x, cfg, mixer, ffn, segment_ids, causal, stats, tp)
             if checkpoint:
-                x, a = torch.utils.checkpoint.checkpoint(
-                    _sublayer_fwd, lp, x, cfg, mixer, ffn, segment_ids,
-                    causal, use_reentrant=False,
+                out = torch.utils.checkpoint.checkpoint(
+                    _sublayer_fwd, *args, use_reentrant=False,
                     context_fn=att.remat_context)
             else:
-                x, a = _sublayer_fwd(lp, x, cfg, mixer, ffn, segment_ids,
-                                     causal)
+                out = _sublayer_fwd(*args)
+            x, a = out[0], out[1]
+            if stats:
+                a = aux_from_stats(stats_mean(out[2]), cfg)
             x = cm.shard_act(x, "hidden")
             if a is not None:
                 aux = aux + a
@@ -281,7 +373,7 @@ def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
                                              cache_len=clen, cache=cache)
             else:
                 h = mb.mamba(lp["mamba"], h, cfg, cache=cache)
-            x, _ = _ffn(lp, x + h, cfg, ffn)
+            x = _ffn(lp, x + h, cfg, ffn)[0]
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, x[:, -1:])[:, 0]
     return logits, caches
@@ -306,7 +398,7 @@ def lm_decode(p, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos: int):
                                             pos=pos)
             else:
                 h, _ = mb.mamba_decode(lp["mamba"], h, layer_cache, cfg)
-            x, _ = _ffn(lp, x + h, cfg, ffn)
+            x = _ffn(lp, x + h, cfg, ffn)[0]
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, x)[:, 0]
     return logits, cache

@@ -37,10 +37,30 @@ function.
   divides by the mask total over the data and sequence ranks, and the
   gradients are summed over both before the reduce-scatter into the ZeRO
   blocks: parameters are replicated over ``seq``.
+* a ``model`` axis above 1 (plain regime): Megatron tensor parallelism
+  (``dist.pipeline.TensorParallel``) under the reference's gates
+  (``dist.pipeline._tp_plan``): each rank takes its heads and ``d_ff``
+  slices of the layer weights and gathers every other leaf whole, so the
+  regions the gates refuse (a KV head count the axis does not divide, a
+  Mamba mixer, the vocabulary, the experts) compute whole on every model
+  rank.  Every rank then holds the whole gradient of each leaf it does not
+  slice, so nothing is summed over ``model``: a ZeRO block that extends
+  over ``model`` takes its slice.
+* a ``pipe`` axis above 1: the pipeline regime (``"pp"``).  The loss is
+  ``dist.pipeline.build_pp_loss``'s GPipe schedule over this rank's stage
+  (vocab-parallel CE where the padded vocabulary divides the stages, TP
+  inside the stage on a ``model`` axis), micro-batched inside the
+  schedule as in the reference; the step takes its ``value_and_grad``
+  and reduces each gradient over the data axes and, for a leaf the stages
+  share, over ``pipe``.  Its metrics are ``loss``, ``grad_norm`` and
+  ``lr``, as the reference's.
 
-A ``pipe`` or ``model`` axis above 1 raises (ROADMAP.md, A6.4), and so do
-the MoE and hybrid families on more than one data or sequence rank (their
-load-balancing loss needs the router statistics, A6.4).
+The MoE and hybrid families on more than one data or sequence rank take
+each micro-batch's router statistics averaged over those ranks before
+the load-balancing loss is formed (``models.transformer.sharded_forward``),
+which is the reference's aux over the micro-batch's global rows.  Not
+ported: ``cp`` together with ``tp`` (ROADMAP.md, A6.4 remainder); pp x cp
+and the audio family under pp are refused as in the reference.
 """
 from __future__ import annotations
 
@@ -52,42 +72,38 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
+from repro_torch.dist import pipeline as pl
 from repro_torch.dist import sharding as shd
 from repro_torch.models import attention as att
+from repro_torch.models import transformer as tf
 from repro_torch.models.common import (tree_leaves, tree_like, tree_map,
                                        tree_unflatten)
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw, schedules
 from repro_torch.optim import compression as gcomp
 
-#: ParallelConfig knobs above 1 that no step runs yet, and their slice
-_LATER = {"pp": "A6.4", "tp": "A6.4"}
-
-
 def check_single_device(parallel: ParallelConfig, what: str) -> None:
     """Raise for every ParallelConfig knob a step on one device cannot
     run."""
-    for k, item in _LATER.items():
-        if getattr(parallel, k) != 1:
-            raise NotImplementedError(
-                f"{what}: {k}={getattr(parallel, k)} is not ported yet; see "
-                f"ROADMAP.md, {item}")
     compress = parallel.grad_compress or "none"
-    if parallel.dp != 1 or parallel.cp != 1 or compress != "none":
+    if parallel.devices != 1 or compress != "none":
         raise NotImplementedError(
-            f"{what}: dp={parallel.dp}, cp={parallel.cp}, grad_compress="
-            f"{compress!r} run only on a mesh: train.step.build_train_step("
-            "..., mesh=dist.sharding.section_mesh(ranks, parallel)) under "
-            "torch.distributed (ROADMAP.md, A6.1, A6.3); a compound section "
-            "on several ranks is ROADMAP.md, A6.2")
+            f"{what}: dp={parallel.dp}, tp={parallel.tp}, pp={parallel.pp}, "
+            f"cp={parallel.cp}, grad_compress={compress!r} run only on a "
+            "mesh: train.step.build_train_step(..., mesh=dist.sharding"
+            ".section_mesh(ranks, parallel)) under torch.distributed "
+            "(ROADMAP.md, A6.1, A6.3, A6.4); a compound section on several "
+            "ranks is ROADMAP.md, A6.2")
 
 
 def parallel_regime(mesh, parallel: ParallelConfig) -> str:
     """Validate ``parallel`` against ``mesh`` (a ``DeviceMesh`` or an
-    ``{axis: size}`` mapping) and name the step regime: ``"cp"`` for a
-    ``seq`` axis above 1, else ``"plain"``.  A mismatch, or a CP knob out
-    of range, raises ``ValueError``; a ``pipe`` or ``model`` axis above 1
-    raises ``NotImplementedError`` naming its ROADMAP item."""
+    ``{axis: size}`` mapping) and name the step regime: ``"pp"`` for a
+    ``pipe`` axis above 1, ``"cp"`` for a ``seq`` axis above 1, else
+    ``"plain"`` (tensor parallelism runs inside the plain and pp regimes).
+    A mismatch, or a CP knob out of range, raises ``ValueError``; pp x cp
+    raises as in the reference, and cp x tp ``NotImplementedError`` naming
+    ROADMAP.md, A6.4 (remainder)."""
     sizes = shd.mesh_shape(mesh)
     have = {"pp": sizes.get(shd.AXIS_PIPE, 1),
             "cp": sizes.get(shd.AXIS_SEQ, 1),
@@ -102,8 +118,14 @@ def parallel_regime(mesh, parallel: ParallelConfig) -> str:
                 "mesh carved by section_mesh, not fall back to replication")
     if have["pp"] > 1 and have["cp"] > 1:
         raise NotImplementedError(
-            "pp x cp composition is not supported in the reference either; "
-            "pipeline parallelism is ROADMAP.md, A6.4")
+            "pp x cp composition is not supported (CP's sequence shards "
+            "cannot nest inside the pipeline's stages); use pp x tp "
+            "instead")
+    if have["cp"] > 1 and have["tp"] > 1:
+        raise NotImplementedError(
+            f"cp={have['cp']} x tp={have['tp']}: context parallelism with "
+            "tensor parallelism is not ported yet; see ROADMAP.md, A6.4 "
+            "(remainder)")
     from repro_torch.dist.context import CP_MODES
     if parallel.cp_mode not in CP_MODES:
         raise ValueError(
@@ -120,20 +142,22 @@ def parallel_regime(mesh, parallel: ParallelConfig) -> str:
             f"{parallel.cp_overlap_chunks} only applies to the ulysses "
             f"mode's K/V a2a chain, but cp_mode={parallel.cp_mode!r} "
             f"was forced")
-    for k, item in _LATER.items():
-        if have[k] > 1:
-            raise NotImplementedError(
-                f"{k}={have[k]}: the {axis[k]} axis's regime is not ported "
-                f"yet; see ROADMAP.md, {item}")
+    if have["pp"] > 1:
+        return "pp"
     return "cp" if have["cp"] > 1 else "plain"
 
 
 def _check_pp_cp_support(cfg: ArchConfig, regime: str) -> None:
-    """The families the CP regime refuses: the reference's (audio, whose
-    cross-attention has no sequence shard, and attention-free archs,
-    whose seq axis would be replicated silently), and the VLM family's
-    image splice, whose image positions are global (ROADMAP.md, A6.3
-    remainder)."""
+    """The families the PP and CP regimes refuse: the reference's (audio
+    under either, whose encoder-decoder stack is not staged and whose
+    cross-attention has no sequence shard; attention-free archs under cp,
+    whose seq axis would be replicated silently), and under cp the VLM
+    family's image splice, whose image positions are global (ROADMAP.md,
+    A6.3 remainder)."""
+    if regime == "pp" and cfg.family == "audio":
+        raise NotImplementedError(
+            "pipeline parallelism is not implemented for encoder-decoder "
+            "(audio) sections: build_pp_loss stages the lm_specs stack")
     if regime != "cp":
         return
     if cfg.family == "audio":
@@ -296,24 +320,70 @@ def _mask_total(mb: dict) -> torch.Tensor:
     return mask.float().sum()
 
 
-def reduce_grads(grads: List[torch.Tensor], specs: list, mesh,
-                 axes) -> List[torch.Tensor]:
+def reduce_grads(grads: List[torch.Tensor], specs: list, mesh, axes,
+                 have: Optional[list] = None) -> List[torch.Tensor]:
     """Each rank's float32 gradient summed over the data ``axes`` and kept
-    in its optimizer-state block (``specs``), one leaf at a time."""
-    return [shd.reduce_to(g, s, mesh, axes) for g, s in zip(grads, specs)]
+    in its optimizer-state block (``specs``), one leaf at a time;
+    ``have``: the specs of the blocks the gradients are of (whole leaves
+    when None)."""
+    have = have or [None] * len(grads)
+    return [shd.reduce_to(g, s, mesh, axes, have=h)
+            for g, s, h in zip(grads, specs, have)]
 
 
-def check_router_stats(cfg: ArchConfig, dp_total: int, cp: int,
-                       where: str) -> None:
-    """The MoE and hybrid families on more than one data or sequence rank
-    raise: their load-balancing loss is nonlinear in the router statistics
-    of the whole batch."""
-    if (dp_total > 1 or cp > 1) and cfg.family in ("moe", "hybrid"):
-        raise NotImplementedError(
-            f"{where}: the {cfg.family} family's load-balancing loss is "
-            "nonlinear in the batch's router statistics, so per-rank values "
-            f"do not combine over {dp_total} data x {cp} sequence ranks; "
-            "the exact form needs moe(return_stats=), ROADMAP.md, A6.4")
+def model_context(cfg: ArchConfig, specs, mesh, regime: str,
+                  parallel: ParallelConfig, *, section: Optional[str] = None):
+    """How a rank of ``mesh`` runs a model of ``cfg`` whose parameters
+    follow the ParamSpec tree ``specs``, in the plain or cp regime ->
+    (context factory, compute specs).
+
+    The context installs the cp regime's attention, Megatron TP on the
+    ``model`` axis (:func:`dist.pipeline.tensor_parallel`) and, for a
+    model with MoE layers on more than one data or sequence rank, the mean
+    of the router statistics over those ranks.  TP runs where the forward
+    is ``models.transformer.lm_forward`` over the ``lm_specs`` tree;
+    any other model (whisper's encoder-decoder, the MLLM's vision tower)
+    computes whole on every model rank.  The compute specs are the blocks
+    the rank computes with (``dist.pipeline.compute_specs``: its TP
+    slices, every other leaf whole), a tree over ``specs``."""
+    sum_ax = shd.dp_axes(mesh) + ((shd.AXIS_SEQ,) if regime == "cp" else ())
+    sizes = shd.mesh_shape(mesh)
+    n = shd.axis_size(mesh, sum_ax)
+
+    def shapes(t):
+        return tree_map(lambda x: tuple(x.shape), t)
+    tp = None
+    if cfg.family != "audio" and shapes(specs) == shapes(tf.lm_specs(cfg)):
+        tp = pl.tensor_parallel(cfg, mesh)
+    if tp is None:
+        c_specs = tree_map(lambda x: shd.P(), specs)
+    else:
+        c_specs = pl.compute_specs(cfg, tp_axis=shd.AXIS_MODEL,
+                                   tp_attn=tp.attn, tp_ffn=tp.ffn)
+    stats_mean = None
+    if cfg.num_experts and n > 1:
+        groups = [mesh.get_group(a) for a in sum_ax if sizes[a] > 1]
+
+        def stats_mean(stats):
+            return pl.mean_over(stats, groups, n)
+    impl = None
+    if regime == "cp":
+        from repro_torch.dist.context import cp_attention_impl
+        impl = cp_attention_impl(mesh, mode=parallel.cp_mode,
+                                 overlap_chunks=parallel.cp_overlap_chunks,
+                                 section=section)
+
+    @contextlib.contextmanager
+    def ctx():
+        with contextlib.ExitStack() as stack:
+            if impl is not None:
+                stack.enter_context(att.attention_impl(impl))
+            if tp is not None or stats_mean is not None:
+                stack.enter_context(tf.sharded_forward(
+                    tp=tp, stats_mean=stats_mean))
+            yield
+
+    return ctx, c_specs
 
 
 def _check_sharded(model: Model, parallel: ParallelConfig,
@@ -325,17 +395,24 @@ def _check_sharded(model: Model, parallel: ParallelConfig,
     _check_pp_cp_support(cfg, regime)
     dp_ax = shd.dp_axes(mesh)
     dp_total = shd.axis_size(mesh, dp_ax)
-    cp = shd.mesh_shape(mesh).get(shd.AXIS_SEQ, 1)
-    check_router_stats(cfg, dp_total, cp, cfg.name)
+    sizes = shd.mesh_shape(mesh)
+    if regime == "pp":
+        reps, pp = tf.group_layout(cfg)[1], sizes[shd.AXIS_PIPE]
+        if reps % pp:
+            raise ValueError(f"{cfg.name}: {reps} layer groups do not "
+                             f"divide {pp} pipeline stages")
+    cp = sizes.get(shd.AXIS_SEQ, 1)
     compress = parallel.grad_compress or "none"
     if compress not in gcomp.METHODS:
         raise ValueError(f"ParallelConfig.grad_compress={compress!r}: "
                          f"expected one of {gcomp.METHODS}")
-    if compress != "none" and regime != "plain":
+    if compress != "none" and (regime != "plain" or any(
+            sizes.get(a, 1) > 1 for a in (shd.AXIS_PIPE, shd.AXIS_SEQ,
+                                          shd.AXIS_MODEL))):
         raise NotImplementedError(
             "grad_compress requires the plain regime on a dp-only mesh: the "
             "compressed all-reduce runs over the data axis alone and cannot "
-            "take the cp regime's sum over the seq axis")
+            "nest inside pp/cp schedules or compose with tp")
     if regime == "cp" and shape.seq_len % cp:
         raise ValueError(
             f"sequence length {shape.seq_len} does not divide the mesh "
@@ -386,17 +463,18 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
     # cp regime (parameters are replicated over seq)
     sum_ax = dp_ax + ((shd.AXIS_SEQ,) if regime == "cp" else ())
     cp, seq_idx = sizes.get(shd.AXIS_SEQ, 1), coord.get(shd.AXIS_SEQ, 0)
-    if regime == "cp":
-        from repro_torch.dist.context import cp_attention_impl
-        impl = cp_attention_impl(mesh, mode=parallel.cp_mode,
-                                 overlap_chunks=parallel.cp_overlap_chunks)
-        attn_ctx = functools.partial(att.attention_impl, impl)
+    if regime == "pp":
+        pp_loss, _ = pl.build_pp_loss(cfg, mesh, n_micro,
+                                      remat=parallel.remat,
+                                      causal=cfg.family != "vit")
+        c_specs = pp_loss.specs
     else:
-        attn_ctx = contextlib.nullcontext
+        model_ctx, c_specs = model_context(cfg, specs, mesh, regime,
+                                           parallel)
 
-    def loss_fn(p, mb):
-        with attn_ctx():
-            return model.loss(mb, params=p, remat=parallel.remat)
+        def loss_fn(p, mb):
+            with model_ctx():
+                return model.loss(mb, params=p, remat=parallel.remat)
 
     def columns(x):
         """This rank's sequence columns of a batch leaf (cp regime)."""
@@ -417,15 +495,18 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
                                                                 n_micro)
 
     def spec_lists(params):
-        """The parameter and optimizer-state specs in ``params``' leaf
-        order."""
+        """The parameter, optimizer-state and compute specs in ``params``'
+        leaf order."""
         return (tree_leaves(tree_like(params, p_specs)),
-                tree_leaves(tree_like(params, o_specs.master)))
+                tree_leaves(tree_like(params, o_specs.master)),
+                tree_leaves(tree_like(params, c_specs)))
 
-    def full_params(params, p_list):
+    def compute_params(params, p_list, c_list):
+        """The blocks the forward computes with: the full leaves, or this
+        rank's TP slices and stage blocks."""
         with torch.no_grad():
-            full = [shd.gather(x, s, mesh)
-                    for x, s in zip(tree_leaves(params), p_list)]
+            full = [shd.reshard(x, s, c, mesh)
+                    for x, s, c in zip(tree_leaves(params), p_list, c_list)]
         return [x.requires_grad_() for x in full]
 
     def finish(params, opt_state, g_opt, step_idx, metrics, p_list, o_list):
@@ -440,7 +521,7 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
             g_opt, opt_state, lr, opt_cfg,
             gnorm=gnorm if opt_cfg.clip_norm > 0 else None)
         with torch.no_grad():
-            new = [shd.regather(x, o, p, mesh) for x, o, p in
+            new = [shd.reshard(x, o, p, mesh) for x, o, p in
                    zip(tree_leaves(new_master), o_list, p_list)]
         metrics.update(grad_norm=gnorm, lr=lr)
         return tree_unflatten(params, new), opt_state, metrics
@@ -456,7 +537,21 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
             packed = packed / mean_over
         return {k: v / n_micro for k, v in zip(keys, packed.unbind(0))}
 
-    if compress == "none":
+    if regime == "pp":
+        def step(params, opt_state, batch, step_idx):
+            p_list, o_list, c_list = spec_lists(params)
+            local = compute_params(params, p_list, c_list)
+            loss, grads = pp_loss.value_and_grad(
+                tree_unflatten(params, local), batch, reduce=False)
+            del local
+            with torch.no_grad():
+                g_opt = [shd.reduce_to(g, o, mesh, pp_loss.grad_axes(c),
+                                       have=c) for g, o, c in
+                         zip(tree_leaves(grads), o_list, c_list)]
+            del grads
+            return finish(params, opt_state, g_opt, step_idx,
+                          {"loss": loss}, p_list, o_list)
+    elif compress == "none":
         def step(params, opt_state, batch, step_idx):
             mbs = local_microbatches(batch)
             counts = torch.stack([_mask_total(mb) for mb in mbs])
@@ -464,14 +559,14 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
             for a in sum_ax:
                 dist.all_reduce(totals, group=mesh.get_group(a))
             weights = counts / totals.clamp_min(1.0)
-            p_list, o_list = spec_lists(params)
-            full = full_params(params, p_list)
+            p_list, o_list, c_list = spec_lists(params)
+            full = compute_params(params, p_list, c_list)
             g_acc, sums = _accumulate(loss_fn, tree_unflatten(params, full),
                                       full, mbs, weights)
             del full
             with torch.no_grad():
                 g_acc = reduce_grads([g.float() for g in g_acc], o_list,
-                                     mesh, sum_ax)
+                                     mesh, sum_ax, have=c_list)
                 if n_micro > 1:
                     g_acc = [a / n_micro for a in g_acc]
             return finish(params, opt_state, g_acc, step_idx,
@@ -479,8 +574,8 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
     else:
         def step(params, opt_state, batch, step_idx, ef):
             mbs = local_microbatches(batch)
-            p_list, o_list = spec_lists(params)
-            full = full_params(params, p_list)
+            p_list, o_list, c_list = spec_lists(params)
+            full = compute_params(params, p_list, c_list)
             g_acc, sums = _accumulate(loss_fn, tree_unflatten(params, full),
                                       full, mbs)
             del full

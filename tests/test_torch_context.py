@@ -328,19 +328,24 @@ def _build(arch, par, seq=8, mesh=None, **over):
     cfg = tcfgs.get_reduced(arch).replace(dtype="float32", **over)
     return tstep.build_train_step(
         tbuild(cfg, device="cpu"), par, ShapeConfig("t", "train", seq, 4),
-        mesh=mesh or _mesh(seq=par.cp, data=par.dp))
+        mesh=mesh or _mesh(seq=par.cp, data=par.dp, model=par.tp))
 
 
-@pytest.mark.parametrize("arch,exc,match", [
-    ("whisper-small", NotImplementedError, "audio"),
-    ("mamba2-130m", NotImplementedError, "attention-free"),
-    ("mixtral-8x22b", NotImplementedError, "A6.4"),
-    ("jamba-v0.1-52b", NotImplementedError, "A6.4"),
-    ("pixtral-12b", NotImplementedError, "A6.3"),
+@pytest.mark.parametrize("arch,par,exc,match", [
+    ("whisper-small", ParallelConfig(cp=2), NotImplementedError, "audio"),
+    ("mamba2-130m", ParallelConfig(cp=2), NotImplementedError,
+     "attention-free"),
+    # MoE and hybrid run at cp > 1 (their router statistics are averaged
+    # over the sequence ranks); cp x tp is refused for every family
+    ("mixtral-8x22b", ParallelConfig(cp=2, tp=2), NotImplementedError,
+     "A6.4"),
+    ("jamba-v0.1-52b", ParallelConfig(cp=2, tp=2), NotImplementedError,
+     "A6.4"),
+    ("pixtral-12b", ParallelConfig(cp=2), NotImplementedError, "A6.3"),
 ])
-def test_cp_step_refuses_families(arch, exc, match):
+def test_cp_step_refuses_families(arch, par, exc, match):
     with pytest.raises(exc, match=match):
-        _build(arch, ParallelConfig(cp=2))
+        _build(arch, par)
 
 
 @pytest.mark.parametrize("par,seq,exc,match", [
@@ -396,7 +401,7 @@ def test_cp_attention_call_refusals(world1):
 @pytest.mark.parametrize("arch,par,match", [
     ("mamba2-130m", ParallelConfig(cp=2), "attention-free"),
     ("whisper-small", ParallelConfig(cp=2), "audio"),
-    ("mixtral-8x22b", ParallelConfig(cp=2), "A6.4"),
+    ("mixtral-8x22b", ParallelConfig(cp=2, tp=2), "A6.4"),
     ("qwen1.5-0.5b", ParallelConfig(cp=2, cp_mode="ring"), "cp_mode"),
 ])
 def test_section_cp_refusals_name_the_section(arch, par, match):

@@ -2,7 +2,7 @@
 mesh=)`` on a mesh whose ``seq`` axis is above 1) against the JAX
 package's ``build_train_step`` on ``section_mesh``, on the CPU.
 
-Two cases on 4 gloo ranks (``tests/torch_drivers/driver_context.py
+Four cases on 4 gloo ranks (``tests/torch_drivers/driver_context.py
 step``), one step each from the same parameters and global batch (8 x 16,
 a loss mask with about a fifth of its tokens off, so that the ranks' mask
 shares differ):
@@ -12,11 +12,16 @@ shares differ):
   (two micro-batches a data rank, ulysses);
 * ``cp4c2``: qwen1.5-0.5b reduced (4 heads, 4 KV heads, so ulysses splits
   them over 4 ranks), ``ParallelConfig(cp=4, mbs=4, cp_mode="ulysses",
-  cp_overlap_chunks=2)``: the chunked path with strided ``kv_positions``.
+  cp_overlap_chunks=2)``: the chunked path with strided ``kv_positions``;
+* ``mix_d2cp2`` and ``jamba_d2cp2``: mixtral reduced to 2 layers and jamba
+  reduced at ``ParallelConfig(dp=2, cp=2, mbs=2)``: each micro-batch's
+  router statistics averaged over the data and sequence ranks, and the
+  MoE layers (per-sample capacity) and jamba's Mamba mixers (a scan
+  across shards) run over the whole sequence.
 
-The JAX step runs on an 8-virtual-device host in a subprocess while the
-ranks run (``python tests/test_torch_context_step.py --jax-oracle IN.npz
-OUT.npz``), with the driver's AdamW (eps 1e-3, constant lr 1e-3) and
+The JAX step runs on an 8-virtual-device host in two subprocesses while
+the ranks run (``python tests/test_torch_context_step.py --jax-oracle
+IN.npz OUT.npz PART 2``), with the driver's AdamW (eps 1e-3, constant lr 1e-3) and
 tolerances: loss within 1e-5, grad norm within 1e-3, every parameter
 within 1e-4.  A step that summed its gradients over the data ranks only
 (1/cp of the tokens) misses these bounds.
@@ -49,9 +54,10 @@ CASES = dc.STEP_CASES[4]
 DLOSS, DGNORM, DPARAMS = 1e-5, 1e-3, 1e-4
 
 
-def jax_oracle(in_path: str, out_path: str) -> None:
+def jax_oracle(in_path: str, out_path: str, part: int, parts: int) -> None:
     """One JAX ``build_train_step`` step a case on ``section_mesh`` of the
-    first ``ParallelConfig.devices`` virtual devices."""
+    first ``ParallelConfig.devices`` virtual devices; the cases
+    ``part::parts``, so that several processes share them."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_reduced
@@ -65,7 +71,7 @@ def jax_oracle(in_path: str, out_path: str) -> None:
     assert len(jax.devices()) == 8, jax.devices()
     arrays = np.load(in_path)
     out = {}
-    for name, arch, over, knobs in CASES:
+    for name, arch, over, knobs in CASES[part::parts]:
         cfg = get_reduced(arch).replace(dtype="float32", **over)
         model = build_model(cfg, impl="ref")
         dtypes = _flatten(jax.tree_util.tree_map(
@@ -114,19 +120,22 @@ def step_run(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
     jenv = dict(env, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT / "tests"), str(DRIVERS)]))
-    oracle = subprocess.Popen(
+    oracles = [subprocess.Popen(
         [sys.executable, __file__, "--jax-oracle", str(tmp / "in.npz"),
-         str(tmp / "jax.npz")], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=jenv)
+         str(tmp / f"jax{i}.npz"), str(i), "2"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=jenv) for i in range(2)]
     proc = subprocess.run(
         [sys.executable, str(DRIVERS / "driver_context.py"), "step", "4",
          str(tmp / "in.npz"), str(tmp / "out.npz")],
         capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0 and "DRIVER_OK context step" in \
         proc.stdout, proc.stdout[-3000:] + proc.stderr[-6000:]
-    out, err = oracle.communicate(timeout=600)
-    assert oracle.returncode == 0, out[-3000:] + err[-6000:]
-    return np.load(tmp / "out.npz"), np.load(tmp / "jax.npz")
+    jx = {}
+    for i, oracle in enumerate(oracles):
+        out, err = oracle.communicate(timeout=600)
+        assert oracle.returncode == 0, out[-3000:] + err[-6000:]
+        jx.update(np.load(tmp / f"jax{i}.npz"))
+    return np.load(tmp / "out.npz"), jx
 
 
 @pytest.mark.parametrize("name", [c[0] for c in CASES])
@@ -135,7 +144,7 @@ def test_cp_step_matches_jax_section_mesh_step(step_run, name):
     loss, gnorm = jx[f"{name}/metrics"]
     assert abs(float(got[f"{name}/loss"][0]) - loss) < DLOSS
     assert abs(float(got[f"{name}/grad_norm"][0]) - gnorm) < DGNORM
-    keys = [k for k in jx.files if k.startswith(f"{name}/params/")]
+    keys = [k for k in jx if k.startswith(f"{name}/params/")]
     assert keys and {k for k in got.files if k.startswith(
         f"{name}/params/")} == set(keys)
     worst = max(float(np.abs(got[k] - jx[k]).max()) for k in keys)
@@ -144,4 +153,4 @@ def test_cp_step_matches_jax_section_mesh_step(step_run, name):
 
 if __name__ == "__main__":
     assert sys.argv[1] == "--jax-oracle", sys.argv
-    jax_oracle(sys.argv[2], sys.argv[3])
+    jax_oracle(sys.argv[2], sys.argv[3], int(sys.argv[4]), int(sys.argv[5]))

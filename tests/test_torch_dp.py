@@ -331,32 +331,41 @@ def _model(name="granite-3-8b"):
                   device="cpu")
 
 
-@pytest.mark.parametrize("knob,axis,item", [
-    (dict(tp=2), "model", "A6.4"), (dict(pp=2), "pipe", "A6.4"),
-    (dict(cp=2), "seq", "A6.3"),
-    (dict(tp=2, grad_compress="int8"), "model", "A6.4")])
-def test_other_regimes_raise_naming_their_item(knob, axis, item):
-    # the seq axis's regime runs (tests/test_torch_context*.py); what it
-    # still refuses naming A6.3 is the vlm family's image splice
-    model = _model("pixtral-12b") if axis == "seq" else _model()
-    mesh = _mesh(**{axis: 2})
+@pytest.mark.parametrize("knob,axes,item", [
+    (dict(tp=2, cp=2), dict(model=2, seq=2), r"A6\.4"),
+    (dict(pp=2, cp=2), dict(pipe=2, seq=2), "pp x cp composition"),
+    (dict(cp=2), dict(seq=2), "A6.3"),
+    (dict(tp=2, grad_compress="int8"), dict(model=2), "dp-only mesh")])
+def test_other_regimes_raise_naming_their_item(knob, axes, item):
+    # the pipe and model axes' regimes run (tests/test_torch_pp_step.py,
+    # test_torch_tp.py) and so does the seq axis's (test_torch_context*.py);
+    # what stays refused: cp x tp (A6.4's remainder), pp x cp (as in the
+    # reference), the vlm family's image splice under cp (A6.3) and a
+    # compressed all-reduce outside a dp-only mesh
+    model = _model("pixtral-12b") if knob == dict(cp=2) else _model()
     with pytest.raises(NotImplementedError, match=item):
         tstep.build_train_step(model, ParallelConfig(**knob),
-                               ShapeConfig("t", "train", 8, 4), mesh=mesh)
+                               ShapeConfig("t", "train", 8, 4),
+                               mesh=_mesh(**axes))
 
 
 def test_pp_and_cp_together_raise():
-    with pytest.raises(NotImplementedError, match="A6.4"):
+    with pytest.raises(NotImplementedError,
+                       match="pp x cp composition is not supported"):
         tstep.parallel_regime(_mesh(pipe=2, seq=2), ParallelConfig(pp=2,
                                                                    cp=2))
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "jamba-v0.1-52b"])
 def test_moe_and_hybrid_under_dp_raise(name):
-    with pytest.raises(NotImplementedError, match="A6.4"):
-        tstep.build_train_step(_model(name), ParallelConfig(dp=2),
+    # MoE and hybrid train at dp > 1 now (their router statistics are
+    # averaged over the data ranks: tests/test_torch_tp.py); what they,
+    # like every family, still refuse is cp x tp
+    with pytest.raises(NotImplementedError, match=r"cp=2 x tp=2.*A6\.4"):
+        tstep.build_train_step(_model(name), ParallelConfig(dp=2, cp=2,
+                                                            tp=2),
                                ShapeConfig("t", "train", 8, 4),
-                               mesh=_mesh(data=2))
+                               mesh=_mesh(data=2, seq=2, model=2))
 
 
 @pytest.mark.parametrize("mesh,par,match", [
@@ -395,7 +404,7 @@ def test_launcher_refusals():
     base = ["--reduced", "--arch", "qwen1.5-0.5b", "--device", "cpu"]
     with pytest.raises(RuntimeError, match="torch.distributed.run"):
         tlaunch.main(base + ["--data", "2"])
-    with pytest.raises(NotImplementedError, match="A6.4"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         tlaunch.main(base + ["--model", "2"])
 
 

@@ -5,7 +5,10 @@ JAX package, on the CPU.
   loss) in float32 and bfloat16, at a capacity that drops
   slots (``capacity_factor`` 0.5) and one that does not (8.0), and its
   gradients against ``jax.vjp`` in float32;
-* one MoE sub-layer (attention + experts): its output and aux;
+* ``moe(..., return_stats=True)``: the router statistics against the
+  reference's, and the aux rebuilt from them against ``moe``'s;
+* one MoE sub-layer (attention + experts): its output and aux, and with
+  ``collect_stats`` its statistics;
 * ``Model.forward`` and ``Model.loss`` with its aux term, and the loss's
   gradients, for the reduced mixtral and moonshot configs;
 * prefill + decode against the JAX package's and against ``forward``
@@ -210,6 +213,28 @@ def test_moe_grads_match_jax_vjp(variant, cf):
                                    **GRAD_TOL)
 
 
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("cf", [0.5, 8.0])
+def test_moe_return_stats_matches_jax(variant, cf):
+    """``moe(..., return_stats=True)``: the [2, E] router statistics
+    (frac, prob) against the reference's, the aux rebuilt from them equal
+    to ``moe``'s, and the sub-layer's ``collect_stats`` form."""
+    jcfg, tcfg, p, x = _moe_inputs(variant, "float32", cf, seed=3)
+    jp, jx = _jax_tree(p, x, "float32")
+    tp, tx = _torch_tree(p, x, "float32")
+    jy, jaux, jst = jax.jit(functools.partial(
+        jmoe.moe, cfg=jcfg, return_stats=True))(jp, jx)
+    ty, taux, tst = tmoe.moe(tp, tx, tcfg, return_stats=True)
+    assert tst.dtype == torch.float32 and tuple(tst.shape) == (
+        2, tcfg.num_experts)
+    _close(ty, jy, MOE_TOL["float32"])
+    _close(tst, jst, MOE_TOL["float32"])
+    assert torch.equal(ty, tmoe.moe(tp, tx, tcfg)[0])
+    rebuilt = ttf.aux_from_stats(tst, tcfg)
+    assert abs(float(rebuilt) - float(taux)) <= 1e-6 * abs(float(taux))
+    _close(taux, jaux, MOE_TOL["float32"])
+
+
 def test_sublayer_matches_jax():
     """One attention + MoE sub-layer -> (x, aux), as the reference's
     ``_sublayer_fwd``; an MLP sub-layer's aux is None (the reference's
@@ -229,6 +254,15 @@ def test_sublayer_matches_jax():
     for g, w in zip(got, want):
         _close(g, w)
     assert ttf._ffn({}, torch.from_numpy(x), tcfg, None)[1] is None
+    want = jax.jit(functools.partial(
+        jtf._sublayer_fwd, cfg=jcfg, mixer="attn", ffn="moe", causal=True,
+        segment_ids=None, impl="auto", collect_stats=True))(
+            jlp, jnp.asarray(x))
+    got = ttf._sublayer_fwd(tlp, torch.from_numpy(x), tcfg, "attn", "moe",
+                            None, True, True)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 # --------------------------------------------------------------------------- #

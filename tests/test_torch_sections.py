@@ -2,10 +2,11 @@
 ``MaestroRuntime``/``CompoundRuntime(..., ranks=)``).
 
 1. Carving refuses, before any group is made: ranks shared by two
-   sections outside a one-rank world and a rank list too short; a
-   section's ``pp``, ``cp`` or ``tp`` above 1 on its mesh raises naming
-   A6.4, A6.3 and A6.4 (``validate_section_parallel``, which
-   ``CompoundRuntime`` runs before it carves).
+   sections outside a one-rank world and a rank list too short; on its
+   mesh a section's ``pp`` above 1 raises as in the reference, a vlm
+   section's ``cp`` naming A6.3 and ``cp`` with ``tp`` naming A6.4
+   (``validate_section_parallel``, which ``CompoundRuntime`` runs before
+   it carves); ``tp`` alone runs.
 2. On a one-rank gloo group: both sections on rank 0 (``ranks=[0, 0]``),
    each with its own mesh and worker; ``MaestroRuntime.build_train_step``
    is ``train.step.build_train_step(..., mesh=)`` (one step, bit for bit).
@@ -70,14 +71,19 @@ def test_carving_refusals():
     with pytest.raises(ValueError, match="only 2 are given"):
         carve_sections(g, ranks=[0, 1])
     # a seq axis runs a dense section (A6.3) and still refuses the vlm
-    # family's image splice, naming A6.3
+    # family's image splice, naming A6.3; a model axis runs (A6.4), a pipe
+    # axis is refused as in the reference, and cp x tp names A6.4
     vlm = get_reduced("pixtral-12b")
-    for knob, item, arch in (("pp", "A6.4", cfg), ("cp", "A6.3", vlm),
-                             ("tp", "A6.4", cfg)):
-        par = ParallelConfig(**{knob: 2})
+    for knob, item, arch in (
+            (dict(pp=2), "cannot be stage-partitioned", cfg),
+            (dict(cp=2), "A6.3", vlm), (dict(cp=2, tp=2), "A6.4", cfg)):
+        par = ParallelConfig(**knob)
         with pytest.raises(NotImplementedError, match=item):
             wl.validate_section_parallel("student", arch, par,
                                          wl._mesh_sizes(par))
+    par = ParallelConfig(tp=2)
+    assert wl.validate_section_parallel("student", cfg, par,
+                                        wl._mesh_sizes(par)) == "plain"
     par = ParallelConfig(cp=2)
     assert wl.validate_section_parallel("student", cfg, par,
                                         wl._mesh_sizes(par)) == "cp"

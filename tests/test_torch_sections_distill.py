@@ -13,7 +13,9 @@ batches of ``tests/drivers/driver_distill_runtime.py``.
   within 2e-4 of the port's one-process ``DistillRuntime(devices=["cpu"]
   * 2)`` from the same seed (``tests/test_torch_distill.py``'s tolerance
   for a few float32 steps);
-* a teacher with ``tp=2`` raises naming A6.4, before any rank is carved.
+* a teacher with ``tp=2`` and ``cp=2`` raises naming A6.4 (cp x tp is its
+  remainder; a teacher at ``tp=2`` alone runs,
+  ``tests/test_torch_sections_tp.py``), before any rank is carved.
 """
 import numpy as np
 import pytest
@@ -111,9 +113,11 @@ def test_losses_and_student_match_one_process_runtime(mesh_run):
 
 
 def test_teacher_tp_raises_naming_a64():
+    # a teacher at tp 2 runs (tests/test_torch_sections_tp.py); at tp 2
+    # with cp 2 it is refused, naming A6.4's remainder
     t_cfg, s_cfg = su.driver_sections.distill_cfgs()
     with pytest.raises(NotImplementedError, match=r"section 'teacher'.*A6\.4"):
         dw.DistillRuntime(t_cfg, s_cfg,
-                          teacher_parallel=ParallelConfig(dp=2, tp=2),
+                          teacher_parallel=ParallelConfig(dp=2, tp=2, cp=2),
                           student_parallel=ParallelConfig(dp=4),
                           ranks=range(8))

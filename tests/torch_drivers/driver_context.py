@@ -46,13 +46,18 @@ ATTN_CASES = {
         ("allgather", "allgather", 1, 0), ("auto", "auto", 1, 0)],
 }
 
-#: tests/drivers/driver_train_step_dist.py's cp2 step (granite, 4 layers)
-#: and a cp-only mesh whose heads divide 4, so that ulysses runs chunked
+#: tests/drivers/driver_train_step_dist.py's cp2 step (granite, 4 layers),
+#: a cp-only mesh whose heads divide 4, so that ulysses runs chunked, and
+#: the MoE and hybrid families (router statistics over data x seq; jamba's
+#: Mamba mixers over the whole sequence)
 STEP_CASES = {
     4: [("dp2cp2", "granite-3-8b", dict(num_layers=4),
          dict(dp=2, cp=2, mbs=2)),
         ("cp4c2", "qwen1.5-0.5b", {},
-         dict(cp=4, mbs=4, cp_mode="ulysses", cp_overlap_chunks=2))],
+         dict(cp=4, mbs=4, cp_mode="ulysses", cp_overlap_chunks=2)),
+        ("mix_d2cp2", "mixtral-8x22b", dict(num_layers=2),
+         dict(dp=2, cp=2, mbs=2)),
+        ("jamba_d2cp2", "jamba-v0.1-52b", {}, dict(dp=2, cp=2, mbs=2))],
 }
 STEP_GB, STEP_S = 8, 16
 # tests/drivers/driver_train_step_dist.py:32-36

@@ -4,8 +4,8 @@ spawned gloo ranks.
     python tests/torch_drivers/driver_sections.py CASE WORLD IN.npz OUT
 
 ``CASE`` is one of ``messages``, ``distill``, ``mllm``, ``compressed``,
-``multi_teacher``, and the context-parallel ``mllm_cp`` and
-``distill_cp`` (the functions ``case_<name>`` below say what each
+``multi_teacher``, the context-parallel ``mllm_cp`` and ``distill_cp``,
+and ``distill_tp`` (a teacher at tp 2) (the functions ``case_<name>`` below say what each
 runs); ``IN.npz`` holds the batches (``batch<i>/<key>``) and, where a case
 starts from given parameters, ``params/<section>/<path>``.  Every rank
 that has something to report writes ``OUT.<rank>.npz``.  Prints
@@ -233,6 +233,49 @@ def case_distill(rank, world, arrays, out):
         out.update(flat(init["teacher"], "init/teacher/"))
     if rank == 2:
         out.update(flat(init["student"], "init/student/"))
+        out.update(flat(final["student"], "final/student/"))
+        out["metrics"] = np.array(mets)
+    rt.shutdown()
+
+
+def given_params(arrays, crt) -> dict:
+    """The full trees ``params/<section>/`` of ``arrays`` (float32) for the
+    sections of ``crt`` (a ``CompoundRuntime``) this rank runs, in their
+    parameters' dtypes."""
+    def cast(tree, specs):
+        if isinstance(tree, dict):
+            return {k: cast(v, specs[k]) for k, v in tree.items()}
+        return tree.to(specs.dtype)
+    return {n: cast(params_from_numpy(nest(arrays, f"params/{n}/"),
+                                      device="cpu"),
+                    crt.spec.section(n).params)
+            for n in crt.local_sections}
+
+
+def case_distill_tp(rank, world, arrays, out):
+    """The reference's distillation layout (tests/drivers/
+    driver_distill_runtime.py): the teacher at (dp 2, tp 2) on ranks 0-3,
+    the student at dp 4 on 4-7, from the full trees ``params/<section>/``
+    of IN.npz, four iterations."""
+    t_cfg, s_cfg = distill_cfgs()
+    rt = DistillRuntime(t_cfg, s_cfg,
+                        teacher_parallel=ParallelConfig(dp=2, tp=2),
+                        student_parallel=ParallelConfig(dp=4),
+                        ranks=range(world), lr=1e-3)
+    params, opts = rt.runtime.place(given_params(arrays, rt.runtime))
+    pt, ps, opt = (params.get("teacher"), params.get("student"),
+                   opts.get("student"))
+    w_t = rt.teacher_unembed(pt)
+    mets = []
+    for i, b in enumerate(batches(arrays)):
+        ps, opt, m = rt.train_iteration(pt, ps, opt, b, i, w_t=w_t)
+        if "loss" in m:
+            mets.append(scalars(m, ("loss", "ce", "kl", "grad_norm")))
+    final, _ = rt.runtime.state()
+    st = rt.rt.queue.stats()
+    out["pushes"] = np.array([total(st["pushes"])])
+    out["fragments"] = np.array([total(st["fragments"])])
+    if rank == 4:
         out.update(flat(final["student"], "final/student/"))
         out["metrics"] = np.array(mets)
     rt.shutdown()
