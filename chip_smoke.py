@@ -237,7 +237,27 @@ CUDA kernels from the sources in this checkout.  Phases:
    rows at a time; the SSD kernel at jamba's (2, 16384, 128, 64, 16),
    and in the sweep at jamba's heads over 1024 and 4096 tokens (each bf16
    case prints its worst element in bf16 steps of its value).
-13. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+13. The sharded serving steps and the dry-run (``phase_serve_mesh``,
+   ``phase_dryrun``).  granite-3-8b at full width and depth in bf16 (the
+   parameters of ``phase_serve``'s seed) through
+   ``train.step.build_prefill_step``/``build_decode_step`` on a one-rank
+   NCCL mesh (every axis 1), 4 x 2048 prompts and 32 decoded tokens:
+   prefill logits and cache and every decoded token's logits equal
+   ``Model.prefill``/``decode`` bit for bit, 40 flash launches a
+   prefill and none in decode, each step's time and peak memory beside
+   the plain calls'.  Then ``launch.dryrun``'s predicted per-device peak
+   bytes, run in subprocesses on a fake process group (started after the
+   build, collected here), against the bytes the card allocated for the
+   same step (the step's argument bytes plus ``max_memory_allocated``
+   above what was allocated just before it): the qwen1.5-0.5b train step
+   at 4 x 2048 on a one-rank mesh (``phase_dp``'s) and the granite
+   prefill above, each within DRYRUN_MEM_TOL; the train cell's record
+   without its optimizer state must miss that bound.  The production
+   cell granite-3-8b ``train_4k`` on the 16 x 16 mesh (256 fake ranks,
+   DRYRUN_PROD_MBS rows a micro-batch) is printed with its seconds; each
+   kernel op's shape function gives a real launch's output shapes, dtypes
+   and strides.
+14. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash and SSD kernels' at each of their
    main-path shapes under ``at``; the top-level times are granite's
    serving prefill's and mamba2-130m's), then the ``{"ok": true, ...}``
@@ -4523,6 +4543,294 @@ def phase_pp(rng) -> int:
     return n_pp
 
 
+DRYRUN_MEM_TOL = 0.15           # predicted peak bytes against the card's
+DRYRUN_PROD_MBS = 16            # rows a micro-batch in the production cell
+SERVE_GEN = 32
+#: the dry-run cells phase_dryrun holds to the card or prints: (name,
+#: REPRO_DRYRUN_MESH, arguments of launch.dryrun)
+DRYRUN_CELLS = [
+    ("train", "1,1,1,1", ["--arch", TRAIN_ARCH, "--shape", "train_4k",
+                          "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                          "--mbs", "2"]),
+    ("prefill", "1,1,1,1", ["--arch", ARCH, "--shape", "prefill_32k",
+                            "--batch", str(PREFILL[0]),
+                            "--seq", str(PREFILL[1]),
+                            "--extra-cache", str(SERVE_GEN)]),
+    ("production", None, ["--arch", ARCH, "--shape", "train_4k",
+                          "--mbs", str(DRYRUN_PROD_MBS)])]
+
+
+def start_dryruns() -> dict:
+    """Start the dry-run cells of :data:`DRYRUN_CELLS`, one subprocess
+    each (a fake process group must be its process's default group), so
+    that they run on the host while the card runs the other phases."""
+    import atexit
+    import os
+    out = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    procs = {}
+    for name, mesh, args in DRYRUN_CELLS:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env.pop("REPRO_DRYRUN_TINY", None)
+        if mesh:
+            env["REPRO_DRYRUN_MESH"] = mesh
+        else:
+            env.pop("REPRO_DRYRUN_MESH", None)
+        with open(out / f"{name}.log", "w") as log:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--mesh", "single", "--out", str(out / name)],
+                env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT),
+                time.perf_counter())
+
+    def stop():                 # a failed check must not leave them running
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    return procs
+
+
+def _dryrun_record(procs: dict, name: str) -> dict:
+    proc, t0 = procs[name]
+    rc = proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    log = ROOT / "build" / "dryrun_smoke" / f"{name}.log"
+    check(rc == 0, f"dry-run cell {name} exited {rc}: "
+          f"{log.read_text()[-3000:]}")
+    [path] = list((ROOT / "build" / "dryrun_smoke" / name).glob("*.json"))
+    rec = json.loads(path.read_text())
+    rec["wall_s"] = wall
+    return rec
+
+
+def _tree_bytes(tree) -> int:
+    from torch.utils._pytree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def _step_bytes(fn, args) -> tuple:
+    """(result, the step's argument bytes plus the most the card held
+    above what was allocated just before the call, seconds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - before + _tree_bytes(args)
+    return out, peak, wall
+
+
+def phase_serve_mesh() -> tuple[int, int]:
+    """granite-3-8b through the sharded serving steps on a one-rank NCCL
+    mesh against ``Model.prefill``/``decode`` (see the module docstring,
+    item 13) -> (the mesh prefill's flash launches, its measured peak
+    bytes)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.train import step as step_mod
+    B, S = PREFILL[0], PREFILL[1]
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=g)
+    dec = torch.randint(0, cfg.vocab_size, (SERVE_GEN, B, 1), device="cuda",
+                        generator=g)
+    params = model.param_tree()     # at world size 1 a block is the leaf
+    batch = {"tokens": tokens}
+    (logits0, cache0), plain_peak, plain_s = _step_bytes(
+        lambda p, b: model.prefill(b, extra_cache=SERVE_GEN),
+        (params, batch))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = shd.section_mesh([0], ParallelConfig())
+        pstep, specs = step_mod.build_prefill_step(
+            model, mesh, ShapeConfig("serve", "prefill", S, B),
+            extra_cache=SERVE_GEN)
+        dstep, _ = step_mod.build_decode_step(
+            model, mesh, ShapeConfig("serve", "decode", S + SERVE_GEN, B))
+        reset_counts()
+        (logits, cache), mesh_peak, mesh_s = _step_bytes(pstep,
+                                                         (params, batch))
+        launches = read_counts()
+        check(launches == (cfg.num_layers, 0, 0),
+              f"the mesh prefill launched (flash, KL, SSD) {launches}, "
+              f"expected ({cfg.num_layers}, 0, 0)")
+        check(torch.equal(logits, logits0),
+              "the mesh prefill's logits differ from Model.prefill's")
+        diff = [i for i, (a, b) in enumerate(zip(tree_leaves(cache),
+                                                 tree_leaves(cache0)))
+                if not torch.equal(a, b)]
+        check(not diff, f"the mesh prefill's cache differs in leaves {diff}")
+        warm = {}
+        for name, fn in (("plain", lambda: model.prefill(
+                batch, extra_cache=SERVE_GEN)),
+                ("mesh", lambda: pstep(params, batch))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            warm[name] = (time.perf_counter() - t) * 1e3
+        reset_counts()
+        dec_ms, plain_dec_ms = [], []
+        for i in range(SERVE_GEN):
+            tok = dec[i]
+            t = time.perf_counter()
+            l0, _ = model.decode(cache0, tok, S + i)
+            torch.cuda.synchronize()
+            plain_dec_ms.append((time.perf_counter() - t) * 1e3)
+            (l1, _), dec_peak, dt = _step_bytes(dstep, (params, cache, tok,
+                                                        S + i))
+            dec_ms.append(dt * 1e3)
+            check(torch.equal(l1, l0), f"decode step {i}: the mesh step's "
+                  "logits differ from Model.decode's")
+        check(read_counts() == (0, 0, 0), "decode launched a kernel")
+        diff = [i for i, (a, b) in enumerate(zip(tree_leaves(cache),
+                                                 tree_leaves(cache0)))
+                if not torch.equal(a, b)]
+        check(not diff, f"after decode the caches differ in leaves {diff}")
+        print(f"serve-mesh: {ARCH} {cfg.num_layers} layers bf16, batch {B} "
+              f"x prompt {S} + {SERVE_GEN} tokens, mesh "
+              f"{shd.mesh_shape(mesh)}: prefill logits, cache and "
+              f"{SERVE_GEN} decode steps equal Model.prefill/decode bit "
+              f"for bit; flash {launches[0]} a prefill, 0 in decode")
+        print(f"serve-mesh: prefill {mesh_s * 1e3:.1f} ms (Model.prefill "
+              f"{plain_s * 1e3:.1f} ms, first calls), warm {warm['mesh']:.1f}"
+              f" ms (Model.prefill {warm['plain']:.1f} ms); decode "
+              f"{statistics.median(dec_ms[1:]):.2f} ms/token (Model.decode "
+              f"{statistics.median(plain_dec_ms[1:]):.2f}; medians of "
+              f"{SERVE_GEN - 1} warm steps)")
+        print(f"serve-mesh: step peaks (argument bytes + peak above the "
+              f"call): prefill {mesh_peak / 2**30:.3f} GiB (Model.prefill "
+              f"{plain_peak / 2**30:.3f}), decode {dec_peak / 2**30:.3f} "
+              f"GiB")
+    finally:
+        dist.destroy_process_group()
+    return launches[0], mesh_peak
+
+
+def _fake_matches_launch() -> None:
+    """Each kernel op's shape function against a real launch at one
+    shape: output shapes, dtypes and strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(3)
+    bf = torch.bfloat16
+    q = _randn(rng, (2, 256, 8, 64), bf)
+    k = _randn(rng, (2, 256, 4, 64), bf)
+    h = _randn(rng, (512, 256), bf)
+    w = _randn(rng, (256, 1024), bf)
+    x = _randn(rng, (2, 128, 4, 64), bf)
+    dt = _randn(rng, (2, 128, 4), torch.float32).abs()
+    A = -_randn(rng, (4,), torch.float32).abs()
+    Bm = _randn(rng, (2, 128, 16), bf)
+    cases = {
+        "flash_fwd": (torch.ops.repro_torch.flash_fwd,
+                      (q, k, k, None, True, 0, 0.125, 0)),
+        "distill_kl_fwd": (torch.ops.repro_torch.distill_kl_fwd,
+                           (h, w, h, w, 1.0)),
+        "ssd_fwd": (torch.ops.repro_torch.ssd_fwd,
+                    (x, dt, A, Bm, Bm, A, True))}
+    del ssd
+    for name, (op, args) in cases.items():
+        real = op(*args)
+        with FakeTensorMode() as mode:
+            fargs = [mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                     else a for a in args]
+            fake = op(*fargs)
+        real = real if isinstance(real, tuple) else (real,)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        got = [(tuple(t.shape), t.dtype, t.stride()) for t in fake]
+        want = [(tuple(t.shape), t.dtype, t.stride()) for t in real]
+        check(got == want, f"{name}: fake outputs {got}, a launch's {want}")
+        print(f"dryrun: {name}'s shape function gives a launch's outputs "
+              f"{want}")
+
+
+def phase_dryrun(procs: dict, prefill_peak: int) -> None:
+    """The dry-run against the card (see the module docstring, item 13)."""
+    import torch.distributed as dist
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.model import build_model
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    _fake_matches_launch()
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(5)
+    t = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    batch = {"tokens": torch.from_numpy(t[:, :-1]).cuda(),
+             "labels": torch.from_numpy(t[:, 1:]).cuda(),
+             "loss_mask": torch.ones((TRAIN_B, TRAIN_S), device="cuda")}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        par = ParallelConfig(dp=1, mbs=DP_MBS, zero_opt=True)
+        mesh = shd.section_mesh([0], par)
+        step = step_mod.build_train_step(
+            model, par, ShapeConfig("t", "train", TRAIN_S, TRAIN_B),
+            mesh=mesh)
+        params = shd.shard_tree(model.param_tree(),
+                                step.shardings["params"], mesh)
+        opt = adamw.init(params)
+        reset_counts()
+        (_, _, met), train_peak, train_s = _step_bytes(
+            step, (params, opt, batch, 0))
+        check(math.isfinite(float(met["loss"])), "non-finite loss")
+        print(f"dryrun: the measured train step (loss "
+              f"{float(met['loss']):.4f}, {train_s:.2f} s, first call) held "
+              f"{train_peak / 2**30:.3f} GiB")
+    finally:
+        dist.destroy_process_group()
+    del model, params, opt, batch
+    free()
+    pred = {n: _dryrun_record(procs, n) for n in ("train", "prefill")}
+    for name, measured in (("train", train_peak), ("prefill", prefill_peak)):
+        rec = pred[name]
+        p = rec["memory"]["peak_bytes"]
+        ratio = p / measured
+        print(f"dryrun: {name} {rec['arch']} {rec['global_batch']} x "
+              f"{rec['seq_len']}: predicted {p / 2**30:.3f} GiB "
+              f"(arguments {rec['memory']['argument_parts']}), measured "
+              f"{measured / 2**30:.3f} GiB, ratio {ratio:.4f} (recorded in "
+              f"{rec['record_s']:.1f} s)")
+        check(abs(ratio - 1) <= DRYRUN_MEM_TOL,
+              f"the {name} prediction is off by {ratio - 1:+.1%}")
+    rec = pred["train"]
+    planted = rec["memory"]["peak_bytes"] - \
+        rec["memory"]["argument_parts"]["opt"]
+    print(f"dryrun: the train record without its optimizer state predicts "
+          f"{planted / 2**30:.3f} GiB, ratio {planted / train_peak:.4f}")
+    check(abs(planted / train_peak - 1) > DRYRUN_MEM_TOL,
+          "a record without its optimizer state passed the memory bound")
+    prod = _dryrun_record(procs, "production")
+    print(f"dryrun: production cell {prod['arch']} {prod['shape']} on "
+          f"{prod['devices']} fake ranks (mbs {prod['mbs']}), recorded in "
+          f"{prod['record_s']:.1f} s ({prod['wall_s']:.1f} s with start-up):"
+          f" memory {prod['memory']}, FLOPs per device "
+          f"{prod['hlo']['flops_per_device']:.4g}, wire bytes by family "
+          f"{prod['hlo']['collective_bytes_per_device']}, roofline on H100 "
+          f"{prod['roofline']}, useful {prod['useful_flops_ratio']:.3f}")
+    check(prod["roofline"]["compute_s"] > 0
+          and prod["hlo"]["collective_bytes_per_device"],
+          "the production cell recorded no work or no collectives")
+
+
 def timed(phase, *args, **kw):
     """Run one phase and print its wall time."""
     t = time.perf_counter()
@@ -4539,6 +4847,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     timed(phase_build)
+    dryruns = start_dryruns()
     timed(phase_sweep, rng)
     flash_shapes = {
         "serve": (PREFILL, dict(bwd=False)),
@@ -4604,6 +4913,10 @@ def main() -> int:
     free()
     pp_launches = timed(phase_pp, rng)
     free()
+    serve_mesh_launches, prefill_peak = timed(phase_serve_mesh)
+    free()
+    timed(phase_dryrun, dryruns, prefill_peak)
+    free()
     for name, (shape, causal) in zip(("cp_vit_chunk", "cp_train_chunk"),
                                      CP_CHUNK_SHAPES):
         S, T = shape[1:3]
@@ -4647,6 +4960,7 @@ def main() -> int:
              f"distill-sections {TRAIN_ARCH} world 1",
              f"cp {TRAIN_ARCH} world 1",
              f"pp {TRAIN_ARCH} world 1",
+             f"serve-mesh {ARCH} world 1",
              f"multi-teacher {TRAIN_ARCH}",
              "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
              f"train {MOONSHOT} {MOONSHOT_LAYERS}L", f"train {WHISPER}",
@@ -4654,14 +4968,15 @@ def main() -> int:
     per_path = {
         "flash": (serve_launches, train_launches, resume_launches,
                   dp_launches, distill_launches, 0, 0, rt_launches,
-                  sec_launches, cp_launches, pp_launches, mt_launches,
+                  sec_launches, cp_launches, pp_launches,
+                  serve_mesh_launches, mt_launches,
                   mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
         "kl": (0, 0, 0, 0, kl_launches, 0, 0, rt_kl_launches,
-               sec_kl_launches, 0, 0, mt_kl_launches, 0, 0, 0, 0, 0, 0),
+               sec_kl_launches, 0, 0, 0, mt_kl_launches, 0, 0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
-                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
+                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
         entry["launches"] = sum(per_path[name])

@@ -5,16 +5,17 @@ Runs the passes that need no device and no runtime — dispatch-graph
 deadlock (lookahead 0 and 1, so cross-iteration FIFO coupling is
 covered), spec structure via ``WorkloadSpec.validate`` and the in-place
 update signature — over every registered workload spec, built from
-reduced configs.  Exit status 1 on any ERROR finding.  The JAX package's
-schema check of its HLO gate files has no counterpart until the
-multi-device regimes (ROADMAP.md, A6).
+reduced configs — and the schema check of every committed gate file
+(``analysis/gates/``).  Exit status 1 on any ERROR finding.  The gates
+themselves need recorded steps (``roofline.record``) and run in
+``tests/test_torch_gates.py``.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-from repro_torch.analysis import Severity, check_spec, lint_spec
+from repro_torch.analysis import Severity, check_spec, hlo_gates, lint_spec
 
 
 def build_specs(which: str = "all"):
@@ -58,6 +59,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n-mb", type=int, default=2)
     ap.add_argument("--min-severity", default="info",
                     choices=("info", "warning", "error"))
+    ap.add_argument("--gates-dir", default=None,
+                    help="override the gate-file directory "
+                         "(default: repro_torch/analysis/gates/)")
     args = ap.parse_args(argv)
     min_sev = Severity[args.min_severity.upper()]
     failed = False
@@ -79,6 +83,17 @@ def main(argv=None) -> int:
         if out:
             print(out)
         failed |= not rep.ok
+    for path in hlo_gates.list_gates(args.gates_dir):
+        try:
+            gate = hlo_gates.load_gate(path)
+        except (ValueError, KeyError) as e:
+            print(f"[ERROR] hlo.gate-schema ({path.name}): {e}")
+            failed = True
+            continue
+        if min_sev <= Severity.INFO:
+            print(f"[INFO] hlo.gate-schema ({path.name}): "
+                  f"{len(gate.checks)} checks over programs "
+                  f"{list(gate.programs)}")
     print("ANALYSIS " + ("FAILED" if failed else "OK"))
     return 1 if failed else 0
 

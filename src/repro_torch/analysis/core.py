@@ -9,10 +9,9 @@ The port's own copy of ``repro/analysis/core.py``.
   quotes every error finding (``WorkloadSpec.validate`` uses this).
 * :data:`PASSES` — the registry mapping pass names to callables.
 
-The port has the JAX package's ``deadlock``, ``donation`` and
-``affinity`` passes, the last two recast for in-place updates and CUDA
-streams; the ``hlo`` gates wait for the multi-device regimes (ROADMAP.md,
-A6).
+The port has the JAX package's ``deadlock``, ``donation``, ``affinity``
+and ``hlo`` passes, the middle two recast for in-place updates and CUDA
+streams and the last for recorded steps in place of compiled HLO.
 
 Severity model:
 

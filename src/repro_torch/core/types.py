@@ -3,7 +3,8 @@
 ``ArchConfig`` describes a model architecture with the same fields and
 derived properties (and analytic parameter counts, which the cost
 model reads) as the JAX package, so a config built on either side names
-the same model; ``ShapeConfig`` carries the JAX package's fields and
+the same model; ``ShapeConfig`` carries the JAX package's fields (``SHAPES`` its
+dry-run cells) and
 ``ParallelConfig`` those of its fields that the port reads.
 ``SectionConfig`` is a section of a compound workload;
 ``HardwareSpec`` the constants the cost model plans with, and ``H100``
@@ -84,6 +85,12 @@ class ArchConfig:
     @property
     def attention_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether the arch supports 500K-token decode without a full KV
+        cache."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
 
     def is_attn_layer(self, i: int) -> bool:
         if self.family == "ssm":
@@ -172,6 +179,15 @@ class ShapeConfig:
     kind: str              # "train" | "prefill" | "decode"
     seq_len: int
     global_batch: int
+
+
+#: the reference's dry-run cells (``repro/core/types.py::SHAPES``)
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k":  ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k":   ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclass(frozen=True)

@@ -296,7 +296,7 @@ def data_shardings(mesh, batch_specs) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# Decode-cache specs (the sharded serving builders are ROADMAP.md, A6.5)
+# Decode-cache specs (read by train.step's sharded serving builders)
 # --------------------------------------------------------------------------- #
 def kv_cache_spec(mesh, shape: Tuple[int, ...], kind: str = "attn"
                   ) -> PartitionSpec:

@@ -8,10 +8,13 @@ Counterpart of ``repro/kernels/distill_kl.py`` and
 H100 and what its design does about that.  bf16 inputs go to its
 tensor-core path (wgmma on TMA-fed shared memory), which needs what
 :mod:`repro_torch.kernels.tma` checks; float32 inputs to its CUDA-core
-path.  :func:`distill_kl_fwd` checks what it is given, allocates the four
-[N] float32 outputs and the split scratch, launches on the current stream
-and raises if the launch was refused.  It counts its launches in
-``distill_kl_fwd.launches``.
+path.  :func:`distill_kl_fwd` checks what it is given and calls the
+CUDA-only op ``repro_torch::distill_kl_fwd``, whose implementation
+allocates the four [N] float32 outputs (one [4, N] tensor) and the split
+scratch, launches on the current stream and raises if the launch was
+refused; it counts its launches in ``distill_kl_fwd.launches``.  The op's
+fake function allocates the same output without a launch, for a dry-run
+on fake tensors.
 
 :class:`DistillKL` is the KL as an autograd Function: its forward takes
 the per-token statistics from the function :mod:`repro_torch.kernels.ops`
@@ -27,6 +30,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.tma import check_tma
@@ -54,9 +58,10 @@ def _lib() -> ctypes.CDLL:
 
 def _check(h_s, w_s, h_t, w_t):
     xs = (("h_s", h_s), ("w_s", w_s), ("h_t", h_t), ("w_t", w_t))
-    if not all(x.is_cuda for _, x in xs):
-        raise ValueError("distill_kl_fwd takes CUDA tensors; CPU tensors go "
-                         "to kernels.ref.distill_kl_stats_ref")
+    if not all(x.is_cuda or x.is_meta for _, x in xs):
+        raise ValueError("distill_kl_fwd takes CUDA (or a dry-run's meta) "
+                         "tensors; CPU tensors go to "
+                         "kernels.ref.distill_kl_stats_ref")
     if len({x.device for _, x in xs}) != 1:
         raise ValueError("h_s, w_s, h_t, w_t on different devices")
     if h_s.dtype not in _DTYPES or any(x.dtype != h_s.dtype for _, x in xs):
@@ -75,11 +80,6 @@ def _check(h_s, w_s, h_t, w_t):
     for name, x in (("h_s", h_s), ("h_t", h_t)):
         if x.stride(1) != 1:
             raise ValueError(f"{name} must be contiguous in its hidden dim")
-    if h_s.dtype == torch.bfloat16:      # the tensor-core kernel's TMA
-        for name, x in xs:
-            # W in whichever orientation has the contiguous dim last
-            check_tma(name, x.T if name[0] == "w" and x.stride(0) == 1
-                      and x.stride(1) != 1 else x)
 
 
 def splits(N: int, V: int, sms: int,
@@ -98,8 +98,28 @@ def distill_kl_fwd(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,
                    w_t: torch.Tensor, T: float = 1.0):
     """h_s [N,Ds], w_s [Ds,V], h_t [N,Dt], w_t [Dt,V] on one CUDA device ->
     float32 [N] each: (lse_s, lse_t, e_t, e_s) of ``z = h W / T``.  W is
-    read through its strides (``embed.T`` is not copied)."""
+    read through its strides (``embed.T`` is not copied).  Checks its
+    inputs and calls the op ``repro_torch::distill_kl_fwd``, whose one
+    [4, N] output the four rows are views of."""
     _check(h_s, w_s, h_t, w_t)
+    return tuple(torch.ops.repro_torch.distill_kl_fwd(h_s, w_s, h_t, w_t,
+                                                      1.0 / float(T)))
+
+
+@torch.library.custom_op(
+    "repro_torch::distill_kl_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor h_s, Tensor w_s, Tensor h_t, Tensor w_t, float inv_t) "
+           "-> Tensor")
+def _distill_kl_fwd_op(h_s, w_s, h_t, w_t, inv_t):
+    """The launch: TMA's preconditions on bf16 inputs, the split scratch
+    and the [4, N] output allocated, the kernel on the current stream, one
+    count in ``distill_kl_fwd.launches``."""
+    if h_s.dtype == torch.bfloat16:      # the tensor-core kernel's TMA
+        for name, x in (("h_s", h_s), ("w_s", w_s), ("h_t", h_t),
+                        ("w_t", w_t)):
+            # W in whichever orientation has the contiguous dim last
+            check_tma(name, x.T if name[0] == "w" and x.stride(0) == 1
+                      and x.stride(1) != 1 else x)
     N, Ds = h_s.shape
     Dt, V = w_t.shape
     dev = h_s.device
@@ -115,13 +135,30 @@ def distill_kl_fwd(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,
             h_s.data_ptr(), w_s.data_ptr(), h_t.data_ptr(), w_t.data_ptr(),
             part.data_ptr(), *(o.data_ptr() for o in out), N, Ds, Dt, V,
             nsplit, per, h_s.stride(0), w_s.stride(0), w_s.stride(1),
-            h_t.stride(0), w_t.stride(0), w_t.stride(1), 1.0 / float(T),
+            h_t.stride(0), w_t.stride(0), w_t.stride(1), float(inv_t),
             _DTYPES[h_s.dtype], stream)
     if err != 0:
         raise RuntimeError("distill_kl_fwd launch failed: "
                            + lib.distill_kl_fwd_error_string(err).decode())
     _build.count_launch(distill_kl_fwd)
-    return tuple(out)
+    return out
+
+
+@_distill_kl_fwd_op.register_fake
+def _distill_kl_fwd_fake(h_s, w_s, h_t, w_t, inv_t):
+    """The output the launch allocates, without launching."""
+    return torch.empty((4, h_s.shape[0]), dtype=torch.float32,
+                       device=h_s.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.distill_kl_fwd)
+def _distill_kl_fwd_flops(h_s_shape, w_s_shape, h_t_shape, w_t_shape, inv_t,
+                          *args, out_shape=None, **kwargs) -> int:
+    """The two logit products, 2 N V (Ds + Dt): ``PERF.md``'s bound
+    count."""
+    N, Ds = h_s_shape
+    Dt, V = w_t_shape
+    return 2 * N * V * (Ds + Dt)
 
 
 distill_kl_fwd.launches = 0     # type: ignore[attr-defined]

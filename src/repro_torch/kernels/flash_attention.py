@@ -7,9 +7,14 @@ bounds it on an H100 and what its design does about that.  bf16 inputs go
 to its tensor-core path (wgmma on TMA-fed shared memory), which needs
 what :mod:`repro_torch.kernels.tma` checks; float32 inputs to its
 CUDA-core path.
-:func:`flash_fwd` checks what it is given, allocates ``o`` and ``lse``,
-launches on the current stream and raises if the launch was refused.  It
-counts its launches in ``flash_fwd.launches``.
+:func:`flash_fwd` checks what it is given and calls the CUDA-only op
+``repro_torch::flash_fwd`` (``torch.library.custom_op``), whose
+implementation allocates ``o`` and ``lse``, launches on the current stream
+and raises if the launch was refused; it counts its launches in
+``flash_fwd.launches``.  The op's fake function allocates the same
+outputs without a launch, so a dry-run on fake tensors
+(``launch.dryrun``) traces the kernel route and counts the kernel's own
+outputs, and its flop formula is the count ``PERF.md``'s bound uses.
 
 :class:`FlashAttention` (-> o) and :class:`FlashAttentionLse`
 (-> (o, lse)) give the kernel a gradient.  Their backward,
@@ -30,6 +35,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.tma import check_tma
@@ -53,8 +59,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(q, k, v, kv_positions):
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_fwd takes CUDA tensors; CPU tensors go to "
+    if not all(x.is_cuda or x.is_meta for x in (q, k, v)):
+        raise ValueError("flash_fwd takes CUDA (or a dry-run's meta) "
+                         "tensors; CPU tensors go to "
                          "kernels.ref.flash_attention_ref")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, "
@@ -77,8 +84,6 @@ def _check(q, k, v, kv_positions):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
-        if x.dtype == torch.bfloat16:    # the tensor-core kernel's TMA
-            check_tma(name, x)
     if kv_positions is not None:
         if (kv_positions.shape != (T,) or kv_positions.dtype != torch.int32
                 or kv_positions.device != q.device
@@ -94,10 +99,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B,S,H,D], k/v [B,T,KV,D] on one CUDA device
     -> (o [B,S,H,D] in q's dtype, lse [B,S,H] float32).
 
-    The result carries no gradient: a call that autograd would record
-    raises, so that a training step cannot lose attention's gradient
-    silently.  Differentiable callers go through :class:`FlashAttention`
-    or :class:`FlashAttentionLse` (``kernels.ops`` does)."""
+    Checks its inputs and calls the op ``repro_torch::flash_fwd``, which
+    launches the kernel (a fake or meta tensor gets
+    :func:`_flash_fwd_fake`'s outputs instead).  The result carries no gradient: a call that
+    autograd would record raises, so that a training step cannot lose
+    attention's gradient silently.  Differentiable callers go through
+    :class:`FlashAttention` or :class:`FlashAttentionLse` (``kernels.ops``
+    does)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -105,9 +113,25 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "kernels.ops.flash_attention[_lse] (the FlashAttention "
             "Functions)")
     _check(q, k, v, kv_positions)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return torch.ops.repro_torch.flash_fwd(q, k, v, kv_positions,
+                                           bool(causal), int(window),
+                                           float(scale), int(q_offset))
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? kv_positions, "
+           "bool causal, int window, float scale, int q_offset) "
+           "-> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, kv_positions, causal, window, scale, q_offset):
+    """The launch: TMA's preconditions on bf16 inputs, o and lse allocated,
+    the kernel on the current stream, one count in ``flash_fwd.launches``."""
+    if q.dtype == torch.bfloat16:        # the tensor-core kernel's TMA
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_tma(name, x)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else D ** -0.5
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -129,6 +153,42 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            + lib.flash_fwd_error_string(err).decode())
     _build.count_launch(flash_fwd)
     return o, lse
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, kv_positions, causal, window, scale, q_offset):
+    """The outputs the launch allocates, without launching: what a dry-run
+    on fake tensors sees of the kernel."""
+    B, S, H, D = q.shape
+    return (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device),
+            torch.empty((B, S, H), dtype=torch.float32, device=q.device))
+
+
+def visible_pairs(S: int, T: int, causal: bool, window: int,
+                  q_offset: int = 0) -> int:
+    """The (query row, key column) pairs the kernel computes with implicit
+    key positions ``arange(T)``: the work its operation count scales
+    with."""
+    total = 0
+    for s in range(S):
+        pos = s + q_offset
+        hi = min(T - 1, pos) if causal else T - 1
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_flops(q_shape, k_shape, v_shape, kv_positions_shape, causal,
+                     window, scale, q_offset, *args, out_shape=None,
+                     **kwargs) -> int:
+    """4 B H D per visible pair (q k^T and p v), the count ``PERF.md``'s
+    bound column uses; explicit key positions count every pair."""
+    B, S, H, D = q_shape
+    T = k_shape[1]
+    pairs = (S * T if kv_positions_shape is not None
+             else visible_pairs(S, T, causal, window, q_offset))
+    return 4 * B * H * D * pairs
 
 
 flash_fwd.launches = 0     # type: ignore[attr-defined]

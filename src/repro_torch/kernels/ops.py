@@ -3,7 +3,10 @@
 CUDA tensors go to the hand-written kernel, or raise; CPU tensors go to
 the plain version in :mod:`repro_torch.kernels.ref`.  There is no
 environment switch and no fallback: a CUDA tensor never reaches the plain
-version through here.  On the card, attention goes through the autograd
+version through here.  Meta tensors (a dry-run's fake tensors,
+:mod:`repro_torch.launch.dryrun`) take the kernel's route too, where the
+kernel's op (``repro_torch::flash_fwd``, ...) gives its shape function's
+outputs and launches nothing.  On the card, attention goes through the autograd
 Functions of :mod:`repro_torch.kernels.flash_attention`, so a CUDA q/k/v
 that requires grad gets its gradient; on the CPU autograd differentiates
 the plain version.  (The JAX package's ``repro/kernels/ops.py`` picks
@@ -22,6 +25,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd
 
 
+def kernel_route(x: torch.Tensor) -> bool:
+    """Whether ``x`` goes to the hand-written kernel: a CUDA tensor, or a
+    meta tensor standing for one in a dry-run."""
+    return x.is_cuda or x.is_meta
+
+
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: Optional[float] = None, q_offset: int = 0,
@@ -30,7 +39,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``kv_positions`` [T] int32 replaces the implicit ``arange(T)`` key
     positions; ``q_offset`` is the absolute position of ``q[:, 0]``."""
-    if q.is_cuda:
+    if kernel_route(q):
         return fa.FlashAttentionLse.apply(q, k, v, kv_positions, causal,
                                           window, scale, q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -50,7 +59,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of its own segment (packed sequences).  The plain version computes
     that mask; the CUDA kernel has no segment operand yet, so CUDA
     tensors with segment ids raise."""
-    if q.is_cuda:
+    if kernel_route(q):
         if segment_q is not None or segment_kv is not None:
             raise ValueError(
                 "flash_attention: segment ids (packed sequences) on CUDA "
@@ -76,7 +85,7 @@ def distill_kl(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,
     and from ``ref.distill_kl_stats_ref`` for CPU tensors; both go through
     the same :class:`~repro_torch.kernels.distill_kl.DistillKL` Function,
     whose backward is chunked by ``block_v``."""
-    if h_s.is_cuda:
+    if kernel_route(h_s):
         stats = dk.distill_kl_fwd
     else:
         stats = functools.partial(ref.distill_kl_stats_ref, block_v=block_v)
@@ -95,7 +104,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with the kernel's forward (its fixed 64-token chunk) and a backward
     recomputed by ``ssd_chunked`` at ``chunk``; CPU tensors go to
     ``ssd_chunked`` at ``chunk``, which autograd differentiates."""
-    if x.is_cuda:
+    if kernel_route(x):
         return ssd.SSDScan.apply(x, dt, A, B, C, D, int(chunk),
                                  bool(return_state), ssd.ssd_fwd)
     return ssd.ssd_chunked(x, dt, A, B, C, D, chunk=chunk,

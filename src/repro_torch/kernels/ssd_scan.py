@@ -18,10 +18,13 @@ Counterpart of ``repro/kernels/ssd_scan.py`` and
   small one (at 4094 tokens y then errs by ~1e-4 of 1 + |y|).
 * :func:`ssd_decode_step` ports the one-token recurrence; the JAX package
   computes it outside any kernel, and so does the port.
-* :func:`ssd_fwd` is the ctypes wrapper of ``csrc/ssd_fwd.cu``, which
-  replaces the TPU kernel ``ssd_pallas.py::_kernel``; the source says what
-  bounds it on an H100 and what its design does about that.  It counts its
-  launches in ``ssd_fwd.launches``; :func:`tma_route` is its choice of how
+* :func:`ssd_fwd` is the wrapper of ``csrc/ssd_fwd.cu``, which replaces
+  the TPU kernel ``ssd_pallas.py::_kernel``; the source says what bounds
+  it on an H100 and what its design does about that.  It calls the
+  CUDA-only op ``repro_torch::ssd_fwd``, whose implementation launches
+  through ctypes and whose fake function allocates the same outputs for a
+  dry-run on fake tensors.  It counts its launches in
+  ``ssd_fwd.launches``; :func:`tma_route` is its choice of how
   bf16 tiles are loaded and :func:`scratch` its scratch sizes.
 * :class:`SSDScan` gives a forward a gradient: its backward recomputes
   through :func:`ssd_chunked` and returns the VJP, as
@@ -34,6 +37,7 @@ import ctypes
 from typing import Callable, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.tma import tma_violation
@@ -119,9 +123,9 @@ def _lib() -> ctypes.CDLL:
 
 def _check(x, dt, A, B, C, D):
     xs = (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C), ("D", D))
-    if not all(t.is_cuda for _, t in xs):
-        raise ValueError("ssd_fwd takes CUDA tensors; CPU tensors go to "
-                         "kernels.ssd_scan.ssd_chunked")
+    if not all(t.is_cuda or t.is_meta for _, t in xs):
+        raise ValueError("ssd_fwd takes CUDA (or a dry-run's meta) tensors; "
+                         "CPU tensors go to kernels.ssd_scan.ssd_chunked")
     if len({t.device for _, t in xs}) != 1:
         raise ValueError("x, dt, A, B, C, D on different devices")
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
@@ -191,12 +195,25 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "ssd_fwd has no gradient of its own: differentiate through "
             "kernels.ops.ssd_scan (the SSDScan Function)")
     _check(x, dt, A, B, C, D)
+    y, state = torch.ops.repro_torch.ssd_fwd(x, dt, A, B, C, D,
+                                             bool(return_state))
+    return (y, state) if return_state else y
+
+
+@torch.library.custom_op(
+    "repro_torch::ssd_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor D, "
+           "bool return_state) -> (Tensor, Tensor)")
+def _ssd_fwd_op(x, dt, A, B, C, D, return_state):
+    """The launch: y, the final state ([0] without ``return_state``) and
+    the scratch allocated, x/B/C's route chosen, the kernels on the current
+    stream, one count in ``ssd_fwd.launches``."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     dev = x.device
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
-    state = (torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-             if return_state else None)
+    state = torch.empty((b, h, p, n) if return_state else (0,),
+                        dtype=torch.float32, device=dev)
     n_cum, n_states = scratch(b, s, h, p, n, x.dtype)
     cum = torch.empty(n_cum, dtype=torch.float64, device=dev)
     states = torch.empty(n_states, dtype=torch.float32, device=dev)
@@ -208,7 +225,7 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), y.data_ptr(), cum.data_ptr(),
             states.data_ptr(),
-            state.data_ptr() if state is not None else None,
+            state.data_ptr() if return_state else None,
             b, s, h, p, n, x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
             C.stride(0), C.stride(1), _DTYPES[x.dtype], int(tma), stream)
@@ -216,7 +233,29 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise RuntimeError("ssd_fwd launch failed: "
                            + lib.ssd_fwd_error_string(err).decode())
     _build.count_launch(ssd_fwd)
-    return (y, state) if return_state else y
+    return y, state
+
+
+@_ssd_fwd_op.register_fake
+def _ssd_fwd_fake(x, dt, A, B, C, D, return_state):
+    """The outputs the launch allocates, without launching."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    return (torch.empty((b, s, h, p), dtype=x.dtype, device=x.device),
+            torch.empty((b, h, p, n) if return_state else (0,),
+                        dtype=torch.float32, device=x.device))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_fwd)
+def _ssd_fwd_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, D_shape,
+                   return_state, *args, out_shape=None, **kwargs) -> int:
+    """C B^T once per (b, chunk), the intra-chunk product, the inter-chunk
+    product and the chunk states: ``PERF.md``'s bound count."""
+    b, s, h, p = x_shape
+    n = B_shape[-1]
+    nc = -(-s // CHUNK)
+    return (2 * b * nc * CHUNK * CHUNK * n + 2 * b * h * nc * CHUNK * CHUNK
+            * p + 2 * 2 * b * h * s * p * n)
 
 
 ssd_fwd.launches = 0     # type: ignore[attr-defined]

@@ -32,9 +32,11 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.types import ArchConfig
@@ -175,9 +177,13 @@ def attention(p, x, cfg: ArchConfig, *, causal: bool = True,
 
 
 def new_cache(B: int, cache_len: int, cfg: ArchConfig, dtype, device,
-              layers: Optional[int] = None) -> dict:
-    """Zeroed KV cache, optionally with a leading stacked-layers axis."""
-    shape = (B, cache_len, cfg.num_kv_heads, cfg.hd)
+              layers: Optional[int] = None,
+              kv_heads: Optional[int] = None) -> dict:
+    """Zeroed KV cache, optionally with a leading stacked-layers axis;
+    ``kv_heads`` (default ``cfg.num_kv_heads``): a tensor-parallel rank's
+    share of the heads."""
+    kv = cfg.num_kv_heads if kv_heads is None else kv_heads
+    shape = (B, cache_len, kv, cfg.hd)
     if layers is not None:
         shape = (layers,) + shape
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -213,31 +219,77 @@ def attention_prefill(p, x, cfg: ArchConfig, *, cache_len: int,
     return out, cache
 
 
+@dataclass(frozen=True)
+class SeqSplit:
+    """A decode cache whose sequence is split over ``group`` (the serving
+    layout of a KV-head count the ``model`` axis does not divide,
+    ``dist.sharding.kv_cache_spec``'s flash-decoding split): the rank at
+    ``index`` of ``size`` holds slots ``[index * C_loc, (index + 1) *
+    C_loc)`` of a cache of ``size * C_loc`` slots."""
+    group: Any
+    size: int
+    index: int
+
+
 def attention_decode(p, x, cache: Optional[dict], cfg: ArchConfig, *,
-                     pos: int, kv_override=None):
+                     pos: int, kv_override=None,
+                     split: Optional[SeqSplit] = None):
     """One-token decode. x: [B, 1, D]; pos: absolute position (int).
     Writes the new key/value into ``cache`` in place and returns (out,
     cache).  With ``kv_override`` = (k, v), a static cross-attention cache
     (``cache`` is None), q gets no RoPE and the output alone is returned,
-    as in the reference."""
+    as in the reference.
+
+    ``split``: ``cache`` holds this rank's slice of the slots
+    (:class:`SeqSplit`).  The rank whose slice holds the new slot writes
+    it; every rank attends over its own slots, and the partial (o, lse)
+    of the group's ranks merge exactly (``merge_flash_partials``)."""
     B = x.shape[0]
     if kv_override is not None:                       # cross-attention
         q = _project_q(p, x, cfg, None, rope=False)
         return _attend_full(q, *kv_override, p, cfg, valid=None)
-    C = cache["k"].shape[1]
+    C_loc = cache["k"].shape[1]
+    C = C_loc * (split.size if split is not None else 1)
+    off = C_loc * (split.index if split is not None else 0)
     positions = torch.full((B, 1), pos, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     slot = pos % C
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    if off <= slot < off + C_loc:
+        cache["k"][:, slot - off] = k[:, 0]
+        cache["v"][:, slot - off] = v[:, 0]
     # absolute position of each slot s: pos - ((pos - s) mod C); valid if >= 0
-    slots = torch.arange(C, device=x.device)
+    slots = off + torch.arange(C_loc, device=x.device)
     abs_pos = pos - torch.remainder(pos - slots, C)
     valid = abs_pos >= 0
     if cfg.sliding_window > 0:
         valid &= (pos - abs_pos) < cfg.sliding_window
-    out = _attend_full(q, cache["k"], cache["v"], p, cfg, valid=valid)
-    return out, cache
+    if split is None:
+        out = _attend_full(q, cache["k"], cache["v"], p, cfg, valid=valid)
+        return out, cache
+    from repro_torch.kernels.flash_attention import merge_flash_partials
+    o, lse = _attend_partial(q, cache["k"], cache["v"], valid)
+    o_parts = [torch.empty_like(o) for _ in range(split.size)]
+    lse_parts = [torch.empty_like(lse) for _ in range(split.size)]
+    dist.all_gather(o_parts, o, group=split.group)
+    dist.all_gather(lse_parts, lse, group=split.group)
+    o, _ = merge_flash_partials(o_parts, lse_parts)
+    return _out_proj(o.to(q.dtype), p["wo"]), cache
+
+
+def _attend_partial(q, kc, vc, valid):
+    """One query's attention over this rank's slots -> (o [B,1,H,D], lse
+    [B,1,H]) in float32, the partials a sequence-split decode merges."""
+    B, S, H, D = q.shape
+    KV = kc.shape[2]
+    G = H // KV
+    qr = q.reshape(B, S, KV, G, D).float()
+    logits = torch.einsum("bskgd,btkd->bkgst", qr, kc.float()) * (D ** -0.5)
+    logits = logits.masked_fill(~valid, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)                     # [B,KV,G,S]
+    prob = torch.exp(logits - lse[..., None])
+    o = torch.einsum("bkgst,btkd->bskgd", prob, vc.float())
+    return (o.reshape(B, S, H, D).contiguous(),
+            lse.permute(0, 3, 1, 2).reshape(B, S, H).contiguous())
 
 
 def _attend_full(q, kc, vc, p, cfg: ArchConfig, valid):

@@ -21,6 +21,15 @@ Serving cache: ``{"self": {"k", "v": [L, B, S + extra, KV, hd]},
 "cross": {"k", "v": [L, B, F, KV, hd]}}``, the reference's tree.  It is
 allocated once by :func:`encdec_prefill`; :func:`encdec_decode` writes the
 self cache in place and reads the cross cache.
+
+Serving runs Megatron tensor parallelism where
+``transformer.sharded_forward`` installs a ``tp`` (the sharded serving
+steps, ``train.step.build_prefill_step``): every attention (the
+encoder's, the decoder's self- and cross-attention) on this rank's heads,
+its caches on its ``kv_heads``, and every MLP on its ``d_ff`` slice, each
+region between ``tp.enter`` and ``tp.exit`` as in
+``transformer._sublayer_fwd``.  Training does not install one for this
+family.
 """
 from __future__ import annotations
 
@@ -72,11 +81,40 @@ def _run(fn, checkpoint: bool, *args):
     return fn(*args)
 
 
+def _tp():
+    """The tensor parallelism ``transformer.sharded_forward`` installed on
+    this thread, or None."""
+    from repro_torch.models import transformer as tf
+    return getattr(tf._SHARDED, "value", (None, None, None))[0]
+
+
+def _attn_region(fn, h):
+    """``fn(h)``, an attention on this rank's heads under TP: ``h`` enters
+    the model group, the partial outputs are summed over it."""
+    tp = _tp()
+    if tp is None or not tp.attn:
+        return fn(h)
+    return tp.exit(fn(tp.enter(h)))
+
+
+def _mlp(fp, h, cfg: ArchConfig):
+    """The MLP, on this rank's ``d_ff`` slice under TP (``b_out``, which is
+    not sliced, enters scaled by 1/tp: it is added on every rank before
+    the sum)."""
+    tp = _tp()
+    if tp is None or not tp.ffn:
+        return mlpm.mlp(fp, h, cfg)
+    if cfg.mlp_act == "gelu":
+        fp = dict(fp, b_out=tp.enter(fp["b_out"]) / tp.size)
+    return tp.exit(mlpm.mlp(fp, tp.enter(h), cfg))
+
+
 def _enc_layer(lp, x, cfg: ArchConfig):
     h = apply_norm(lp["norm1"], x, cfg)
-    x = x + att.attention(lp["attn"], h, cfg, causal=False)
+    x = x + _attn_region(
+        lambda h: att.attention(lp["attn"], h, cfg, causal=False), h)
     h = apply_norm(lp["norm2"], x, cfg)
-    return x + mlpm.mlp(lp["mlp"], h, cfg)
+    return x + _mlp(lp["mlp"], h, cfg)
 
 
 def encode(p, cfg: ArchConfig, frames: torch.Tensor, *,
@@ -98,13 +136,14 @@ def _cross_kv(lp, enc_out: torch.Tensor):
 
 def _cross(lp, x, cfg: ArchConfig, kv) -> torch.Tensor:
     h = apply_norm(lp["norm_c"], x, cfg)
-    return x + att.attention(lp["cross_attn"], h, cfg, causal=False,
-                             kv_override=kv)
+    return x + _attn_region(
+        lambda h: att.attention(lp["cross_attn"], h, cfg, causal=False,
+                                kv_override=kv), h)
 
 
 def _mlp_block(lp, x, cfg: ArchConfig) -> torch.Tensor:
     h = apply_norm(lp["norm2"], x, cfg)
-    return x + mlpm.mlp(lp["mlp"], h, cfg)
+    return x + _mlp(lp["mlp"], h, cfg)
 
 
 def _dec_layer(lp, x, enc_out, cfg: ArchConfig):
@@ -151,17 +190,18 @@ def encdec_prefill(p, cfg: ArchConfig, batch: dict, *,
     tokens = batch["tokens"]
     B, S = tokens.shape
     L, F = cfg.num_layers, enc_out.shape[1]
+    kv = p["dec_layers"]["self_attn"]["wk"].shape[-2]    # a TP rank's share
     x = p["embed"][tokens]
     cache = {"self": att.new_cache(B, S + extra_cache, cfg, x.dtype,
-                                   x.device, layers=L),
-             "cross": {k: torch.empty((L, B, F, cfg.num_kv_heads, cfg.hd),
+                                   x.device, layers=L, kv_heads=kv),
+             "cross": {k: torch.empty((L, B, F, kv, cfg.hd),
                                       dtype=x.dtype, device=x.device)
                        for k in ("k", "v")}}
     for i, lp in enumerate(cm.unbind_layers(p["dec_layers"])):
         h = apply_norm(lp["norm1"], x, cfg)
-        h, _ = att.attention_prefill(lp["self_attn"], h, cfg,
-                                     cache_len=S + extra_cache,
-                                     cache=_layer(cache["self"], i))
+        h = _attn_region(lambda h: att.attention_prefill(
+            lp["self_attn"], h, cfg, cache_len=S + extra_cache,
+            cache=_layer(cache["self"], i))[0], h)
         x = x + h
         cross = _layer(cache["cross"], i)
         for c, kv in zip((cross["k"], cross["v"]), _cross_kv(lp, enc_out)):
@@ -179,13 +219,15 @@ def encdec_decode(p, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     x = p["embed"][token]
     for i, lp in enumerate(cm.unbind_layers(p["dec_layers"])):
         h = apply_norm(lp["norm1"], x, cfg)
-        h, _ = att.attention_decode(lp["self_attn"], h,
-                                    _layer(cache["self"], i), cfg, pos=pos)
+        h = _attn_region(lambda h: att.attention_decode(
+            lp["self_attn"], h, _layer(cache["self"], i), cfg, pos=pos)[0],
+            h)
         x = x + h
         h = apply_norm(lp["norm_c"], x, cfg)
         cross = _layer(cache["cross"], i)
-        x = x + att.attention_decode(lp["cross_attn"], h, None, cfg, pos=pos,
-                                     kv_override=(cross["k"], cross["v"]))
+        x = x + _attn_region(lambda h: att.attention_decode(
+            lp["cross_attn"], h, None, cfg, pos=pos,
+            kv_override=(cross["k"], cross["v"])), h)
         x = _mlp_block(lp, x, cfg)
     x = apply_norm(p["final_norm"], x, cfg)
     return unembed(p, cfg, x)[:, 0], cache

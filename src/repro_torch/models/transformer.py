@@ -243,16 +243,20 @@ _SHARDED = threading.local()
 
 
 @contextlib.contextmanager
-def sharded_forward(*, tp=None, stats_mean: Optional[Callable] = None):
-    """Install, for this thread's :func:`lm_forward` calls, Megatron tensor
-    parallelism (``tp``, see :func:`_sublayer_fwd`; the caller passes the
-    rank's slices of the parameters) and ``stats_mean``, which averages a
-    MoE layer's router statistics over the ranks that split the batch (its
-    data and sequence ranks), so that each layer's aux is the reference's
-    over the micro-batch's global rows.  Checkpointed layers get ``tp`` as
-    an argument, so a recompute on another thread runs under it too."""
-    prev = getattr(_SHARDED, "value", (None, None))
-    _SHARDED.value = (tp, stats_mean)
+def sharded_forward(*, tp=None, stats_mean: Optional[Callable] = None,
+                    kv_split: Optional[att.SeqSplit] = None):
+    """Install, for this thread's :func:`lm_forward`, :func:`lm_prefill`
+    and :func:`lm_decode` calls, Megatron tensor parallelism (``tp``, see
+    :func:`_sublayer_fwd`; the caller passes the rank's slices of the
+    parameters) and ``stats_mean``, which averages a MoE layer's router
+    statistics over the ranks that split the batch (its data and sequence
+    ranks), so that each layer's aux is the reference's over the
+    micro-batch's global rows.  ``kv_split``: :func:`lm_decode`'s attention
+    caches hold this rank's slice of the sequence
+    (``models.attention.SeqSplit``).  Checkpointed layers get ``tp`` as an
+    argument, so a recompute on another thread runs under it too."""
+    prev = getattr(_SHARDED, "value", (None, None, None))
+    _SHARDED.value = (tp, stats_mean, kv_split)
     try:
         yield
     finally:
@@ -282,7 +286,7 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
     aux is the sum of every MoE sub-layer's load-balancing loss (0 for a
     model without one), as the reference's scan sums it."""
     pk, _ = group_layout(cfg)
-    tp, stats_mean = getattr(_SHARDED, "value", (None, None))
+    tp, stats_mean, _ = getattr(_SHARDED, "value", (None, None, None))
     x = cm.shard_act(embed_tokens(p, cfg, batch), "hidden")
     segment_ids = batch.get("segment_ids")
     checkpoint = remat and torch.is_grad_enabled()
@@ -349,8 +353,15 @@ def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
     ``{"conv": [repeats, B, W-1, Ch], "ssm": [repeats, B, h, p, n]}`` for
     Mamba-2; it is allocated once here and written in place by
     :func:`lm_decode`.  A MoE sub-layer takes its capacity at this call's
-    S, as the reference's ``_sublayer_prefill`` does."""
+    S, as the reference's ``_sublayer_prefill`` does.
+
+    Under :func:`sharded_forward`'s ``tp`` (the serving step builders,
+    ``train.step.build_prefill_step``), attention that passes the TP gates
+    runs on this rank's heads and fills its ``kv_heads`` slice of the
+    cache, and the FFN on its ``d_ff`` slice; Mamba mixers stay whole."""
     pk, reps = group_layout(cfg)
+    tp = getattr(_SHARDED, "value", (None, None, None))[0]
+    tp_attn = tp is not None and tp.attn
     tokens = batch["tokens"]
     B, S = tokens.shape
     clen = kv_cache_len(cfg, S + extra_cache)
@@ -359,7 +370,9 @@ def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
     for j, (mixer, ffn) in enumerate(pk):
         _check_kind(mixer, ffn)
         caches[f"sub{j}"] = (
-            att.new_cache(B, clen, cfg, x.dtype, x.device, layers=reps)
+            att.new_cache(B, clen, cfg, x.dtype, x.device, layers=reps,
+                          kv_heads=p["layers"][f"sub{j}"]["attn"]["wk"]
+                          .shape[-2])
             if mixer == "attn" else
             mb.new_cache(B, cfg, x.dtype, x.device, layers=reps))
     for r in range(reps):
@@ -369,11 +382,14 @@ def lm_prefill(p, cfg: ArchConfig, batch: dict, *, extra_cache: int = 0):
             h = apply_norm(lp["norm1"], x, cfg)
             cache = _layer(caches[f"sub{j}"], r)
             if mixer == "attn":
-                h, _ = att.attention_prefill(lp["attn"], h, cfg,
-                                             cache_len=clen, cache=cache)
+                h, _ = att.attention_prefill(
+                    lp["attn"], tp.enter(h) if tp_attn else h, cfg,
+                    cache_len=clen, cache=cache)
+                if tp_attn:
+                    h = tp.exit(h)
             else:
                 h = mb.mamba(lp["mamba"], h, cfg, cache=cache)
-            x = _ffn(lp, x + h, cfg, ffn)[0]
+            x = _ffn(lp, x + h, cfg, ffn, tp=tp)[0]
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, x[:, -1:])[:, 0]
     return logits, caches
@@ -383,8 +399,12 @@ def lm_decode(p, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos: int):
     """One decode step. token [B, 1] int; pos: absolute position (int).
     Writes into ``cache`` in place; returns (logits [B, V], cache).  A MoE
     sub-layer's capacity at S = 1 is K slots an expert, so decode drops no
-    token."""
+    token.  Under :func:`sharded_forward`, ``tp`` as in :func:`lm_prefill`,
+    and ``kv_split``: each attention cache holds this rank's slice of the
+    sequence, attended there and merged over the split's group."""
     pk, reps = group_layout(cfg)
+    tp, _, kv_split = getattr(_SHARDED, "value", (None, None, None))
+    tp_attn = tp is not None and tp.attn
     x = p["embed"][token]
     for r in range(reps):
         period = _layer(p["layers"], r)
@@ -394,11 +414,14 @@ def lm_decode(p, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos: int):
             h = apply_norm(lp["norm1"], x, cfg)
             layer_cache = _layer(cache[f"sub{j}"], r)
             if mixer == "attn":
-                h, _ = att.attention_decode(lp["attn"], h, layer_cache, cfg,
-                                            pos=pos)
+                h, _ = att.attention_decode(
+                    lp["attn"], tp.enter(h) if tp_attn else h, layer_cache,
+                    cfg, pos=pos, split=kv_split)
+                if tp_attn:
+                    h = tp.exit(h)
             else:
                 h, _ = mb.mamba_decode(lp["mamba"], h, layer_cache, cfg)
-            x = _ffn(lp, x + h, cfg, ffn)[0]
+            x = _ffn(lp, x + h, cfg, ffn, tp=tp)[0]
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, x)[:, 0]
     return logits, cache

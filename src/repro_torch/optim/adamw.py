@@ -52,6 +52,16 @@ def init(params) -> AdamWState:
                      params))
 
 
+def state_specs(param_specs) -> AdamWState:
+    """Meta tensors of the state of parameters given as meta tensors (or
+    any tensors): float32 ``mu``, ``nu`` and ``master`` of the same shapes
+    and an int32 scalar ``step``; the reference's ``state_specs``."""
+    f32 = tree_map(lambda s: torch.empty(tuple(s.shape), dtype=torch.float32,
+                                         device="meta"), param_specs)
+    return AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
+                      f32, f32, f32)
+
+
 def global_norm(tree) -> torch.Tensor:
     with torch.no_grad():
         return torch.sqrt(torch.stack(

@@ -1,3 +1,4 @@
-"""Roofline arithmetic (counterpart of ``repro/roofline``).  Only the
-context-parallel attention's wire model is ported so far; the HLO-based
-roofline and its report are ROADMAP.md, A6.5."""
+"""Roofline arithmetic (counterpart of ``repro/roofline``): a recorded step
+in place of compiled HLO (``record``), its roofline terms, collective wire
+bytes and dot FLOPs (``analysis``, with the analytic CP wire model), and
+the dry-run tables (``report``)."""

@@ -1,16 +1,110 @@
-"""Analytic wire model of context-parallel attention.
+"""Roofline terms, ring-model collective wire bytes and per-width dot
+FLOPs of a recorded step; the analytic wire model of context-parallel
+attention.
 
-Counterpart of ``repro/roofline/analysis.py::cp_attention_comm``, copied:
-it is pure arithmetic over the head counts, the sequence and the CP
-degree, and ``dist.context.resolve_cp_mode`` consults it to pick between
-``ulysses_mqa`` and ``allgather``.  The rest of the reference module (HLO
-parsing, roofline terms) reads compiled XLA programs and is ROADMAP.md,
-A6.5.
+Counterpart of ``repro/roofline/analysis.py``.  The reference reads the
+compiled, post-SPMD HLO text of a step; the port reads a
+:class:`~repro_torch.roofline.record.StepStats`, the record of one call
+of the step on one rank (``roofline.record``).  On that record it keeps
+the reference's functions and names: :func:`_ring_wire`,
+:func:`collective_ops`, :func:`wire_bytes_by_dtype`,
+:func:`total_wire_bytes`, :func:`collective_families`,
+:func:`dot_flops_matching`, :func:`dot_flops_by_width` and
+:func:`roofline_terms`, which takes the card's constants as ``hw=`` with
+no default.  ``parse_hlo``, ``_trip_count``, ``analyze_hlo`` and the
+instruction walk read HLO text and have no counterpart (a recorded
+operation ran once: there are no while-loop multipliers).  Dtypes are
+torch's names (``float32``, ``bfloat16``, ``int8``), where XLA's are
+``f32``/``u16``/``s8``.
+
+:func:`cp_attention_comm` is a copy: pure arithmetic over the head counts,
+the sequence and the CP degree, which ``dist.context.resolve_cp_mode``
+consults to pick between ``ulysses_mqa`` and ``allgather``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+from repro_torch.roofline.record import CollectiveOp, StepStats
+
+
+def _ring_wire(family: str, n: int, operand_bytes: float,
+               result_bytes: float) -> float:
+    """Per-device wire bytes of one collective on an n-way ring.
+
+    all-reduce moves 2(n-1)/n of the payload (reduce-scatter +
+    all-gather phases); all-gather / reduce-scatter / all-to-all move
+    (n-1)/n of the *full* buffer (result for all-gather, operand
+    otherwise); a point-to-point send, a broadcast and XLA's
+    collective-permute ship their payload once."""
+    if n <= 1:
+        return 0.0
+    if family == "all-reduce":
+        return 2.0 * (n - 1) / n * operand_bytes
+    if family == "all-gather":
+        return (n - 1) / n * result_bytes
+    if family in ("reduce-scatter", "all-to-all"):
+        return (n - 1) / n * max(operand_bytes, result_bytes)
+    return float(operand_bytes)     # send, broadcast, collective-permute
+
+
+def collective_ops(rec: StepStats) -> List[CollectiveOp]:
+    """Every collective the recorded step ran, with its ring wire bytes."""
+    return list(rec.collectives)
+
+
+def wire_bytes_by_dtype(rec: StepStats) -> Dict[str, float]:
+    """Ring-model collective wire bytes per element dtype: the knob the
+    compressed DP all-reduce turns (float32 -> bfloat16 -> int8)."""
+    out: Dict[str, float] = {}
+    for op in collective_ops(rec):
+        out[op.dtype] = out.get(op.dtype, 0.0) + op.wire_bytes
+    return out
+
+
+def total_wire_bytes(rec: StepStats) -> float:
+    return sum(wire_bytes_by_dtype(rec).values())
+
+
+def dot_flops_matching(rec: StepStats, out_last_dim: int) -> float:
+    """FLOPs of every matmul-class op whose OUTPUT last dim is
+    ``out_last_dim``: a rank's shapes are its blocks, so matching on the
+    local vocab-shard width isolates the unembed projection."""
+    return sum(d.flops for d in rec.dots if d.width == out_last_dim)
+
+
+def dot_flops_by_width(rec: StepStats) -> Dict[int, float]:
+    """Matmul-class FLOPs keyed by OUTPUT last dim: the histogram the
+    gates (``analysis.hlo_gates``) quote on failure."""
+    out: Dict[int, float] = {}
+    for d in rec.dots:
+        out[d.width] = out.get(d.width, 0.0) + d.flops
+    return out
+
+
+def collective_families(rec: StepStats) -> Dict[str, float]:
+    """Executed collective families -> total ring-model wire bytes; the
+    'no unexpected all-gathers / silent replication' gates compare it
+    against a regime's declared profile."""
+    out: Dict[str, float] = {}
+    for op in collective_ops(rec):
+        out[op.family] = out.get(op.family, 0.0) + op.wire_bytes
+    return out
+
+
+def roofline_terms(stats: StepStats, *, hw) -> Dict[str, float]:
+    """Three roofline terms in seconds on one device of ``hw`` (a
+    ``core.types.HardwareSpec``; the port has no default): compute at the
+    bf16 peak, the un-fused bytes over the memory rate, the ring wire
+    bytes over one link direction."""
+    compute_s = stats.flops / hw.peak_flops_bf16
+    memory_s = stats.hbm_bytes / hw.hbm_bandwidth
+    collective_s = total_wire_bytes(stats) / hw.ici_bandwidth
+    dominant = max(("compute", compute_s), ("memory", memory_s),
+                   ("collective", collective_s), key=lambda t: t[1])[0]
+    return {"compute_s": compute_s, "memory_s": memory_s,
+            "collective_s": collective_s, "dominant": dominant}
 
 
 def cp_attention_comm(mode: str, *, H: int, KV: int, D: int, cp: int,

@@ -609,3 +609,250 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
     step._in_place = (1,)
     step._in_place_label = "train_step[sharded](params, opt)"
     return step
+
+
+# --------------------------------------------------------------------------- #
+# The serving steps over a mesh
+# --------------------------------------------------------------------------- #
+def _check_no_pp_cp_serving(mesh, kind: str) -> None:
+    sizes = shd.mesh_shape(mesh)
+    if sizes.get(shd.AXIS_PIPE, 1) > 1 or sizes.get(shd.AXIS_SEQ, 1) > 1:
+        raise NotImplementedError(
+            f"{kind} cells do not support pipe/seq mesh axes > 1: serving "
+            "shards long contexts over the model axis instead "
+            "(kv_cache_spec flash-decoding split)")
+
+
+def _live(spec, sizes: dict, ndim: int) -> tuple:
+    """``spec``'s axes for each of ``ndim`` dims, without the axes of size
+    1 (which split nothing)."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return tuple(tuple(a for a in shd._axes(e) if sizes[a] > 1)
+                 for e in spec)
+
+
+def _without(spec, axis: str):
+    """``spec`` with ``axis`` taken out of every dim."""
+    return shd.P(*(tuple(a for a in shd._axes(e) if a != axis)
+                   for e in spec))
+
+
+class _ServingLayout:
+    """Where a serving step's tensors rest and where it computes with them.
+
+    At rest (the step's arguments and results) parameters follow
+    ``param_shardings``, the batch ``data_shardings``, the cache
+    ``cache_shardings`` and the logits ``logits_sharding``, the
+    reference's specs.  To compute, a rank gathers each parameter whole,
+    or to its Megatron slice where the TP gates pass
+    (``dist.pipeline.compute_specs``), keeps its data rows of the batch
+    (all rows where the batch does not divide the data axes) and holds each
+    cache leaf:
+
+    * attention under TP: its ``kv_heads`` slice, which is its resting
+      block;
+    * attention whose cache rests with the *sequence* over ``model`` (a KV
+      head count the axis does not divide): its sequence slice in decode,
+      attended there and merged over ``model``
+      (``models.attention.SeqSplit``); prefill computes the whole sequence
+      and keeps its slice;
+    * anything else that rests over ``model`` (a Mamba ``conv``/``ssm``
+      leaf, whose mixer TP keeps whole; a cache whose attention the gates
+      keep whole): whole, gathered over ``model`` for each decode step and
+      its slice written back in place.
+
+    Whisper's encoder-decoder takes the same gates (``models.encdec``):
+    its attentions, their self and cross caches and its MLPs are sliced
+    where they pass."""
+
+    def __init__(self, model: Model, mesh, shape: ShapeConfig,
+                 cache_shape: ShapeConfig):
+        cfg = model.cfg
+        self.cfg, self.mesh = cfg, mesh
+        self.sizes = shd.mesh_shape(mesh)
+        specs = model.specs()
+        self.p_specs = shd.param_shardings(specs, mesh,
+                                           shd.rules_for(cfg, mesh))
+        self.b_specs = shd.data_shardings(mesh, model.input_specs(shape))
+        self.c_specs = shd.cache_shardings(mesh,
+                                           model.cache_specs(cache_shape))
+        self.logits_spec = shd.logits_sharding(mesh, shape.global_batch,
+                                               cfg.padded_vocab)
+        self.tp = pl.tensor_parallel(cfg, mesh)
+        if self.tp is None:
+            self.pc_specs = tree_map(lambda s: shd.P(), specs)
+        elif cfg.family == "audio":
+            self.pc_specs = _tp_specs(specs, self.tp)
+        else:
+            self.pc_specs = pl.compute_specs(cfg, tp_axis=shd.AXIS_MODEL,
+                                             tp_attn=self.tp.attn,
+                                             tp_ffn=self.tp.ffn)
+        dp = shd.dp_axes(mesh)
+        rows = bool(dp) and shape.global_batch % shd.axis_size(mesh, dp) == 0
+        self.rows = shd.P(dp if rows else None)
+        m = self.sizes.get(shd.AXIS_MODEL, 1)
+        split = []
+
+        def plan(rest, key):
+            """(prefill, decode) compute specs of one resting cache leaf."""
+            attn = key in ("k", "v")
+            if attn and self.tp is not None and self.tp.attn:
+                return rest, rest
+            whole = _without(rest, shd.AXIS_MODEL)
+            if attn and m > 1 and shd.AXIS_MODEL in shd._axes(rest[-3]):
+                split.append(True)
+                return whole, rest
+            return whole, whole
+
+        def walk(t, key, i):
+            if isinstance(t, dict):
+                return {k: walk(v, k, i) for k, v in t.items()}
+            return plan(t, key)[i]
+        self.prefill_c = walk(self.c_specs, None, 0)
+        self.decode_c = walk(self.c_specs, None, 1)
+        self.kv_split = None
+        if split:
+            self.kv_split = att.SeqSplit(mesh.get_group(shd.AXIS_MODEL), m,
+                                         shd.coordinate(mesh)[shd.AXIS_MODEL])
+
+    def move(self, x: torch.Tensor, src, dst) -> torch.Tensor:
+        """``x``, a block under ``src``, as the block under ``dst`` (itself
+        where the two split it alike)."""
+        if _live(src, self.sizes, x.dim()) == _live(dst, self.sizes,
+                                                      x.dim()):
+            return x
+        return shd.reshard(x, src, dst, self.mesh)
+
+    def params(self, params: dict) -> dict:
+        return _zip3(self.move, params, tree_like(params, self.p_specs),
+                     tree_like(params, self.pc_specs))
+
+    def context(self, decode: bool):
+        if self.tp is None and not (decode and self.kv_split is not None):
+            return contextlib.nullcontext()
+        return tf.sharded_forward(tp=self.tp, kv_split=self.kv_split
+                                  if decode else None)
+
+    def logits(self, logits: torch.Tensor) -> torch.Tensor:
+        return self.move(logits, shd.P(*self.rows, None), self.logits_spec)
+
+
+def _tp_specs(specs, tp) -> dict:
+    """Compute specs of whisper's parameters under ``tp``: the
+    ``heads``/``kv_heads`` dims of every attention and the ``mlp`` dim of
+    every MLP over ``model`` where the gates pass, every other dim
+    whole."""
+    def one(s):
+        return shd.P(*(shd.AXIS_MODEL if (tp.attn and ax in ("heads",
+                                                            "kv_heads"))
+                       or (tp.ffn and ax == "mlp") else None
+                       for ax in s.axes))
+    return tree_map(one, specs)
+
+
+def _zip3(fn, tree, a, b):
+    if isinstance(tree, dict):
+        return {k: _zip3(fn, v, a[k], b[k]) for k, v in tree.items()}
+    return fn(tree, a, b)
+
+
+def _serving_fns(model: Model):
+    """(prefill(p, batch, extra_cache), decode(p, cache, token, pos)) of
+    the model's family, on an explicit parameter tree."""
+    from repro_torch.models import encdec as ed
+    cfg = model.cfg
+    if cfg.family == "vit":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-only vit family has no prefill or "
+            "decode (the reference's Model.prefill is None)")
+    if cfg.family == "audio":
+        return (functools.partial(ed.encdec_prefill, cfg=cfg),
+                functools.partial(ed.encdec_decode, cfg=cfg))
+    return (functools.partial(tf.lm_prefill, cfg=cfg),
+            functools.partial(tf.lm_decode, cfg=cfg))
+
+
+def build_prefill_step(model: Model, mesh, shape: ShapeConfig, *,
+                       extra_cache: int = 0):
+    """The sharded prefill: ``repro``'s ``build_prefill_step`` over one
+    process per rank -> ``(step, specs)``.
+
+    ``step(params, batch) -> (logits, cache)`` takes this rank's parameter
+    blocks (``specs["params"]``) and batch block (``specs["batch"]``) and
+    returns this rank's block of the last-token logits
+    (``specs["logits"]``, ``logits_sharding``) and of the cache
+    (``specs["cache"]``, ``cache_shardings``); see :class:`_ServingLayout`
+    for how it computes.  ``extra_cache``: decode slots beyond the prompt
+    (``Model.prefill``'s), which the reference's builder does not take.
+    Every rank of the mesh calls the step together.  Meshes with ``pipe``
+    or ``seq`` above 1 are refused, as in the reference."""
+    _check_no_pp_cp_serving(mesh, "prefill")
+    cache_shape = ShapeConfig(shape.name, "decode",
+                              shape.seq_len + extra_cache,
+                              shape.global_batch)
+    lay = _ServingLayout(model, mesh, shape, cache_shape)
+    prefill, _ = _serving_fns(model)
+    b_c = tree_map(lambda s: shd.P(*lay.rows, *([None] * (len(s) - 1))),
+                   lay.b_specs)
+
+    @torch.inference_mode()
+    def step(params, batch):
+        p = lay.params(params)
+        b = _zip3(lay.move, batch, tree_like(batch, lay.b_specs),
+                  tree_like(batch, b_c))
+        with lay.context(decode=False):
+            logits, cache = prefill(p, batch=b, extra_cache=extra_cache)
+        del p
+        cache = _zip3(lay.move, cache, tree_like(cache, lay.prefill_c),
+                      tree_like(cache, lay.c_specs))
+        return lay.logits(logits), cache
+
+    step.mesh = mesh
+    specs = {"params": lay.p_specs, "batch": lay.b_specs,
+             "cache": lay.c_specs, "logits": lay.logits_spec}
+    step.shardings = specs
+    return step, specs
+
+
+def build_decode_step(model: Model, mesh, shape: ShapeConfig):
+    """The sharded decode step: ``repro``'s ``build_decode_step`` over one
+    process per rank -> ``(step, specs)``.
+
+    ``step(params, cache, token, pos) -> (logits, cache)``: this rank's
+    parameter blocks, cache blocks (a cache of ``shape.seq_len`` slots,
+    ``cache_shardings``), token block [B, 1] (``specs["token"]``) and the
+    absolute position (an int, the same on every rank); it writes the new
+    key and value into the cache blocks in place (the reference donates
+    them) and returns this rank's logits block and the cache.  See
+    :class:`_ServingLayout` for the compute layout.  Every rank of the mesh
+    calls the step together; ``pipe``/``seq`` above 1 are refused."""
+    _check_no_pp_cp_serving(mesh, "decode")
+    lay = _ServingLayout(model, mesh, shape, shape)
+    _, decode = _serving_fns(model)
+    t_rest = lay.b_specs["token"]
+    t_c = shd.P(*lay.rows, None)
+
+    @torch.inference_mode()
+    def step(params, cache, token, pos):
+        p = lay.params(params)
+        tok = lay.move(token, t_rest, t_c)
+        work = _zip3(lay.move, cache, tree_like(cache, lay.c_specs),
+                     tree_like(cache, lay.decode_c))
+        with lay.context(decode=True):
+            logits, work = decode(p, cache=work, token=tok, pos=int(pos))
+        del p
+
+        for r, w, c, s in zip(tree_leaves(cache), tree_leaves(work),
+                              tree_leaves(tree_like(cache, lay.decode_c)),
+                              tree_leaves(tree_like(cache, lay.c_specs))):
+            if w is not r:
+                r.copy_(lay.move(w, c, s))
+        return lay.logits(logits), cache
+
+    step.mesh = mesh
+    specs = {"params": lay.p_specs, "cache": lay.c_specs, "token": t_rest,
+             "logits": lay.logits_spec}
+    step.shardings = specs
+    step._in_place = (1,)
+    step._in_place_label = "decode_step(cache)"
+    return step, specs

@@ -89,7 +89,21 @@ CP_SLICE = ["repro_torch.dist.context", "repro_torch.roofline",
             "repro_torch.roofline.analysis", "repro_torch.train.step",
             "repro_torch.core.workload", "repro_torch.models.attention"]
 
+SERVING_SLICE = ["repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+                 "repro_torch.roofline.record",
+                 "repro_torch.roofline.analysis",
+                 "repro_torch.roofline.report",
+                 "repro_torch.analysis.hlo_gates", "repro_torch.train.step",
+                 "repro_torch.models.model", "repro_torch.optim.adamw"]
+
 DRIVERS = ROOT / "tests" / "torch_drivers"
+
+
+def test_module_list_covers_the_serving_and_dryrun_slice():
+    assert set(SERVING_SLICE) <= set(_modules())
+    assert {p.name for p in (PKG / "analysis" / "gates").glob("*.json")} \
+        == {p.name for p in (ROOT / "src" / "repro" / "analysis" / "gates")
+            .glob("*.json")}
 
 
 def test_module_list_covers_the_cp_slice_and_its_examples():
