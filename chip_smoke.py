@@ -257,7 +257,26 @@ CUDA kernels from the sources in this checkout.  Phases:
    DRYRUN_PROD_MBS rows a micro-batch) is printed with its seconds; each
    kernel op's shape function gives a real launch's output shapes, dtypes
    and strides.
-14. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+14. The colocated compound steps on a mesh and the compound dry-run
+   (``phase_dryrun_compound``), on a one-rank NCCL mesh under
+   deterministic algorithms: phase_distill's qwen1.5-0.5b
+   self-distillation (teacher seed 1, 4 x 2048, alpha 0.5, T 2) through
+   ``distill.workload.build_colocated_step(..., mesh=)`` for
+   DISTILL_STEPS steps, and phase_mllm's MLLM colocated step (the ViT at 12
+   of 24 layers, pixtral-12b width at 2 layers, 8 x 2048 in microbatches of
+   2) through ``mllm.workload.build_colocated_step(..., mesh=)`` for
+   MESH_MLLM_ITERS iterations, each equal bit for bit (metrics and
+   parameters) to its meshless step and launching flash and the KL kernel
+   as often; ``launch.dryrun_compound``'s predicted peak bytes for that
+   distill step at world size 1 (a subprocess started after the build)
+   against the card's bytes for its first mesh step, within
+   DRYRUN_MEM_TOL, the record's ops holding the KL op; and the production
+   compound cells (distillation granite-3-8b -> granite-3-8b ``train_4k``
+   at full depth, MLLM at phase_mllm's depths, multi-teacher at
+   phase_multi_teacher's models) on the 16 x 16 mesh, recorded one after
+   another in one background subprocess and printed with their seconds
+   and depths.
+15. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash and SSD kernels' at each of their
    main-path shapes under ``at``; the top-level times are granite's
    serving prefill's and mamba2-130m's), then the ``{"ok": true, ...}``
@@ -4560,17 +4579,62 @@ DRYRUN_CELLS = [
                           "--mbs", str(DRYRUN_PROD_MBS)])]
 
 
+#: the compound dry-run cell phase_dryrun_compound holds to the card: the
+#: distillation step of phase_distill on a one-rank mesh
+DRYRUN_COMPOUND_CELL = ("distill_mesh", "1,1,1,1", [
+    "--workload", "distill", "--teacher", TRAIN_ARCH, "--student",
+    TRAIN_ARCH, "--seq", str(TRAIN_S), "--batch", str(TRAIN_B), "--mbs",
+    str(TRAIN_B)])
+#: the production compound cells on the 16 x 16 mesh (256 fake ranks),
+#: recorded one after another in one background subprocess: (name, depth,
+#: arguments of launch.dryrun_compound).  One micro-batch each (a 256-rank
+#: cell replays every micro-batch's operations on the host); distillation
+#: at full depth, MLLM and multi-teacher at phase_mllm's and
+#: phase_multi_teacher's configurations
+DRYRUN_COMPOUND_PRODUCTION = [
+    ("distill", "granite-3-8b 40 + 40 layers (full depth)",
+     ["--workload", "distill", "--mbs", "16"]),
+    ("mllm", f"ViT {MLLM_VIT_LAYERS} of 24 layers, pixtral-12b "
+     f"{MLLM_LM_LAYERS} of 40",
+     ["--workload", "mllm", "--layers", str(MLLM_LM_LAYERS),
+      "--vit-layers", str(MLLM_VIT_LAYERS), "--mbs", "256"]),
+    ("multi_teacher", f"{TRAIN_ARCH} x 3, 24 layers each (full depth)",
+     ["--workload", "multi_teacher", "--teacher", TRAIN_ARCH, "--teacher2",
+      TRAIN_ARCH, "--student", TRAIN_ARCH, "--mbs", "256"])]
+_COMPOUND_PRODUCTION_CODE = """
+import json, sys, time
+from repro_torch.launch import dryrun_compound as dc
+for name, argv in json.loads(sys.argv[1]):
+    t = time.perf_counter()
+    dc.main(argv)
+    print(f"compound cell {name} took {time.perf_counter() - t:.1f} s",
+          flush=True)
+"""
+
+
 def start_dryruns() -> dict:
-    """Start the dry-run cells of :data:`DRYRUN_CELLS`, one subprocess
-    each (a fake process group must be its process's default group), so
-    that they run on the host while the card runs the other phases."""
+    """Start the dry-run cells of :data:`DRYRUN_CELLS` and
+    :data:`DRYRUN_COMPOUND_CELL`, one subprocess each (a fake process group
+    must be its process's default group), and the cells of
+    :data:`DRYRUN_COMPOUND_PRODUCTION` in one more, so that they run on the
+    host while the card runs the other phases."""
     import atexit
     import os
     out = ROOT / "build" / "dryrun_smoke"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     procs = {}
-    for name, mesh, args in DRYRUN_CELLS:
+    cmds = [(name, mesh, ["-m", "repro_torch.launch.dryrun", *args,
+                          "--mesh", "single", "--out", str(out / name)])
+            for name, mesh, args in DRYRUN_CELLS]
+    name, mesh, args = DRYRUN_COMPOUND_CELL
+    cmds.append((name, mesh, ["-m", "repro_torch.launch.dryrun_compound",
+                              *args, "--out", str(out / name)]))
+    cmds.append(("compound_production", None, [
+        "-c", _COMPOUND_PRODUCTION_CODE, json.dumps([
+            (n, [*a, "--out", str(out / "compound_production")])
+            for n, _, a in DRYRUN_COMPOUND_PRODUCTION])]))
+    for name, mesh, argv in cmds:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         env.pop("REPRO_DRYRUN_TINY", None)
         if mesh:
@@ -4579,10 +4643,8 @@ def start_dryruns() -> dict:
             env.pop("REPRO_DRYRUN_MESH", None)
         with open(out / f"{name}.log", "w") as log:
             procs[name] = (subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
-                 "--mesh", "single", "--out", str(out / name)],
-                env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT),
-                time.perf_counter())
+                [sys.executable, *argv], env=env, stdout=log,
+                stderr=subprocess.STDOUT, cwd=ROOT), time.perf_counter())
 
     def stop():                 # a failed check must not leave them running
         for proc, _ in procs.values():
@@ -4593,16 +4655,24 @@ def start_dryruns() -> dict:
     return procs
 
 
-def _dryrun_record(procs: dict, name: str) -> dict:
+def _dryrun_records(procs: dict, name: str) -> list:
+    """The records the dry-run subprocess ``name`` wrote, each with the
+    subprocess's wall seconds."""
     proc, t0 = procs[name]
     rc = proc.wait(timeout=900)
     wall = time.perf_counter() - t0
     log = ROOT / "build" / "dryrun_smoke" / f"{name}.log"
     check(rc == 0, f"dry-run cell {name} exited {rc}: "
           f"{log.read_text()[-3000:]}")
-    [path] = list((ROOT / "build" / "dryrun_smoke" / name).glob("*.json"))
-    rec = json.loads(path.read_text())
-    rec["wall_s"] = wall
+    paths = sorted((ROOT / "build" / "dryrun_smoke" / name).glob("*.json"))
+    recs = [json.loads(p.read_text()) for p in paths]
+    for rec in recs:
+        rec["wall_s"] = wall
+    return recs
+
+
+def _dryrun_record(procs: dict, name: str) -> dict:
+    [rec] = _dryrun_records(procs, name)
     return rec
 
 
@@ -4831,6 +4901,234 @@ def phase_dryrun(procs: dict, prefill_peak: int) -> None:
           "the production cell recorded no work or no collectives")
 
 
+MESH_MLLM_ITERS = 2
+
+
+def _bitwise(a, b) -> list:
+    """The paths of the leaves of two trees (or the keys of two metric
+    dicts) that differ."""
+    la, lb = dict(_named_leaves(a)), dict(_named_leaves(b))
+    check(la.keys() == lb.keys(),
+          f"trees differ in keys: {la.keys() ^ lb.keys()}")
+    return [k for k in la if not torch.equal(la[k], lb[k])]
+
+
+def _mesh_distill() -> tuple:
+    """phase_distill's self-distillation through the distill step on a
+    one-rank mesh against the meshless step (see phase_dryrun_compound)
+    -> (flash, KL) launches of the mesh run, its first step's measured
+    bytes."""
+    from repro_torch.core.types import ParallelConfig, ShapeConfig
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.dist import sharding as shd
+    from repro_torch.distill import workload as dw
+    from repro_torch.launch.serve import resolve_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedules
+    cfg = resolve_config(TRAIN_ARCH, dtype="bfloat16")
+    teacher = _host(build_model(cfg, device="cuda", seed=1).param_tree())
+    student = _host(build_model(cfg, device="cuda", seed=0).param_tree())
+    free()
+    par = ParallelConfig(mbs=TRAIN_B)
+    shape = ShapeConfig("distill", "train", TRAIN_S, TRAIN_B)
+    kw = dict(alpha=0.5, temperature=2.0, lr_schedule=functools.partial(
+        schedules.constant, peak_lr=1e-4))
+    batches = lm_batches(batch=TRAIN_B, seq_len=TRAIN_S,
+                         vocab=cfg.vocab_size, seed=0, device="cuda")
+    batches = [next(batches) for _ in range(DISTILL_STEPS)]
+    runs = {}
+    for name in ("plain", "mesh"):
+        mesh = shd.section_mesh([0], par) if name == "mesh" else None
+        step = dw.build_colocated_step(cfg, cfg, shape, par, mesh=mesh, **kw)
+        pt = tree_map(lambda x: x.cuda(), teacher)
+        ps = tree_map(lambda x: x.cuda(), student)
+        if mesh is None:
+            ps = tree_map(lambda x: x.requires_grad_(), ps)
+        else:
+            pt = shd.shard_tree(pt, step.shardings["teacher"], mesh)
+            ps = shd.shard_tree(ps, step.shardings["student"], mesh)
+        opt = adamw.init(ps)
+        mets, times = [], []
+        reset_counts()
+        for i, batch in enumerate(batches):
+            t = time.perf_counter()
+            if mesh is not None and i == 0:
+                (ps, opt, met), peak, _ = _step_bytes(
+                    step, (ps, opt, pt, batch, i))
+            else:
+                ps, opt, met = step(ps, opt, pt, batch, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            mets.append(_host(met))
+        launches = read_counts()
+        runs[name] = (mets, _host(ps), launches, times)
+        del step, pt, ps, opt, met
+        free()
+    (m0, p0, l0, t0), (m1, p1, l1, t1) = runs["plain"], runs["mesh"]
+    for i in range(DISTILL_STEPS):
+        diff = _bitwise(m0[i], m1[i])
+        check(not diff, f"distill step {i}: the mesh step's metrics {diff} "
+              "differ from the meshless step's")
+    diff = _bitwise(p0, p1)
+    check(not diff, f"after {DISTILL_STEPS} distill steps the mesh step's "
+          f"student differs in {diff[:4]}")
+    want = (DISTILL_STEPS * cfg.num_layers * 3, DISTILL_STEPS, 0)
+    check(l1 == l0 == want, f"distill launches (flash, KL, SSD): mesh {l1}, "
+          f"meshless {l0}, expected {want}")
+    print(f"dryrun-compound: distill {TRAIN_ARCH} (teacher seed 1, student "
+          f"seed 0) batch {TRAIN_B} x {TRAIN_S} bf16 on a one-rank mesh: "
+          f"{DISTILL_STEPS} steps equal the meshless step bit for bit "
+          f"(losses {[round(float(m['loss']), 4) for m in m1]}); flash "
+          f"{l1[0]}, KL {l1[1]}; ms a step mesh "
+          f"{[round(x, 1) for x in t1]}, meshless "
+          f"{[round(x, 1) for x in t0]}")
+    return l1[:2], peak
+
+
+def _mesh_mllm() -> int:
+    """phase_mllm's colocated step on a one-rank mesh against the meshless
+    step, MESH_MLLM_ITERS iterations, bit for bit -> the mesh run's flash
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import ParallelConfig
+    from repro_torch.data.synthetic import vlm_batches
+    from repro_torch.dist import sharding as shd
+    from repro_torch.mllm import workload as mw
+    from repro_torch.models import vlm
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw, schedules
+    dev = torch.device("cuda", 0)
+    lm_cfg = get_config("pixtral-12b").replace(num_layers=MLLM_LM_LAYERS)
+    vit_cfg = vlm.vit_config(num_layers=MLLM_VIT_LAYERS,
+                             out_dim=lm_cfg.vision_dim)
+    gen = vlm_batches(batch=MLLM_B, seq_len=MLLM_S, vocab=lm_cfg.vocab_size,
+                      vision_ratio=MLLM_RATIO,
+                      image_tokens=lm_cfg.max_image_tokens,
+                      patch_dim=vit_cfg.frontend_dim,
+                      downsample=vlm.downsample_factor(vit_cfg), seed=0,
+                      device="cpu")
+    order = tuple(range(MLLM_B))
+    batches = []
+    for _ in range(MESH_MLLM_ITERS):
+        b = next(gen)
+        plan = mw.build_plan(order, b["has_image"].numpy(), MLLM_MBS)
+        batches.append(mw.colocated_batch(b, plan))
+    init = _host(mw.init_compound_params(vit_cfg, lm_cfg, seed=0,
+                                         device=dev))
+    free()
+    lr = functools.partial(schedules.constant, peak_lr=1e-4)
+    runs = {}
+    for name in ("plain", "mesh"):
+        mesh = (shd.section_mesh([0], ParallelConfig()) if name == "mesh"
+                else None)
+        step = mw.build_colocated_step(vit_cfg, lm_cfg, device=dev,
+                                       lr_schedule=lr, mesh=mesh)
+        params = tree_map(lambda x: x.to(dev), init)
+        if mesh is not None:
+            params = shd.shard_tree(params, step.shardings["params"], mesh)
+        opt = adamw.init(params)
+        mets, times = [], []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for i, batch in enumerate(batches):
+            t = time.perf_counter()
+            params, opt, met = step(params, opt, batch, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            mets.append(_host(met))
+        launches = read_counts()
+        runs[name] = (mets, _host(params), launches, times, _peak()[0])
+        del step, params, opt, met
+        free()
+    (m0, p0, l0, t0, pk0), (m1, p1, l1, t1, pk1) = (runs["plain"],
+                                                    runs["mesh"])
+    for i in range(MESH_MLLM_ITERS):
+        diff = _bitwise(m0[i], m1[i])
+        check(not diff, f"mllm iteration {i}: the mesh step's metrics {diff}"
+              " differ from the meshless step's")
+    diff = _bitwise(p0, p1)
+    check(not diff, f"the mesh MLLM step's parameters differ in {diff[:4]}")
+    n_mb = MLLM_B // MLLM_MBS
+    want = MESH_MLLM_ITERS * 2 * n_mb * (vit_cfg.num_layers
+                                         + lm_cfg.num_layers)
+    check(l1 == l0 == (want, 0, 0), f"mllm launches (flash, KL, SSD): mesh "
+          f"{l1}, meshless {l0}, expected ({want}, 0, 0)")
+    print(f"dryrun-compound: mllm (ViT {vit_cfg.num_layers} layers -> "
+          f"pixtral-12b width, {lm_cfg.num_layers} layers) batch {MLLM_B} x "
+          f"{MLLM_S}, mbs {MLLM_MBS}, on a one-rank mesh: "
+          f"{MESH_MLLM_ITERS} iterations equal the meshless step bit for bit"
+          f" (losses {[round(float(m['loss']), 4) for m in m1]}); flash "
+          f"{l1[0]}; ms an iteration mesh {[round(x, 1) for x in t1]}, "
+          f"meshless {[round(x, 1) for x in t0]}; peak {pk1:.2f} GiB mesh, "
+          f"{pk0:.2f} meshless")
+    return l1[0]
+
+
+def phase_dryrun_compound(procs: dict) -> tuple:
+    """The colocated compound steps on a one-rank NCCL mesh and the
+    compound dry-run against the card (see the module docstring, item 14)
+    -> ((flash, KL) of the distill mesh run, flash of the MLLM mesh
+    run)."""
+    import os
+    import torch.distributed as dist
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        distill, measured = _mesh_distill()
+        mllm = _mesh_mllm()
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    rec = _dryrun_record(procs, DRYRUN_COMPOUND_CELL[0])
+    pred = rec["memory"]["peak_bytes"]
+    ratio = pred / measured
+    print(f"dryrun-compound: distill {TRAIN_ARCH} {TRAIN_B} x {TRAIN_S} on a "
+          f"one-rank mesh: predicted {pred / 2**30:.3f} GiB (arguments "
+          f"{rec['memory']['argument_parts']}), measured "
+          f"{measured / 2**30:.3f} GiB, ratio {ratio:.4f} (recorded in "
+          f"{rec['record_s']:.1f} s; kernel ops {rec['hlo']['kernel_ops']})")
+    check(abs(ratio - 1) <= DRYRUN_MEM_TOL,
+          f"the compound prediction is off by {ratio - 1:+.1%}")
+    check(rec["hlo"]["kernel_ops"].get("repro_torch.distill_kl_fwd") == 1,
+          f"the recorded distill step's kernel ops {rec['hlo']['kernel_ops']}"
+          " hold no KL launch")
+    _report_compound_production(procs)
+    return distill, mllm
+
+
+def _report_compound_production(procs: dict) -> None:
+    """Print and check the production compound cells' records."""
+    prod = {r["workload"].split(":")[0]: r
+            for r in _dryrun_records(procs, "compound_production")}
+    for name, depth, _ in DRYRUN_COMPOUND_PRODUCTION:
+        r = prod[name]
+        print(f"dryrun-compound: production {r['workload']} ({depth}; "
+              f"{r['devices']} fake ranks), recorded in "
+              f"{r['record_s']:.1f} s (collected {r['wall_s']:.1f} s after "
+              f"the three started): memory {r['memory']}, "
+              f"FLOPs per device {r['hlo']['flops_per_device']:.4g}, wire "
+              f"bytes by family {r['hlo']['collective_bytes_per_device']}, "
+              f"kernel ops {r['hlo']['kernel_ops']}, roofline on H100 "
+              f"{r['roofline']}, useful {r['useful_flops_ratio']:.3f}")
+        check(r["roofline"]["compute_s"] > 0
+              and r["hlo"]["collective_bytes_per_device"],
+              f"the production {name} cell recorded no work or no "
+              "collectives")
+        check((r["hlo"]["kernel_ops"].get("repro_torch.distill_kl_fwd", 0)
+               > 0) == (name != "mllm"),
+              f"the production {name} cell's kernel ops "
+              f"{r['hlo']['kernel_ops']}")
+
+
 def timed(phase, *args, **kw):
     """Run one phase and print its wall time."""
     t = time.perf_counter()
@@ -4917,6 +5215,9 @@ def main() -> int:
     free()
     timed(phase_dryrun, dryruns, prefill_peak)
     free()
+    (mesh_distill_launches, mesh_kl_launches), mesh_mllm_launches = timed(
+        phase_dryrun_compound, dryruns)
+    free()
     for name, (shape, causal) in zip(("cp_vit_chunk", "cp_train_chunk"),
                                      CP_CHUNK_SHAPES):
         S, T = shape[1:3]
@@ -4961,6 +5262,8 @@ def main() -> int:
              f"cp {TRAIN_ARCH} world 1",
              f"pp {TRAIN_ARCH} world 1",
              f"serve-mesh {ARCH} world 1",
+             f"distill-mesh {TRAIN_ARCH} world 1",
+             "mllm-mesh pixtral-12b-width world 1",
              f"multi-teacher {TRAIN_ARCH}",
              "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
              f"train {MOONSHOT} {MOONSHOT_LAYERS}L", f"train {WHISPER}",
@@ -4969,16 +5272,21 @@ def main() -> int:
         "flash": (serve_launches, train_launches, resume_launches,
                   dp_launches, distill_launches, 0, 0, rt_launches,
                   sec_launches, cp_launches, pp_launches,
-                  serve_mesh_launches, mt_launches,
+                  serve_mesh_launches, mesh_distill_launches,
+                  mesh_mllm_launches, mt_launches,
                   mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
         "kl": (0, 0, 0, 0, kl_launches, 0, 0, rt_kl_launches,
-               sec_kl_launches, 0, 0, 0, mt_kl_launches, 0, 0, 0, 0, 0, 0),
+               sec_kl_launches, 0, 0, 0, mesh_kl_launches, 0,
+               mt_kl_launches, 0, 0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
-                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, jamba_ssd_launches)}
+                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
+        check(len(per_path[name]) == len(paths),
+              f"{name}: {len(per_path[name])} counts for {len(paths)} paths")
         entry["launches"] = sum(per_path[name])
         entry["launches_per_path"] = dict(zip(paths, per_path[name]))
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s")

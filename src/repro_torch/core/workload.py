@@ -531,6 +531,22 @@ def build_activation(order: Sequence[int], flags: np.ndarray,
     return SectionActivation(tuple(active), idx, valid)
 
 
+def rows_capacity(idx: torch.Tensor, valid: torch.Tensor, lo: int,
+                  n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One microbatch's capacity layout (``idx``, ``valid`` [m], from
+    :func:`build_activation`) as a rank holding the microbatch's rows
+    ``[lo, lo + n)`` sees it: the activated rows among its own first, in
+    sample order, with indices local to its rows, padded to ``n`` rows with
+    index 0 and ``valid = 0`` (the layout itself when the rank holds every
+    row).  Tensor operations only: no host synchronisation, and fake
+    tensors pass."""
+    mine = (valid > 0) & (idx >= lo) & (idx < lo + n)
+    order = torch.sort((~mine).to(torch.int8), stable=True).indices[:n]
+    take = mine.index_select(0, order)
+    local = idx.index_select(0, order) - lo
+    return local * take, take.to(valid.dtype)
+
+
 @dataclass(frozen=True)
 class IterationPlan:
     """Host-side dispatch plan for one global batch."""

@@ -109,6 +109,11 @@ class _CopyToGroup(torch.autograd.Function):
         return g, None
 
 
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`_CopyToGroup` (Megatron's ``f``) over ``group``."""
+    return _CopyToGroup.apply(x, group)
+
+
 class _ReduceFromGroup(torch.autograd.Function):
     """Megatron's ``g``: an all-reduce (sum) forward, the identity
     backward.  Also the sum a replicated loss is built from (every rank

@@ -35,12 +35,14 @@ import torch
 
 from repro_torch.core import workload as wl
 from repro_torch.core.types import ArchConfig, ParallelConfig
-from repro_torch.distill.workload import teacher_hidden, teacher_unembedding
+from repro_torch.distill.workload import (mesh_kl, teacher_hidden,
+                                          teacher_unembedding)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw, schedules
+from repro_torch.train.step import add_f32
 
 LM_KEYS = ("tokens", "labels", "loss_mask")
 
@@ -59,14 +61,15 @@ def specialist_hidden(pt, tb_cfg: ArchConfig, tokens: torch.Tensor,
 
 def student_mt_loss(ps, s_cfg: ArchConfig, batch: dict, h_a, w_a, h_b,
                     b_idx, b_valid, w_b, *, alpha: float,
-                    temperature: float, share=None):
+                    temperature: float, share=None, kl=kops.distill_kl):
     """CE + α·T²·(KL vs generalist + domain-masked KL vs specialist).
     h_b arrives in capacity layout and is scattered back to sample slots
     by ``b_idx``; the KL_b mask is the scattered ``b_valid``.  ``share``
     (a section mesh's ``inputs["loss_share"]``) weights CE and KL_a by
     this rank's share of ``loss_mask`` and KL_b by its share of the KL_b
     mask, so that the terms sum over the student's data ranks to the
-    global means (the specialist's rows need not fall evenly)."""
+    global means (the specialist's rows need not fall evenly).  ``kl``
+    computes each KL term (``distill.workload.mesh_kl`` on a mesh)."""
     h_s, _ = tf.lm_forward(ps, s_cfg, batch, remat=True, logits_out=False)
     logits = tf.unembed(ps, s_cfg, h_s)
     ce = cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
@@ -75,7 +78,7 @@ def student_mt_loss(ps, s_cfg: ArchConfig, batch: dict, h_a, w_a, h_b,
     hsf = h_s.reshape(B * S, Ds)
     lm = batch["loss_mask"].reshape(B * S)
     T = temperature
-    kl_a = kops.distill_kl(hsf, w_s, h_a.detach().reshape(B * S, -1),
+    kl_a = kl(hsf, w_s, h_a.detach().reshape(B * S, -1),
                            w_a.detach(), mask=lm, temperature=T)
     b_idx = b_idx.long()
     hb = torch.zeros((B,) + tuple(h_b.shape[1:]), dtype=h_b.dtype,
@@ -84,7 +87,7 @@ def student_mt_loss(ps, s_cfg: ArchConfig, batch: dict, h_a, w_a, h_b,
                      device=b_valid.device).index_add(0, b_idx,
                                                       b_valid.float())
     mask_b = (batch["loss_mask"] * mb[:, None]).reshape(B * S)
-    kl_b = kops.distill_kl(hsf, w_s, hb.reshape(B * S, -1), w_b.detach(),
+    kl_b = kl(hsf, w_s, hb.reshape(B * S, -1), w_b.detach(),
                            mask=mask_b, temperature=T)
     if share is not None:
         s_lm, s_b = share(lm, mask_b).unbind(0)
@@ -197,15 +200,36 @@ def build_colocated_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
                          s_cfg: ArchConfig, *, alpha: float = 0.5,
                          temperature: float = 2.0, lr_schedule=None,
                          opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
-                         return_grads: bool = False):
+                         return_grads: bool = False, mesh=None):
     """-> ``step(params_s, opt_state, params_a, params_b, w_a, w_b, batch,
     step_idx) -> (params_s, opt_state, metrics)`` over a batch from
     :func:`colocated_batch`: per microbatch, both teacher forwards (the
     specialist on its gathered domain samples) + the student loss, the
     student's gradients accumulated in float32 in dispatch order, one
-    AdamW update (``opt_state`` in place)."""
+    AdamW update (``opt_state`` in place).
+
+    ``mesh`` (a ``DeviceMesh`` with the reference's axis names): the
+    reference's step on a mesh (microbatch rows over the data axes; ``w_a``,
+    ``w_b``, ``b_idx`` and ``b_valid`` replicated), one process a rank.
+    ``params_s``/``opt_state`` are this rank's blocks under
+    ``step.shardings["student"]``/``["opt"]`` (ZeRO), each teacher's under
+    ``rules_for(cfg, mesh, teacher=True)`` (``["teacher_a"]``,
+    ``["teacher_b"]``), gathered once a step; ``batch`` is the whole
+    :func:`colocated_batch` on every rank, each taking its rows of every
+    microbatch.  The specialist runs on the routed rows among a rank's own
+    (``core.workload.rows_capacity``); CE and KL_a are weighted by the
+    rank's share of ``loss_mask``, KL_b by its share of the routed tokens,
+    which may fall unevenly over the data ranks (``student_mt_loss``'s
+    ``share``).  All three models run under Megatron TP on a ``model``
+    axis; a ``seq`` or ``pipe`` axis above 1 raises (the reference's step
+    installs no ``cp_attention``).  On a one-rank mesh the step equals the
+    meshless one bit for bit."""
     lr_fn = lr_schedule or functools.partial(schedules.constant,
                                              peak_lr=1e-3)
+    if mesh is not None:
+        return _build_mesh_step(ta_cfg, tb_cfg, s_cfg, mesh, alpha=alpha,
+                                temperature=temperature, lr_fn=lr_fn,
+                                opt_cfg=opt_cfg, return_grads=return_grads)
 
     def step(params_s, opt_state, params_a, params_b, w_a, w_b, batch,
              step_idx):
@@ -222,16 +246,8 @@ def build_colocated_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
             loss, _ = student_mt_loss(p, s_cfg, mb, h_a, w_a, h_b, bidx,
                                       bval, w_b, alpha=alpha,
                                       temperature=temperature)
-            grads = torch.autograd.grad(loss, tree_leaves(p))
-            with torch.no_grad():
-                if g_acc is None:
-                    g_acc = [torch.zeros(g.shape, dtype=torch.float32,
-                                         device=g.device) for g in grads]
-                    l_sum = torch.zeros((), dtype=torch.float32,
-                                        device=loss.device)
-                for a, g in zip(g_acc, grads):
-                    a.add_(g.float())
-                l_sum = l_sum + loss.detach()
+            g_acc, l_sum = add_f32(g_acc, l_sum, loss,
+                                   torch.autograd.grad(loss, tree_leaves(p)))
         with torch.no_grad():
             grads = tree_unflatten(params_s, [(a / n_mb).to(x.dtype) for a, x
                                               in zip(g_acc, leaves)])
@@ -243,4 +259,97 @@ def build_colocated_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
             metrics["grads"] = grads
         return new_p, new_opt, metrics
 
+    return step
+
+
+def _build_mesh_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
+                     s_cfg: ArchConfig, mesh, *, alpha: float,
+                     temperature: float, lr_fn, opt_cfg: adamw.AdamWConfig,
+                     return_grads: bool):
+    """:func:`build_colocated_step` on ``mesh`` (see there)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train import step as st
+    par = st.mesh_parallel(mesh)
+    cfgs = (("teacher_a", ta_cfg), ("teacher_b", tb_cfg), ("student", s_cfg))
+    for name, cfg in cfgs:
+        regime = wl.validate_section_parallel(
+            f"multi_teacher.colocated({name})", cfg, par, mesh)
+        if regime != "plain":
+            raise NotImplementedError(
+                f"multi_teacher.colocated({name}): a seq axis of "
+                f"{par.cp}: the colocated multi-teacher step runs in the "
+                "plain regime (the reference's installs no cp_attention)")
+    lay = st.DataLayout(mesh, "plain", 1, 0)
+    trees, ctxs = {}, {}
+    for name, cfg in cfgs:
+        specs = tf.lm_specs(cfg)
+        ctxs[name], c = st.model_context(cfg, specs, mesh, "plain", par)
+        student = name == "student"
+        trees[name] = st.BlockTree.of(
+            specs, mesh, shd.rules_for(cfg, mesh, teacher=not student), c,
+            zero=True if student else None)
+    blocks = trees["student"]
+    kl = mesh_kl(mesh)
+
+    def share(*masks: torch.Tensor) -> torch.Tensor:
+        """Per mask, this rank's sum over the sum across the data ranks."""
+        with torch.no_grad():
+            local = torch.stack([m.float().sum() for m in masks])
+            total = shd.all_reduce_axes(local.clone(), mesh, lay.sum_ax)
+            return local / torch.where(total > 0, total,
+                                       torch.ones_like(total))
+
+    def step(params_s, opt_state, params_a, params_b, w_a, w_b, batch,
+             step_idx):
+        n_mb, m = batch["tokens"].shape[:2]
+        lo, n = lay.rows(m)
+        # the teachers' forwards read no output layer (w_a, w_b stand for
+        # them), so theirs are not gathered
+        body = {sec: {key: x for key, x in tree.items() if key != "unembed"}
+                for sec, tree in (("teacher_a", params_a),
+                                  ("teacher_b", params_b))}
+        full_t = {sec: tree_unflatten(tree, trees[sec].compute(
+            tree, trees[sec].lists(tree), grad=False))
+            for sec, tree in body.items()}
+        lists = blocks.lists(params_s)
+        full = blocks.compute(params_s, lists)
+        p = tree_unflatten(params_s, full)
+        g_acc, l_sum = None, None
+        for i in range(n_mb):
+            mb = {k: batch[k][i, lo:lo + n] for k in LM_KEYS}
+            bidx, bval = wl.rows_capacity(batch["b_idx"][i],
+                                          batch["b_valid"][i], lo, n)
+            with ctxs["teacher_a"]():
+                h_a = teacher_hidden(full_t["teacher_a"], ta_cfg,
+                                     mb["tokens"])
+            with ctxs["teacher_b"]():
+                h_b = specialist_hidden(full_t["teacher_b"], tb_cfg,
+                                        mb["tokens"].index_select(0, bidx),
+                                        bval)
+            with ctxs["student"]():
+                loss, _ = student_mt_loss(p, s_cfg, mb, h_a, w_a, h_b, bidx,
+                                          bval, w_b, alpha=alpha,
+                                          temperature=temperature,
+                                          share=share, kl=kl)
+            g_acc, l_sum = st.add_f32(g_acc, l_sum, loss,
+                                      torch.autograd.grad(loss, full))
+            del loss, h_a, h_b
+        del full, p, full_t
+        g_opt = blocks.reduce(g_acc, lists, lay.sum_ax)
+        del g_acc
+        lr = lr_fn(step_idx)
+        grads = blocks.grad_tree(params_s, [a / n_mb for a in g_opt])
+        gnorm = blocks.global_norm(grads, params_s)
+        new_p, new_opt = blocks.apply(params_s, opt_state, grads, lists, lr,
+                                      opt_cfg, gnorm)
+        l_sum = shd.all_reduce_axes(l_sum, mesh, lay.sum_ax)
+        metrics = {"loss": (l_sum / n_mb).float(), "grad_norm": gnorm,
+                   "lr": lr}
+        if return_grads:
+            metrics["grads"] = grads
+        return new_p, new_opt, metrics
+
+    step.mesh = mesh
+    step.shardings = {k: t.p_specs for k, t in trees.items()}
+    step.shardings["opt"] = blocks.o_specs
     return step

@@ -22,12 +22,14 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import workload as wl
 from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
+from repro_torch.models.common import tree_unflatten
 from repro_torch.optim import adamw, schedules
 from repro_torch.train.step import (accumulate_and_update,
                                     check_single_device, default_lr_schedule,
@@ -51,12 +53,55 @@ def teacher_unembedding(params_t, t_cfg: ArchConfig) -> torch.Tensor:
     return w.detach()
 
 
+def rows_kl(group, size: int, index: int):
+    """A stand-in for ``kernels.ops.distill_kl`` on a ``model`` axis whose
+    ``size`` ranks hold the same token rows and the same whole output
+    layers (Megatron TP): the KL kernel runs on this rank's ``index``-th
+    of ``size`` contiguous parts of the rows, instead of every model rank
+    running it on all of them.  The student's hidden states and output
+    layer enter through Megatron's ``f`` (``dist.pipeline.copy_to``), so
+    their KL gradients are summed over the model ranks in the backward;
+    the value returned on each rank is the masked mean over every row."""
+    from repro_torch.dist import pipeline as pl
+
+    def kl(h_s, w_s, h_t, w_t, *, mask=None, temperature: float = 1.0):
+        N = h_s.shape[0]
+        lo, hi = index * N // size, (index + 1) * N // size
+        h, w = pl.copy_to(h_s, group), pl.copy_to(w_s, group)
+        m = None if mask is None else mask[lo:hi]
+        part = kops.distill_kl(h[lo:hi], w, h_t[lo:hi], w_t, mask=m,
+                               temperature=temperature)
+        with torch.no_grad():
+            # this part's share of the masked mean over every row
+            share = (torch.tensor(float(hi - lo) / N, device=h_s.device)
+                     if mask is None else
+                     m.float().sum() / mask.float().sum().clamp_min(1.0))
+        part = part * share
+        whole = part.detach().clone()
+        dist.all_reduce(whole, group=group)
+        return part + (whole - part.detach())
+    return kl
+
+
+def mesh_kl(mesh):
+    """The KL a colocated step on ``mesh`` computes its terms with:
+    :func:`rows_kl` on a ``model`` axis above 1, else
+    ``kernels.ops.distill_kl``."""
+    from repro_torch.dist import sharding as shd
+    tp = shd.mesh_shape(mesh).get(shd.AXIS_MODEL, 1)
+    if tp == 1:
+        return kops.distill_kl
+    return rows_kl(mesh.get_group(shd.AXIS_MODEL), tp,
+                   shd.coordinate(mesh)[shd.AXIS_MODEL])
+
+
 def distill_loss(params_s, s_cfg: ArchConfig, batch: dict,
                  h_teacher: torch.Tensor, teacher_unembed: torch.Tensor, *,
                  alpha: float = 0.5, temperature: float = 2.0,
-                 remat: bool = True):
+                 remat: bool = True, kl=kops.distill_kl):
     """-> (CE + α·T²·KL, {"ce", "kl", "aux"}) from hidden states, with the
-    teacher's output layer colocated here."""
+    teacher's output layer colocated here; ``kl`` computes the KL term
+    (:func:`mesh_kl` on a mesh)."""
     h_s, aux = tf.lm_forward(params_s, s_cfg, batch, remat=remat,
                              logits_out=False)
     logits = tf.unembed(params_s, s_cfg, h_s)
@@ -65,27 +110,51 @@ def distill_loss(params_s, s_cfg: ArchConfig, batch: dict,
     w_s = (params_s["embed"].T if s_cfg.tie_embeddings
            else params_s["unembed"])
     mask = batch.get("loss_mask")
-    kl = kops.distill_kl(
+    kl_v = kl(
         h_s.reshape(B * S, Ds), w_s,
         h_teacher.detach().reshape(B * S, -1), teacher_unembed.detach(),
         mask=None if mask is None else mask.reshape(B * S),
         temperature=temperature)
-    loss = (1 - alpha) * ce + alpha * (temperature ** 2) * kl
-    return loss, {"ce": ce, "kl": kl, "aux": aux}
+    loss = (1 - alpha) * ce + alpha * (temperature ** 2) * kl_v
+    return loss, {"ce": ce, "kl": kl_v, "aux": aux}
 
 
 def build_colocated_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
                          shape: ShapeConfig, parallel: ParallelConfig, *,
                          alpha: float = 0.5, temperature: float = 2.0,
                          lr_schedule=None,
-                         opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()):
+                         opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                         mesh=None):
     """-> ``step(params_s, opt_state, params_t, batch, step_idx) ->
     (params_s, opt_state, {"loss", "grad_norm", "lr", "ce", "kl", "aux"})``.
 
     Per micro-batch: the frozen teacher's forward (no autograd), then the
     student's loss and backward; float32 gradient accumulation and one
     AdamW update of the student, as ``build_train_step`` does.  The
-    teacher's parameters get no gradient."""
+    teacher's parameters get no gradient.
+
+    ``mesh`` (a ``DeviceMesh`` with the reference's axis names): the
+    reference's colocated step on a mesh, one process a rank, dispatched
+    as ``build_train_step(..., mesh=)`` is.  Both sections are validated
+    by ``core.workload.validate_section_parallel`` (a ``pipe`` axis above
+    1 raises, as in the reference: the distillation loss is not staged;
+    cp x tp raises as A6.4's remainder).  The student's parameters are
+    this rank's blocks under ``step.shardings["student"]`` with ZeRO
+    optimizer-state blocks (``["opt"]``), the teacher's under
+    ``rules_for(t_cfg, mesh, teacher=True)`` (``["teacher"]``), gathered
+    once a step and given no gradient; ``batch`` is the global batch on
+    every rank, which keeps its rows of the shard-major layout (and its
+    sequence columns on a ``seq`` axis, where both models' attention runs
+    through ``cp_attention``).  At tp > 1 both models run under Megatron
+    TP, the KL kernel takes both output layers whole (gathered over
+    ``model``: the kernel needs whole [D, V] unembeddings) and each model
+    rank its share of the token rows (:func:`rows_kl`), and the
+    student's output-layer gradient is reduced back into its block.  On a
+    one-rank mesh the step equals the meshless one bit for bit."""
+    if mesh is not None:
+        return _build_mesh_step(t_cfg, s_cfg, shape, parallel, mesh,
+                                alpha=alpha, temperature=temperature,
+                                lr_schedule=lr_schedule, opt_cfg=opt_cfg)
     for cfg, role in ((t_cfg, "teacher"), (s_cfg, "student")):
         check_single_device(parallel,
                             f"distill.colocated({role}: {cfg.name})")
@@ -108,6 +177,74 @@ def build_colocated_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
 
     return step
 
+
+def _build_mesh_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
+                     shape: ShapeConfig, parallel: ParallelConfig, mesh, *,
+                     alpha: float, temperature: float, lr_schedule,
+                     opt_cfg: adamw.AdamWConfig):
+    """:func:`build_colocated_step` on ``mesh`` (see there)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train import step as st
+    for cfg, role in ((t_cfg, "teacher"), (s_cfg, "student")):
+        wl.validate_section_parallel(f"distill.colocated({role})", cfg,
+                                     parallel, mesh)
+    if (parallel.grad_compress or "none") != "none":
+        raise NotImplementedError(
+            f"distill.colocated: grad_compress={parallel.grad_compress!r} "
+            "is a knob of the sharded train step and of compound sections "
+            "(CompoundRuntime(ranks=)); the colocated step reduces in "
+            "float32, as the reference's does")
+    regime, _, dp_total = st._check_sharded(s_cfg, parallel, shape, mesh)
+    n_micro = num_microbatches(shape, parallel, dp_total)
+    lr_fn = lr_schedule or default_lr_schedule()
+    lay = st.DataLayout(mesh, regime, n_micro, shape.seq_len)
+    t_specs, s_specs = tf.lm_specs(t_cfg), tf.lm_specs(s_cfg)
+    t_ctx, t_c = st.model_context(t_cfg, t_specs, mesh, regime, parallel)
+    s_ctx, s_c = st.model_context(s_cfg, s_specs, mesh, regime, parallel)
+    teacher = st.BlockTree.of(t_specs, mesh,
+                              shd.rules_for(t_cfg, mesh, teacher=True), t_c,
+                              zero=None)
+    student = st.BlockTree.of(s_specs, mesh, shd.rules_for(s_cfg, mesh), s_c,
+                              zero=True)
+    kl = mesh_kl(mesh)
+
+    def step(params_s, opt_state, params_t, batch, step_idx):
+        mbs = lay.microbatches(batch)
+        weights = lay.weights(mbs)
+        full_t = tree_unflatten(params_t, teacher.compute(
+            params_t, teacher.lists(params_t), grad=False))
+        w_t = teacher_unembedding(full_t, t_cfg)
+        lists = student.lists(params_s)
+        full = student.compute(params_s, lists)
+
+        def loss_fn(p, mb):
+            with t_ctx():
+                h_t = teacher_hidden(full_t, t_cfg, mb["tokens"],
+                                     remat=parallel.remat)
+            with s_ctx():
+                return distill_loss(p, s_cfg, mb, h_t, w_t, alpha=alpha,
+                                    temperature=temperature,
+                                    remat=parallel.remat, kl=kl)
+
+        g_acc, sums = st._accumulate(loss_fn, tree_unflatten(params_s, full),
+                                     full, mbs, weights)
+        del full, full_t, w_t
+        g_acc = student.reduce(g_acc, lists, lay.sum_ax)
+        if n_micro > 1:
+            g_acc = [a / n_micro for a in g_acc]
+        lr = lr_fn(step_idx)
+        params_s, opt_state, gnorm = student.update(
+            params_s, opt_state, g_acc, lists, lr, opt_cfg)
+        metrics = lay.means(sums)
+        metrics.update(grad_norm=gnorm, lr=lr)
+        return params_s, opt_state, metrics
+
+    step.mesh = mesh
+    step.shardings = {"teacher": teacher.p_specs, "student": student.p_specs,
+                      "opt": student.o_specs}
+    step._in_place = (1,)
+    step._in_place_label = "distill.colocated[sharded](params_s, opt)"
+    return step
 
 
 # --------------------------------------------------------------------------- #

@@ -287,12 +287,19 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
     return rec
 
 
-def _analytic_kernel_io(cfg, shape, n_dev: int) -> float:
+def _analytic_kernel_io(cfg, shape, n_dev: int, *, kl=()) -> float:
     """Per-device bytes the flash/SSD kernels move: q/k/v reads and the o
     write, forward plus recompute and backward (about 3x the forward), per
-    attention layer per token on this device (the reference's)."""
+    attention layer per token on this device (the reference's).  ``kl``:
+    the distillation-KL kernel's calls on this device, each ``(calls,
+    tokens, d_s, d_t, vocab)``: a call reads the [tokens, d_s] and
+    [tokens, d_t] hidden states and the [d_s, V] and [d_t, V] output
+    layers once, forward only (its backward is plain PyTorch, recorded
+    as such)."""
+    io = sum(calls * (tokens + vocab) * (d_s + d_t) * 4.0
+             for calls, tokens, d_s, d_t, vocab in kl)
     if shape.kind == "decode":
-        return 0.0
+        return io
     tokens_per_dev = shape.global_batch * shape.seq_len / max(n_dev, 1)
     attn_layers = sum(1 for i in range(cfg.num_layers)
                       if cfg.is_attn_layer(i)) + cfg.encoder_layers
@@ -301,7 +308,7 @@ def _analytic_kernel_io(cfg, shape, n_dev: int) -> float:
     hd = cfg.hd if cfg.num_heads else 0
     per_tok = (H + 2 * KV + H) * hd * 4.0        # q,k,v read + o write, fp32
     mult = 3.0 if shape.kind == "train" else 1.0
-    io = tokens_per_dev * attn_layers * per_tok * mult
+    io += tokens_per_dev * attn_layers * per_tok * mult
     if cfg.family in ("ssm", "hybrid"):
         ssm_layers = sum(1 for i in range(cfg.num_layers)
                          if not cfg.is_attn_layer(i))

@@ -47,8 +47,10 @@ from repro_torch.core.types import ArchConfig, ParallelConfig
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.models import vlm
-from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.common import (tree_leaves, tree_like, tree_map,
+                                       tree_unflatten)
 from repro_torch.optim import adamw, schedules
+from repro_torch.train.step import add_f32
 
 #: batch keys the LM step consumes (vision arrives as ``image_embeds``)
 LM_KEYS = ("tokens", "labels", "loss_mask", "image_pos", "image_valid")
@@ -129,7 +131,7 @@ def colocated_batch(batch: dict, plan: wl.IterationPlan) -> dict:
 def build_colocated_step(vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
                          device="cuda", lr_schedule=None,
                          opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
-                         return_grads: bool = False):
+                         return_grads: bool = False, mesh=None):
     """-> ``step(params, opt_state, batch, step_idx) -> (params, opt_state,
     {"loss", "grad_norm", "lr"[, "grads"]})`` over a batch from
     :func:`colocated_batch`, with ``params`` keyed ``{"vit", "lm"}`` on
@@ -140,9 +142,31 @@ def build_colocated_step(vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
     masked to exact zero) + the LM loss, joint gradients by autograd,
     accumulated in float32 in dispatch order; then one AdamW update whose
     joint grad norm sums the per-leaf squares in the runtime's order
-    (sections sorted by name: ``llm`` before ``vit``)."""
+    (sections sorted by name: ``llm`` before ``vit``).
+
+    ``mesh`` (a ``DeviceMesh`` with the reference's axis names): the
+    reference's step on a mesh (its microbatch rows over the data axes,
+    ``vis_idx``/``vis_valid`` replicated), one process a rank.  ``params``
+    and ``opt_state`` are this rank's blocks under ``step.shardings
+    ["params"]`` and ``["opt"]`` (each section's ``rules_for``, ZeRO
+    optimizer state, as the reference's ``opt_state_shardings`` default);
+    ``batch`` is the whole :func:`colocated_batch` on every rank, each
+    taking its rows of every microbatch.  A rank runs the ViT on the image
+    rows of its own LM rows (``core.workload.rows_capacity``: indices local
+    to its rows, padding rows masked to exact zero; a rank holding no image
+    runs it on padding alone and joins every collective), weights each
+    microbatch's loss by its share of the mask total, and sums both
+    sections' gradients over the data ranks.  The LM runs under Megatron
+    TP on a ``model`` axis, the ViT whole on every model rank; a ``seq`` or
+    ``pipe`` axis above 1 raises (``core.workload
+    .validate_section_parallel``: the vlm family's image splice takes
+    global positions).  On a one-rank mesh the step equals the meshless one
+    bit for bit."""
     lr_fn = lr_schedule or functools.partial(schedules.constant,
                                              peak_lr=1e-3)
+    if mesh is not None:
+        return _build_mesh_step(vit_cfg, lm_cfg, mesh, lr_fn=lr_fn,
+                                opt_cfg=opt_cfg, return_grads=return_grads)
 
     def joint_loss(ps, mb, vidx, vval):
         emb = vit_forward(ps["vit"], vit_cfg,
@@ -159,17 +183,9 @@ def build_colocated_step(vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
             vval = batch["vis_valid"][i].to(device)
             p = tree_map(lambda x: x.detach().requires_grad_(), params)
             loss = joint_loss(p, mb, vidx, vval)
-            grads = torch.autograd.grad(loss, tree_leaves(p))
-            with torch.no_grad():
-                if g_acc is None:
-                    g_acc = [torch.zeros(g.shape, dtype=torch.float32,
-                                         device=g.device) for g in grads]
-                    l_sum = torch.zeros((), dtype=torch.float32,
-                                        device=loss.device)
-                for a, g in zip(g_acc, grads):
-                    a.add_(g.float())
-                l_sum = l_sum + loss.detach()
-            del loss, grads, p
+            g_acc, l_sum = add_f32(g_acc, l_sum, loss,
+                                   torch.autograd.grad(loss, tree_leaves(p)))
+            del loss, p
         with torch.no_grad():
             grads = tree_unflatten(params, [(a / n_mb).to(x.dtype) for a, x
                                             in zip(g_acc, leaves)])
@@ -185,6 +201,78 @@ def build_colocated_step(vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
             metrics["grads"] = grads
         return new_p, new_opt, metrics
 
+    return step
+
+
+def _build_mesh_step(vit_cfg: ArchConfig, lm_cfg: ArchConfig, mesh, *,
+                     lr_fn, opt_cfg: adamw.AdamWConfig, return_grads: bool):
+    """:func:`build_colocated_step` on ``mesh`` (see there)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train import step as st
+    par = st.mesh_parallel(mesh)
+    for name, cfg in (("vit", vit_cfg), ("llm", lm_cfg)):
+        wl.validate_section_parallel(f"mllm.colocated({name})", cfg, par,
+                                     mesh)
+    lay = st.DataLayout(mesh, "plain", 1, 0)
+    v_specs, l_specs = vlm.vit_specs(vit_cfg), tf.lm_specs(lm_cfg)
+    v_ctx, v_c = st.model_context(vit_cfg, v_specs, mesh, "plain", par)
+    l_ctx, l_c = st.model_context(lm_cfg, l_specs, mesh, "plain", par)
+    vit = st.BlockTree.of(v_specs, mesh, shd.rules_for(vit_cfg, mesh), v_c)
+    lm = st.BlockTree.of(l_specs, mesh, shd.rules_for(lm_cfg, mesh), l_c)
+    ov, ol = vit.o_specs, lm.o_specs
+    joint = st.BlockTree(
+        mesh, {"vit": vit.p_specs, "lm": lm.p_specs},
+        {"vit": v_c, "lm": l_c},
+        adamw.AdamWState(step=ol.step, mu={"vit": ov.mu, "lm": ol.mu},
+                         nu={"vit": ov.nu, "lm": ol.nu},
+                         master={"vit": ov.master, "lm": ol.master}))
+
+    def step(params, opt_state, batch, step_idx):
+        n_mb, m = batch["tokens"].shape[:2]
+        lo, n = lay.rows(m)
+        lists = joint.lists(params)
+        full = joint.compute(params, lists)
+        fp = tree_unflatten(params, full)
+        dev = full[0].device
+        mbs = [{k: batch[k][i, lo:lo + n].to(dev)
+                for k in LM_KEYS + ("patches",)} for i in range(n_mb)]
+        weights = lay.weights(mbs)
+        g_acc, l_sum = None, None
+        for i, mb in enumerate(mbs):
+            vidx, vval = wl.rows_capacity(batch["vis_idx"][i].to(dev),
+                                          batch["vis_valid"][i].to(dev),
+                                          lo, n)
+            with v_ctx():
+                emb = vit_forward(fp["vit"], vit_cfg,
+                                  mb["patches"].index_select(0, vidx), vval)
+            with l_ctx():
+                loss = lm_microbatch_loss(fp["lm"], lm_cfg, mb, emb, vidx)
+            # this rank's share of the microbatch's global mean
+            loss = loss * weights[i]
+            g_acc, l_sum = st.add_f32(g_acc, l_sum, loss,
+                                      torch.autograd.grad(loss, full))
+            del loss, emb
+        del full, fp, mbs
+        g_opt = joint.reduce(g_acc, lists, lay.sum_ax)
+        del g_acc
+        grads = joint.grad_tree(params, [a / n_mb for a in g_opt])
+        del g_opt
+        gnorm = adamw.sharded_global_norm(
+            {"lm": grads["lm"], "vit": grads["vit"]},
+            {"lm": tree_like(params["lm"], ol.master),
+             "vit": tree_like(params["vit"], ov.master)}, mesh)
+        lr = lr_fn(step_idx)
+        new_p, new_opt = joint.apply(params, opt_state, grads, lists, lr,
+                                     opt_cfg, gnorm)
+        l_sum = shd.all_reduce_axes(l_sum, mesh, lay.sum_ax)
+        metrics = {"loss": (l_sum / n_mb).float(), "grad_norm": gnorm,
+                   "lr": lr}
+        if return_grads:
+            metrics["grads"] = grads
+        return new_p, new_opt, metrics
+
+    step.mesh = mesh
+    step.shardings = {"params": joint.p_specs, "opt": joint.o_specs}
     return step
 
 

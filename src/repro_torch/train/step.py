@@ -69,7 +69,6 @@ import functools
 from typing import Callable, List, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.dist import pipeline as pl
@@ -270,6 +269,32 @@ def accumulate_and_update(loss_fn: Callable, params: dict,
     return new_params, opt_state, out
 
 
+def add_f32(acc: Optional[list], total: Optional[torch.Tensor],
+            loss: torch.Tensor, grads) -> tuple:
+    """The colocated compound steps' accumulation: ``acc`` (float32
+    gradient sums, None before the first micro-batch) plus ``grads`` and
+    ``total`` plus the detached ``loss``, both summed from zero in
+    micro-batch order -> (acc, total)."""
+    with torch.no_grad():
+        if acc is None:
+            acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                   for g in grads]
+            total = torch.zeros((), dtype=torch.float32, device=loss.device)
+        for a, g in zip(acc, grads):
+            a.add_(g.float())
+        return acc, total + loss.detach()
+
+
+def mesh_parallel(mesh, mbs: int = 1) -> ParallelConfig:
+    """The ``ParallelConfig`` whose knobs a mesh's axes size (the data
+    degree over ``pod`` and ``data``)."""
+    sizes = shd.mesh_shape(mesh)
+    return ParallelConfig(dp=shd.axis_size(mesh, shd.dp_axes(mesh)),
+                          tp=sizes.get(shd.AXIS_MODEL, 1),
+                          pp=sizes.get(shd.AXIS_PIPE, 1),
+                          cp=sizes.get(shd.AXIS_SEQ, 1), mbs=mbs)
+
+
 def default_lr_schedule():
     return functools.partial(schedules.warmup_cosine, peak_lr=3e-4,
                              warmup_steps=100, total_steps=10_000)
@@ -386,11 +411,10 @@ def model_context(cfg: ArchConfig, specs, mesh, regime: str,
     return ctx, c_specs
 
 
-def _check_sharded(model: Model, parallel: ParallelConfig,
+def _check_sharded(cfg: ArchConfig, parallel: ParallelConfig,
                    shape: ShapeConfig, mesh) -> tuple:
     """The refusals of the sharded step -> (regime, data axes, their
     size)."""
-    cfg = model.cfg
     regime = parallel_regime(mesh, parallel)
     _check_pp_cp_support(cfg, regime)
     dp_ax = shd.dp_axes(mesh)
@@ -430,6 +454,172 @@ def _check_sharded(model: Model, parallel: ParallelConfig,
     return regime, dp_ax, dp_total
 
 
+class BlockTree:
+    """A parameter tree at rest as this rank's blocks of ``mesh``, and what
+    every step over a mesh does with it (the sharded train step, the
+    colocated compound steps): gather the blocks the forward computes
+    with, reduce float32 gradients into the optimizer-state blocks, run
+    AdamW on those blocks and gather the new parameter blocks.
+
+    ``p_specs`` lays the parameters out at rest, ``c_specs`` names the
+    blocks the forward computes with (whole leaves, or a rank's TP slices
+    and stage blocks), ``o_specs`` is an ``AdamWState`` of specs (None for
+    a frozen tree, which is only gathered).  Each spec tree has the keys of
+    the parameter tree; the methods take and return lists in the parameter
+    tree's leaf order (:meth:`lists`)."""
+
+    def __init__(self, mesh, p_specs, c_specs, o_specs=None):
+        self.mesh = mesh
+        self.p_specs, self.c_specs, self.o_specs = p_specs, c_specs, o_specs
+
+    @classmethod
+    def of(cls, specs, mesh, rules: dict, c_specs=None, *,
+           zero: Optional[bool] = True) -> "BlockTree":
+        """The blocks of the ParamSpec tree ``specs`` under ``rules``
+        (``dist.sharding.rules_for``): parameters by ``param_shardings``,
+        the optimizer state by ``opt_state_shardings(zero=zero)``, none
+        when ``zero`` is None (a frozen tree); ``c_specs`` default to
+        whole leaves."""
+        if c_specs is None:
+            c_specs = tree_map(lambda s: shd.P(), specs)
+        o_specs = None if zero is None else shd.opt_state_shardings(
+            specs, mesh, rules, zero=zero)
+        return cls(mesh, shd.param_shardings(specs, mesh, rules), c_specs,
+                   o_specs)
+
+    def lists(self, params) -> tuple:
+        """The parameter, optimizer-state (None for a frozen tree) and
+        compute specs in ``params``' leaf order."""
+        p = tree_leaves(tree_like(params, self.p_specs))
+        o = (None if self.o_specs is None
+             else tree_leaves(tree_like(params, self.o_specs.master)))
+        return p, o, tree_leaves(tree_like(params, self.c_specs))
+
+    def compute(self, params, lists, *, grad: bool = True) -> list:
+        """The blocks the forward computes with, gathered from this rank's
+        blocks (leaves that require grad unless ``grad`` is False)."""
+        p_list, _, c_list = lists
+        with torch.no_grad():
+            full = [shd.reshard(x, s, c, self.mesh)
+                    for x, s, c in zip(tree_leaves(params), p_list, c_list)]
+        return [x.requires_grad_() for x in full] if grad else full
+
+    def reduce(self, grads, lists, axes) -> list:
+        """Gradients of the compute blocks, as float32, summed over the mesh
+        ``axes`` into this rank's optimizer-state blocks."""
+        _, o_list, c_list = lists
+        with torch.no_grad():
+            return reduce_grads([g.float() for g in grads], o_list,
+                                self.mesh, axes, have=c_list)
+
+    def grad_tree(self, params, g_opt) -> dict:
+        """Optimizer-state blocks of the gradients, in the parameters'
+        dtypes, as a tree shaped like ``params``."""
+        with torch.no_grad():
+            return tree_unflatten(params, [
+                g.to(x.dtype) for g, x in zip(g_opt, tree_leaves(params))])
+
+    def global_norm(self, grads, params) -> torch.Tensor:
+        """The global norm of a :meth:`grad_tree` (each element once)."""
+        return adamw.sharded_global_norm(
+            grads, tree_like(params, self.o_specs.master), self.mesh)
+
+    def apply(self, params, opt_state: adamw.AdamWState, grads, lists, lr,
+              opt_cfg: adamw.AdamWConfig, gnorm: torch.Tensor):
+        """AdamW on the optimizer-state blocks (``opt_state`` in place),
+        clipped by ``gnorm`` -> (new parameter blocks, optimizer state)."""
+        p_list, o_list, _ = lists
+        new_master, opt_state, _ = adamw.update(
+            grads, opt_state, lr, opt_cfg,
+            gnorm=gnorm if opt_cfg.clip_norm > 0 else None)
+        with torch.no_grad():
+            new = [shd.reshard(x, o, p, self.mesh) for x, o, p in
+                   zip(tree_leaves(new_master), o_list, p_list)]
+        return tree_unflatten(params, new), opt_state
+
+    def update(self, params, opt_state: adamw.AdamWState, g_opt, lists, lr,
+               opt_cfg: adamw.AdamWConfig):
+        """:meth:`grad_tree`, :meth:`global_norm` and :meth:`apply` ->
+        (new parameter blocks, optimizer state, grad norm)."""
+        grads = self.grad_tree(params, g_opt)
+        gnorm = self.global_norm(grads, params)
+        params, opt_state = self.apply(params, opt_state, grads, lists, lr,
+                                       opt_cfg, gnorm)
+        return params, opt_state, gnorm
+
+
+class DataLayout:
+    """This rank's share of a global batch on ``mesh`` in the plain or cp
+    regime: its rows of the shard-major layout ``[dp, n_micro, mbs]``, its
+    sequence columns in the cp regime, each micro-batch's weight (this
+    rank's share of the mask total, so that the weighted masked means sum
+    over the data and sequence ranks to the global one) and the metric
+    means over those ranks."""
+
+    def __init__(self, mesh, regime: str, n_micro: int, seq_len: int):
+        self.mesh, self.regime, self.n_micro = mesh, regime, n_micro
+        self.seq_len = seq_len
+        self.dp_ax = shd.dp_axes(mesh)
+        self.dp_total = shd.axis_size(mesh, self.dp_ax)
+        # the axes a gradient or a mask total sums over: data, and seq in
+        # the cp regime (parameters are replicated over seq)
+        self.sum_ax = self.dp_ax + ((shd.AXIS_SEQ,) if regime == "cp"
+                                    else ())
+        sizes, coord = shd.mesh_shape(mesh), shd.coordinate(mesh)
+        self.rank = 0
+        for a in self.dp_ax:
+            self.rank = self.rank * sizes[a] + coord[a]
+        self.cp = sizes.get(shd.AXIS_SEQ, 1)
+        self.seq_idx = coord.get(shd.AXIS_SEQ, 0)
+
+    def columns(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's sequence columns of a batch leaf (cp regime)."""
+        if x.dim() < 2 or x.shape[1] != self.seq_len:
+            raise ValueError(
+                f"the cp regime splits dim 1 of every batch leaf over "
+                f"{self.cp} sequence ranks; a leaf of shape "
+                f"{tuple(x.shape)} has no sequence dim of length "
+                f"{self.seq_len}")
+        n = self.seq_len // self.cp
+        return x[:, self.seq_idx * n:(self.seq_idx + 1) * n]
+
+    def rows(self, m: int) -> tuple:
+        """(first row, count) of this rank's rows of a microbatch of ``m``
+        rows split over the data axes (the reference's ``P(None, dp)``)."""
+        if m % self.dp_total:
+            raise ValueError(f"microbatches of {m} rows do not split over "
+                             f"{self.dp_total} data ranks")
+        n = m // self.dp_total
+        return self.rank * n, n
+
+    def microbatches(self, batch: dict) -> list:
+        """This rank's micro-batches of the global ``batch``."""
+        local = tree_map(lambda x: x.reshape((self.dp_total, -1)
+                                             + x.shape[1:])[self.rank],
+                         batch)
+        if self.regime == "cp":
+            local = tree_map(self.columns, local)
+        return [local] if self.n_micro == 1 else _split_microbatches(
+            local, self.n_micro)
+
+    def weights(self, mbs: list) -> torch.Tensor:
+        """Each micro-batch's mask total here over its total on every data
+        (and sequence) rank."""
+        counts = torch.stack([_mask_total(mb) for mb in mbs])
+        totals = shd.all_reduce_axes(counts.clone(), self.mesh, self.sum_ax)
+        return counts / totals.clamp_min(1.0)
+
+    def means(self, sums: dict, mean_over: int = 1) -> dict:
+        """The micro-batch means of ``sums``, summed over the data ranks
+        (divided by ``mean_over``) in one all-reduce."""
+        keys = list(sums)
+        packed = shd.all_reduce_axes(torch.stack([sums[k] for k in keys]),
+                                     self.mesh, self.sum_ax)
+        if mean_over > 1:
+            packed = packed / mean_over
+        return {k: v / self.n_micro for k, v in zip(keys, packed.unbind(0))}
+
+
 def build_sharded_step(model: Model, parallel: ParallelConfig,
                        shape: ShapeConfig, mesh, *, lr_schedule=None,
                        opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()):
@@ -443,26 +633,15 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
     .shard_tree``); ``batch`` is the global batch, the same on every rank.
     With compression, ``step.shardings["ef_init"](params)`` gives the zero
     residual.  Every rank must call the step: it runs collectives."""
-    regime, dp_ax, dp_total = _check_sharded(model, parallel, shape, mesh)
-    compress = parallel.grad_compress or "none"
     cfg = model.cfg
+    regime, dp_ax, dp_total = _check_sharded(cfg, parallel, shape, mesh)
+    compress = parallel.grad_compress or "none"
     n_micro = num_microbatches(shape, parallel, dp_total)
     lr_fn = lr_schedule or default_lr_schedule()
     specs = model.specs()
     rules = shd.rules_for(cfg, mesh)
-    p_specs = shd.param_shardings(specs, mesh, rules)
-    o_specs = shd.opt_state_shardings(specs, mesh, rules,
-                                      zero=parallel.zero_opt)
-    coord = shd.coordinate(mesh)
-    sizes = shd.mesh_shape(mesh)
-    rank = 0
-    for a in dp_ax:
-        rank = rank * sizes[a] + coord[a]
     data_group = mesh.get_group(dp_ax[0]) if compress != "none" else None
-    # the axes a gradient or a mask total sums over: data, and seq in the
-    # cp regime (parameters are replicated over seq)
-    sum_ax = dp_ax + ((shd.AXIS_SEQ,) if regime == "cp" else ())
-    cp, seq_idx = sizes.get(shd.AXIS_SEQ, 1), coord.get(shd.AXIS_SEQ, 0)
+    lay = DataLayout(mesh, regime, n_micro, shape.seq_len)
     if regime == "pp":
         pp_loss, _ = pl.build_pp_loss(cfg, mesh, n_micro,
                                       remat=parallel.remat,
@@ -475,107 +654,50 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
         def loss_fn(p, mb):
             with model_ctx():
                 return model.loss(mb, params=p, remat=parallel.remat)
+    blocks = BlockTree.of(specs, mesh, rules, c_specs,
+                          zero=parallel.zero_opt)
 
-    def columns(x):
-        """This rank's sequence columns of a batch leaf (cp regime)."""
-        if x.dim() < 2 or x.shape[1] != shape.seq_len:
-            raise ValueError(
-                f"the cp regime splits dim 1 of every batch leaf over "
-                f"{cp} sequence ranks; a leaf of shape {tuple(x.shape)} has "
-                f"no sequence dim of length {shape.seq_len}")
-        n = shape.seq_len // cp
-        return x[:, seq_idx * n:(seq_idx + 1) * n]
-
-    def local_microbatches(batch):
-        local = tree_map(lambda x: x.reshape((dp_total, -1) + x.shape[1:])
-                         [rank], batch)
-        if regime == "cp":
-            local = tree_map(columns, local)
-        return [local] if n_micro == 1 else _split_microbatches(local,
-                                                                n_micro)
-
-    def spec_lists(params):
-        """The parameter, optimizer-state and compute specs in ``params``'
-        leaf order."""
-        return (tree_leaves(tree_like(params, p_specs)),
-                tree_leaves(tree_like(params, o_specs.master)),
-                tree_leaves(tree_like(params, c_specs)))
-
-    def compute_params(params, p_list, c_list):
-        """The blocks the forward computes with: the full leaves, or this
-        rank's TP slices and stage blocks."""
-        with torch.no_grad():
-            full = [shd.reshard(x, s, c, mesh)
-                    for x, s, c in zip(tree_leaves(params), p_list, c_list)]
-        return [x.requires_grad_() for x in full]
-
-    def finish(params, opt_state, g_opt, step_idx, metrics, p_list, o_list):
+    def finish(params, opt_state, g_opt, step_idx, metrics, lists):
         """AdamW on the optimizer-state blocks -> parameter blocks."""
-        with torch.no_grad():
-            g_opt = tree_unflatten(params, [
-                g.to(x.dtype) for g, x in zip(g_opt, tree_leaves(params))])
-        gnorm = adamw.sharded_global_norm(g_opt, tree_like(params, o_specs
-                                                           .master), mesh)
         lr = lr_fn(step_idx)
-        new_master, opt_state, _ = adamw.update(
-            g_opt, opt_state, lr, opt_cfg,
-            gnorm=gnorm if opt_cfg.clip_norm > 0 else None)
-        with torch.no_grad():
-            new = [shd.reshard(x, o, p, mesh) for x, o, p in
-                   zip(tree_leaves(new_master), o_list, p_list)]
+        params, opt_state, gnorm = blocks.update(params, opt_state, g_opt,
+                                                 lists, lr, opt_cfg)
         metrics.update(grad_norm=gnorm, lr=lr)
-        return tree_unflatten(params, new), opt_state, metrics
-
-    def metric_means(sums, mean_over: int):
-        """The micro-batch means of ``sums``, summed over the data ranks
-        (divided by ``mean_over``) in one all-reduce."""
-        keys = list(sums)
-        packed = torch.stack([sums[k] for k in keys])
-        for a in sum_ax:
-            dist.all_reduce(packed, group=mesh.get_group(a))
-        if mean_over > 1:
-            packed = packed / mean_over
-        return {k: v / n_micro for k, v in zip(keys, packed.unbind(0))}
+        return params, opt_state, metrics
 
     if regime == "pp":
         def step(params, opt_state, batch, step_idx):
-            p_list, o_list, c_list = spec_lists(params)
-            local = compute_params(params, p_list, c_list)
+            lists = blocks.lists(params)
+            local = blocks.compute(params, lists)
             loss, grads = pp_loss.value_and_grad(
                 tree_unflatten(params, local), batch, reduce=False)
             del local
             with torch.no_grad():
                 g_opt = [shd.reduce_to(g, o, mesh, pp_loss.grad_axes(c),
                                        have=c) for g, o, c in
-                         zip(tree_leaves(grads), o_list, c_list)]
+                         zip(tree_leaves(grads), lists[1], lists[2])]
             del grads
             return finish(params, opt_state, g_opt, step_idx,
-                          {"loss": loss}, p_list, o_list)
+                          {"loss": loss}, lists)
     elif compress == "none":
         def step(params, opt_state, batch, step_idx):
-            mbs = local_microbatches(batch)
-            counts = torch.stack([_mask_total(mb) for mb in mbs])
-            totals = counts.clone()
-            for a in sum_ax:
-                dist.all_reduce(totals, group=mesh.get_group(a))
-            weights = counts / totals.clamp_min(1.0)
-            p_list, o_list, c_list = spec_lists(params)
-            full = compute_params(params, p_list, c_list)
+            mbs = lay.microbatches(batch)
+            weights = lay.weights(mbs)
+            lists = blocks.lists(params)
+            full = blocks.compute(params, lists)
             g_acc, sums = _accumulate(loss_fn, tree_unflatten(params, full),
                                       full, mbs, weights)
             del full
-            with torch.no_grad():
-                g_acc = reduce_grads([g.float() for g in g_acc], o_list,
-                                     mesh, sum_ax, have=c_list)
-                if n_micro > 1:
-                    g_acc = [a / n_micro for a in g_acc]
+            g_acc = blocks.reduce(g_acc, lists, lay.sum_ax)
+            if n_micro > 1:
+                g_acc = [a / n_micro for a in g_acc]
             return finish(params, opt_state, g_acc, step_idx,
-                          metric_means(sums, 1), p_list, o_list)
+                          lay.means(sums), lists)
     else:
         def step(params, opt_state, batch, step_idx, ef):
-            mbs = local_microbatches(batch)
-            p_list, o_list, c_list = spec_lists(params)
-            full = compute_params(params, p_list, c_list)
+            mbs = lay.microbatches(batch)
+            lists = blocks.lists(params)
+            full = blocks.compute(params, lists)
             g_acc, sums = _accumulate(loss_fn, tree_unflatten(params, full),
                                       full, mbs)
             del full
@@ -586,10 +708,10 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
                         tree_map(lambda x: x[0], tree_like(params, ef))),
                     data_group, compress, mean=True)
                 g_opt = [shd.shard(x, s, mesh)
-                         for x, s in zip(tree_leaves(red), o_list)]
+                         for x, s in zip(tree_leaves(red), lists[1])]
             params, opt_state, metrics = finish(
                 params, opt_state, g_opt, step_idx,
-                metric_means(sums, dp_total), p_list, o_list)
+                lay.means(sums, dp_total), lists)
             return (params, opt_state, metrics,
                     tree_map(lambda x: x[None], new_ef.residual))
 
@@ -603,7 +725,7 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
                         tree_like(params, specs))
 
     step.mesh = mesh
-    step.shardings = {"params": p_specs, "opt": o_specs}
+    step.shardings = {"params": blocks.p_specs, "opt": blocks.o_specs}
     if compress != "none":
         step.shardings["ef_init"] = ef_init
     step._in_place = (1,)

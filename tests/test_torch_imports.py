@@ -96,7 +96,22 @@ SERVING_SLICE = ["repro_torch.launch.dryrun", "repro_torch.launch.mesh",
                  "repro_torch.analysis.hlo_gates", "repro_torch.train.step",
                  "repro_torch.models.model", "repro_torch.optim.adamw"]
 
+COMPOUND_DRYRUN_SLICE = ["repro_torch.launch.dryrun_compound",
+                         "repro_torch.launch.dryrun",
+                         "repro_torch.distill.workload",
+                         "repro_torch.distill.multi_teacher",
+                         "repro_torch.mllm.workload",
+                         "repro_torch.train.step",
+                         "repro_torch.dist.pipeline"]
+
 DRIVERS = ROOT / "tests" / "torch_drivers"
+
+
+def test_module_list_covers_the_compound_dryrun_slice():
+    """The compound dry-run and the colocated steps' driver are among the
+    modules and drivers the import checks below load."""
+    assert set(COMPOUND_DRYRUN_SLICE) <= set(_modules())
+    assert (DRIVERS / "driver_colocated.py").exists()
 
 
 def test_module_list_covers_the_serving_and_dryrun_slice():
@@ -182,7 +197,7 @@ def test_the_port_drivers_import_no_jax_and_no_repro():
     names = sorted(p.stem for p in DRIVERS.glob("*.py"))
     assert {"dist_util", "driver_dp", "driver_compression",
             "driver_elastic", "driver_sections",
-            "driver_context"} <= set(names)
+            "driver_context", "driver_colocated"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
