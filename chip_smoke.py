@@ -276,7 +276,23 @@ CUDA kernels from the sources in this checkout.  Phases:
    phase_multi_teacher's models) on the 16 x 16 mesh, recorded one after
    another in one background subprocess and printed with their seconds
    and depths.
-15. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+15. Tensor parallelism past the KV heads (``phase_tp_repeat``): the
+   granite-3-8b attention sub-layer at full width in bf16, 4 x 2048, as
+   the 16 model ranks of tp 16 compute it, one after another on the card:
+   each rank's blocks from its coordinate alone
+   (``dist.pipeline.tp_rank_blocks``: 2 query heads on the one KV head of
+   their group, so flash at (4, 2048, 2048, 2, 1, 128)); the 16 partial
+   outputs summed (the row-parallel all-reduce) against the whole
+   sub-layer within TP_REPEAT_TOL of its largest element, and the 16
+   ranks' ``wk``/``wv`` gradients summed over each KV head's 2 ranks
+   (``dist.sharding.fold_repeats``) against autograd of the whole within
+   TP_REPEAT_GRAD_TOL; a share left out and one copy's gradient must miss
+   them; flash launched at least once a share.  The flash kernel is also
+   held and timed at that shape, and ``phase_dryrun`` and
+   ``phase_dryrun_compound`` print the production cells, now with each KV
+   head repeated over its query-head group, beside their records with
+   attention whole.
+16. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash and SSD kernels' at each of their
    main-path shapes under ``at``; the top-level times are granite's
    serving prefill's and mamba2-130m's), then the ``{"ok": true, ...}``
@@ -4562,6 +4578,103 @@ def phase_pp(rng) -> int:
     return n_pp
 
 
+#: granite-3-8b's attention sub-layer at tp 16 (8 KV heads): each model
+#: rank's share, 2 query heads on the one KV head of their group
+TP_REPEAT = 16
+TP_REPEAT_ATTN = (4, 2048, 2048, 2, 1, 128)
+#: the 16 shares' summed output against the whole sub-layer's, and the
+#: folded wk/wv gradients against autograd of it, each of the whole's
+#: largest magnitude (bf16: 2^-5 is SHAPE_REL_TOL, 2e-2 GRAD_TOL's)
+TP_REPEAT_TOL = SHAPE_REL_TOL
+TP_REPEAT_GRAD_TOL = 2e-2
+
+
+def phase_tp_repeat(rng) -> int:
+    """Tensor parallelism past the KV heads at world size 1 (see the module
+    docstring, item 15) -> flash launches of the 16 shares."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import attention as att
+    from repro_torch.models import common as cm
+    cfg = get_config(ARCH)
+    B, S, _, h, kv, hd = TP_REPEAT_ATTN
+    tp, rep = TP_REPEAT, pl.kv_repeat(cfg, TP_REPEAT)
+    check((cfg.num_heads // tp, rep, cfg.hd) == (h, tp // cfg.num_kv_heads,
+                                                 hd) and kv == 1,
+          f"{ARCH} at tp {tp}: {cfg.num_heads} heads, {cfg.num_kv_heads} KV "
+          f"heads, repeat {rep}")
+    specs = att.attn_specs(cfg)
+    p = cm.init_params(specs, torch.Generator(device="cuda").manual_seed(7),
+                       "cuda")
+    x = _randn(rng, (B, S, cfg.d_model), torch.bfloat16)
+    go = _randn(rng, (B, S, cfg.d_model), torch.bfloat16)
+
+    def share(blocks):
+        """A sub-layer's output and its wk/wv gradients under ``go``."""
+        b = {k: v.detach().requires_grad_() for k, v in blocks.items()}
+        o = att.attention(b, x, cfg)
+        gk, gv = torch.autograd.grad(o, [b["wk"], b["wv"]], go)
+        return o.detach(), gk, gv
+
+    o_w, gk_w, gv_w = share(p)
+    torch.cuda.synchronize()
+    reset_counts()
+    o_sum = torch.zeros(o_w.shape, dtype=torch.float32, device="cuda")
+    gks, gvs = [], []
+    for r in range(tp):
+        blocks = pl.tp_rank_blocks(cfg, p, specs, tp, r)
+        check(tuple(blocks["wq"].shape) == (cfg.d_model, h, hd)
+              and tuple(blocks["wk"].shape) == (cfg.d_model, kv, hd),
+              f"rank {r}'s blocks {[tuple(v.shape) for v in blocks.values()]}")
+        o_r, gk, gv = share(blocks)
+        o_sum += o_r.float()                  # the row-parallel all-reduce
+        gks.append(gk.float())
+        gvs.append(gv.float())
+    torch.cuda.synchronize()
+    launches = read_counts()[0]
+    print(f"tp-repeat: {ARCH} attention sub-layer, bf16, {B} x {S}, tp {tp}: "
+          f"{tp} shares of {h} query heads on {kv} KV head (repeat {rep}), "
+          f"flash launched {launches} times")
+    check(launches >= tp, f"flash launched {launches} times for {tp} shares")
+    top = o_w.float().abs().max().item()
+    err = (o_sum - o_w.float()).abs().max().item() / top
+    planted = (o_sum - o_r.float() - o_w.float()).abs().max().item() / top
+    print(f"  summed output against the whole sub-layer: max|diff| / "
+          f"max|o| {err:.3e} (limit {TP_REPEAT_TOL:.3e}); planted, one "
+          f"share left out: {planted:.3e}")
+    check(err <= TP_REPEAT_TOL, f"the {tp} shares' sum is off by {err:.3e}")
+    check(planted > TP_REPEAT_TOL, "the limit passes a missing share")
+    for name, parts, want in (("wk", gks, gk_w), ("wv", gvs, gv_w)):
+        every = torch.cat(parts, dim=1)       # [d, tp, hd]: one KV head a rank
+        folded = shd.fold_repeats(every, 1, rep)
+        one = every.unflatten(1, (-1, rep)).select(2, 0)
+        scale = want.float().abs().max().item()
+        g_err = (folded - want.float()).abs().max().item() / scale
+        g_planted = (one - want.float()).abs().max().item() / scale
+        print(f"  {name} gradient summed over each KV head's {rep} ranks "
+              f"against autograd of the whole: {g_err:.3e} of its largest "
+              f"(limit {TP_REPEAT_GRAD_TOL:.1e}); planted, one copy: "
+              f"{g_planted:.3e}")
+        check(g_err <= TP_REPEAT_GRAD_TOL,
+              f"the folded {name} gradient is off by {g_err:.3e}")
+        check(g_planted > TP_REPEAT_GRAD_TOL,
+              f"the {name} limit passes one copy's gradient")
+    with torch.no_grad():
+        whole_ms = time_ms(lambda: att.attention(p, x, cfg), iters=5)
+        shares = [pl.tp_rank_blocks(cfg, p, specs, tp, r) for r in range(tp)]
+        shares_ms = time_ms(lambda: [att.attention(b, x, cfg)
+                                     for b in shares], iters=3, warmup=1)
+    print(f"  forward: the whole sub-layer {whole_ms:.3f} ms, the {tp} "
+          f"shares in turn {shares_ms:.3f} ms ({shares_ms / tp:.3f} ms a "
+          f"rank) on {card()}")
+    return launches
+
+
+#: the production cells' records with attention whole on every model rank
+#: (granite-3-8b's 8 KV heads at tp 16), before KV-head repetition:
+#: (GB a rank, useful FLOPs share); PERF.md §6, PRs 25 and 26
+PRODUCTION_BEFORE = {"production": (94.07, 0.131), "distill": (100.16, 0.141)}
 DRYRUN_MEM_TOL = 0.15           # predicted peak bytes against the card's
 DRYRUN_PROD_MBS = 16            # rows a micro-batch in the production cell
 SERVE_GEN = 32
@@ -4899,6 +5012,19 @@ def phase_dryrun(procs: dict, prefill_peak: int) -> None:
     check(prod["roofline"]["compute_s"] > 0
           and prod["hlo"]["collective_bytes_per_device"],
           "the production cell recorded no work or no collectives")
+    _beside_before("production", prod)
+
+
+def _beside_before(name: str, rec: dict) -> None:
+    """A production record's bytes a rank and useful share beside the
+    record with attention whole (:data:`PRODUCTION_BEFORE`)."""
+    gb, useful = PRODUCTION_BEFORE[name]
+    print(f"dryrun: {name} cell with each KV head repeated over its "
+          f"query-head group: {rec['memory']['peak_bytes'] / 1e9:.2f} GB a "
+          f"rank (attention whole: {gb:.2f}), FLOPs per device "
+          f"{rec['hlo']['flops_per_device']:.4g}, useful "
+          f"{100 * rec['useful_flops_ratio']:.1f} % (attention whole: "
+          f"{100 * useful:.1f} %)")
 
 
 MESH_MLLM_ITERS = 2
@@ -5127,6 +5253,8 @@ def _report_compound_production(procs: dict) -> None:
                > 0) == (name != "mllm"),
               f"the production {name} cell's kernel ops "
               f"{r['hlo']['kernel_ops']}")
+        if name in PRODUCTION_BEFORE:
+            _beside_before(name, r)
 
 
 def timed(phase, *args, **kw):
@@ -5162,7 +5290,8 @@ def main() -> int:
         "whisper_cross": (WHISPER_CROSS_ATTN, dict(causal=False)),
         "whisper_prefill_cross": (WHISPER_PREFILL_CROSS,
                                   dict(causal=False, bwd=False)),
-        "jamba_serve": (JAMBA_ATTN, dict(bwd=False, rows=PLAIN_ROWS))}
+        "jamba_serve": (JAMBA_ATTN, dict(bwd=False, rows=PLAIN_ROWS)),
+        "tp_repeat_rank": (TP_REPEAT_ATTN, {})}
     flash_at = {name: timed(phase_flash_shape, rng, shape, **kw)
                 for name, (shape, kw) in flash_shapes.items()}
     timed(phase_flash_grads, rng)
@@ -5210,6 +5339,8 @@ def main() -> int:
     cp_launches = timed(phase_cp, rng)
     free()
     pp_launches = timed(phase_pp, rng)
+    free()
+    tp_repeat_launches = timed(phase_tp_repeat, rng)
     free()
     serve_mesh_launches, prefill_peak = timed(phase_serve_mesh)
     free()
@@ -5261,6 +5392,7 @@ def main() -> int:
              f"distill-sections {TRAIN_ARCH} world 1",
              f"cp {TRAIN_ARCH} world 1",
              f"pp {TRAIN_ARCH} world 1",
+             f"tp-repeat {ARCH} attention, tp {TP_REPEAT} shares",
              f"serve-mesh {ARCH} world 1",
              f"distill-mesh {TRAIN_ARCH} world 1",
              "mllm-mesh pixtral-12b-width world 1",
@@ -5272,16 +5404,16 @@ def main() -> int:
         "flash": (serve_launches, train_launches, resume_launches,
                   dp_launches, distill_launches, 0, 0, rt_launches,
                   sec_launches, cp_launches, pp_launches,
-                  serve_mesh_launches, mesh_distill_launches,
+                  tp_repeat_launches, serve_mesh_launches, mesh_distill_launches,
                   mesh_mllm_launches, mt_launches,
                   mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
         "kl": (0, 0, 0, 0, kl_launches, 0, 0, rt_kl_launches,
-               sec_kl_launches, 0, 0, 0, mesh_kl_launches, 0,
+               sec_kl_launches, 0, 0, 0, 0, mesh_kl_launches, 0,
                mt_kl_launches, 0, 0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
-                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
                 jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):

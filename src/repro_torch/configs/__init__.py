@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import importlib
 import math
+from typing import Dict
 
 from repro_torch.core.types import ArchConfig
 
@@ -33,6 +34,12 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    """Every assigned arch's full config, keyed by name in
+    :data:`ARCH_NAMES` order."""
+    return {n: get_config(n) for n in ARCH_NAMES}
 
 
 def get_reduced(name: str) -> ArchConfig:

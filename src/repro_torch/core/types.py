@@ -194,8 +194,8 @@ SHAPES: dict[str, ShapeConfig] = {
 class ParallelConfig:
     """Per-section training configuration C^s (paper §3.2): the fields of
     the JAX package's that the port reads.  A step runs dp, tp, pp and cp
-    above 1 on a section mesh, and refuses cp with tp (ROADMAP.md, A6.4)
-    and pp with cp (as the reference does).
+    above 1 on a section mesh, cp with tp too, and refuses pp with cp (as
+    the reference does).
     The reference's ``cp_impl`` picks a kernel tier; the port dispatches
     by device and has none.  ``sequence_parallel`` is an XLA layout knob
     and is not ported either."""

@@ -92,8 +92,10 @@ controller over every mesh; the port is MPMD):
 * a section whose ``seq`` axis is above 1 (``cp``) runs its tasks under
   ``dist.context.cp_attention_impl``: each of its ranks holds its data
   rows and its sequence columns -- dim 1 of every input, consumed port and
-  emitted port, split evenly over ``seq`` -- and its gradients are summed
-  over the data and sequence ranks (parameters are replicated over
+  emitted port, split evenly over ``seq``, but for an input or a consumed
+  port declared whole (``seq_split=False``: every sequence rank takes it
+  all, and the port's cotangent sums over them) -- and its gradients are
+  summed over the data and sequence ranks (parameters are replicated over
   ``seq``);
 * a section whose ``model`` axis is above 1 (``tp``) runs its tasks
   under Megatron tensor parallelism (``train.step.model_context``): each
@@ -162,9 +164,13 @@ def _resolve_shape(shape: Tuple, seq_len: Optional[int]) -> Tuple[int, ...]:
 @dataclass(frozen=True)
 class Field:
     """One per-sample batch input of a section: shape WITHOUT the batch
-    dim (entries int or the symbol :data:`SEQ`)."""
+    dim (entries int or the symbol :data:`SEQ`).  A section at cp > 1
+    splits dim 1 over its sequence ranks; ``seq_split=False`` gives every
+    sequence rank the whole of it (image slots that index the whole
+    sequence)."""
     shape: Tuple
     dtype: Any = "float32"
+    seq_split: bool = True
 
 
 @dataclass(frozen=True)
@@ -181,9 +187,13 @@ class Port:
 @dataclass(frozen=True)
 class Consume:
     """Consumer-side declaration of a cross-section edge: the producing
-    section plus the *expected* :class:`Port` type."""
+    section plus the *expected* :class:`Port` type.  ``seq_split=False``:
+    a consumer at cp > 1 takes the port whole on each sequence rank (the
+    MLLM's image embeddings), and the port's cotangent is the sum of the
+    sequence ranks' cotangents."""
     section: str
     port: Port
+    seq_split: bool = True
 
     @property
     def key(self) -> str:
@@ -368,6 +378,12 @@ class WorkloadSpec:
                         f"{c.port.name!r}{tuple(got.shape)}:{got.dtype} "
                         f"but consumer expects "
                         f"{tuple(c.port.shape)}:{c.port.dtype}")
+            if len({(c.section, c.seq_split) for c in s.consumes}) != len(
+                    {c.section for c in s.consumes}):
+                raise ValueError(
+                    f"section {s.name!r}: the ports it consumes from one "
+                    "section must agree on seq_split (whole or split over "
+                    "its sequence ranks)")
         # cotangent routing: a trainable producer's port must have exactly
         # one consumer (the bwd task pulls ONE cotangent per port), and
         # that consumer must itself be fwd_bwd — a fwd_only consumer
@@ -446,9 +462,9 @@ def validate_section_parallel(name: str, arch: ArchConfig,
     With ``mesh`` (the section's ``DeviceMesh``, or its ``{axis: size}``
     shape) it routes through ``train.step.parallel_regime``, the dispatch
     the sharded step uses: dp > 1, cp > 1, tp > 1 and ``grad_compress``
-    run; a ``pipe`` axis above 1 raises as in the reference (a section fn
-    cannot be stage-partitioned), and so do cp x tp (ROADMAP.md, A6.4
-    remainder) and the families the cp regime refuses.  Without one the
+    run, cp x tp too; a ``pipe`` axis above 1 raises as in the reference (a
+    section fn cannot be stage-partitioned), and so do the families the cp
+    regime refuses.  Without one the
     section runs on one device (the plain regime), and every knob that
     needs a mesh raises, naming the section and the mesh axis it would
     size.  Returns the regime (``"plain"`` or ``"cp"``)."""
@@ -555,6 +571,11 @@ class IterationPlan:
     n_mb: int
     activation: Dict[str, SectionActivation]
     schedule: Optional[ScheduleResult] = None
+
+    def section(self, name: str) -> Optional[SectionActivation]:
+        """Section ``name``'s activation layout, None for a section that
+        runs on every microbatch."""
+        return self.activation.get(name)
 
 
 # --------------------------------------------------------------------------- #
@@ -690,14 +711,31 @@ class _Exchange:
             return 0, 0
         return int(rows[0]), int(rows[-1]) + 1
 
+    def _whole(self, src: str, dst: str) -> bool:
+        """Whether consumer ``dst`` takes ``src``'s ports whole on each of
+        its sequence ranks (``Consume.seq_split=False``)."""
+        return (src, dst) in self.rt._whole
+
     def _split(self, src: str, dst: str) -> bool:
-        return self.rt._cp[src] > 1 or self.rt._cp[dst] > 1
+        return self.rt._cp[src] > 1 or (self.rt._cp[dst] > 1
+                                        and not self._whole(src, dst))
+
+    def _dst_cols(self, src: str, dst: str, c: int,
+                  length: int) -> Tuple[int, int]:
+        """Consumer sequence rank ``c``'s positions of a port of ``src``
+        of dim-1 length ``length``: all of them where it takes the port
+        whole."""
+        if self._whole(src, dst):
+            return 0, length
+        return self.cols(dst, c, length)
 
     def pairs(self, src: str, dst: str, i: int) -> List[Tuple[int, ...]]:
         """``(q, a, r, b)``: producer rank ``(q, a)`` and consumer rank
         ``(r, b)`` (data, sequence coordinates) whose rows and columns
-        overlap."""
+        overlap (every column, for a consumer that takes the port
+        whole)."""
         cp_s, cp_d = self.rt._cp[src], self.rt._cp[dst]
+        whole = self._whole(src, dst)
         out = []
         for r in range(self.rt._dp[dst]):
             a, b = self.need(src, dst, i, r)
@@ -708,7 +746,7 @@ class _Exchange:
                 # columns overlap on a common grid of cp_s * cp_d blocks
                 for sa in range(cp_s):
                     for sb in range(cp_d):
-                        if max(sa * cp_d, sb * cp_s) < min(
+                        if whole or max(sa * cp_d, sb * cp_s) < min(
                                 (sa + 1) * cp_d, (sb + 1) * cp_s):
                             out.append((q, sa, r, sb))
         return sorted(out)
@@ -835,7 +873,7 @@ class _Exchange:
         x = frags.narrow(0, a - self.own(src, qs[0])[0], b - a)
         if self._split(src, dst):
             length = frags.shape[1] * rt._cp[src] // len(seqs)
-            c0, c1 = self.cols(dst, me[1], length)
+            c0, c1 = self._dst_cols(src, dst, me[1], length)
             x = x.narrow(1, c0 - self.cols(src, seqs[0], length)[0],
                          c1 - c0)
         if x.shape[0] < shp[0]:          # a consumer's capacity rows
@@ -853,8 +891,9 @@ class _Exchange:
         a, b = self.need(c.section, name, i, me[0])
         split = self._split(c.section, name)
         if split:
-            length = g.shape[1] * rt._cp[name]
-            m0, m1 = self.cols(name, me[1], length)
+            length = g.shape[1] * (1 if self._whole(c.section, name)
+                                   else rt._cp[name])
+            m0, m1 = self._dst_cols(c.section, name, me[1], length)
         for q, sa, r, sb in self.pairs(c.section, name, i):
             if (r, sb) != me or rt._mod[name] != 0:
                 continue
@@ -977,6 +1016,10 @@ class CompoundRuntime:
         self._o_spec: Dict[str, Any] = {}
         self._rank_me = torch.distributed.get_rank() if self._mesh_mode \
             else 0
+        # (producer, consumer) edges whose ports the consumer takes whole
+        # on each of its sequence ranks (Consume.seq_split=False)
+        self._whole = {(c.section, s.name) for s in spec.sections
+                       for c in s.consumes if not c.seq_split}
         for s in spec.sections:
             self._attn[s.name] = contextlib.nullcontext
             if not self._mesh_mode:
@@ -1137,9 +1180,12 @@ class CompoundRuntime:
                 raise ValueError(
                     f"section {s.name!r}: sequence length {sec_seq} does "
                     f"not divide the mesh {shd.AXIS_SEQ!r} axis ({cp})")
-            # every tensor a cp section's rank holds is split on dim 1
-            shapes = [(f"input {k!r}", f.shape) for k, f in s.inputs.items()]
-            shapes += [(f"port {c.key!r}", c.port.shape) for c in s.consumes]
+            # every tensor a cp section's rank holds is split on dim 1,
+            # but for those declared whole (seq_split=False)
+            shapes = [(f"input {k!r}", f.shape) for k, f in s.inputs.items()
+                      if f.seq_split]
+            shapes += [(f"port {c.key!r}", c.port.shape) for c in s.consumes
+                       if c.seq_split]
             shapes += [(f"port {p.name!r}", p.shape) for p in s.emits]
             for what, shp in shapes:
                 dims = _resolve_shape(tuple(shp), seq_len)
@@ -1151,16 +1197,16 @@ class CompoundRuntime:
         self.B, self.S, self.mbs = global_batch, seq_len, mbs
         self.n_mb = global_batch // mbs
 
-        def local(name, shape):
+        def local(name, shape, split=True):
             dims = _resolve_shape(tuple(shape), seq_len)
-            if self._cp[name] > 1:
+            if self._cp[name] > 1 and split:
                 dims = (dims[0] // self._cp[name],) + dims[1:]
             return (mbs // self._dp[name],) + dims
         # the exact-zero fill a consumer takes for an inactive producer,
         # at this rank's rows and columns
         self._port_zero: Dict[str, Dict[str, Tuple[Tuple[int, ...],
                                                    torch.dtype]]] = {
-            s.name: {c.key: (local(s.name, c.port.shape),
+            s.name: {c.key: (local(s.name, c.port.shape, c.seq_split),
                              _torch_dtype(c.port.dtype))
                      for c in s.consumes}
             for s in self.spec.sections}
@@ -1507,7 +1553,7 @@ class CompoundRuntime:
                     if act is not None:
                         v = v.index_select(0, act_idx[i])
                     v = v[mine]
-                    if cp > 1:
+                    if cp > 1 and s.inputs[k].seq_split:
                         n = v.shape[1] // cp
                         v = v[:, sq * n:(sq + 1) * n]
                     out[k] = v

@@ -50,7 +50,9 @@ runs its own part of the schedule:
 
 Megatron tensor parallelism (:class:`TensorParallel`, the reference's
 ``tp_axis``/``tp_attn``/``tp_ffn``): the attention mixer on this rank's
-``H/tp`` query and ``KV/tp`` key-value heads and the FFN on its ``d_ff /
+``H/tp`` query and ``KV/tp`` key-value heads (in the plain and cp regimes,
+where ``tp`` is a multiple of the KV heads above them, the one KV head of
+its query heads' group, :func:`kv_repeat`) and the FFN on its ``d_ff /
 tp`` columns each sit between a conjugate pair of autograd Functions.  In
 front of the region, :class:`_CopyToGroup` is the identity forward and
 all-reduces the gradient over the model group in the backward; after it,
@@ -60,9 +62,12 @@ both).  Every tensor a region reads that is not sliced (the input, a GELU
 MLP's ``b_out`` scaled by 1/tp, a MoE layer's gates) goes through the
 first, so that every model rank ends the backward with the whole gradient
 of every leaf it does not slice: those gradients are not summed over
-``model``.  :func:`_tp_plan` gates which regions are sliced; Mamba
-mixers and the MoE router and expert dims stay whole, as in the
-reference.  At tp 1 the same code runs with a one-rank group.
+``model``; a KV head that several ranks share is the exception, its
+gradient summed over them as the compute blocks are reduced
+(``dist.sharding.reduce_to``).  :func:`_tp_plan` gates which regions are
+sliced; Mamba mixers and the MoE router and expert dims stay whole, as in
+the reference.  The staged loss keeps the reference's gate (KV divided by
+tp).  At tp 1 the same code runs with a one-rank group.
 
 The train step (``train/step.py``) builds this loss for a mesh whose
 ``pipe`` axis is above 1 and runs :class:`TensorParallel` in its plain
@@ -162,12 +167,15 @@ def mean_over(x: torch.Tensor, groups: Sequence, n: int) -> torch.Tensor:
 class TensorParallel:
     """Megatron tensor parallelism over one model group: ``attn`` and
     ``ffn`` say which regions compute on this rank's slice (the gates of
-    :func:`_tp_plan`).  ``enter`` and ``exit`` are the conjugate pair
-    around a region (see the module docstring)."""
+    :func:`_tp_plan`); ``kv_repeat`` is :func:`kv_repeat`'s count of
+    ranks that share a KV head (1: the ranks split the KV heads).
+    ``enter`` and ``exit`` are the conjugate pair around a region (see
+    the module docstring)."""
     group: Any
     size: int
     attn: bool
     ffn: bool
+    kv_repeat: int = 1
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _CopyToGroup.apply(x, self.group)
@@ -205,55 +213,73 @@ def contiguous_microbatch(tree, t: int, msz: int):
     return tree_map(lambda a: a[t * msz:(t + 1) * msz], tree)
 
 
-def _tp_plan(cfg: ArchConfig, mesh, st_ax: Optional[str]):
+def kv_repeat(cfg: ArchConfig, tp: int) -> int:
+    """The ranks of a ``model`` axis of ``tp`` that share each KV head when
+    the axis exceeds the KV heads and is a multiple of them: ``tp / KV``
+    (Megatron's rule for GQA; each rank's ``H / tp`` contiguous query
+    heads then lie in one group, and the rank takes that group's KV head,
+    ``r // (tp / KV)``).  1 otherwise."""
+    kv = cfg.num_kv_heads
+    return tp // kv if 0 < kv < tp and tp % kv == 0 else 1
+
+
+def _tp_plan(cfg: ArchConfig, mesh, st_ax: Optional[str], *,
+             repeat_kv: bool = False):
     """(tp_axis, tp_attn, tp_ffn): which stage-body dims the ``model``
     axis slices exactly.  Attention needs ``head_pad == 0`` and ``H % tp
     == KV % tp == 0`` (contiguous head slices then keep GQA groups
-    whole); the FFN needs ``d_ff % tp == 0``."""
+    whole), or with ``repeat_kv`` (the plain and cp regimes) ``H % tp ==
+    0`` and a :func:`kv_repeat` above 1; the FFN needs ``d_ff % tp ==
+    0``."""
     tp = shd.mesh_shape(mesh).get(AXIS_MODEL, 1)
     if tp <= 1 or st_ax == AXIS_MODEL:
         return None, False, False
     has_attn = any(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    kv = cfg.num_kv_heads
     tp_attn = (has_attn and cfg.head_pad == 0 and cfg.num_heads % tp == 0
-               and cfg.num_kv_heads > 0 and cfg.num_kv_heads % tp == 0)
+               and kv > 0 and (kv % tp == 0 or (
+                   repeat_kv and kv_repeat(cfg, tp) > 1)))
     tp_ffn = cfg.d_ff > 0 and cfg.d_ff % tp == 0
     if not (tp_attn or tp_ffn):
         return None, False, False
     return AXIS_MODEL, tp_attn, tp_ffn
 
 
-def _layer_specs(cfg: ArchConfig, st_ax: Optional[str], tp_axis,
-                 tp_attn: bool, tp_ffn: bool):
-    """The spec of each stacked ``layers`` leaf as a stage body computes
+def _tp_spec(s, st_ax: Optional[str], tp_axis, tp_attn: bool, tp_ffn: bool,
+             kv_rep: int = 1):
+    """The spec of one leaf (``ParamSpec`` ``s``) as a stage body computes
     it: the stacked dim on the stage axis (None: every layer), and under
     TP ``heads``/``kv_heads`` (attention) and ``mlp`` (FFN) on the model
-    axis."""
-    def one(s):
-        entries = []
-        for ax in s.axes:
-            if ax == "layers":
-                entries.append(st_ax)
-            elif tp_attn and ax in ("heads", "kv_heads"):
-                entries.append(tp_axis)
-            elif tp_ffn and ax == "mlp":
-                entries.append(tp_axis)
-            else:
-                entries.append(None)
-        return P(*entries)
-    return tree_map(one, tf.lm_specs(cfg)["layers"])
+    axis, ``kv_heads`` repeated ``kv_rep`` times first
+    (``dist.sharding.Repeated``) where the ranks share KV heads."""
+    entries = []
+    for ax in s.axes:
+        if ax == "layers":
+            entries.append(st_ax)
+        elif tp_attn and ax == "kv_heads" and kv_rep > 1:
+            entries.append(shd.Repeated(tp_axis, kv_rep))
+        elif tp_attn and ax in ("heads", "kv_heads"):
+            entries.append(tp_axis)
+        elif tp_ffn and ax == "mlp":
+            entries.append(tp_axis)
+        else:
+            entries.append(None)
+    return P(*entries)
 
 
 def compute_specs(cfg: ArchConfig, *, stage_axis: Optional[str] = None,
                   tp_axis=None, tp_attn: bool = False, tp_ffn: bool = False,
-                  vocab_parallel: bool = False) -> dict:
+                  vocab_parallel: bool = False, kv_rep: int = 1) -> dict:
     """The spec tree of the blocks a rank computes with (the reference's
-    ``shard_map`` in_specs): the layer blocks of :func:`_layer_specs`, the
+    ``shard_map`` in_specs): the layer blocks of :func:`_tp_spec`, the
     vocab dim of ``embed`` (tied) or ``unembed`` on the stage axis under
     vocab-parallel CE, every other leaf whole."""
     specs = tf.lm_specs(cfg)
     out = {k: tree_map(lambda s: P(), v) for k, v in specs.items()
            if k != "layers"}
-    out["layers"] = _layer_specs(cfg, stage_axis, tp_axis, tp_attn, tp_ffn)
+    out["layers"] = tree_map(
+        lambda s: _tp_spec(s, stage_axis, tp_axis, tp_attn, tp_ffn, kv_rep),
+        specs["layers"])
     if vocab_parallel and cfg.tie_embeddings:
         out["embed"] = P(stage_axis, None)
     if vocab_parallel and "unembed" in out:
@@ -261,14 +287,37 @@ def compute_specs(cfg: ArchConfig, *, stage_axis: Optional[str] = None,
     return out
 
 
-def tensor_parallel(cfg: ArchConfig, mesh) -> Optional[TensorParallel]:
+def tensor_parallel(cfg: ArchConfig, mesh, *, repeat_kv: bool = False
+                    ) -> Optional[TensorParallel]:
     """The plain regime's :class:`TensorParallel` on ``mesh``'s model
-    axis, or None where the axis is 1 or no region passes the gates."""
-    tp_axis, tp_attn, tp_ffn = _tp_plan(cfg, mesh, None)
+    axis, or None where the axis is 1 or no region passes the gates.
+    ``repeat_kv``: attention also slices where the axis is a multiple of
+    the KV heads above them, each KV head on :func:`kv_repeat` ranks (the
+    train steps; the serving builders keep the reference's gate)."""
+    tp_axis, tp_attn, tp_ffn = _tp_plan(cfg, mesh, None, repeat_kv=repeat_kv)
     if tp_axis is None:
         return None
-    return TensorParallel(mesh.get_group(AXIS_MODEL),
-                          shd.mesh_shape(mesh)[AXIS_MODEL], tp_attn, tp_ffn)
+    tp = shd.mesh_shape(mesh)[AXIS_MODEL]
+    return TensorParallel(mesh.get_group(AXIS_MODEL), tp, tp_attn, tp_ffn,
+                          kv_repeat(cfg, tp) if tp_attn else 1)
+
+
+def tp_rank_blocks(cfg: ArchConfig, tree, specs, tp: int, rank: int):
+    """Model rank ``rank``'s compute blocks of ``tree`` under the plain
+    regime's tensor parallelism at ``tp`` (KV heads repeated where ``tp``
+    exceeds them), from its coordinate alone, with no collective.
+    ``tree`` is any part of the parameters (one attention sub-layer's
+    ``{wq, wk, wv, wo}``, say) and ``specs`` its ParamSpec tree.  At tp >
+    KV the rank's attention blocks hold ``H / tp`` query heads and the
+    one KV head of their group."""
+    mesh = {AXIS_MODEL: tp}
+    _, tp_attn, tp_ffn = _tp_plan(cfg, mesh, None, repeat_kv=True)
+    rep = kv_repeat(cfg, tp) if tp_attn else 1
+    return tree_unflatten(tree, [
+        shd.shard(x, _tp_spec(s, None, AXIS_MODEL, tp_attn, tp_ffn, rep),
+                  mesh, {AXIS_MODEL: rank})
+        for x, s in zip(tree_leaves(tree), tree_leaves(tree_like(tree,
+                                                                  specs)))])
 
 
 # --------------------------------------------------------------------------- #

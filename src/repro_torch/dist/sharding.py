@@ -93,6 +93,34 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+class Repeated(str):
+    """A spec entry of a compute block: the dim's entries each repeated
+    ``times`` times in a row (``jnp.repeat``), the result split over the
+    mesh axis this string names.  Tensor parallelism slices a GQA layer's
+    ``kv_heads`` so when the ``model`` axis exceeds the KV heads: each of
+    the ``tp / KV`` ranks of a query-head group gets that group's KV head.
+    Everywhere else it is the axis name; :func:`shard`, :func:`reshard`
+    (into it) and :func:`reduce_to` (``have``: the gradient of a repeated
+    entry is the sum over its copies) know the repeat."""
+
+    def __new__(cls, axis: str, times: int):
+        s = super().__new__(cls, axis)
+        s.times = int(times)
+        return s
+
+    def __getnewargs__(self):
+        return str(self), self.times
+
+    def __repr__(self) -> str:
+        return f"Repeated({str.__repr__(self)}, {self.times})"
+
+
+def fold_repeats(x: torch.Tensor, d: int, times: int) -> torch.Tensor:
+    """The gradient of ``repeat_interleave(times, dim=d)``: each run of
+    ``times`` entries of dim ``d`` summed into one."""
+    return x.unflatten(d, (-1, times)).sum(d + 1)
+
+
 def _axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
@@ -437,6 +465,9 @@ def shard(x: torch.Tensor, spec: PartitionSpec, mesh,
     x = x.detach()
     for d, entry in enumerate(spec):
         n, idx = _block(entry, sizes, coord)
+        if isinstance(entry, Repeated):
+            x = _repeated_block(x, d, entry.times, n, idx)
+            continue
         if n == 1:
             continue
         if x.shape[d] % n:
@@ -445,6 +476,20 @@ def shard(x: torch.Tensor, spec: PartitionSpec, mesh,
         size = x.shape[d] // n
         x = x.narrow(d, idx * size, size)
     return x.contiguous()
+
+
+def _repeated_block(x: torch.Tensor, d: int, times: int, n: int,
+                    idx: int) -> torch.Tensor:
+    """Block ``idx`` of ``n`` of dim ``d`` of ``x.repeat_interleave(times,
+    dim=d)``, repeating only the entries the block covers."""
+    total = x.shape[d] * times
+    if total % n:
+        raise ValueError(f"dim {d} of {tuple(x.shape)} repeated {times} "
+                         f"times does not split into {n} blocks")
+    b = total // n
+    lo, hi = idx * b // times, ((idx + 1) * b - 1) // times + 1
+    y = x.narrow(d, lo, hi - lo).repeat_interleave(times, dim=d)
+    return y.narrow(d, idx * b - lo * times, b)
 
 
 def shard_tree(tree, specs, mesh, coord: Optional[dict] = None):
@@ -501,9 +546,12 @@ def reshard(x: torch.Tensor, src: PartitionSpec, dst: PartitionSpec,
     on any other dim, an
     all-gather over every ``src`` axis and, once every dim is gathered,
     this rank's slice under ``dst``.  An all-None ``dst`` is
-    :func:`gather`."""
+    :func:`gather`; a ``dst`` with a :class:`Repeated` entry gathers the
+    whole leaf and takes the block :func:`shard` gives."""
     if not any(_axes(e) for e in dst):
         return gather(x, src, mesh)
+    if any(isinstance(e, Repeated) for e in dst):
+        return shard(gather(x, src, mesh), dst, mesh)
     sizes, coord = mesh_shape(mesh), coordinate(mesh)
     sliced = []
     for d in range(len(src)):
@@ -533,17 +581,24 @@ def reduce_to(x: torch.Tensor, spec: PartitionSpec, mesh,
     ``have``: ``x`` is this rank's block under that spec instead (the
     blocks a tensor-parallel or pipeline stage body computes with, whose
     axes are not in ``axes``).  A dim whose ``have`` axes lead its
-    ``spec`` axes stays as it is; every other is all-gathered first."""
+    ``spec`` axes stays as it is; every other is all-gathered first.  A
+    :class:`Repeated` dim of ``have`` is all-gathered and each entry's
+    copies summed (:func:`fold_repeats`): the copies' ranks share the
+    entry, so its gradient is their sum over that axis, and every rank
+    then holds the whole of it."""
     sizes, coord = mesh_shape(mesh), coordinate(mesh)
     done = []
     for d, entry in enumerate(spec):
-        h = _axes(have[d] if have is not None and d < len(have) else None)
+        h_entry = have[d] if have is not None and d < len(have) else None
+        h = _axes(h_entry)
         if set(h) & set(axes):
             raise ValueError(f"{have} splits dim {d} over a summed axis of "
                              f"{tuple(axes)}")
-        if _axes(entry)[:len(h)] != h:
+        if isinstance(h_entry, Repeated) or _axes(entry)[:len(h)] != h:
             for a in reversed(h):
                 x = _all_gather_dim(x, d, mesh.get_group(a))
+            if isinstance(h_entry, Repeated):
+                x = fold_repeats(x, d, h_entry.times)
             h = ()
         done.append(h)
     in_spec = set()

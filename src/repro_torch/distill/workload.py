@@ -137,8 +137,7 @@ def build_colocated_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
     reference's colocated step on a mesh, one process a rank, dispatched
     as ``build_train_step(..., mesh=)`` is.  Both sections are validated
     by ``core.workload.validate_section_parallel`` (a ``pipe`` axis above
-    1 raises, as in the reference: the distillation loss is not staged;
-    cp x tp raises as A6.4's remainder).  The student's parameters are
+    1 raises, as in the reference: the distillation loss is not staged).  The student's parameters are
     this rank's blocks under ``step.shardings["student"]`` with ZeRO
     optimizer-state blocks (``["opt"]``), the teacher's under
     ``rules_for(t_cfg, mesh, teacher=True)`` (``["teacher"]``), gathered

@@ -49,9 +49,8 @@ Usage:
 as the cells measured on one card are cut; a record names its models'
 depths under ``num_layers``.
 
-``--cp`` where the mesh also has a ``model`` axis above 1 is refused by
-the step (cp x tp: ROADMAP.md, A6.4 remainder), and the refusal is let
-through.
+``--cp`` where the mesh also has a ``model`` axis above 1 records the
+step at cp x tp.
 """
 import argparse
 import collections

@@ -332,9 +332,9 @@ def mllm_spec(vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
         inputs={"tokens": wl.Field((wl.SEQ,), "int32"),
                 "labels": wl.Field((wl.SEQ,), "int32"),
                 "loss_mask": wl.Field((wl.SEQ,), "float32"),
-                "image_pos": wl.Field((K,), "int32"),
-                "image_valid": wl.Field((K,), "int32")},
-        consumes=(wl.Consume("vit", emb),),
+                "image_pos": wl.Field((K,), "int32", seq_split=False),
+                "image_valid": wl.Field((K,), "int32", seq_split=False)},
+        consumes=(wl.Consume("vit", emb, seq_split=False),),
         loss=True, critical=True)
     return wl.WorkloadSpec("mllm", (vit, llm), seq_len=seq_len,
                            global_batch=global_batch, mbs=mbs)
@@ -368,8 +368,10 @@ class MLLMRuntime:
     own data degree; the ViT may also split its patch sequence over a
     ``seq`` axis (``vit_parallel.cp``, the reference's default of 2 in
     ``build_vlm_graph``), each rank merging the tokens of its own shard.
-    The LM's image splice takes global positions, so an LM at ``cp`` > 1
-    raises (ROADMAP.md, A6.3 remainder)."""
+    The LM may split its token sequence too (``lm_parallel.cp``): each of
+    its sequence ranks takes the image slots and embeddings whole and
+    splices those inside its shard (``models.transformer.vision_scatter``),
+    and the embeddings' cotangent sums over them."""
 
     def __init__(self, vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
                  vit_parallel: ParallelConfig, lm_parallel: ParallelConfig,

@@ -180,18 +180,37 @@ def _whole_sequence():
     return impl.whole_sequence, impl.own_columns
 
 
+def _slot_offset(shard_len: int, device):
+    """The global position of this rank's first token: under context
+    parallelism (an installed attention implementation) its sequence
+    shard's, else 0."""
+    impl = att.current_impl()
+    if impl is None:
+        return 0
+    return impl.positions(shard_len, device)[0]
+
+
 def vision_scatter(p, cfg: ArchConfig, x: torch.Tensor,
                    batch: dict) -> torch.Tensor:
     """Replace the token embeddings at the valid image slots
     (``image_pos`` [B, K] where ``image_valid`` [B, K] is 1) with the
     projected ``image_embeds`` [B, K, vision_dim]: an out-of-place
     ``index_put(accumulate=True)`` of ``upd - cur * valid``, the
-    reference's ``x.at[b, pos].add(...)`` (invalid slots add exactly 0)."""
+    reference's ``x.at[b, pos].add(...)`` (invalid slots add exactly 0).
+
+    ``x`` may be a sequence shard [B, S/cp, D] (context parallelism): the
+    image slots stay global, and the shard takes those whose position
+    falls inside it, shifted by its first position (:func:`_slot_offset`);
+    a slot outside is invalid here and adds 0, so the cotangent of
+    ``image_embeds`` sums over the sequence ranks to the whole one."""
     if not (cfg.vision_dim and "image_embeds" in batch):
         return x
     vh = batch["image_embeds"].to(x.dtype) @ p["vision_proj"]
-    valid = batch["image_valid"].to(x.dtype)[..., None]            # [B,K,1]
-    pos = batch["image_pos"].long()
+    pos = batch["image_pos"].long() - _slot_offset(x.shape[1], x.device)
+    inside = (pos >= 0) & (pos < x.shape[1])
+    valid = (batch["image_valid"].to(x.dtype)
+             * inside.to(x.dtype))[..., None]                    # [B,K,1]
+    pos = torch.where(inside, pos, torch.zeros_like(pos))
     b_ix = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(pos)
     upd = vh * valid
     cur = x[b_ix, pos]

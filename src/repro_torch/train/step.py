@@ -36,16 +36,25 @@ function.
   installed with ``models.attention.attention_impl``.  Each masked mean
   divides by the mask total over the data and sequence ranks, and the
   gradients are summed over both before the reduce-scatter into the ZeRO
-  blocks: parameters are replicated over ``seq``.
-* a ``model`` axis above 1 (plain regime): Megatron tensor parallelism
-  (``dist.pipeline.TensorParallel``) under the reference's gates
-  (``dist.pipeline._tp_plan``): each rank takes its heads and ``d_ff``
-  slices of the layer weights and gathers every other leaf whole, so the
-  regions the gates refuse (a KV head count the axis does not divide, a
-  Mamba mixer, the vocabulary, the experts) compute whole on every model
-  rank.  Every rank then holds the whole gradient of each leaf it does not
-  slice, so nothing is summed over ``model``: a ZeRO block that extends
-  over ``model`` takes its slice.
+  blocks: parameters are replicated over ``seq``.  The vlm family's image
+  slots stay whole on every sequence rank, which splices those inside its
+  shard (``models.transformer.vision_scatter``).
+* a ``model`` axis above 1 (plain and cp regimes): Megatron tensor
+  parallelism (``dist.pipeline.TensorParallel``) under the gates of
+  ``dist.pipeline._tp_plan``: each rank takes its heads and ``d_ff``
+  slices of the layer weights and gathers every other leaf whole.  Where
+  the axis exceeds the KV heads and is a multiple of them, a rank takes
+  its ``H / tp`` query heads and the one KV head of their group, each KV
+  head repeated over the ``tp / KV`` ranks of its group
+  (``dist.sharding.Repeated``), and that head's gradient is the sum over
+  those ranks (``dist.sharding.reduce_to``).  The regions the gates
+  refuse compute whole on every model rank: attention where the KV heads
+  neither divide the axis nor are divided by it, or with ``head_pad``; a
+  Mamba mixer, the vocabulary, the experts.  Every rank then holds the
+  whole gradient of each leaf it does not slice, so nothing is summed over
+  ``model``: a ZeRO block that extends over ``model`` takes its slice.
+  With a ``seq`` axis as well (cp x tp), each (seq, model) rank runs
+  ``cp_attention`` over its sequence group on its own head slice.
 * a ``pipe`` axis above 1: the pipeline regime (``"pp"``).  The loss is
   ``dist.pipeline.build_pp_loss``'s GPipe schedule over this rank's stage
   (vocab-parallel CE where the padded vocabulary divides the stages, TP
@@ -58,9 +67,9 @@ function.
 The MoE and hybrid families on more than one data or sequence rank take
 each micro-batch's router statistics averaged over those ranks before
 the load-balancing loss is formed (``models.transformer.sharded_forward``),
-which is the reference's aux over the micro-batch's global rows.  Not
-ported: ``cp`` together with ``tp`` (ROADMAP.md, A6.4 remainder); pp x cp
-and the audio family under pp are refused as in the reference.
+which is the reference's aux over the micro-batch's global rows.  pp x
+cp and the audio family under pp are refused as in the reference; so is a
+global batch that does not divide the data axes (ROADMAP.md, A6.1r).
 """
 from __future__ import annotations
 
@@ -101,8 +110,7 @@ def parallel_regime(mesh, parallel: ParallelConfig) -> str:
     ``pipe`` axis above 1, ``"cp"`` for a ``seq`` axis above 1, else
     ``"plain"`` (tensor parallelism runs inside the plain and pp regimes).
     A mismatch, or a CP knob out of range, raises ``ValueError``; pp x cp
-    raises as in the reference, and cp x tp ``NotImplementedError`` naming
-    ROADMAP.md, A6.4 (remainder)."""
+    raises as in the reference."""
     sizes = shd.mesh_shape(mesh)
     have = {"pp": sizes.get(shd.AXIS_PIPE, 1),
             "cp": sizes.get(shd.AXIS_SEQ, 1),
@@ -120,11 +128,6 @@ def parallel_regime(mesh, parallel: ParallelConfig) -> str:
             "pp x cp composition is not supported (CP's sequence shards "
             "cannot nest inside the pipeline's stages); use pp x tp "
             "instead")
-    if have["cp"] > 1 and have["tp"] > 1:
-        raise NotImplementedError(
-            f"cp={have['cp']} x tp={have['tp']}: context parallelism with "
-            "tensor parallelism is not ported yet; see ROADMAP.md, A6.4 "
-            "(remainder)")
     from repro_torch.dist.context import CP_MODES
     if parallel.cp_mode not in CP_MODES:
         raise ValueError(
@@ -147,12 +150,10 @@ def parallel_regime(mesh, parallel: ParallelConfig) -> str:
 
 
 def _check_pp_cp_support(cfg: ArchConfig, regime: str) -> None:
-    """The families the PP and CP regimes refuse: the reference's (audio
+    """The families the PP and CP regimes refuse, the reference's: audio
     under either, whose encoder-decoder stack is not staged and whose
-    cross-attention has no sequence shard; attention-free archs under cp,
-    whose seq axis would be replicated silently), and under cp the VLM
-    family's image splice, whose image positions are global (ROADMAP.md,
-    A6.3 remainder)."""
+    cross-attention has no sequence shard, and attention-free archs under
+    cp, whose seq axis would be replicated silently."""
     if regime == "pp" and cfg.family == "audio":
         raise NotImplementedError(
             "pipeline parallelism is not implemented for encoder-decoder "
@@ -168,12 +169,6 @@ def _check_pp_cp_support(cfg: ArchConfig, regime: str) -> None:
             f"cp>1 on attention-free arch {cfg.name!r}: there is no "
             "attention to sequence-shard, the seq axis would be "
             "silently replicated")
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"cp>1 on the vlm arch {cfg.name!r}: its image embeddings are "
-            "scattered at global token positions, which a sequence shard "
-            "does not hold; see ROADMAP.md, A6.3 (remainder: the image "
-            "splice under cp)")
 
 
 def num_microbatches(shape: ShapeConfig, parallel: ParallelConfig,
@@ -379,12 +374,13 @@ def model_context(cfg: ArchConfig, specs, mesh, regime: str,
         return tree_map(lambda x: tuple(x.shape), t)
     tp = None
     if cfg.family != "audio" and shapes(specs) == shapes(tf.lm_specs(cfg)):
-        tp = pl.tensor_parallel(cfg, mesh)
+        tp = pl.tensor_parallel(cfg, mesh, repeat_kv=True)
     if tp is None:
         c_specs = tree_map(lambda x: shd.P(), specs)
     else:
         c_specs = pl.compute_specs(cfg, tp_axis=shd.AXIS_MODEL,
-                                   tp_attn=tp.attn, tp_ffn=tp.ffn)
+                                   tp_attn=tp.attn, tp_ffn=tp.ffn,
+                                   kv_rep=tp.kv_repeat)
     stats_mean = None
     if cfg.num_experts and n > 1:
         groups = [mesh.get_group(a) for a in sum_ax if sizes[a] > 1]
@@ -548,10 +544,17 @@ class BlockTree:
         return params, opt_state, gnorm
 
 
+#: batch leaves of the vlm family that index the whole sequence: every
+#: sequence rank keeps them whole (``models.transformer.vision_scatter``
+#: takes the slots inside its shard)
+IMAGE_SLOT_KEYS = ("image_embeds", "image_pos", "image_valid")
+
+
 class DataLayout:
     """This rank's share of a global batch on ``mesh`` in the plain or cp
     regime: its rows of the shard-major layout ``[dp, n_micro, mbs]``, its
-    sequence columns in the cp regime, each micro-batch's weight (this
+    sequence columns in the cp regime (:data:`IMAGE_SLOT_KEYS` whole), each
+    micro-batch's weight (this
     rank's share of the mask total, so that the weighted masked means sum
     over the data and sequence ranks to the global one) and the metric
     means over those ranks."""
@@ -598,7 +601,8 @@ class DataLayout:
                                              + x.shape[1:])[self.rank],
                          batch)
         if self.regime == "cp":
-            local = tree_map(self.columns, local)
+            local = {k: v if k in IMAGE_SLOT_KEYS else self.columns(v)
+                     for k, v in local.items()}
         return [local] if self.n_micro == 1 else _split_microbatches(
             local, self.n_micro)
 

@@ -20,11 +20,12 @@ against the JAX package, on the CPU.
     ``tests/torch_drivers/driver_context.py attn``; the JAX side runs in a
     subprocess while they do (``python tests/test_torch_context.py
     --jax-oracle IN.npz OUT.npz``).
-(d) The refusals of context parallelism: audio, attention-free, MoE and
-    hybrid archs, the vlm family's image splice, segment ids,
-    cross-attention, a sequence that does not divide cp, chunks that do
+(d) The refusals of context parallelism: audio and attention-free
+    archs, pp x cp, segment ids, cross-attention, a sequence that does not divide cp, chunks that do
     not divide S/cp, ulysses with H % cp, an unknown mode, grad_compress
-    under cp, and a ViT shard that is not a multiple of its merge.
+    under cp, and a ViT shard that is not a multiple of its merge; and
+    what now passes the same checks into the cp regime: MoE and hybrid
+    archs at cp x tp, the vlm family's image splice, an MLLM LM at cp 2.
 """
 import os
 import sys
@@ -336,14 +337,21 @@ def _build(arch, par, seq=8, mesh=None, **over):
     ("mamba2-130m", ParallelConfig(cp=2), NotImplementedError,
      "attention-free"),
     # MoE and hybrid run at cp > 1 (their router statistics are averaged
-    # over the sequence ranks); cp x tp is refused for every family
-    ("mixtral-8x22b", ParallelConfig(cp=2, tp=2), NotImplementedError,
-     "A6.4"),
-    ("jamba-v0.1-52b", ParallelConfig(cp=2, tp=2), NotImplementedError,
-     "A6.4"),
-    ("pixtral-12b", ParallelConfig(cp=2), NotImplementedError, "A6.3"),
+    # over the sequence ranks), cp x tp runs for every family and so does
+    # the vlm family's image splice: the step's checks name their regime
+    # (exc None; the steps themselves: tests/test_torch_context_step.py)
+    ("mixtral-8x22b", ParallelConfig(cp=2, tp=2), None, "cp"),
+    ("jamba-v0.1-52b", ParallelConfig(cp=2, tp=2), None, "cp"),
+    ("pixtral-12b", ParallelConfig(cp=2), None, "cp"),
 ])
 def test_cp_step_refuses_families(arch, par, exc, match):
+    if exc is None:
+        cfg = tcfgs.get_reduced(arch).replace(dtype="float32")
+        regime, _, _ = tstep._check_sharded(
+            cfg, par, ShapeConfig("t", "train", 8, 4),
+            _mesh(seq=par.cp, data=par.dp, model=par.tp))
+        assert regime == match
+        return
     with pytest.raises(exc, match=match):
         _build(arch, par)
 
@@ -401,7 +409,7 @@ def test_cp_attention_call_refusals(world1):
 @pytest.mark.parametrize("arch,par,match", [
     ("mamba2-130m", ParallelConfig(cp=2), "attention-free"),
     ("whisper-small", ParallelConfig(cp=2), "audio"),
-    ("mixtral-8x22b", ParallelConfig(cp=2, tp=2), "A6.4"),
+    ("mixtral-8x22b", ParallelConfig(cp=2, pp=2), "pp x cp"),
     ("qwen1.5-0.5b", ParallelConfig(cp=2, cp_mode="ring"), "cp_mode"),
 ])
 def test_section_cp_refusals_name_the_section(arch, par, match):
@@ -409,9 +417,13 @@ def test_section_cp_refusals_name_the_section(arch, par, match):
     with pytest.raises((ValueError, NotImplementedError),
                        match=rf"section 'sec'.*{match}"):
         twl.validate_section_parallel("sec", cfg, par, twl._mesh_sizes(par))
-    assert twl.validate_section_parallel(
-        "sec", tcfgs.get_reduced("qwen1.5-0.5b"), ParallelConfig(cp=2),
-        twl._mesh_sizes(ParallelConfig(cp=2))) == "cp"
+    # cp runs, with tp too, and for the vlm family
+    for name, ok in (("qwen1.5-0.5b", ParallelConfig(cp=2)),
+                     ("mixtral-8x22b", ParallelConfig(cp=2, tp=2)),
+                     ("pixtral-12b", ParallelConfig(cp=2))):
+        assert twl.validate_section_parallel(
+            "sec", tcfgs.get_reduced(name), ok,
+            twl._mesh_sizes(ok)) == "cp"
 
 
 def test_mllm_refuses_vit_shard_off_its_merge_and_lm_cp():
@@ -424,11 +436,17 @@ def test_mllm_refuses_vit_shard_off_its_merge_and_lm_cp():
     with pytest.raises(ValueError, match="downsample factor 4"):
         tmw.mllm_spec(vit, lm, vit_parallel=ParallelConfig(cp=8),
                       lm_parallel=ParallelConfig(), **shape)
-    with pytest.raises(NotImplementedError,
-                       match=r"section 'llm'.*A6\.3.*image splice"):
-        tmw.MLLMRuntime(vit, lm, vit_parallel=ParallelConfig(dp=2),
-                        lm_parallel=ParallelConfig(dp=2, cp=2),
-                        ranks=range(6), **shape)
+    # an LM at cp 2 runs (tests/test_torch_context_sections.py): its
+    # image slots and the consumed embeddings stay whole on each sequence
+    # rank, and its section validates in the cp regime
+    spec = tmw.mllm_spec(vit, lm, vit_parallel=ParallelConfig(dp=2),
+                         lm_parallel=ParallelConfig(dp=2, cp=2), **shape)
+    llm = spec.section("llm")
+    assert [k for k, f in llm.inputs.items() if not f.seq_split] == [
+        "image_pos", "image_valid"]
+    assert [c.seq_split for c in llm.consumes] == [False]
+    assert twl.validate_section_parallel(
+        "llm", llm.arch, llm.parallel, twl._mesh_sizes(llm.parallel)) == "cp"
 
 
 def test_grad_compress_under_cp_section_raises():

@@ -2,10 +2,11 @@
 mesh=)`` on a mesh whose ``seq`` axis is above 1) against the JAX
 package's ``build_train_step`` on ``section_mesh``, on the CPU.
 
-Four cases on 4 gloo ranks (``tests/torch_drivers/driver_context.py
+Eight cases on 4 gloo ranks (``tests/torch_drivers/driver_context.py
 step``), one step each from the same parameters and global batch (8 x 16,
 a loss mask with about a fifth of its tokens off, so that the ranks' mask
-shares differ):
+shares differ; for pixtral also 4 image slots a row at distinct random
+positions, about a quarter of them invalid):
 
 * ``dp2cp2``: ``tests/drivers/driver_train_step_dist.py``'s cp2 step,
   granite-3-8b reduced to 4 layers, ``ParallelConfig(dp=2, cp=2, mbs=2)``
@@ -17,11 +18,23 @@ shares differ):
   reduced at ``ParallelConfig(dp=2, cp=2, mbs=2)``: each micro-batch's
   router statistics averaged over the data and sequence ranks, and the
   MoE layers (per-sample capacity) and jamba's Mamba mixers (a scan
-  across shards) run over the whole sequence.
+  across shards) run over the whole sequence;
+* ``g_cp2t2`` and ``g20_cp2t2``: cp x tp, ``ParallelConfig(cp=2, tp=2,
+  mbs=4)``: Megatron TP on the projections and the MLP, and
+  ``cp_attention`` over each model rank's sequence group on its own head
+  slice (granite-3-8b reduced, 4 layers: 2 query heads on 1 KV head a
+  rank; granite-20b reduced: its one KV head repeated on both model
+  ranks), against the JAX step, whose attention keeps its heads whole
+  over ``model``;
+* ``pix_d2cp2``: pixtral-12b reduced at ``ParallelConfig(dp=2, cp=2,
+  mbs=2)``: each sequence shard splices the image slots inside it;
+* ``pix_d2cp2_planted``: the same with every shard reading the global
+  image positions as its own (no shift), held to ``pix_d2cp2``'s oracle:
+  it must miss the bounds.
 
-The JAX step runs on an 8-virtual-device host in two subprocesses while
+The JAX step runs on an 8-virtual-device host in four subprocesses while
 the ranks run (``python tests/test_torch_context_step.py --jax-oracle
-IN.npz OUT.npz PART 2``), with the driver's AdamW (eps 1e-3, constant lr 1e-3) and
+IN.npz OUT.npz PART 4``), with the driver's AdamW (eps 1e-3, constant lr 1e-3) and
 tolerances: loss within 1e-5, grad norm within 1e-3, every parameter
 within 1e-4.  A step that summed its gradients over the data ranks only
 (1/cp of the tokens) misses these bounds.
@@ -50,6 +63,8 @@ import driver_context as dc  # noqa: E402
 from dist_util import flat  # noqa: E402
 
 CASES = dc.STEP_CASES[4]
+ORACLE = [c for c in CASES if not c[0].endswith("_planted")]
+ORACLE_PARTS = 4
 # tests/drivers/driver_train_step_dist.py:86-91
 DLOSS, DGNORM, DPARAMS = 1e-5, 1e-3, 1e-4
 
@@ -71,7 +86,7 @@ def jax_oracle(in_path: str, out_path: str, part: int, parts: int) -> None:
     assert len(jax.devices()) == 8, jax.devices()
     arrays = np.load(in_path)
     out = {}
-    for name, arch, over, knobs in CASES[part::parts]:
+    for name, arch, over, knobs in ORACLE[part::parts]:
         cfg = get_reduced(arch).replace(dtype="float32", **over)
         model = build_model(cfg, impl="ref")
         dtypes = _flatten(jax.tree_util.tree_map(
@@ -99,6 +114,20 @@ def jax_oracle(in_path: str, out_path: str, part: int, parts: int) -> None:
     np.savez(out_path, **out)
 
 
+def _image_slots(rng, cfg, prefix: str, k: int = 4) -> dict:
+    """``k`` image slots a row at distinct random positions of the whole
+    sequence (so that both sequence shards hold some), about a quarter of
+    them invalid, with random embeddings."""
+    gb, s = dc.STEP_GB, dc.STEP_S
+    return {
+        prefix + "image_embeds": rng.standard_normal(
+            (gb, k, cfg.vision_dim)).astype(np.float32),
+        prefix + "image_pos": np.stack([rng.permutation(s)[:k]
+                                        for _ in range(gb)]).astype(np.int32),
+        prefix + "image_valid": (rng.random((gb, k)) < 0.75).astype(
+            np.int32)}
+
+
 @pytest.fixture(scope="module")
 def step_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cpstep")
@@ -114,6 +143,8 @@ def step_run(tmp_path_factory):
                 0, cfg.vocab_size, shape).astype(np.int32)
         inputs[f"{name}/batch/loss_mask"] = (
             rng.random(shape) < 0.8).astype(np.float32)
+        if cfg.vision_dim:
+            inputs.update(_image_slots(rng, cfg, f"{name}/batch/"))
     np.savez(tmp / "in.npz", **inputs)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(DRIVERS)]))
@@ -122,8 +153,9 @@ def step_run(tmp_path_factory):
         [str(ROOT / "src"), str(ROOT / "tests"), str(DRIVERS)]))
     oracles = [subprocess.Popen(
         [sys.executable, __file__, "--jax-oracle", str(tmp / "in.npz"),
-         str(tmp / f"jax{i}.npz"), str(i), "2"], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=jenv) for i in range(2)]
+         str(tmp / f"jax{i}.npz"), str(i), str(ORACLE_PARTS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=jenv)
+        for i in range(ORACLE_PARTS)]
     proc = subprocess.run(
         [sys.executable, str(DRIVERS / "driver_context.py"), "step", "4",
          str(tmp / "in.npz"), str(tmp / "out.npz")],
@@ -138,17 +170,32 @@ def step_run(tmp_path_factory):
     return np.load(tmp / "out.npz"), jx
 
 
-@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def _gaps(got, jx, name: str, ref: str) -> tuple:
+    """(|dloss|, |dgnorm|, max |dparam|) of the port's case ``name``
+    against the oracle's case ``ref``."""
+    loss, gnorm = jx[f"{ref}/metrics"]
+    keys = [k[len(ref) + 8:] for k in jx if k.startswith(f"{ref}/params/")]
+    assert keys and {k[len(name) + 8:] for k in got.files if k.startswith(
+        f"{name}/params/")} == set(keys)
+    worst = max(float(np.abs(got[f"{name}/params/{k}"]
+                             - jx[f"{ref}/params/{k}"]).max()) for k in keys)
+    return (abs(float(got[f"{name}/loss"][0]) - loss),
+            abs(float(got[f"{name}/grad_norm"][0]) - gnorm), worst)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in ORACLE])
 def test_cp_step_matches_jax_section_mesh_step(step_run, name):
     got, jx = step_run
-    loss, gnorm = jx[f"{name}/metrics"]
-    assert abs(float(got[f"{name}/loss"][0]) - loss) < DLOSS
-    assert abs(float(got[f"{name}/grad_norm"][0]) - gnorm) < DGNORM
-    keys = [k for k in jx if k.startswith(f"{name}/params/")]
-    assert keys and {k for k in got.files if k.startswith(
-        f"{name}/params/")} == set(keys)
-    worst = max(float(np.abs(got[k] - jx[k]).max()) for k in keys)
+    dloss, dgnorm, worst = _gaps(got, jx, name, name)
+    assert dloss < DLOSS
+    assert dgnorm < DGNORM
     assert worst < DPARAMS, worst
+
+
+def test_image_splice_without_the_shard_shift_misses_the_bounds(step_run):
+    got, jx = step_run
+    g = _gaps(got, jx, "pix_d2cp2_planted", "pix_d2cp2")
+    assert not (g[0] < DLOSS and g[1] < DGNORM and g[2] < DPARAMS), g
 
 
 if __name__ == "__main__":

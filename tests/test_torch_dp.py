@@ -13,8 +13,8 @@ optimizer-state blocks) against the JAX package, on the CPU.
 (b) World size 1 on gloo: the sharded step, through ``build_train_step``
     and through ``launch.train.run(..., mesh=)``, equals the port's
     single-device step bit for bit.
-(c) The refusals: pipe and model axes above 1, the vlm family on a seq
-    axis above 1 (its image splice), MoE and hybrid under dp above 1, compression with a model axis, several data axes or a
+(c) The refusals: pp x cp, compression with a model axis, several data
+    axes or a
     batch that does not divide, a mesh that disagrees with its
     ``ParallelConfig``; the launcher's ``--data`` without ``torchrun`` and
     ``--model``.  And the ``torchrun`` launch itself on 2 gloo ranks.
@@ -332,17 +332,24 @@ def _model(name="granite-3-8b"):
 
 
 @pytest.mark.parametrize("knob,axes,item", [
-    (dict(tp=2, cp=2), dict(model=2, seq=2), r"A6\.4"),
+    (dict(tp=2, cp=2), dict(model=2, seq=2), None),
     (dict(pp=2, cp=2), dict(pipe=2, seq=2), "pp x cp composition"),
-    (dict(cp=2), dict(seq=2), "A6.3"),
+    (dict(cp=2), dict(seq=2), None),
     (dict(tp=2, grad_compress="int8"), dict(model=2), "dp-only mesh")])
 def test_other_regimes_raise_naming_their_item(knob, axes, item):
     # the pipe and model axes' regimes run (tests/test_torch_pp_step.py,
-    # test_torch_tp.py) and so does the seq axis's (test_torch_context*.py);
-    # what stays refused: cp x tp (A6.4's remainder), pp x cp (as in the
-    # reference), the vlm family's image splice under cp (A6.3) and a
-    # compressed all-reduce outside a dp-only mesh
+    # test_torch_tp.py) and so does the seq axis's (test_torch_context*.py),
+    # with a model axis too and for the vlm family's image splice (item
+    # None: the step's checks give the cp regime); what stays refused: pp
+    # x cp (as in the reference) and a compressed all-reduce outside a
+    # dp-only mesh
     model = _model("pixtral-12b") if knob == dict(cp=2) else _model()
+    if item is None:
+        regime, _, _ = tstep._check_sharded(
+            model.cfg, ParallelConfig(**knob),
+            ShapeConfig("t", "train", 8, 4), _mesh(**axes))
+        assert regime == "cp"
+        return
     with pytest.raises(NotImplementedError, match=item):
         tstep.build_train_step(model, ParallelConfig(**knob),
                                ShapeConfig("t", "train", 8, 4),
@@ -359,13 +366,12 @@ def test_pp_and_cp_together_raise():
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "jamba-v0.1-52b"])
 def test_moe_and_hybrid_under_dp_raise(name):
     # MoE and hybrid train at dp > 1 now (their router statistics are
-    # averaged over the data ranks: tests/test_torch_tp.py); what they,
-    # like every family, still refuse is cp x tp
-    with pytest.raises(NotImplementedError, match=r"cp=2 x tp=2.*A6\.4"):
-        tstep.build_train_step(_model(name), ParallelConfig(dp=2, cp=2,
-                                                            tp=2),
-                               ShapeConfig("t", "train", 8, 4),
-                               mesh=_mesh(data=2, seq=2, model=2))
+    # averaged over the data ranks: tests/test_torch_tp.py), and like
+    # every family at cp x tp: the step's checks give the cp regime
+    regime, dp_ax, dp_total = tstep._check_sharded(
+        _model(name).cfg, ParallelConfig(dp=2, cp=2, tp=2),
+        ShapeConfig("t", "train", 8, 4), _mesh(data=2, seq=2, model=2))
+    assert (regime, dp_ax, dp_total) == ("cp", ("data",), 2)
 
 
 @pytest.mark.parametrize("mesh,par,match", [

@@ -20,7 +20,14 @@ C0).  Checks:
   index; the decode step's token block is int64; the prefill's tokens
   too;
 * the per-device FLOPs are within 25 % of the JAX ``hlo.flops_per_device``
-  (each ratio printed).
+  (each ratio printed), also on two cells whose ``model`` axis exceeds
+  the KV heads (granite-3-8b's 2 at 2 x 4, granite-20b's 1 at 4 x 2),
+  where the reference splits attention by query heads and the port
+  repeats each KV head over its query-head group;
+* the port's temporaries are at most :data:`TEMP_RATIO` times the JAX
+  ``temp_size_in_bytes`` (each ratio printed): attention whole on every
+  model rank (the layout before KV-head repetition) takes 2.6 times the
+  reference's in the 2 x 4 cell.
 
 It also records granite-3-8b ``train_4k`` at full width on the 16 x 16
 production mesh, 256 fake ranks in one process, with its depth cut to 2
@@ -42,12 +49,15 @@ ROOT = Path(__file__).resolve().parents[1]
 
 #: (REPRO_DRYRUN_MESH, arch, shape, mesh kind): the driver's cells
 CELLS = [("4,2", "granite-3-8b", "train_4k", "single"),
+         ("2,4", "granite-3-8b", "train_4k", "single"),
+         ("4,2", "granite-20b", "train_4k", "single"),
          ("4,2", "mixtral-8x22b", "train_4k", "single"),
          ("4,2", "mamba2-130m", "decode_32k", "single"),
          ("4,2", "whisper-small", "prefill_32k", "single"),
          ("2,2,2", "qwen1.5-0.5b", "train_4k", "multi"),
          ("2,2,2", "granite-20b", "long_500k", "single")]
 FLOPS_REL = 0.25
+TEMP_RATIO = 2.0
 PRODUCTION_MBS = 16
 EQUAL = ("params", "active_params", "head_pad", "vocab_pad", "model_flops",
          "tokens", "skipped")
@@ -166,7 +176,11 @@ def test_dryrun_cell_matches_jax(records, cell):
     print(f"{cell}: FLOPs per device port {p['hlo']['flops_per_device']:.4g}"
           f", JAX {r['hlo']['flops_per_device']:.4g}, ratio {ratio:.3f}")
     assert abs(ratio - 1) <= FLOPS_REL, ratio
-    assert p["memory"]["temp_size_in_bytes"] >= 0
+    temp = (p["memory"]["temp_size_in_bytes"]
+            / r["memory"]["temp_size_in_bytes"])
+    print(f"{cell}: temporaries port {p['memory']['temp_size_in_bytes']}, "
+          f"JAX {r['memory']['temp_size_in_bytes']}, ratio {temp:.3f}")
+    assert 0 <= temp <= TEMP_RATIO, temp
     assert p["roofline"]["dominant"] in ("compute", "memory", "collective")
 
 
@@ -204,7 +218,7 @@ def test_report_tables_the_records(records, tmp_path):
         if cell not in ("production", "meshes"):
             (tmp_path / f"{i}.json").write_text(json.dumps(rec))
     cells = report.load(tmp_path)
-    assert report.summary(cells).startswith("cells: 5 recorded, 1 skipped")
+    assert report.summary(cells).startswith("cells: 7 recorded, 1 skipped")
     table = report.roofline_table(cells, "single")
     assert "granite-3-8b | train_4k" in table and "skipped" in table
     assert "qwen1.5-0.5b" in report.roofline_table(cells, "multi")

@@ -26,9 +26,10 @@ fail, ROADMAP C0).  Checks:
 * the KL kernel's op ``repro_torch::distill_kl_fwd`` is among the
   distill and multi-teacher records' ops (once a micro-batch and KL term),
   flash's among all three;
-* ``--cp 2`` on a mesh whose model axis is 2 raises A6.4r's
-  ``NotImplementedError`` (cp x tp), and an MLLM batch that is not a
-  multiple of ``--mbs`` the reference's ``ValueError``.
+* ``--cp 2`` on a mesh whose model axis is 2 records the distillation
+  step at cp x tp (each model rank's heads under ``cp_attention`` over
+  its sequence group), and an MLLM batch that is not a multiple of
+  ``--mbs`` raises the reference's ``ValueError``.
 """
 import json
 import os
@@ -92,6 +93,8 @@ def _run(side: str, out: str) -> None:
             except (NotImplementedError, ValueError) as e:
                 refused[name] = [type(e).__name__, str(e)]
         recs["refused"] = refused
+        recs["cp2"] = [json.loads(p.read_text())
+                       for p in sorted((rec_dir / "cp2").glob("*.json"))]
     Path(out).write_text(json.dumps(recs))
 
 
@@ -180,10 +183,15 @@ def test_kernel_ops_on_the_path(records, workload, kl):
 
 
 def test_cp_with_a_model_axis_is_refused(records):
+    # cp x tp records (it was refused until KV-head repetition and cp x
+    # tp were ported); the bad micro-batch count is still refused
     refused = records[0]["refused"]
-    assert refused["cp2"][0] == "NotImplementedError"
-    assert "cp=2 x tp=2" in refused["cp2"][1]
-    assert "A6.4 (remainder)" in refused["cp2"][1]
+    assert refused["cp2"] is None
+    [rec] = records[0]["cp2"]
+    assert rec["hlo"]["flops_per_device"] > 0
+    assert rec["hlo"]["kernel_ops"].get("repro_torch.flash_fwd", 0) > 0
+    # one KL a micro-batch: 4 of one row on each of the 2 data ranks left
+    assert rec["hlo"]["kernel_ops"].get("repro_torch.distill_kl_fwd") == 4
     assert refused["mbs3"] == [
         "ValueError", "--batch 8 is not a multiple of mbs=3: the "
         "microbatched step would lower for a different sample count than "

@@ -3,10 +3,10 @@
 
 1. Carving refuses, before any group is made: ranks shared by two
    sections outside a one-rank world and a rank list too short; on its
-   mesh a section's ``pp`` above 1 raises as in the reference, a vlm
-   section's ``cp`` naming A6.3 and ``cp`` with ``tp`` naming A6.4
+   mesh a section's ``pp`` above 1 raises as in the reference
    (``validate_section_parallel``, which ``CompoundRuntime`` runs before
-   it carves); ``tp`` alone runs.
+   it carves); ``tp`` alone, a vlm section's ``cp`` and ``cp`` with
+   ``tp`` validate.
 2. On a one-rank gloo group: both sections on rank 0 (``ranks=[0, 0]``),
    each with its own mesh and worker; ``MaestroRuntime.build_train_step``
    is ``train.step.build_train_step(..., mesh=)`` (one step, bit for bit).
@@ -70,14 +70,18 @@ def test_carving_refusals():
         carve_sections(g, ranks=[0, 1, 1])
     with pytest.raises(ValueError, match="only 2 are given"):
         carve_sections(g, ranks=[0, 1])
-    # a seq axis runs a dense section (A6.3) and still refuses the vlm
-    # family's image splice, naming A6.3; a model axis runs (A6.4), a pipe
-    # axis is refused as in the reference, and cp x tp names A6.4
+    # a seq axis runs a dense section (A6.3), the vlm family's too, and
+    # with a model axis (cp x tp); a model axis runs (A6.4), a pipe axis is
+    # refused as in the reference
     vlm = get_reduced("pixtral-12b")
     for knob, item, arch in (
             (dict(pp=2), "cannot be stage-partitioned", cfg),
-            (dict(cp=2), "A6.3", vlm), (dict(cp=2, tp=2), "A6.4", cfg)):
+            (dict(cp=2), None, vlm), (dict(cp=2, tp=2), None, cfg)):
         par = ParallelConfig(**knob)
+        if item is None:
+            assert wl.validate_section_parallel(
+                "student", arch, par, wl._mesh_sizes(par)) == "cp"
+            continue
         with pytest.raises(NotImplementedError, match=item):
             wl.validate_section_parallel("student", arch, par,
                                          wl._mesh_sizes(par))

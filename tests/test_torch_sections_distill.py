@@ -13,9 +13,10 @@ batches of ``tests/drivers/driver_distill_runtime.py``.
   within 2e-4 of the port's one-process ``DistillRuntime(devices=["cpu"]
   * 2)`` from the same seed (``tests/test_torch_distill.py``'s tolerance
   for a few float32 steps);
-* a teacher with ``tp=2`` and ``cp=2`` raises naming A6.4 (cp x tp is its
-  remainder; a teacher at ``tp=2`` alone runs,
-  ``tests/test_torch_sections_tp.py``), before any rank is carved.
+* a teacher with ``tp=2`` and ``cp=2`` validates in the cp regime (a
+  teacher at ``tp=2`` alone runs, ``tests/test_torch_sections_tp.py``, a
+  student at cp x tp ``tests/test_torch_context_sections.py``), and with
+  ``pp=2`` it raises, before any rank is carved.
 """
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_sections_util as su  # noqa: E402
+from repro_torch.core import workload as wl  # noqa: E402
 from repro_torch.core.types import ParallelConfig  # noqa: E402
 from repro_torch.distill import workload as dw  # noqa: E402
 
@@ -113,11 +115,16 @@ def test_losses_and_student_match_one_process_runtime(mesh_run):
 
 
 def test_teacher_tp_raises_naming_a64():
-    # a teacher at tp 2 runs (tests/test_torch_sections_tp.py); at tp 2
-    # with cp 2 it is refused, naming A6.4's remainder
-    t_cfg, s_cfg = su.driver_sections.distill_cfgs()
-    with pytest.raises(NotImplementedError, match=r"section 'teacher'.*A6\.4"):
-        dw.DistillRuntime(t_cfg, s_cfg,
-                          teacher_parallel=ParallelConfig(dp=2, tp=2, cp=2),
-                          student_parallel=ParallelConfig(dp=4),
-                          ranks=range(8))
+    # a teacher at tp 2 runs (tests/test_torch_sections_tp.py), and at tp 2
+    # with cp 2 its section validates in the cp regime (a student at cp 2
+    # x tp 2 runs: tests/test_torch_context_sections.py); with a pipe axis
+    # it is refused, as in the reference
+    t_cfg, _ = su.driver_sections.distill_cfgs()
+    par = ParallelConfig(dp=2, tp=2, cp=2)
+    assert wl.validate_section_parallel("teacher", t_cfg, par,
+                                        wl._mesh_sizes(par)) == "cp"
+    par = ParallelConfig(dp=2, tp=2, pp=2)
+    with pytest.raises(NotImplementedError,
+                       match=r"section 'teacher'.*stage-partitioned"):
+        wl.validate_section_parallel("teacher", t_cfg, par,
+                                     wl._mesh_sizes(par))

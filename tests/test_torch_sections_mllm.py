@@ -11,9 +11,9 @@ ViT ranks run ``2·|image_mbs|`` tasks (fwd and bwd), none on the all-text
 batch; the queue counts ``2·|image_mbs| + 2`` logical pushes (embeddings,
 their cotangents and the two grad-norm messages); the joint grad norm is
 above the clip threshold.  The driver also holds lookahead 2 to the
-serialized run bit for bit.  A ViT with ``cp=2`` validates (it runs in
-``tests/test_torch_context_sections.py``); an LM with ``cp=2`` raises
-naming A6.3.
+serialized run bit for bit.  A ViT with ``cp=2`` validates, and so does
+an LM with ``cp=2`` (both run in
+``tests/test_torch_context_sections.py``).
 
 Against two references on the same plans from the same parameters: the
 JAX ``MLLMRuntime`` at the same layout (the ViT at dp 4 on 4 virtual
@@ -254,19 +254,17 @@ def test_matches_jax_mllm_runtime(mesh_run):
 
 def test_vit_cp_raises_naming_a63():
     """A ViT at cp 2 now runs (tests/test_torch_context_sections.py): its
-    spec validates in the cp regime.  What still raises naming A6.3 is an
-    LM at cp 2, whose image splice takes global positions."""
+    spec validates in the cp regime, and so does an LM at cp 2, whose
+    sequence ranks take the image slots whole and splice those inside
+    their shards."""
     vit, lm = su.driver_sections.mllm_cfgs()
     spec = mw.mllm_spec(vit, lm, vit_parallel=ParallelConfig(dp=2, cp=2),
-                        lm_parallel=ParallelConfig(dp=4), **SHAPE)
-    vit_sec = spec.section("vit")
-    assert mw.wl.validate_section_parallel(
-        "vit", vit_sec.arch, vit_sec.parallel,
-        mw.wl._mesh_sizes(vit_sec.parallel)) == "cp"
-    with pytest.raises(NotImplementedError, match=r"section 'llm'.*A6\.3"):
-        mw.MLLMRuntime(vit, lm, vit_parallel=ParallelConfig(dp=2),
-                       lm_parallel=ParallelConfig(dp=2, cp=2), ranks=range(6),
-                       **SHAPE)
+                        lm_parallel=ParallelConfig(dp=2, cp=2), **SHAPE)
+    for name in ("vit", "llm"):
+        sec = spec.section(name)
+        assert mw.wl.validate_section_parallel(
+            name, sec.arch, sec.parallel,
+            mw.wl._mesh_sizes(sec.parallel)) == "cp"
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ on ranks 0-3 under Megatron TP, the student (reduced qwen1.5-0.5b) at dp
   teacher's origin its output layer, gathered over ``model``, to all four
   (8 * 2 + 4 fragments: the other model rank sends nothing).
 * A section with ``pp`` above 1 raises with the reference's reason, and
-  cp x tp raises naming ROADMAP.md, A6.4.
+  so does pp x cp; cp x tp validates.
 """
 import os
 import sys
@@ -173,10 +173,14 @@ def test_pushes_and_fragments(tp_run):
 
 @pytest.mark.parametrize("par,match", [
     (ParallelConfig(dp=2, pp=2), "cannot be stage-partitioned"),
-    (ParallelConfig(cp=2, tp=2), r"cp=2 x tp=2.*A6\.4"),
+    (ParallelConfig(cp=2, pp=2), "pp x cp"),
 ])
 def test_section_pp_and_cp_tp_refusals(par, match):
     t_cfg, _ = su.driver_sections.distill_cfgs()
+    # cp x tp runs (tests/test_torch_context_sections.py)
+    cptp = ParallelConfig(cp=2, tp=2)
+    assert twl.validate_section_parallel("teacher", t_cfg, cptp,
+                                         twl._mesh_sizes(cptp)) == "cp"
     with pytest.raises(NotImplementedError,
                        match=rf"section 'teacher'.*{match}"):
         twl.validate_section_parallel("teacher", t_cfg, par,

@@ -260,6 +260,37 @@ def test_build_activation_matches_jax(order, flags, mbs):
     assert a.idx.dtype == b.idx.dtype and a.valid.dtype == b.valid.dtype
 
 
+@pytest.mark.parametrize("name", ["vit", "llm", "absent"])
+def test_iteration_plan_section_matches_jax(name):
+    """``IterationPlan.section``: the named section's activation layout,
+    None for a section without a predicate, on both sides."""
+    order, flags, mbs = [5, 2, 7, 0, 1, 3, 6, 4], [0, 1, 1, 0, 1, 0, 1, 1], 2
+    f = np.asarray(flags, bool)
+    plans = [wl.IterationPlan(tuple(order), mbs, len(order) // mbs,
+                              {"vit": wl.build_activation(order, f, mbs),
+                               "llm": None} if name != "absent" else {})
+             for wl in (twl, jwl)]
+    a, b = (p.section(name) for p in plans)
+    assert (a is None) == (b is None)
+    if a is not None:
+        assert a.active_mbs == b.active_mbs
+        np.testing.assert_array_equal(a.idx, b.idx)
+        np.testing.assert_array_equal(a.valid, b.valid)
+
+
+def test_all_configs_matches_jax():
+    """``configs.all_configs``: every arch's full config, by name in
+    ``ARCH_NAMES`` order, field for field the reference's."""
+    import dataclasses
+
+    from repro.configs import all_configs as jall
+    from repro_torch.configs import all_configs as tall
+    a, b = tall(), jall()
+    assert list(a) == list(b)
+    for n in a:
+        assert dataclasses.asdict(a[n]) == dataclasses.asdict(b[n]), n
+
+
 # --------------------------------------------------------------------------- #
 # the deadlock pass
 # --------------------------------------------------------------------------- #

@@ -14,6 +14,9 @@ forward and the gradients of ``sum(o ** 2)``; rank 0 writes the gathered
 one global batch ``<case>/batch/<key>``:
 one sharded train step at its ``ParallelConfig``; rank 0 writes
 ``<case>/{loss,grad_norm}`` and the gathered ``<case>/params/<path>``.
+A case whose name ends in ``_planted`` splices each shard's image slots
+without the shard's shift (every shard reads the global positions as its
+own), a fault the bounds must catch.
 
 Prints ``DRIVER_OK context CASE``.  Imports no ``jax`` and nothing of
 ``repro``.
@@ -32,6 +35,7 @@ from repro_torch.core.types import ParallelConfig, ShapeConfig
 from repro_torch.dist import context as cpx
 from repro_torch.dist import sharding as shd
 from repro_torch.models.common import tree_like
+from repro_torch.models import transformer as tf
 from repro_torch.models.model import build_model, model_specs
 from repro_torch.optim import adamw, schedules
 from repro_torch.train import step as step_mod
@@ -47,9 +51,11 @@ ATTN_CASES = {
 }
 
 #: tests/drivers/driver_train_step_dist.py's cp2 step (granite, 4 layers),
-#: a cp-only mesh whose heads divide 4, so that ulysses runs chunked, and
-#: the MoE and hybrid families (router statistics over data x seq; jamba's
-#: Mamba mixers over the whole sequence)
+#: a cp-only mesh whose heads divide 4, so that ulysses runs chunked, the
+#: MoE and hybrid families (router statistics over data x seq; jamba's
+#: Mamba mixers over the whole sequence), cp x tp (granite's 2 KV heads
+#: split over 2 model ranks; granite-20b's one KV head repeated on both),
+#: and the vlm family's image splice on sequence shards (pixtral)
 STEP_CASES = {
     4: [("dp2cp2", "granite-3-8b", dict(num_layers=4),
          dict(dp=2, cp=2, mbs=2)),
@@ -57,7 +63,12 @@ STEP_CASES = {
          dict(cp=4, mbs=4, cp_mode="ulysses", cp_overlap_chunks=2)),
         ("mix_d2cp2", "mixtral-8x22b", dict(num_layers=2),
          dict(dp=2, cp=2, mbs=2)),
-        ("jamba_d2cp2", "jamba-v0.1-52b", {}, dict(dp=2, cp=2, mbs=2))],
+        ("jamba_d2cp2", "jamba-v0.1-52b", {}, dict(dp=2, cp=2, mbs=2)),
+        ("g_cp2t2", "granite-3-8b", dict(num_layers=4),
+         dict(cp=2, tp=2, mbs=4)),
+        ("g20_cp2t2", "granite-20b", {}, dict(cp=2, tp=2, mbs=4)),
+        ("pix_d2cp2", "pixtral-12b", {}, dict(dp=2, cp=2, mbs=2)),
+        ("pix_d2cp2_planted", "pixtral-12b", {}, dict(dp=2, cp=2, mbs=2))],
 }
 STEP_GB, STEP_S = 8, 16
 # tests/drivers/driver_train_step_dist.py:32-36
@@ -115,7 +126,13 @@ def case_step(rank, world, arrays, out):
                                         sh["opt"].master, mesh))
         batch = {k: torch.from_numpy(v)
                  for k, v in nest(arrays, f"{name}/batch/").items()}
-        p, opt, met = step(p, opt, batch, 0)
+        offset = tf._slot_offset
+        if name.endswith("_planted"):
+            tf._slot_offset = lambda shard_len, device: 0
+        try:
+            p, opt, met = step(p, opt, batch, 0)
+        finally:
+            tf._slot_offset = offset
         new = shd.gather_tree(p, tree_like(p, sh["params"]), mesh)
         if rank == 0:
             out[f"{name}/loss"] = np.array([float(met["loss"])])

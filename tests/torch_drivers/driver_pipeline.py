@@ -16,8 +16,10 @@ writes ``<case>/{loss,fwd_loss,info}`` and the gathered
 :data:`TP_STEP_CASES`, one sharded train step each at its
 ``ParallelConfig`` on ``section_mesh``; rank 0 writes ``<case>/{loss,
 grad_norm}`` and the gathered ``<case>/params/<path>``.  A case whose name
-ends in ``_planted`` runs with every gradient leaf the model axis does
-not split summed over ``model`` as well, a fault the bounds must catch.
+ends in ``_planted`` runs with the fault :data:`PLANTED` names, which the
+bounds must catch: every gradient leaf the model axis does not split
+summed over ``model`` as well, or each repeated KV head's gradient taken
+from one of its copies instead of their sum.
 
 Prints ``DRIVER_OK pipeline CASE``.  Imports no ``jax`` and nothing of
 ``repro``.
@@ -74,9 +76,12 @@ PP_STEP_CASES = [
      dict(dp=2, pp=2, tp=2, mbs=2)),
 ]
 
-#: the plain regime at tp 2, and the MoE and hybrid families at dp 2
+#: the plain regime at tp 2 and, past the KV heads, at tp 4 (granite,
+#: 2 KV heads) and tp 2 (granite-20b, one): each KV head repeated over
+#: its query-head group; the MoE and hybrid families at dp 2
 TP_STEP_CASES = [
     ("g_d2t2", "granite-3-8b", dict(num_layers=4), dict(dp=2, tp=2, mbs=2)),
+    ("g_d2t4", "granite-3-8b", dict(num_layers=4), dict(dp=2, tp=4, mbs=2)),
     ("g20_d2t2", "granite-20b", {}, dict(dp=2, tp=2, mbs=2)),
     ("mix_d2t2", "mixtral-8x22b", dict(num_layers=2),
      dict(dp=2, tp=2, mbs=2)),
@@ -84,6 +89,8 @@ TP_STEP_CASES = [
     ("jamba_d2", "jamba-v0.1-52b", {}, dict(dp=2, mbs=2)),
     ("g_d2t2_planted", "granite-3-8b", dict(num_layers=4),
      dict(dp=2, tp=2, mbs=2)),
+    ("g_d2t4_planted", "granite-3-8b", dict(num_layers=4),
+     dict(dp=2, tp=4, mbs=2)),
 ]
 STEP_GB, STEP_S = 8, 16
 # tests/drivers/driver_train_step_dist.py:32-36
@@ -146,6 +153,31 @@ def _unsplit_over_model_fault(reduce_grads):
     return planted
 
 
+def _one_copy(x, d, times):
+    """``shd.fold_repeats`` planted wrong: each repeated entry's gradient
+    from its first copy alone."""
+    return x.unflatten(d, (-1, times)).select(d + 1, 0)
+
+
+def _plant(name):
+    """Install case ``name``'s planted fault (:data:`PLANTED`) -> a
+    function that removes it."""
+    fault = PLANTED.get(name)
+    if fault == "model_sum":
+        original = step_mod.reduce_grads
+        step_mod.reduce_grads = _unsplit_over_model_fault(original)
+        return lambda: setattr(step_mod, "reduce_grads", original)
+    if fault == "kv_one_copy":
+        original = shd.fold_repeats
+        shd.fold_repeats = _one_copy
+        return lambda: setattr(shd, "fold_repeats", original)
+    return lambda: None
+
+
+#: the planted cases' faults
+PLANTED = {"g_d2t2_planted": "model_sum", "g_d2t4_planted": "kv_one_copy"}
+
+
 def _step_cases(rank, world, arrays, out, cases):
     for name, arch, over, knobs in cases:
         cfg = get_reduced(arch).replace(dtype="float32", **over)
@@ -163,13 +195,11 @@ def _step_cases(rank, world, arrays, out, cases):
         opt = adamw.init(shd.shard_tree(model.param_tree(),
                                         sh["opt"].master, mesh))
         batch = _batch(arrays, name)
-        original = step_mod.reduce_grads
-        if name.endswith("_planted"):
-            step_mod.reduce_grads = _unsplit_over_model_fault(original)
+        undo = _plant(name)
         try:
             p, opt, met = step(p, opt, batch, 0)
         finally:
-            step_mod.reduce_grads = original
+            undo()
         new = shd.gather_tree(p, tree_like(p, sh["params"]), mesh)
         if rank == 0:
             out[f"{name}/loss"] = np.array([float(met["loss"])])

@@ -343,60 +343,72 @@ def case_mllm_cp(rank, world, arrays, out):
     """The ViT at (dp 2, cp 2) on ranks 0-3 (each holding half of every
     image's patches), the LM at dp 4 on 4-7: one iteration on the given
     plan, with its gradients (tests/drivers/driver_mllm_runtime.py's
-    ViT-CP block)."""
+    ViT-CP block).  Then the same with the LM at (dp 2, cp 2) as well,
+    under ``lmcp/``: each LM sequence rank takes the image embeddings
+    whole and splices the slots inside its shard."""
     vit, lm = mllm_cfgs()
     data = batches(arrays)
-    rt = mw.MLLMRuntime(vit, lm, vit_parallel=ParallelConfig(dp=2, cp=2),
-                        lm_parallel=ParallelConfig(dp=4), ranks=range(world),
-                        opt_cfg=MLLM_OPT, **MLLM_SHAPE)
-    params, opts = rt.init(3)
-    for i, b in enumerate(data):
-        plan = rt.plan_iteration(b["has_image"].numpy())
-        params, opts, m = rt.train_iteration(params, opts, b, i, plan=plan,
-                                             return_grads=True)
-        out[f"it{i}/order"] = np.array(plan.order)
-        out[f"it{i}/image_mbs"] = np.array(plan.image_mbs)
-        out[f"it{i}/grad_norm"] = np.array([float(m["grad_norm"])])
-        if m["n_vit_tasks"] is not None:
-            out[f"it{i}/n_vit_tasks"] = np.array([m["n_vit_tasks"]])
-            out[f"it{i}/vit_order"] = np.array(
-                m["execution"].dispatch_order["vit"])
-        if "loss" in m:
-            out[f"it{i}/loss"] = np.array([float(m["loss"])])
-        for n, g in m["grads"].items():
-            out.update(flat(g, f"it{i}/grads/{n}/"))
-    final, _ = rt.state()
-    for n, tree in final.items():
-        out.update(flat(tree, f"final/{n}/"))
-    rt.shutdown()
+    for pre, lm_par in (("", ParallelConfig(dp=4)),
+                        ("lmcp/", ParallelConfig(dp=2, cp=2))):
+        rt = mw.MLLMRuntime(vit, lm, vit_parallel=ParallelConfig(dp=2, cp=2),
+                            lm_parallel=lm_par, ranks=range(world),
+                            opt_cfg=MLLM_OPT, **MLLM_SHAPE)
+        params, opts = rt.init(3)
+        for i, b in enumerate(data):
+            plan = rt.plan_iteration(b["has_image"].numpy())
+            params, opts, m = rt.train_iteration(
+                params, opts, b, i, plan=plan, return_grads=True)
+            it = f"{pre}it{i}"
+            out[f"{it}/order"] = np.array(plan.order)
+            out[f"{it}/image_mbs"] = np.array(plan.image_mbs)
+            out[f"{it}/grad_norm"] = np.array([float(m["grad_norm"])])
+            if m["n_vit_tasks"] is not None:
+                out[f"{it}/n_vit_tasks"] = np.array([m["n_vit_tasks"]])
+                out[f"{it}/vit_order"] = np.array(
+                    m["execution"].dispatch_order["vit"])
+            if "loss" in m:
+                out[f"{it}/loss"] = np.array([float(m["loss"])])
+            for n, g in m["grads"].items():
+                out.update(flat(g, f"{it}/grads/{n}/"))
+        final, _ = rt.state()
+        for n, tree in final.items():
+            out.update(flat(tree, f"{pre}final/{n}/"))
+        rt.shutdown()
 
 
 def case_distill_cp(rank, world, arrays, out):
     """The teacher at dp 2 on ranks 0-1, the student at (dp 2, cp 2) on
     2-5, from the given parameters (the same tree for both, as
     tests/drivers/driver_train_step_dist.py's colocated CP check): one
-    iteration with that driver's optimizer."""
+    iteration with that driver's optimizer.  Then the same with the
+    teacher at tp 2 and the student at (cp 2, tp 2), under ``cptp/`` (the
+    student's data degree must be a multiple of the teacher's): each of
+    the student's model ranks runs ``cp_attention`` over its sequence
+    group on its own head slice."""
     cfg = get_reduced("granite-3-8b").replace(dtype="float32", num_layers=4)
-    rt = DistillRuntime(cfg, cfg, teacher_parallel=ParallelConfig(dp=2),
-                        student_parallel=ParallelConfig(dp=2, cp=2),
-                        ranks=range(world), lr=1e-3,
-                        opt_cfg=adamw.AdamWConfig(eps=1e-3))
-    full = _as_specs(params_from_numpy(nest(arrays, "params/"),
-                                       device="cpu"),
-                     rt.spec.section("student").params)
-    placed, opts = rt.runtime.place({"teacher": full, "student": full})
-    pt, ps = placed.get("teacher"), placed.get("student")
-    opt = opts.get("student")
-    w_t = rt.teacher_unembed(pt)
-    for i, b in enumerate(batches(arrays)):
-        ps, opt, m = rt.train_iteration(pt, ps, opt, b, i, w_t=w_t)
-        if "loss" in m:
-            out[f"it{i}/metrics"] = np.array(
-                scalars(m, ("loss", "ce", "kl", "grad_norm")))
-    final, _ = rt.runtime.state()
-    if "student" in final:
-        out.update(flat(final["student"], "final/student/"))
-    rt.shutdown()
+    for pre, teacher, student in (
+            ("", ParallelConfig(dp=2), ParallelConfig(dp=2, cp=2)),
+            ("cptp/", ParallelConfig(tp=2), ParallelConfig(cp=2, tp=2))):
+        rt = DistillRuntime(cfg, cfg, teacher_parallel=teacher,
+                            student_parallel=student,
+                            ranks=range(world), lr=1e-3,
+                            opt_cfg=adamw.AdamWConfig(eps=1e-3))
+        full = _as_specs(params_from_numpy(nest(arrays, "params/"),
+                                           device="cpu"),
+                         rt.spec.section("student").params)
+        placed, opts = rt.runtime.place({"teacher": full, "student": full})
+        pt, ps = placed.get("teacher"), placed.get("student")
+        opt = opts.get("student")
+        w_t = rt.teacher_unembed(pt)
+        for i, b in enumerate(batches(arrays)):
+            ps, opt, m = rt.train_iteration(pt, ps, opt, b, i, w_t=w_t)
+            if "loss" in m:
+                out[f"{pre}it{i}/metrics"] = np.array(
+                    scalars(m, ("loss", "ce", "kl", "grad_norm")))
+        final, _ = rt.runtime.state()
+        if "student" in final:
+            out.update(flat(final["student"], f"{pre}final/student/"))
+        rt.shutdown()
 
 
 def case_compressed(rank, world, arrays, out):
