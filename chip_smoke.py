@@ -292,7 +292,28 @@ CUDA kernels from the sources in this checkout.  Phases:
    ``phase_dryrun_compound`` print the production cells, now with each KV
    head repeated over its query-head group, beside their records with
    attention whole.
-16. A ``{"kernels": [...]}`` line with each kernel's launches on the main
+16. Vocab-parallel cross-entropy (``phase_vocab_parallel``): qwen1.5-0.5b
+   at full width and depth in bf16, 4 x 2048, its final hidden states from
+   a forward through the flash kernel (24 launches), then the
+   cross-entropy as the 8 model ranks of tp 8 compute it with the tied
+   embedding split into 8 slices of 18992 rows, one slice after another
+   on the card: each slice's row maxima, then its exponential sums and
+   gold logits at the maximum over the slices, summed over the slices as
+   the all-reduces do (``dist.pipeline.vocab_max``, ``vocab_partials``,
+   ``vocab_nll``), and each slice's gradient (``vocab_grad``) through its
+   own logits into ``h`` (summed over the slices, Megatron's ``f``) and
+   its ``embed`` rows.  The loss, ``h``'s gradient and each slice's
+   ``embed`` gradient against the whole-vocabulary ``cross_entropy`` and
+   autograd, within VP_LOSS_TOL and VP_GRAD_TOL; the first slice left out
+   of the exponential sum must miss them.  Then the peak bytes and time
+   of one rank's share (``vocab_parallel_nll`` on a one-rank NCCL group,
+   forward and backward) against the whole cross-entropy's.
+   ``phase_dp``, ``phase_dryrun`` and ``phase_dryrun_compound`` feed the
+   mesh steps this rank's block of each batch (``step.block``; at world
+   size 1 the whole batch), and the production cells print beside their
+   records with the whole batch on every rank and the whole vocabulary on
+   every model rank (PRODUCTION_BEFORE).
+17. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash and SSD kernels' at each of their
    main-path shapes under ``at``; the top-level times are granite's
    serving prefill's and mamba2-130m's), then the ``{"ok": true, ...}``
@@ -1483,7 +1504,7 @@ def _compressed_steps(method: str, mesh, trace: bool):
     for i in range(DP_STEPS):
         batch = next(batches)
         t0 = time.perf_counter()
-        params, opt, met, ef = step(params, opt, batch, i, ef)
+        params, opt, met, ef = step(params, opt, step.block(batch), i, ef)
         losses.append(float(met["loss"]))
         times.append(time.perf_counter() - t0)
     wire = gcomp.wire_counts()
@@ -1494,7 +1515,8 @@ def _compressed_steps(method: str, mesh, trace: bool):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            params, opt, met, ef = step(params, opt, batch, DP_STEPS, ef)
+            params, opt, met, ef = step(params, opt, step.block(batch),
+                                        DP_STEPS, ef)
             float(met["loss"])
             wall = (time.perf_counter() - t0) * 1e3
     return (losses, 1e3 * statistics.mean(times[1:]), wire, payload, res,
@@ -4671,10 +4693,171 @@ def phase_tp_repeat(rng) -> int:
     return launches
 
 
-#: the production cells' records with attention whole on every model rank
-#: (granite-3-8b's 8 KV heads at tp 16), before KV-head repetition:
-#: (GB a rank, useful FLOPs share); PERF.md §6, PRs 25 and 26
-PRODUCTION_BEFORE = {"production": (94.07, 0.131), "distill": (100.16, 0.141)}
+#: qwen1.5-0.5b's cross-entropy as the 8 model ranks of tp 8 compute it:
+#: 151936 / 8 = 18992 vocabulary rows a rank
+VP_TP = 8
+#: bf16 limits: the loss relative to the whole cross-entropy's (each logit
+#: is one bf16 matmul output on either side; a slice left out of the
+#: log-sum-exp moves the loss by about log(8/7) / log(151936) = 1.1e-2),
+#: and h's and each embed slice's gradient, of the whole's largest
+#: magnitude (TP_REPEAT_GRAD_TOL's: the 8 parts of h's gradient are each
+#: rounded to bf16 before the sum)
+VP_LOSS_TOL = 1e-3
+VP_GRAD_TOL = 2e-2
+
+
+def phase_vocab_parallel(rng) -> int:
+    """Vocab-parallel cross-entropy at world size 1 (see the module
+    docstring, item 16) -> flash launches of the forward."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build_model
+    cfg = get_config(TRAIN_ARCH)
+    V, vs = cfg.padded_vocab, cfg.padded_vocab // VP_TP
+    check(cfg.tie_embeddings and V % VP_TP == 0,
+          f"{TRAIN_ARCH}: tied {cfg.tie_embeddings}, vocabulary {V}")
+    model = build_model(cfg, device="cuda", seed=0)
+    p = model.param_tree()
+    t = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    batch = {"tokens": torch.from_numpy(t[:, :-1]).cuda(),
+             "labels": torch.from_numpy(t[:, 1:]).cuda()}
+    mask = torch.from_numpy((rng.random((TRAIN_B, TRAIN_S)) < 0.9)
+                            .astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        h, _ = tf.lm_forward(p, cfg, batch, remat=False, logits_out=False)
+    torch.cuda.synchronize()
+    launches = read_counts()[0]
+    check(launches == cfg.num_layers,
+          f"flash launched {launches} times in a {cfg.num_layers}-layer "
+          "forward")
+    labels = batch["labels"]
+    embed = p["embed"].detach()
+
+    def whole():
+        """The whole-vocabulary CE and its h and embed gradients."""
+        hh = h.detach().requires_grad_()
+        w = embed.clone().requires_grad_()
+        loss = cm.cross_entropy(tf.unembed({"embed": w}, cfg, hh), labels,
+                                mask)
+        gh, gw = torch.autograd.grad(loss, [hh, w])
+        return loss.detach(), gh, gw
+
+    def shares(planted: bool = False):
+        """The CE as the VP_TP ranks compute it, their all-reduces done as
+        sums and maxima over the slices here; ``planted``: slice 0 left
+        out of the exponential sums."""
+        def logits(r):
+            hh = h.detach().requires_grad_()
+            w = embed[r * vs:(r + 1) * vs].clone().requires_grad_()
+            return hh, w, tf.unembed({"embed": w}, cfg, hh,
+                                     offset=r * vs).float()
+        with torch.no_grad():
+            mx = torch.stack([pl.vocab_max(logits(r)[2])
+                              for r in range(VP_TP)]).amax(0)
+            se = gold = 0
+            for r in range(VP_TP):
+                _, sr, gr, _, _ = pl.vocab_partials(logits(r)[2], labels,
+                                                    r * vs, mx)
+                se = se + (0 if planted and r == 0 else sr)
+                gold = gold + gr
+            nll = pl.vocab_nll(mx, se, gold)
+            loss = cm.masked_mean(nll, mask)
+            g_nll = mask / mask.sum()
+        gh, gws = 0, []
+        for r in range(VP_TP):
+            hh, w, lg = logits(r)
+            ex, _, _, col, mine = pl.vocab_partials(lg, labels, r * vs, mx)
+            g = pl.vocab_grad(ex, se, col, mine, g_nll)
+            ghr, gw = torch.autograd.grad(lg, [hh, w], g)
+            gh = gh + ghr.float()
+            gws.append(gw)
+            del ex, g, lg
+        return loss, gh, gws
+
+    loss_w, gh_w, gw_w = whole()
+    res = {}
+    for name, planted in (("shares", False), ("planted", True)):
+        loss, gh, gws = shares(planted)
+        d_loss = abs(loss.item() - loss_w.item()) / abs(loss_w.item())
+        d_h = ((gh - gh_w.float()).abs().max()
+               / gh_w.float().abs().max()).item()
+        scale = gw_w.float().abs().max()
+        d_w = max(((gw.float() - gw_w[r * vs:(r + 1) * vs].float()).abs()
+                   .max() / scale).item() for r, gw in enumerate(gws))
+        res[name] = (d_loss, d_h, d_w)
+        print(f"vocab-parallel: {TRAIN_ARCH} bf16 {TRAIN_B} x {TRAIN_S}, "
+              f"tp {VP_TP} slices of {vs} rows ({name}): loss "
+              f"{loss.item():.6f} against the whole {loss_w.item():.6f} "
+              f"(relative {d_loss:.3e}, limit {VP_LOSS_TOL:.0e}); h's "
+              f"gradient {d_h:.3e} and the worst embed slice's {d_w:.3e} "
+              f"of the whole's largest (limit {VP_GRAD_TOL:.0e})")
+        del gh, gws
+    d_loss, d_h, d_w = res["shares"]
+    check(d_loss <= VP_LOSS_TOL and d_h <= VP_GRAD_TOL
+          and d_w <= VP_GRAD_TOL, f"the {VP_TP} shares' CE is off by "
+          f"{res['shares']}")
+    check(not (res["planted"][0] <= VP_LOSS_TOL
+               and res["planted"][1] <= VP_GRAD_TOL
+               and res["planted"][2] <= VP_GRAD_TOL),
+          "the limits pass a slice left out of the log-sum-exp")
+    del gh_w, gw_w
+    free()
+
+    # one rank's share through vocab_parallel_nll on a one-rank group
+    # against the whole cross-entropy: peak bytes above the inputs, ms
+    def whole_ce():
+        hh = h.detach().requires_grad_()
+        w = embed.requires_grad_()
+        loss = cm.cross_entropy(tf.unembed({"embed": w}, cfg, hh), labels,
+                                mask)
+        torch.autograd.grad(loss, [hh, w])
+
+    def share_ce():
+        hh = h.detach().requires_grad_()
+        w = embed[:vs].detach().requires_grad_()
+        lg = tf.unembed({"embed": w}, cfg, hh).float()
+        loss = cm.masked_mean(pl.vocab_parallel_nll(lg, labels, 0, group),
+                              mask)
+        torch.autograd.grad(loss, [hh, w])
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        peaks, ms = {}, {}
+        for name, fn in (("whole", whole_ce), ("share", share_ce)):
+            fn()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+            ms[name] = time_ms(fn, iters=5)
+    finally:
+        dist.destroy_process_group()
+    embed.requires_grad_(False)
+    print(f"vocab-parallel: one rank's share of the CE (forward and "
+          f"backward, {vs} of {V} rows) peaks {peaks['share'] / 1e9:.3f} GB "
+          f"above its inputs and takes {ms['share']:.3f} ms; the whole "
+          f"CE {peaks['whole'] / 1e9:.3f} GB and {ms['whole']:.3f} ms "
+          f"({peaks['whole'] / peaks['share']:.2f}x the bytes) on {card()}")
+    check(peaks["share"] < peaks["whole"] / 2,
+          f"one share's CE peaks at {peaks['share']} bytes against the "
+          f"whole's {peaks['whole']}")
+    return launches
+
+
+#: the production cells' records with each KV head repeated over its
+#: query-head group, before the block-fed steps and the vocab-parallel
+#: CE: (GB a rank, useful FLOPs share); PERF.md §6
+PRODUCTION_BEFORE = {"production": (90.97, 0.569), "distill": (94.45, 0.617)}
 DRYRUN_MEM_TOL = 0.15           # predicted peak bytes against the card's
 DRYRUN_PROD_MBS = 16            # rows a micro-batch in the production cell
 SERVE_GEN = 32
@@ -4973,7 +5156,7 @@ def phase_dryrun(procs: dict, prefill_peak: int) -> None:
         opt = adamw.init(params)
         reset_counts()
         (_, _, met), train_peak, train_s = _step_bytes(
-            step, (params, opt, batch, 0))
+            step, (params, opt, step.block(batch), 0))
         check(math.isfinite(float(met["loss"])), "non-finite loss")
         print(f"dryrun: the measured train step (loss "
               f"{float(met['loss']):.4f}, {train_s:.2f} s, first call) held "
@@ -5016,14 +5199,15 @@ def phase_dryrun(procs: dict, prefill_peak: int) -> None:
 
 
 def _beside_before(name: str, rec: dict) -> None:
-    """A production record's bytes a rank and useful share beside the
-    record with attention whole (:data:`PRODUCTION_BEFORE`)."""
+    """A production record's bytes a rank and useful share beside its
+    record before the block-fed steps and the vocab-parallel CE
+    (:data:`PRODUCTION_BEFORE`)."""
     gb, useful = PRODUCTION_BEFORE[name]
-    print(f"dryrun: {name} cell with each KV head repeated over its "
-          f"query-head group: {rec['memory']['peak_bytes'] / 1e9:.2f} GB a "
-          f"rank (attention whole: {gb:.2f}), FLOPs per device "
+    print(f"dryrun: {name} cell with block-fed steps and the "
+          f"vocab-parallel CE: {rec['memory']['peak_bytes'] / 1e9:.2f} GB a "
+          f"rank (before: {gb:.2f}), FLOPs per device "
           f"{rec['hlo']['flops_per_device']:.4g}, useful "
-          f"{100 * rec['useful_flops_ratio']:.1f} % (attention whole: "
+          f"{100 * rec['useful_flops_ratio']:.1f} % (before: "
           f"{100 * useful:.1f} %)")
 
 
@@ -5079,6 +5263,8 @@ def _mesh_distill() -> tuple:
         reset_counts()
         for i, batch in enumerate(batches):
             t = time.perf_counter()
+            if mesh is not None:
+                batch = step.block(batch)
             if mesh is not None and i == 0:
                 (ps, opt, met), peak, _ = _step_bytes(
                     step, (ps, opt, pt, batch, i))
@@ -5159,6 +5345,8 @@ def _mesh_mllm() -> int:
         reset_counts()
         for i, batch in enumerate(batches):
             t = time.perf_counter()
+            if mesh is not None:
+                batch = step.block(batch)
             params, opt, met = step(params, opt, batch, i)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
@@ -5342,6 +5530,8 @@ def main() -> int:
     free()
     tp_repeat_launches = timed(phase_tp_repeat, rng)
     free()
+    vp_launches = timed(phase_vocab_parallel, rng)
+    free()
     serve_mesh_launches, prefill_peak = timed(phase_serve_mesh)
     free()
     timed(phase_dryrun, dryruns, prefill_peak)
@@ -5393,6 +5583,7 @@ def main() -> int:
              f"cp {TRAIN_ARCH} world 1",
              f"pp {TRAIN_ARCH} world 1",
              f"tp-repeat {ARCH} attention, tp {TP_REPEAT} shares",
+             f"vocab-parallel {TRAIN_ARCH} forward, tp {VP_TP} CE shares",
              f"serve-mesh {ARCH} world 1",
              f"distill-mesh {TRAIN_ARCH} world 1",
              "mllm-mesh pixtral-12b-width world 1",
@@ -5404,16 +5595,17 @@ def main() -> int:
         "flash": (serve_launches, train_launches, resume_launches,
                   dp_launches, distill_launches, 0, 0, rt_launches,
                   sec_launches, cp_launches, pp_launches,
-                  tp_repeat_launches, serve_mesh_launches, mesh_distill_launches,
+                  tp_repeat_launches, vp_launches, serve_mesh_launches,
+                  mesh_distill_launches,
                   mesh_mllm_launches, mt_launches,
                   mllm_launches, moe_serve_launches, moe_train_launches,
                   whisper_train_launches, whisper_serve_launches,
                   jamba_launches),
         "kl": (0, 0, 0, 0, kl_launches, 0, 0, rt_kl_launches,
-               sec_kl_launches, 0, 0, 0, 0, mesh_kl_launches, 0,
+               sec_kl_launches, 0, 0, 0, 0, 0, mesh_kl_launches, 0,
                mt_kl_launches, 0, 0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
-                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
                 jamba_ssd_launches)}
     flash = flash_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):

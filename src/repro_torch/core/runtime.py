@@ -17,7 +17,9 @@ Carved by ``ranks`` instead, the sections run on section meshes over
 ``torch.distributed``, one process a rank (the reference is one controller
 over every mesh; the port is MPMD): every rank builds every section's
 mesh, keeps a worker only for the sections it belongs to, and runs only
-their tasks.
+their tasks.  ``gpu_counts`` (the planner's ``{section: n_gpus}``, as in
+the reference) sizes each section's mesh, its ``tp`` widened or narrowed
+to the count (:func:`section_parallel`).
 """
 from __future__ import annotations
 
@@ -42,8 +44,31 @@ def visible_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def section_parallel(name: str, par, n: int):
+    """The effective ParallelConfig of section ``name`` on ``n`` devices,
+    the reference's rule: ``par`` itself where ``n`` is its device count,
+    else ``par`` with ``tp`` widened or narrowed to ``n / (dp pp cp)``;
+    raises where that is not integral."""
+    base = par.dp * par.pp * par.cp
+    if n % base:
+        raise ValueError(
+            f"section {name!r}: {n} devices do not factor into "
+            f"dp×pp×cp={par.dp}×{par.pp}×{par.cp} (tp must be integral)")
+    return par if n == par.devices else par.replace(tp=n // base)
+
+
+def _effective(graph: SectionGraph,
+               gpu_counts: Optional[Dict[str, int]]) -> Dict[str, Any]:
+    """Each section's :func:`section_parallel` on its planned count."""
+    counts = gpu_counts or {}
+    return {name: section_parallel(name, sec.parallel,
+                                   counts.get(name, sec.parallel.devices))
+            for name, sec in graph.sections.items()}
+
+
 def carve_sections(graph: SectionGraph, devices: Optional[Sequence] = None,
-                   *, ranks: Optional[Sequence[int]] = None):
+                   *, ranks: Optional[Sequence[int]] = None,
+                   gpu_counts: Optional[Dict[str, int]] = None):
     """Without ``ranks``: give each section, in graph order, the next device
     of the list, as the JAX package carves its meshes, and return
     ``{section: device}``.  Every section runs on one device: a section
@@ -55,13 +80,22 @@ def carve_sections(graph: SectionGraph, devices: Optional[Sequence] = None,
     With ``ranks`` (process ranks of the default group): give each section,
     in graph order, the next ``parallel.devices`` ranks and return
     ``(meshes, parallels)`` as the reference does, each mesh built by
-    ``dist.sharding.section_mesh``.  Building a mesh is collective over the
+    ``dist.sharding.section_mesh``.
+
+    ``gpu_counts`` (``{section: devices}``, the planner's
+    ``{name: sp.n_gpus for name, sp in plan(...).sections.items()}``)
+    overrides a section's ``parallel.devices``, as in the reference: the
+    extra or missing devices widen or narrow its ``tp``
+    (:func:`section_parallel`), and the effective ParallelConfigs are the
+    ones returned (and, without ``ranks``, checked to need one device
+    each).  Building a mesh is collective over the
     world, so every rank carves every section.  A rank may sit in two
     sections only on a one-rank world (the card's case: each section then
     runs from its own thread); otherwise overlapping ranges raise
     ``ValueError``, and so does a list too short for every section."""
+    parallels = _effective(graph, gpu_counts)
     if ranks is None:
-        return _carve_devices(graph, devices)
+        return _carve_devices(graph, devices, parallels)
     from repro_torch.dist.sharding import section_mesh
 
     ranks = [int(r) for r in ranks]
@@ -69,11 +103,9 @@ def carve_sections(graph: SectionGraph, devices: Optional[Sequence] = None,
              if dist.is_available() and dist.is_initialized() else None)
     owner: Dict[int, str] = {}
     slices: Dict[str, List[int]] = {}
-    parallels: Dict[str, Any] = {}
     off = 0
-    for name, sec in graph.sections.items():
-        par = sec.parallel
-        n = par.devices
+    for name in graph.sections:
+        n = parallels[name].devices
         if off + n > len(ranks):
             raise ValueError(
                 f"section {name!r}: needs ranks [{off}, {off + n}) of the "
@@ -89,22 +121,21 @@ def carve_sections(graph: SectionGraph, devices: Optional[Sequence] = None,
                     "section ranks may overlap only on a one-rank world")
             owner.setdefault(r, name)
         slices[name] = mine
-        parallels[name] = par
         off += n
     meshes = {name: section_mesh(slices[name], parallels[name], name)
               for name in graph.sections}
     return meshes, parallels
 
 
-def _carve_devices(graph: SectionGraph, devices: Optional[Sequence]
-                   ) -> Dict[str, torch.device]:
+def _carve_devices(graph: SectionGraph, devices: Optional[Sequence],
+                   parallels: Dict[str, Any]) -> Dict[str, torch.device]:
     devices = [torch.device(d) for d in
                (devices if devices is not None else visible_devices())]
     out: Dict[str, torch.device] = {}
-    for off, (name, sec) in enumerate(graph.sections.items()):
-        if sec.parallel.devices != 1:
+    for off, name in enumerate(graph.sections):
+        if parallels[name].devices != 1:
             raise NotImplementedError(
-                f"section {name!r}: {sec.parallel.devices} devices need "
+                f"section {name!r}: {parallels[name].devices} devices need "
                 "section meshes: carve it by ranks= (ROADMAP.md, A6.2)")
         if off >= len(devices):
             raise ValueError(
@@ -241,22 +272,26 @@ class MaestroRuntime:
     default process group (one process a rank): this rank keeps a worker
     for each section whose mesh holds it (``local_sections``), on its own
     device (:func:`rank_device`), and the message queue carries tensors to
-    sections on other ranks point to point."""
+    sections on other ranks point to point.  ``gpu_counts``: the devices of
+    each section, from the planner (:func:`carve_sections`); ``parallel``
+    gives the effective ParallelConfig each section was carved with."""
 
     def __init__(self, graph: SectionGraph,
                  devices: Optional[Sequence] = None, *,
-                 ranks: Optional[Sequence[int]] = None):
+                 ranks: Optional[Sequence[int]] = None,
+                 gpu_counts: Optional[Dict[str, int]] = None):
         graph.validate()
         self.graph = graph
         if ranks is None:
             self.meshes = None
-            self.parallels = {n: s.parallel
-                              for n, s in graph.sections.items()}
-            self.section_devices = carve_sections(graph, devices)
+            self.parallels = _effective(graph, gpu_counts)
+            self.section_devices = carve_sections(graph, devices,
+                                                  gpu_counts=gpu_counts)
             self.local_sections = list(graph.sections)
             self.queue = MessageQueue()
         else:
-            self.meshes, self.parallels = carve_sections(graph, ranks=ranks)
+            self.meshes, self.parallels = carve_sections(
+                graph, ranks=ranks, gpu_counts=gpu_counts)
             self.local_sections = [n for n, m in self.meshes.items()
                                    if m.get_coordinate() is not None]
             dev = rank_device()
@@ -287,7 +322,8 @@ class MaestroRuntime:
         return self.meshes[section]
 
     def parallel(self, section: str):
-        """The section's effective ParallelConfig."""
+        """The section's effective ParallelConfig (its ``tp`` widened or
+        narrowed by ``gpu_counts``)."""
         return self.parallels[section]
 
     def build_train_step(self, section: str, model, shape, **kw):

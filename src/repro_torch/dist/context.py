@@ -36,7 +36,11 @@ are already right).  The reference's ``impl`` (kernel tier),
 ``block_q``/``block_kv``, ``batch_axes`` (a layout pin inside its
 ``shard_map``) and ``axis`` have no counterpart: the port dispatches by
 device, its kernel picks its own tiles, a rank's rows are its own, and
-every section mesh names its CP axis ``seq``.
+every section mesh names its CP axis ``seq``.  The same attention runs
+over another group of axes (``axes=``): the train steps give it the data
+axes when a global batch smaller than them is laid out with its sequence
+over them, as the reference's ``batch_spec`` does (``train.step
+.DataLayout``).
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.sharding import AXIS_SEQ, coordinate, mesh_shape
+from repro_torch.dist.sharding import AXIS_SEQ, axes_group
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import merge_flash_partials
 
@@ -191,19 +195,22 @@ def _chunk_positions(cp: int, shard_len: int, j: int, cl: int,
 def cp_attention(q, k, v, mesh, *, mode: str = "auto", causal: bool = True,
                  window: int = 0,
                  scale: Optional[float] = None, overlap_chunks: int = 1,
-                 section: Optional[str] = None):
+                 section: Optional[str] = None,
+                 seq_group: Optional[tuple] = None):
     """Context-parallel GQA attention on this rank's sequence shard.
 
     q [B, S/cp, H, D]; k, v [B, S/cp, KV, D] -- rank ``c`` of the mesh's
-    ``seq`` axis (``dist.sharding.section_mesh``'s) holds global positions
-    ``[c S/cp, (c+1) S/cp)``.  Returns this rank's [B, S/cp, H, D].  Every
-    rank of the axis group calls it with the same shapes and arguments.
+    sequence group holds global positions ``[c S/cp, (c+1) S/cp)``: the
+    group of its ``seq`` axis (``dist.sharding.section_mesh``'s), or
+    ``seq_group``, ``dist.sharding.axes_group(mesh, axes)`` of other axes
+    (the data axes of a batch laid out with its sequence over them).
+    Returns this rank's [B, S/cp, H, D].  Every rank of the group calls it
+    with the same shapes and arguments.
 
     overlap_chunks -- ulysses only: the K/V all-to-alls go in this many
     chunks and the partial flash outputs are merged (exact); must divide
     S/cp.  The allgather and ulysses_mqa modes ignore it."""
-    group = mesh.get_group(AXIS_SEQ)
-    cp = mesh_shape(mesh)[AXIS_SEQ]
+    group, cp, idx = seq_group or axes_group(mesh, (AXIS_SEQ,))
     B, shard_len, H, D = q.shape
     KV = k.shape[2]
     mode = resolve_cp_mode(mode, H=H, KV=KV, cp=cp, section=section)
@@ -220,7 +227,6 @@ def cp_attention(q, k, v, mesh, *, mode: str = "auto", causal: bool = True,
             f"the local sequence shard S/cp={shard_len}")
     kw = dict(causal=causal, window=window, scale=scale)
     if mode == "allgather":
-        idx = coordinate(mesh)[AXIS_SEQ]
         kg = _GatherSeq.apply(k, group)
         vg = _GatherSeq.apply(v, group)
         return kops.flash_attention(q, kg, vg, q_offset=idx * shard_len,
@@ -253,18 +259,27 @@ def cp_attention(q, k, v, mesh, *, mode: str = "auto", causal: bool = True,
 
 
 def cp_attention_impl(mesh, *, mode: str = "auto", overlap_chunks: int = 1,
-                      section: Optional[str] = None):
+                      section: Optional[str] = None, axes=(AXIS_SEQ,)):
     """The model-pluggable CP attention: a callable with the
     ``models.attention.attention_impl`` contract -- ``impl(q, k, v, *,
     causal, window, segment_q, segment_kv, scale)`` on this rank's
-    sequence shard -- that runs :func:`cp_attention` over this mesh's ``seq``
-    axis, and whose ``positions(S_local, device)`` gives the shard's
-    global positions for RoPE.  ``section`` names the installing section
+    sequence shard -- that runs :func:`cp_attention` over the group of
+    this mesh's ``axes`` (its ``seq`` axis by default; the data axes for a
+    batch whose sequence is laid out over them), and whose
+    ``positions(S_local, device)`` gives the shard's global positions for
+    RoPE.  ``section`` names the installing section
     in unsupported-feature errors.  Its ``whole_sequence(x)`` and
     ``own_columns(y)`` run a layer that needs the whole sequence (a Mamba
     mixer's scan, a MoE layer's per-sample capacity) on the gathered
     shards, every sequence rank alike, and keep the rank's columns."""
     where = f" (section {section!r})" if section else ""
+    cached: list = []
+
+    def seq_group() -> tuple:
+        """(group, size, index) of the axes, made at the first call."""
+        if not cached:
+            cached.append(axes_group(mesh, axes))
+        return cached[0]
 
     def _impl(q, k, v, *, causal=True, window=0, segment_q=None,
               segment_kv=None, scale=None):
@@ -278,23 +293,24 @@ def cp_attention_impl(mesh, *, mode: str = "auto", overlap_chunks: int = 1,
                 f"not supported under context parallelism")
         return cp_attention(q, k, v, mesh, mode=mode, causal=causal,
                             window=window, scale=scale,
-                            overlap_chunks=overlap_chunks, section=section)
+                            overlap_chunks=overlap_chunks, section=section,
+                            seq_group=seq_group())
 
     def positions(shard_len: int, device) -> torch.Tensor:
-        first = coordinate(mesh)[AXIS_SEQ] * shard_len
+        first = seq_group()[2] * shard_len
         return torch.arange(first, first + shard_len, device=device)
 
     def whole_sequence(x: torch.Tensor) -> torch.Tensor:
         """The shards [B, S/cp, ...] of every sequence rank, gathered into
         [B, S, ...]; the gradient of each rank's copy sums back onto the
         shards' owners."""
-        return _GatherSeq.apply(x, mesh.get_group(AXIS_SEQ))
+        return _GatherSeq.apply(x, seq_group()[0])
 
     def own_columns(y: torch.Tensor) -> torch.Tensor:
         """This rank's columns of a whole-sequence [B, S, ...]."""
-        n = y.shape[1] // mesh_shape(mesh)[AXIS_SEQ]
-        first = coordinate(mesh)[AXIS_SEQ] * n
-        return y[:, first:first + n]
+        _, n_ranks, idx = seq_group()
+        n = y.shape[1] // n_ranks
+        return y[:, idx * n:(idx + 1) * n]
 
     _impl.positions = positions
     _impl.whole_sequence = whole_sequence

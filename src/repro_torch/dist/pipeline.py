@@ -163,6 +163,95 @@ def mean_over(x: torch.Tensor, groups: Sequence, n: int) -> torch.Tensor:
     return _MeanOverGroups.apply(x, tuple(groups), n)
 
 
+# --------------------------------------------------------------------------- #
+# Vocab-parallel cross-entropy
+# --------------------------------------------------------------------------- #
+def vocab_max(logits: torch.Tensor) -> torch.Tensor:
+    """A vocabulary slice's row maxima [...] of its float32 logits [...,
+    Vs] (padded columns masked), to be maxed over the slices."""
+    return logits.detach().amax(dim=-1)
+
+
+def vocab_partials(logits: torch.Tensor, labels: torch.Tensor, off: int,
+                   mx: torch.Tensor) -> tuple:
+    """One slice's part of the cross-entropy, given the row maxima ``mx``
+    over every slice: (``exp(logits - mx)`` [..., Vs], its row sums [...],
+    the gold logit where the label falls in the slice ``[off, off + Vs)``
+    else 0 [...], the label's column in the slice (clamped) and whether it
+    falls there).  The row sums and gold logits are summed over the
+    slices."""
+    vs = logits.shape[-1]
+    ex = torch.exp(logits.detach() - mx[..., None])
+    loc = labels.long() - off
+    mine = (loc >= 0) & (loc < vs)
+    col = loc.clamp(0, vs - 1)
+    gold = torch.gather(logits.detach(), -1, col[..., None])[..., 0]
+    return ex, ex.sum(dim=-1), gold * mine, col, mine
+
+
+def vocab_nll(mx: torch.Tensor, se: torch.Tensor,
+              gold: torch.Tensor) -> torch.Tensor:
+    """The token NLL from the row maxima, exponential sums and gold logits
+    combined over every slice."""
+    return torch.log(se) + mx - gold
+
+
+def vocab_grad(ex: torch.Tensor, se: torch.Tensor, col: torch.Tensor,
+               mine: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The NLL's gradient on one slice's logits: the slice's softmax
+    (``ex`` over the summed ``se``) minus its one-hot, times ``g``."""
+    out = ex / se[..., None]
+    out.scatter_add_(-1, col[..., None], -mine.to(out.dtype)[..., None])
+    return out * g[..., None]
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """The token NLL of logits whose vocabulary is split over ``group``:
+    each rank holds the float32 logits of its slice ``[off, off + Vs)``;
+    the row maxima are max-reduced, the exponential sums and gold logits
+    sum-reduced over the group, and every rank returns the whole NLL.  Its
+    backward is this slice's softmax minus its one-hot: the gradient of
+    the rank's own logits, which is what each rank differentiates."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, off, group):
+        mx = vocab_max(logits)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        ex, se, gold, col, mine = vocab_partials(logits, labels, off, mx)
+        sums = torch.stack([se, gold])
+        dist.all_reduce(sums, group=group)
+        ctx.save_for_backward(ex, sums[0], col, mine)
+        return vocab_nll(mx, sums[0], sums[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        ex, se, col, mine = ctx.saved_tensors
+        return vocab_grad(ex, se, col, mine, g), None, None, None
+
+
+class _GatherVocab(torch.autograd.Function):
+    """An output layer's vocabulary slices [D, V/n] gathered whole over
+    ``group`` into [D, V]; the backward sums every rank's gradient of the
+    whole and keeps this rank's slice (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, w, group):
+        ctx.group = group
+        return shd._all_gather_dim(w, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shd._reduce_scatter_dim(g.contiguous(), 1, ctx.group), None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, off: int,
+                       group) -> torch.Tensor:
+    """:class:`_VocabParallelNLL`: the NLL [...] of every token from this
+    rank's float32 logits [..., Vs] of the vocabulary slice starting at
+    ``off``, combined over ``group``."""
+    return _VocabParallelNLL.apply(logits, labels, off, group)
+
+
 @dataclass(frozen=True)
 class TensorParallel:
     """Megatron tensor parallelism over one model group: ``attn`` and
@@ -170,18 +259,41 @@ class TensorParallel:
     :func:`_tp_plan`); ``kv_repeat`` is :func:`kv_repeat`'s count of
     ranks that share a KV head (1: the ranks split the KV heads).
     ``enter`` and ``exit`` are the conjugate pair around a region (see
-    the module docstring)."""
+    the module docstring).  ``vocab``: the output layer (and a tied
+    embedding) computes on this rank's ``1/size`` slice of the padded
+    vocabulary, the ``index``-th, and the cross-entropy combines the
+    slices (:meth:`nll`)."""
     group: Any
     size: int
     attn: bool
     ffn: bool
     kv_repeat: int = 1
+    vocab: bool = False
+    index: int = 0
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _CopyToGroup.apply(x, self.group)
 
     def exit(self, x: torch.Tensor) -> torch.Tensor:
         return _ReduceFromGroup.apply(x, self.group)
+
+    def vocab_offset(self, vs: int) -> int:
+        """The first vocabulary row of this rank's slice of ``vs``."""
+        return self.index * vs if self.vocab else 0
+
+    def gather_vocab(self, w: torch.Tensor) -> torch.Tensor:
+        """This rank's output-layer slice [D, V/size] gathered whole
+        (:class:`_GatherVocab`), each rank's gradient of the whole summed
+        into its slice."""
+        return _GatherVocab.apply(w, self.group)
+
+    def nll(self, logits: torch.Tensor, labels: torch.Tensor
+            ) -> torch.Tensor:
+        """:func:`vocab_parallel_nll` of this rank's slice over the model
+        group."""
+        return vocab_parallel_nll(logits, labels,
+                                  self.vocab_offset(logits.shape[-1]),
+                                  self.group)
 
 
 # --------------------------------------------------------------------------- #
@@ -269,37 +381,50 @@ def _tp_spec(s, st_ax: Optional[str], tp_axis, tp_attn: bool, tp_ffn: bool,
 
 def compute_specs(cfg: ArchConfig, *, stage_axis: Optional[str] = None,
                   tp_axis=None, tp_attn: bool = False, tp_ffn: bool = False,
-                  vocab_parallel: bool = False, kv_rep: int = 1) -> dict:
+                  vocab_axis: Optional[str] = None, kv_rep: int = 1) -> dict:
     """The spec tree of the blocks a rank computes with (the reference's
     ``shard_map`` in_specs): the layer blocks of :func:`_tp_spec`, the
-    vocab dim of ``embed`` (tied) or ``unembed`` on the stage axis under
-    vocab-parallel CE, every other leaf whole."""
+    vocab dim of ``embed`` (tied) or ``unembed`` on ``vocab_axis`` under
+    vocab-parallel CE (the stage axis in the pipeline, ``model`` under
+    tensor parallelism), every other leaf whole."""
     specs = tf.lm_specs(cfg)
     out = {k: tree_map(lambda s: P(), v) for k, v in specs.items()
            if k != "layers"}
     out["layers"] = tree_map(
         lambda s: _tp_spec(s, stage_axis, tp_axis, tp_attn, tp_ffn, kv_rep),
         specs["layers"])
-    if vocab_parallel and cfg.tie_embeddings:
-        out["embed"] = P(stage_axis, None)
-    if vocab_parallel and "unembed" in out:
-        out["unembed"] = P(None, stage_axis)
+    if vocab_axis is not None and cfg.tie_embeddings:
+        out["embed"] = P(vocab_axis, None)
+    if vocab_axis is not None and "unembed" in out:
+        out["unembed"] = P(None, vocab_axis)
     return out
 
 
-def tensor_parallel(cfg: ArchConfig, mesh, *, repeat_kv: bool = False
-                    ) -> Optional[TensorParallel]:
+def vocab_splits(cfg: ArchConfig, mesh) -> bool:
+    """Whether the padded vocabulary splits over ``mesh``'s model axis
+    above 1 (the reference's ``vocab`` rule on ``model``)."""
+    tp = shd.mesh_shape(mesh).get(AXIS_MODEL, 1)
+    return tp > 1 and cfg.padded_vocab % tp == 0
+
+
+def tensor_parallel(cfg: ArchConfig, mesh, *, repeat_kv: bool = False,
+                    vocab: bool = False) -> Optional[TensorParallel]:
     """The plain regime's :class:`TensorParallel` on ``mesh``'s model
     axis, or None where the axis is 1 or no region passes the gates.
     ``repeat_kv``: attention also slices where the axis is a multiple of
     the KV heads above them, each KV head on :func:`kv_repeat` ranks (the
-    train steps; the serving builders keep the reference's gate)."""
+    train steps; the serving builders keep the reference's gate).
+    ``vocab``: the output layer and the cross-entropy split the padded
+    vocabulary over the axis where it divides it (the reference's
+    ``vocab`` rule on ``model``; the train step's loss)."""
+    tp = shd.mesh_shape(mesh).get(AXIS_MODEL, 1)
     tp_axis, tp_attn, tp_ffn = _tp_plan(cfg, mesh, None, repeat_kv=repeat_kv)
-    if tp_axis is None:
+    vp = vocab and vocab_splits(cfg, mesh)
+    if tp_axis is None and not vp:
         return None
-    tp = shd.mesh_shape(mesh)[AXIS_MODEL]
     return TensorParallel(mesh.get_group(AXIS_MODEL), tp, tp_attn, tp_ffn,
-                          kv_repeat(cfg, tp) if tp_attn else 1)
+                          kv_repeat(cfg, tp) if tp_attn else 1, vp,
+                          shd.coordinate(mesh)[AXIS_MODEL])
 
 
 def tp_rank_blocks(cfg: ArchConfig, tree, specs, tp: int, rank: int):
@@ -333,7 +458,9 @@ class PipelineLoss:
     the global batch, the same on every rank, of which the rank keeps its
     data shard's contiguous rows when they divide into the data axes and
     the micro-batches (else every data rank runs the whole batch, and no
-    sum over the data axes follows).  Every rank of the mesh calls them
+    sum over the data axes follows).  With ``sharded=`` True or False the
+    batch is this rank's block instead: its rows of that split, or the
+    whole batch every data rank runs.  Every rank of the mesh calls them
     together."""
 
     def __init__(self, cfg: ArchConfig, mesh, n_micro: int, *, st_ax: str,
@@ -363,15 +490,18 @@ class PipelineLoss:
         """This rank's blocks of a full parameter tree."""
         return shd.shard_tree(full, tree_like(full, self.specs), self.mesh)
 
-    def grad_axes(self, spec) -> tuple:
+    def grad_axes(self, spec, data: bool = True) -> tuple:
         """The axes a leaf's gradient (under ``spec``) is summed over:
         the stage axis where the stage axis does not split it, then the
-        data axes."""
+        data axes (``data``: the data ranks split the batch)."""
         used = {a for e in spec for a in shd._axes(e)}
         return ((() if self.st_ax in used else (self.st_ax,))
-                + tuple(self.d_ax))
+                + (tuple(self.d_ax) if data else ()))
 
-    def _rows(self, batch: dict) -> Tuple[dict, bool]:
+    def _rows(self, batch: dict, sharded: Optional[bool]
+              ) -> Tuple[dict, bool]:
+        if sharded is not None:
+            return batch, sharded and bool(self.d_ax)
         gb = batch["tokens"].shape[0]
         shard = bool(self.d_ax) and gb % (self.dp * self.n_micro) == 0
         if not shard:
@@ -404,12 +534,7 @@ class PipelineLoss:
 
     def _vp_part(self, p, mb):
         """This stage's masked rows of the tied embedding lookup."""
-        tok = mb["tokens"].long()
-        off = self.stage * self.Vs
-        loc = (tok - off).clamp(0, self.Vs - 1)
-        x = p["embed"][loc]
-        mine = ((tok >= off) & (tok < off + self.Vs)).to(x.dtype)
-        return x * mine[..., None]
+        return tf.vocab_rows(p["embed"], mb["tokens"], self.stage * self.Vs)
 
     def _ce(self, p, h, mb):
         """(nll sum, mask sum) of one micro-batch from its final hidden
@@ -419,27 +544,15 @@ class PipelineLoss:
         m = mb.get("loss_mask")
         if self.vp:
             off = self.stage * self.Vs
-            w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-            logits = (h @ w).float()
-            if cfg.vocab_pad:
-                col = off + torch.arange(self.Vs, device=h.device)
-                logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
-            mx = logits.detach().amax(dim=-1)
-            dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=self.pipe_group)
-            se = torch.exp(logits - mx[..., None]).sum(dim=-1)
-            lse = mx + torch.log(_ReduceFromGroup.apply(se, self.pipe_group))
-            lbl = mb["labels"].long()
-            g = torch.gather(logits, -1, (lbl - off).clamp(
-                0, self.Vs - 1)[..., None])[..., 0]
-            mine = ((lbl >= off) & (lbl < off + self.Vs)).float()
-            gold = _ReduceFromGroup.apply(g * mine, self.pipe_group)
+            logits = tf.unembed(p, cfg, h, offset=off).float()
+            nll = vocab_parallel_nll(logits, mb["labels"], off,
+                                     self.pipe_group)
         else:
             logits = tf.unembed(p, cfg, h).float()
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1,
-                                mb["labels"].long()[..., None])[..., 0]
-        m = torch.ones_like(lse) if m is None else m.float()
-        return ((lse - gold) * m).sum(), m.sum()
+            nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+                logits, -1, mb["labels"].long()[..., None])[..., 0]
+        m = torch.ones_like(nll) if m is None else m.float()
+        return (nll * m).sum(), m.sum()
 
     def _send(self, x, to: int):
         dist.send(x.detach().contiguous(), self.pipe_ranks[to])
@@ -450,29 +563,28 @@ class PipelineLoss:
         return buf
 
     # ---- the schedule ----------------------------------------------- #
-    def __call__(self, params: dict, batch: dict) -> torch.Tensor:
+    def __call__(self, params: dict, batch: dict, *,
+                 sharded: Optional[bool] = None) -> torch.Tensor:
         with torch.no_grad():
-            return self._run(params, batch, grad=False)[0]
+            return self._run(params, batch, grad=False, sharded=sharded)[0]
 
     def value_and_grad(self, params: dict, batch: dict, *,
-                       reduce: bool = True):
+                       reduce: bool = True, sharded: Optional[bool] = None):
         """-> (loss, gradients): the gradients in ``params``' layout,
         float32.  ``reduce=False`` leaves them unsummed over the axes of
-        :meth:`grad_axes` (the data axes, and the stage axis for a leaf
-        the stages share), for a caller that reduce-scatters them."""
-        return self._run(params, batch, grad=True, reduce=reduce)
+        :meth:`grad_axes` ``(spec, data=sharded)`` (the data axes where
+        they split the batch, and the stage axis for a leaf the stages
+        share), for a caller that reduce-scatters them."""
+        return self._run(params, batch, grad=True, reduce=reduce,
+                         sharded=sharded)
 
-    def _run(self, params, batch, *, grad: bool, reduce: bool = True):
+    def _run(self, params, batch, *, grad: bool, reduce: bool = True,
+             sharded: Optional[bool] = None):
         cfg, pp, s = self.cfg, self.pp, self.stage
         last = pp - 1
         p = tree_map(lambda x: x.detach().requires_grad_(grad), params)
         leaves = tree_leaves(p)
-        local, shard_b = self._rows(batch)
-        if grad and not reduce and not shard_b and self.dp > 1:
-            raise ValueError(
-                "value_and_grad(reduce=False) needs the batch to split over "
-                f"the {self.dp} data ranks and {self.n_micro} micro-batches: "
-                "a caller sums the gradients over the data axes")
+        local, shard_b = self._rows(batch, sharded)
         Bl = local["tokens"].shape[0]
         if Bl % self.n_micro:
             raise ValueError(f"the local batch of {Bl} rows does not split "
@@ -668,7 +780,8 @@ def build_pp_loss(cfg: ArchConfig, mesh, n_micro: int = 1, *,
     tp = (TensorParallel(mesh.get_group(tp_axis), sizes[tp_axis], tp_attn,
                          tp_ffn) if tp_axis is not None else None)
     specs = compute_specs(cfg, stage_axis=st_ax, tp_axis=tp_axis,
-                          tp_attn=tp_attn, tp_ffn=tp_ffn, vocab_parallel=vp)
+                          tp_attn=tp_attn, tp_ffn=tp_ffn,
+                          vocab_axis=st_ax if vp else None)
     loss_fn = PipelineLoss(cfg, mesh, n_micro, st_ax=st_ax, d_ax=d_ax,
                            remat=remat, aux_weight=aux_weight, causal=causal,
                            vp=vp, Vs=Vs, tp=tp, specs=specs,

@@ -276,6 +276,38 @@ def batch_spec(mesh, batch: int, seq_len: int) -> PartitionSpec:
     return P(None, None)
 
 
+#: the reference's three layouts of a global batch on a mesh
+#: (:func:`batch_spec`): rows over the data axes, else the sequence over
+#: them, else the whole batch on every data rank
+BATCH_LAYOUTS = ("rows", "sequence", "replicated")
+
+
+def batch_layout(mesh, batch: int, seq_len: int) -> str:
+    """Which of :data:`BATCH_LAYOUTS` :func:`batch_spec` gives a global
+    batch of ``batch`` x ``seq_len`` tokens on ``mesh``."""
+    spec = batch_spec(mesh, batch, seq_len)
+    if spec[0] is not None:
+        return "rows"
+    return "sequence" if spec[1] is not None else "replicated"
+
+
+def axes_group(mesh, axes: Sequence[str]) -> tuple:
+    """(process group, size, this rank's index) of the ranks of ``mesh``
+    that differ from this one only on ``axes``, indexed major to minor as a
+    dim split over the tuple is.  The group is one axis's own where at most
+    one of ``axes`` is above 1, else that of the flattened sub-mesh, which
+    creates a process group: every rank of the world calls this together
+    then."""
+    sizes, coord = mesh_shape(mesh), coordinate(mesh)
+    n, idx = 1, 0
+    for a in axes:
+        n, idx = n * sizes[a], idx * sizes[a] + coord[a]
+    live = [a for a in axes if sizes[a] > 1]
+    if len(live) > 1:
+        return mesh[tuple(axes)]._flatten().get_group(), n, idx
+    return mesh.get_group(live[0] if live else axes[0]), n, idx
+
+
 def dp_sharding(mesh, ndim: int = 2) -> PartitionSpec:
     """Dim 0 (batch) over the dp axes, every other dim replicated: the
     cross-section handoff layout."""

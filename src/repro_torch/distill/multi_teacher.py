@@ -214,9 +214,9 @@ def build_colocated_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
     ``params_s``/``opt_state`` are this rank's blocks under
     ``step.shardings["student"]``/``["opt"]`` (ZeRO), each teacher's under
     ``rules_for(cfg, mesh, teacher=True)`` (``["teacher_a"]``,
-    ``["teacher_b"]``), gathered once a step; ``batch`` is the whole
-    :func:`colocated_batch` on every rank, each taking its rows of every
-    microbatch.  The specialist runs on the routed rows among a rank's own
+    ``["teacher_b"]``), gathered once a step; ``batch`` is this rank's
+    block of :func:`colocated_batch`, ``step.block(batch)``: its rows of
+    every microbatch, ``b_idx`` and ``b_valid`` whole.  The specialist runs on the routed rows among a rank's own
     (``core.workload.rows_capacity``); CE and KL_a are weighted by the
     rank's share of ``loss_mask``, KL_b by its share of the routed tokens,
     which may fall unevenly over the data ranks (``student_mt_loss``'s
@@ -301,8 +301,8 @@ def _build_mesh_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
 
     def step(params_s, opt_state, params_a, params_b, w_a, w_b, batch,
              step_idx):
-        n_mb, m = batch["tokens"].shape[:2]
-        lo, n = lay.rows(m)
+        n_mb, n = batch["tokens"].shape[:2]
+        lo = lay.rank * n
         # the teachers' forwards read no output layer (w_a, w_b stand for
         # them), so theirs are not gathered
         body = {sec: {key: x for key, x in tree.items() if key != "unembed"}
@@ -316,7 +316,7 @@ def _build_mesh_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
         p = tree_unflatten(params_s, full)
         g_acc, l_sum = None, None
         for i in range(n_mb):
-            mb = {k: batch[k][i, lo:lo + n] for k in LM_KEYS}
+            mb = {k: batch[k][i] for k in LM_KEYS}
             bidx, bval = wl.rows_capacity(batch["b_idx"][i],
                                           batch["b_valid"][i], lo, n)
             with ctxs["teacher_a"]():
@@ -350,6 +350,7 @@ def _build_mesh_step(ta_cfg: ArchConfig, tb_cfg: ArchConfig,
         return new_p, new_opt, metrics
 
     step.mesh = mesh
+    step.block = functools.partial(st.microbatch_rows, lay, keys=LM_KEYS)
     step.shardings = {k: t.p_specs for k, t in trees.items()}
     step.shardings["opt"] = blocks.o_specs
     return step

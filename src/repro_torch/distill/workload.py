@@ -27,7 +27,6 @@ import torch.distributed as dist
 from repro_torch.core import workload as wl
 from repro_torch.core.types import ArchConfig, ParallelConfig, ShapeConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import tree_unflatten
 from repro_torch.optim import adamw, schedules
@@ -53,21 +52,25 @@ def teacher_unembedding(params_t, t_cfg: ArchConfig) -> torch.Tensor:
     return w.detach()
 
 
-def rows_kl(group, size: int, index: int):
+def rows_kl(group, size: int, index: int, *, w_summed: bool = False):
     """A stand-in for ``kernels.ops.distill_kl`` on a ``model`` axis whose
     ``size`` ranks hold the same token rows and the same whole output
     layers (Megatron TP): the KL kernel runs on this rank's ``index``-th
     of ``size`` contiguous parts of the rows, instead of every model rank
     running it on all of them.  The student's hidden states and output
     layer enter through Megatron's ``f`` (``dist.pipeline.copy_to``), so
-    their KL gradients are summed over the model ranks in the backward;
-    the value returned on each rank is the masked mean over every row."""
+    their KL gradients are summed over the model ranks in the backward
+    (``w_summed``: the student's output layer is gathered from its
+    vocabulary slices, ``models.transformer.output_layer``, whose backward
+    sums it already); the value returned on each rank is the masked mean
+    over every row."""
     from repro_torch.dist import pipeline as pl
 
     def kl(h_s, w_s, h_t, w_t, *, mask=None, temperature: float = 1.0):
         N = h_s.shape[0]
         lo, hi = index * N // size, (index + 1) * N // size
-        h, w = pl.copy_to(h_s, group), pl.copy_to(w_s, group)
+        h = pl.copy_to(h_s, group)
+        w = w_s if w_summed else pl.copy_to(w_s, group)
         m = None if mask is None else mask[lo:hi]
         part = kops.distill_kl(h[lo:hi], w, h_t[lo:hi], w_t, mask=m,
                                temperature=temperature)
@@ -83,7 +86,7 @@ def rows_kl(group, size: int, index: int):
     return kl
 
 
-def mesh_kl(mesh):
+def mesh_kl(mesh, *, w_summed: bool = False):
     """The KL a colocated step on ``mesh`` computes its terms with:
     :func:`rows_kl` on a ``model`` axis above 1, else
     ``kernels.ops.distill_kl``."""
@@ -92,7 +95,7 @@ def mesh_kl(mesh):
     if tp == 1:
         return kops.distill_kl
     return rows_kl(mesh.get_group(shd.AXIS_MODEL), tp,
-                   shd.coordinate(mesh)[shd.AXIS_MODEL])
+                   shd.coordinate(mesh)[shd.AXIS_MODEL], w_summed=w_summed)
 
 
 def distill_loss(params_s, s_cfg: ArchConfig, batch: dict,
@@ -104,11 +107,10 @@ def distill_loss(params_s, s_cfg: ArchConfig, batch: dict,
     (:func:`mesh_kl` on a mesh)."""
     h_s, aux = tf.lm_forward(params_s, s_cfg, batch, remat=remat,
                              logits_out=False)
-    logits = tf.unembed(params_s, s_cfg, h_s)
-    ce = cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    ce = tf.hidden_ce(params_s, s_cfg, h_s, batch["labels"],
+                      batch.get("loss_mask"))
     B, S, Ds = h_s.shape
-    w_s = (params_s["embed"].T if s_cfg.tie_embeddings
-           else params_s["unembed"])
+    w_s = tf.output_layer(params_s, s_cfg)
     mask = batch.get("loss_mask")
     kl_v = kl(
         h_s.reshape(B * S, Ds), w_s,
@@ -141,15 +143,22 @@ def build_colocated_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
     this rank's blocks under ``step.shardings["student"]`` with ZeRO
     optimizer-state blocks (``["opt"]``), the teacher's under
     ``rules_for(t_cfg, mesh, teacher=True)`` (``["teacher"]``), gathered
-    once a step and given no gradient; ``batch`` is the global batch on
-    every rank, which keeps its rows of the shard-major layout (and its
-    sequence columns on a ``seq`` axis, where both models' attention runs
-    through ``cp_attention``).  At tp > 1 both models run under Megatron
-    TP, the KL kernel takes both output layers whole (gathered over
-    ``model``: the kernel needs whole [D, V] unembeddings) and each model
-    rank its share of the token rows (:func:`rows_kl`), and the
-    student's output-layer gradient is reduced back into its block.  On a
-    one-rank mesh the step equals the meshless one bit for bit."""
+    once a step and given no gradient; ``batch`` is this rank's block of
+    the global batch, ``step.block(global_batch)``, in the reference's
+    layout (``train.step.DataLayout``): its rows of the shard-major layout
+    where the batch divides the data axes, else its sequence columns of
+    every row (both models' attention then runs over the data axes'
+    group), else the whole batch; on a ``seq`` axis also its sequence
+    columns, where both models' attention runs through ``cp_attention``.
+    At tp > 1 both models run under Megatron TP, the KL kernel takes both
+    output layers whole (the kernel needs whole [D, V] unembeddings) and
+    each model rank its share of the token rows (:func:`rows_kl`).  Where
+    the student's padded vocabulary divides ``model``, its cross-entropy
+    is vocab-parallel, as the train step's: each rank forms only its
+    slice's logits, and the KL gathers the student's output layer whole
+    from the slices (``models.transformer.output_layer``), whose backward
+    sums each rank's KL gradient into its slice.  On a one-rank mesh the
+    step equals the meshless one bit for bit."""
     if mesh is not None:
         return _build_mesh_step(t_cfg, s_cfg, shape, parallel, mesh,
                                 alpha=alpha, temperature=temperature,
@@ -182,6 +191,7 @@ def _build_mesh_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
                      alpha: float, temperature: float, lr_schedule,
                      opt_cfg: adamw.AdamWConfig):
     """:func:`build_colocated_step` on ``mesh`` (see there)."""
+    from repro_torch.dist import pipeline as pl
     from repro_torch.dist import sharding as shd
     from repro_torch.train import step as st
     for cfg, role in ((t_cfg, "teacher"), (s_cfg, "student")):
@@ -196,16 +206,21 @@ def _build_mesh_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
     regime, _, dp_total = st._check_sharded(s_cfg, parallel, shape, mesh)
     n_micro = num_microbatches(shape, parallel, dp_total)
     lr_fn = lr_schedule or default_lr_schedule()
-    lay = st.DataLayout(mesh, regime, n_micro, shape.seq_len)
+    bs = (shape.global_batch, shape.seq_len)
+    lay = st.DataLayout(mesh, regime, n_micro, shape.seq_len,
+                        shape.global_batch,
+                        {"tokens": bs, "labels": bs, "loss_mask": bs})
     t_specs, s_specs = tf.lm_specs(t_cfg), tf.lm_specs(s_cfg)
-    t_ctx, t_c = st.model_context(t_cfg, t_specs, mesh, regime, parallel)
-    s_ctx, s_c = st.model_context(s_cfg, s_specs, mesh, regime, parallel)
+    t_ctx, t_c = st.model_context(t_cfg, t_specs, mesh, regime, parallel,
+                                  seq_ax=lay.seq_ax)
+    s_ctx, s_c = st.model_context(s_cfg, s_specs, mesh, regime, parallel,
+                                  seq_ax=lay.seq_ax, vocab=True)
     teacher = st.BlockTree.of(t_specs, mesh,
                               shd.rules_for(t_cfg, mesh, teacher=True), t_c,
                               zero=None)
     student = st.BlockTree.of(s_specs, mesh, shd.rules_for(s_cfg, mesh), s_c,
                               zero=True)
-    kl = mesh_kl(mesh)
+    kl = mesh_kl(mesh, w_summed=pl.vocab_splits(s_cfg, mesh))
 
     def step(params_s, opt_state, params_t, batch, step_idx):
         mbs = lay.microbatches(batch)
@@ -239,8 +254,9 @@ def _build_mesh_step(t_cfg: ArchConfig, s_cfg: ArchConfig,
         return params_s, opt_state, metrics
 
     step.mesh = mesh
+    step.block = lay.block
     step.shardings = {"teacher": teacher.p_specs, "student": student.p_specs,
-                      "opt": student.o_specs}
+                      "opt": student.o_specs, "batch": lay.specs}
     step._in_place = (1,)
     step._in_place_label = "distill.colocated[sharded](params_s, opt)"
     return step

@@ -153,8 +153,7 @@ def _record_rank(cfg, shape, mesh_kind: str, mbs: int, pp: int, cp: int,
             opt = fake_blocks(adamw.state_specs(model.param_shapes()),
                           step.shardings["opt"], sizes)
             batch = fake_blocks(model.input_specs(shape),
-                            tree_map(lambda x: (), model.input_specs(shape)),
-                            sizes)
+                                step.shardings["batch"], sizes)
             parts = {"params": params, "opt": opt, "batch": batch}
             out, stats = record(step, params, opt, batch, 0)
         elif shape.kind == "prefill":

@@ -20,8 +20,9 @@ standing for rank 0 of a world of ``REPRO_DRYRUN_DEVICES`` ranks (default:
 the mesh's size) on PyTorch's fake process group, on the production mesh
 (data 16 x model 16, ``--cp`` carving a ``seq`` axis out of ``data``) or
 ``REPRO_DRYRUN_MESH``'s; it builds the step with ``mesh=``, this rank's
-blocks of every argument as fake tensors on the ``meta`` device (the
-batch whole, as every rank takes it), and records one call
+blocks of every argument as fake tensors on the ``meta`` device (of the
+batch, the block ``step.block`` cuts, as the step takes it), and records
+one call
 (``roofline.record``).  The hand-written kernels' ops,
 ``repro_torch::flash_fwd`` and ``::distill_kl_fwd``, give their shape
 functions' outputs there.
@@ -197,10 +198,9 @@ def _run_distill(args) -> dict:
                                     step.shardings["opt"], sizes),
                  "teacher": fake_blocks(t_specs, step.shardings["teacher"],
                                         sizes),
-                 "batch": _lm_batch((batch, seq))}
-        dp = par.dp
-        n_micro = max(batch // (dp * par.mbs), 1)
-        per_call = batch // (dp * n_micro) * seq // par.cp // par.tp
+                 "batch": step.block(_lm_batch((batch, seq)))}
+        n_micro = max(batch // (par.dp * par.mbs), 1)
+        per_call = parts["batch"]["tokens"].numel() // n_micro // par.tp
         kio = (_analytic_kernel_io(s_cfg, shape, n_dev,
                                    kl=[_kl_io(n_micro, per_call, s_cfg,
                                               t_cfg)])
@@ -272,6 +272,7 @@ def _run_mllm(args) -> dict:
                  patches=_meta((n_mb, mbs, P, vit_cfg.frontend_dim), dt),
                  vis_idx=_meta((n_mb, mbs), torch.int64),
                  vis_valid=_meta((n_mb, mbs), torch.float32))
+        b = step.block(b)
         parts = {"params": fake_blocks(specs, step.shardings["params"],
                                        sizes),
                  "opt": fake_blocks(adamw.state_specs(specs),
@@ -337,7 +338,7 @@ def _run_multi_teacher(args) -> dict:
         b = _lm_batch((mbs, seq), (n_mb,))
         b.update(b_idx=_meta((n_mb, mbs), torch.int64),
                  b_valid=_meta((n_mb, mbs), torch.float32))
-        parts["batch"] = b
+        b = parts["batch"] = step.block(b)
         par = mesh_parallel(mesh)
         per_call = mbs // par.dp * seq // par.tp
         tr = ShapeConfig("t", "prefill", seq, batch)

@@ -20,7 +20,11 @@ process per rank, launched by ``torchrun``::
 The process group comes from the environment ``torchrun`` sets (NCCL on
 ``cuda``, one card a rank, gloo on ``--device cpu``), and the world size
 must equal ``--data`` x ``--model``.  Every rank builds the same seeded
-model and draws the same global batches; the step keeps its own rows.
+model and draws the same global batch on the host, and moves only its
+block to the device (``step.block``, the reference's layout): its rows
+where ``--batch`` divides ``--data``, else its sequence columns where
+``--seq`` does, else the whole batch; ``--batch`` below ``--data`` is
+legal.
 Without ``torchrun``, ``--data`` or ``--model`` above 1 raises and says how
 to launch.
 ``--ckpt-dir DIR`` saves ``{"params", "opt"}`` there every
@@ -105,8 +109,10 @@ def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
 
     ``mesh`` (``dist.sharding.section_mesh`` over an initialised process
     group, of ``data`` x ``model`` ranks) runs the sharded step; every rank
-    calls ``run`` with the same arguments, and the result's parameters and
-    optimizer state are this rank's blocks."""
+    calls ``run`` with the same arguments (``batches`` global, drawn on the
+    host by default), takes this rank's block of each batch and moves it to
+    ``device``, and the result's parameters and optimizer state are this
+    rank's blocks."""
     if data * model > 1 and mesh is None:
         raise RuntimeError(
             f"--data {data} --model {model} runs one process per rank: "
@@ -141,7 +147,11 @@ def run(arch: str = "lm-20m", *, reduced: bool = False, steps: int = 100,
     ck = Checkpointer(ckpt_dir) if ckpt_dir else None
     if batches is None:
         batches = lm_batches(batch=batch, seq_len=seq, vocab=cfg.vocab_size,
-                             seed=seed, device=device)
+                             seed=seed,
+                             device=device if mesh is None else "cpu")
+    if mesh is not None:
+        batches = ({k: v.to(device) for k, v in step.block(b).items()}
+                   for b in batches)
     n0, m0 = fa.flash_fwd.launches, ssd.ssd_fwd.launches
     t0 = time.perf_counter()
     res = train(step, params=params, opt_state=opt, batches=batches,

@@ -150,8 +150,9 @@ def build_colocated_step(vit_cfg: ArchConfig, lm_cfg: ArchConfig, *,
     and ``opt_state`` are this rank's blocks under ``step.shardings
     ["params"]`` and ``["opt"]`` (each section's ``rules_for``, ZeRO
     optimizer state, as the reference's ``opt_state_shardings`` default);
-    ``batch`` is the whole :func:`colocated_batch` on every rank, each
-    taking its rows of every microbatch.  A rank runs the ViT on the image
+    ``batch`` is this rank's block of :func:`colocated_batch`,
+    ``step.block(batch)``: its rows of every microbatch, ``vis_idx`` and
+    ``vis_valid`` whole.  A rank runs the ViT on the image
     rows of its own LM rows (``core.workload.rows_capacity``: indices local
     to its rows, padding rows masked to exact zero; a rank holding no image
     runs it on padding alone and joins every collective), weights each
@@ -228,13 +229,13 @@ def _build_mesh_step(vit_cfg: ArchConfig, lm_cfg: ArchConfig, mesh, *,
                          master={"vit": ov.master, "lm": ol.master}))
 
     def step(params, opt_state, batch, step_idx):
-        n_mb, m = batch["tokens"].shape[:2]
-        lo, n = lay.rows(m)
+        n_mb, n = batch["tokens"].shape[:2]
+        lo = lay.rank * n
         lists = joint.lists(params)
         full = joint.compute(params, lists)
         fp = tree_unflatten(params, full)
         dev = full[0].device
-        mbs = [{k: batch[k][i, lo:lo + n].to(dev)
+        mbs = [{k: batch[k][i].to(dev)
                 for k in LM_KEYS + ("patches",)} for i in range(n_mb)]
         weights = lay.weights(mbs)
         g_acc, l_sum = None, None
@@ -272,6 +273,8 @@ def _build_mesh_step(vit_cfg: ArchConfig, lm_cfg: ArchConfig, mesh, *,
         return new_p, new_opt, metrics
 
     step.mesh = mesh
+    step.block = functools.partial(st.microbatch_rows, lay,
+                                   keys=LM_KEYS + ("patches",))
     step.shardings = {"params": joint.p_specs, "opt": joint.o_specs}
     return step
 

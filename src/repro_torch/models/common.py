@@ -193,7 +193,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    return masked_mean(lse - gold, mask)
+
+
+def masked_mean(nll: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean of the token losses ``nll`` where ``mask`` is set (all of
+    them without one)."""
     if mask is not None:
         m = mask.float()
         return (nll * m).sum() / m.sum().clamp_min(1.0)

@@ -103,10 +103,10 @@ class Model(nn.Module):
             return ed.encdec_loss(p, self.cfg, batch, remat=remat)
         if not self.encoder:
             return tf.lm_loss(p, self.cfg, batch, remat=remat)
-        logits, aux = tf.lm_forward(p, self.cfg, batch, causal=False,
-                                    remat=remat)
-        ce = cm.cross_entropy(logits, batch["labels"],
-                              batch.get("loss_mask"))
+        h, aux = tf.lm_forward(p, self.cfg, batch, causal=False,
+                               remat=remat, logits_out=False)
+        ce = tf.hidden_ce(p, self.cfg, h, batch["labels"],
+                          batch.get("loss_mask"))
         return ce, {"ce": ce, "aux": aux}
 
     def _decoder(self, what: str) -> None:

@@ -217,8 +217,35 @@ def vision_scatter(p, cfg: ArchConfig, x: torch.Tensor,
     return x.index_put((b_ix, pos), upd - cur * valid, accumulate=True)
 
 
+def vocab_rows(table: torch.Tensor, tokens: torch.Tensor,
+               off: int) -> torch.Tensor:
+    """The rows of an embedding lookup that fall in this rank's vocabulary
+    slice ``table`` (rows ``[off, off + Vs)`` of the whole), the others 0:
+    the lookup is their sum over the slices, exact because each row lives
+    in one."""
+    tok = tokens.long()
+    vs = table.shape[0]
+    x = table[(tok - off).clamp(0, vs - 1)]
+    mine = ((tok >= off) & (tok < off + vs)).to(x.dtype)
+    return x * mine[..., None]
+
+
+def _tp():
+    return getattr(_SHARDED, "value", (None, None, None))[0]
+
+
 def embed_tokens(p, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    return vision_scatter(p, cfg, p["embed"][batch["tokens"]], batch)
+    """The token embeddings, image embeddings spliced in.  Under
+    :func:`sharded_forward`'s vocab-parallel ``tp`` with tied embeddings,
+    ``p["embed"]`` is this rank's vocabulary slice: each rank looks up its
+    rows (:func:`vocab_rows`) and the model group sums them."""
+    tp = _tp()
+    if tp is not None and tp.vocab and cfg.tie_embeddings:
+        x = tp.exit(vocab_rows(p["embed"], batch["tokens"],
+                               tp.vocab_offset(p["embed"].shape[0])))
+    else:
+        x = p["embed"][batch["tokens"]]
+    return vision_scatter(p, cfg, x, batch)
 
 
 def _sublayer_fwd(lp, x, cfg: ArchConfig, mixer: str, ffn: Optional[str],
@@ -303,7 +330,9 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
     saved and ``remat`` changes nothing.
 
     aux is the sum of every MoE sub-layer's load-balancing loss (0 for a
-    model without one), as the reference's scan sums it."""
+    model without one), as the reference's scan sums it.  Under a
+    vocab-parallel ``tp`` (:func:`sharded_forward`) the output layer is a
+    vocabulary slice: take ``logits_out=False`` and :func:`hidden_ce`."""
     pk, _ = group_layout(cfg)
     tp, stats_mean, _ = getattr(_SHARDED, "value", (None, None, None))
     x = cm.shard_act(embed_tokens(p, cfg, batch), "hidden")
@@ -331,27 +360,62 @@ def lm_forward(p, cfg: ArchConfig, batch: dict, *, causal: bool = True,
     x = apply_norm(p["final_norm"], x, cfg)
     if not logits_out:
         return x, aux
+    if tp is not None and tp.vocab:
+        raise ValueError(
+            "lm_forward under a vocab-parallel tp holds one slice of the "
+            "output layer: take logits_out=False and hidden_ce")
     return unembed(p, cfg, x), aux
 
 
-def unembed(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def unembed(p, cfg: ArchConfig, x: torch.Tensor, *,
+            offset: int = 0) -> torch.Tensor:
+    """Logits of the output layer in ``p`` (``embed`` tied, else
+    ``unembed``), whose first vocabulary row is ``offset`` (a slice of the
+    vocabulary, or the whole at 0), padded rows masked."""
     if cfg.tie_embeddings:
         logits = x @ p["embed"].T
     else:
         logits = x @ p["unembed"]
     if cfg.vocab_pad:
         # mask padded vocab slots: exact lse/softmax of the unpadded model
-        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        valid = offset + torch.arange(logits.shape[-1],
+                                      device=x.device) < cfg.vocab_size
         logits = logits.masked_fill(~valid, -1e30)
     return cm.shard_act(logits, "logits")
+
+
+def output_layer(p, cfg: ArchConfig) -> torch.Tensor:
+    """The whole output layer [D, V] (``embed.T`` tied, else
+    ``unembed``); under :func:`sharded_forward`'s vocab-parallel ``tp``
+    gathered from the model ranks' slices (``tp.gather_vocab``), its
+    gradient summed back into each rank's slice."""
+    w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
+    tp = _tp()
+    return tp.gather_vocab(w) if tp is not None and tp.vocab else w
+
+
+def hidden_ce(p, cfg: ArchConfig, h: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The masked-mean cross-entropy of the final-normed hidden ``h``.
+    Under :func:`sharded_forward`'s vocab-parallel ``tp`` each model rank
+    forms only its slice's logits, ``h`` enters the region through
+    ``tp.enter`` (its gradient summed over the group) and the slices
+    combine in ``tp.nll`` (``dist.pipeline.vocab_parallel_nll``)."""
+    tp = _tp()
+    if tp is None or not tp.vocab:
+        return cm.cross_entropy(unembed(p, cfg, h), labels, mask)
+    w = p["embed"] if cfg.tie_embeddings else p["unembed"].T
+    logits = unembed(p, cfg, tp.enter(h),
+                     offset=tp.vocab_offset(w.shape[0])).float()
+    return cm.masked_mean(tp.nll(logits, labels), mask)
 
 
 def lm_loss(p, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             aux_weight: float = 0.01):
     """-> (loss, {"ce", "aux"}): masked-mean cross-entropy plus the
     weighted aux loss (the MoE load-balancing loss; 0 without a router)."""
-    logits, aux = lm_forward(p, cfg, batch, remat=remat)
-    loss = cm.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    h, aux = lm_forward(p, cfg, batch, remat=remat, logits_out=False)
+    loss = hidden_ce(p, cfg, h, batch["labels"], batch.get("loss_mask"))
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 

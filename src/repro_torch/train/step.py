@@ -14,15 +14,22 @@ function.
   process per rank.  Parameters rest as blocks by
   ``spec_for(rules_for(cfg, mesh))`` (``embed`` over ``data``), and ``mu``,
   ``nu`` and ``master`` by ``zero_extend`` when ``zero_opt``.  The step
-  takes the global batch and keeps this rank's rows of the shard-major
-  layout ``[dp, n_micro, mbs]``; it all-gathers the parameters, runs the
-  forward and backward on full tensors (the hand-written kernels
+  takes this rank's block of the global batch (``step.block``,
+  :class:`DataLayout`) in the reference's layout
+  (``dist.sharding.batch_layout``): its rows of the shard-major layout
+  ``[dp, n_micro, mbs]`` where the batch divides the data axes, else its
+  columns of every row where the sequence divides them (the model's
+  attention then runs over the data axes' group,
+  ``dist.context.cp_attention_impl(axes=)``, at the shard's global
+  positions), else the whole batch on every data rank.  It all-gathers
+  the parameters, runs the forward and backward on full tensors (the hand-written kernels
   unchanged), accumulates float32 gradients over its micro-batches,
   reduce-scatters each into its optimizer-state block, runs AdamW on the
   blocks with the clip norm of the whole tree, and all-gathers the new
   master blocks, cast, into parameter blocks.  Each micro-batch's masked
-  mean divides by the mask total over every data rank, as the reference's
-  global computation does.
+  mean is weighted by this rank's share of the mask total over every data
+  rank, so that the summed gradient is the reference's global mean in
+  each layout (a replicated batch's ranks each weigh ``1 / dp``).
 * ``grad_compress`` ``"bf16"``/``"int8"``: as in the reference, each rank
   takes its own shard's mean loss and gradient, and one compressed
   mean-reduce (``optim.compression``) replaces the float32 one; the step
@@ -30,7 +37,7 @@ function.
   on each rank.
 
 * a ``seq`` axis above 1: the context-parallel regime (``"cp"``).  Each
-  rank keeps its data rows and its sequence columns of every batch leaf
+  rank takes its data rows and its sequence columns of every batch leaf
   (labels come with the batch, so no token crosses a shard), and the
   model's attention runs through ``dist.context.cp_attention_impl``,
   installed with ``models.attention.attention_impl``.  Each masked mean
@@ -50,26 +57,41 @@ function.
   those ranks (``dist.sharding.reduce_to``).  The regions the gates
   refuse compute whole on every model rank: attention where the KV heads
   neither divide the axis nor are divided by it, or with ``head_pad``; a
-  Mamba mixer, the vocabulary, the experts.  Every rank then holds the
-  whole gradient of each leaf it does not slice, so nothing is summed over
-  ``model``: a ZeRO block that extends over ``model`` takes its slice.
+  Mamba mixer, the experts.  Where the padded vocabulary divides the
+  axis, the output layer (``unembed``, or a tied ``embed``) is sliced
+  over it too, as the reference's ``vocab`` rule places it: each rank
+  forms only its ``[rows, S, padded_vocab / tp]`` logits, the
+  cross-entropy combines the slices' maxima, exponential sums and gold
+  logits (``dist.pipeline.vocab_parallel_nll``), and a tied lookup sums
+  each rank's rows (``models.transformer.vocab_rows``).  Every rank then
+  holds the whole gradient of each leaf it does not slice, so nothing is
+  summed over ``model``: a ZeRO block that extends over ``model`` takes
+  its slice.
   With a ``seq`` axis as well (cp x tp), each (seq, model) rank runs
-  ``cp_attention`` over its sequence group on its own head slice.
+  ``cp_attention`` over its sequence group on its own head slice.  A
+  batch whose sequence lies over the data axes in the cp regime is
+  replicated over ``seq``, as the reference lays it out.
 * a ``pipe`` axis above 1: the pipeline regime (``"pp"``).  The loss is
   ``dist.pipeline.build_pp_loss``'s GPipe schedule over this rank's stage
   (vocab-parallel CE where the padded vocabulary divides the stages, TP
   inside the stage on a ``model`` axis), micro-batched inside the
   schedule as in the reference; the step takes its ``value_and_grad``
-  and reduces each gradient over the data axes and, for a leaf the stages
-  share, over ``pipe``.  Its metrics are ``loss``, ``grad_norm`` and
+  and reduces each gradient over the data axes (where they split the
+  batch: a block with the sequence over them is gathered whole, and a
+  whole batch runs on every data rank, as the reference's staged loss
+  takes rows or all of them) and, for a leaf the stages share, over
+  ``pipe``.  Its metrics are ``loss``, ``grad_norm`` and
   ``lr``, as the reference's.
 
 The MoE and hybrid families on more than one data or sequence rank take
 each micro-batch's router statistics averaged over those ranks before
 the load-balancing loss is formed (``models.transformer.sharded_forward``),
 which is the reference's aux over the micro-batch's global rows.  pp x
-cp and the audio family under pp are refused as in the reference; so is a
-global batch that does not divide the data axes (ROADMAP.md, A6.1r).
+cp and the audio family under pp are refused as in the reference, and so
+is ``grad_compress`` with a global batch that does not divide the data
+axes.  The audio family's block with the sequence over the data axes is
+gathered whole and runs replicated (its cross-attention has no sequence
+shard).
 """
 from __future__ import annotations
 
@@ -352,21 +374,27 @@ def reduce_grads(grads: List[torch.Tensor], specs: list, mesh, axes,
 
 
 def model_context(cfg: ArchConfig, specs, mesh, regime: str,
-                  parallel: ParallelConfig, *, section: Optional[str] = None):
+                  parallel: ParallelConfig, *, section: Optional[str] = None,
+                  seq_ax: Optional[tuple] = None, vocab: bool = False):
     """How a rank of ``mesh`` runs a model of ``cfg`` whose parameters
     follow the ParamSpec tree ``specs``, in the plain or cp regime ->
     (context factory, compute specs).
 
-    The context installs the cp regime's attention, Megatron TP on the
-    ``model`` axis (:func:`dist.pipeline.tensor_parallel`) and, for a
-    model with MoE layers on more than one data or sequence rank, the mean
-    of the router statistics over those ranks.  TP runs where the forward
-    is ``models.transformer.lm_forward`` over the ``lm_specs`` tree;
-    any other model (whisper's encoder-decoder, the MLLM's vision tower)
-    computes whole on every model rank.  The compute specs are the blocks
-    the rank computes with (``dist.pipeline.compute_specs``: its TP
+    The context installs attention over the ranks that split the sequence
+    (``seq_ax``, :attr:`DataLayout.seq_ax`: by default ``seq`` in the cp
+    regime), Megatron TP on the ``model`` axis
+    (:func:`dist.pipeline.tensor_parallel`; with ``vocab`` the output
+    layer and the cross-entropy split the vocabulary over it too) and, for
+    a model with MoE layers on more than one data or sequence rank, the
+    mean of the router statistics over those ranks.  TP runs where the
+    forward is ``models.transformer.lm_forward`` over the ``lm_specs``
+    tree; any other model (whisper's encoder-decoder, the MLLM's vision
+    tower) computes whole on every model rank.  The compute specs are the
+    blocks the rank computes with (``dist.pipeline.compute_specs``: its TP
     slices, every other leaf whole), a tree over ``specs``."""
     sum_ax = shd.dp_axes(mesh) + ((shd.AXIS_SEQ,) if regime == "cp" else ())
+    if seq_ax is None:
+        seq_ax = (shd.AXIS_SEQ,) if regime == "cp" else ()
     sizes = shd.mesh_shape(mesh)
     n = shd.axis_size(mesh, sum_ax)
 
@@ -374,13 +402,15 @@ def model_context(cfg: ArchConfig, specs, mesh, regime: str,
         return tree_map(lambda x: tuple(x.shape), t)
     tp = None
     if cfg.family != "audio" and shapes(specs) == shapes(tf.lm_specs(cfg)):
-        tp = pl.tensor_parallel(cfg, mesh, repeat_kv=True)
+        tp = pl.tensor_parallel(cfg, mesh, repeat_kv=True, vocab=vocab)
     if tp is None:
         c_specs = tree_map(lambda x: shd.P(), specs)
     else:
         c_specs = pl.compute_specs(cfg, tp_axis=shd.AXIS_MODEL,
                                    tp_attn=tp.attn, tp_ffn=tp.ffn,
-                                   kv_rep=tp.kv_repeat)
+                                   kv_rep=tp.kv_repeat,
+                                   vocab_axis=shd.AXIS_MODEL if tp.vocab
+                                   else None)
     stats_mean = None
     if cfg.num_experts and n > 1:
         groups = [mesh.get_group(a) for a in sum_ax if sizes[a] > 1]
@@ -388,11 +418,15 @@ def model_context(cfg: ArchConfig, specs, mesh, regime: str,
         def stats_mean(stats):
             return pl.mean_over(stats, groups, n)
     impl = None
-    if regime == "cp":
+    if seq_ax == (shd.AXIS_SEQ,):
         from repro_torch.dist.context import cp_attention_impl
         impl = cp_attention_impl(mesh, mode=parallel.cp_mode,
                                  overlap_chunks=parallel.cp_overlap_chunks,
                                  section=section)
+    elif seq_ax:
+        # the sequence over the data axes: the cp knobs name the seq axis
+        from repro_torch.dist.context import cp_attention_impl
+        impl = cp_attention_impl(mesh, section=section, axes=seq_ax)
 
     @contextlib.contextmanager
     def ctx():
@@ -409,8 +443,10 @@ def model_context(cfg: ArchConfig, specs, mesh, regime: str,
 
 def _check_sharded(cfg: ArchConfig, parallel: ParallelConfig,
                    shape: ShapeConfig, mesh) -> tuple:
-    """The refusals of the sharded step -> (regime, data axes, their
-    size)."""
+    """The refusals of the sharded step, the reference's -> (regime, data
+    axes, their size).  A global batch that does not divide the data axes
+    is legal (:class:`DataLayout`'s sequence and replicated layouts),
+    except under ``grad_compress``."""
     regime = parallel_regime(mesh, parallel)
     _check_pp_cp_support(cfg, regime)
     dp_ax = shd.dp_axes(mesh)
@@ -441,12 +477,11 @@ def _check_sharded(cfg: ArchConfig, parallel: ParallelConfig,
         raise NotImplementedError(
             "grad_compress supports a single data axis (got a multi-pod dp "
             "mesh); compress per pod or disable")
-    if shape.global_batch % dp_total:
+    if compress != "none" and shape.global_batch % dp_total:
         raise NotImplementedError(
-            f"the sharded step needs the global batch ({shape.global_batch}) "
-            f"to divide the data axes ({dp_total}) so that every rank owns a "
-            "real slice of it; the reference's sequence-sharded and "
-            "replicated batch fallbacks are not ported")
+            f"grad_compress needs the global batch ({shape.global_batch}) "
+            f"to divide the data axis ({dp_total}) so every shard owns a "
+            "real slice of the batch")
     return regime, dp_ax, dp_total
 
 
@@ -551,15 +586,41 @@ IMAGE_SLOT_KEYS = ("image_embeds", "image_pos", "image_valid")
 
 
 class DataLayout:
-    """This rank's share of a global batch on ``mesh`` in the plain or cp
-    regime: its rows of the shard-major layout ``[dp, n_micro, mbs]``, its
-    sequence columns in the cp regime (:data:`IMAGE_SLOT_KEYS` whole), each
-    micro-batch's weight (this
-    rank's share of the mask total, so that the weighted masked means sum
-    over the data and sequence ranks to the global one) and the metric
-    means over those ranks."""
+    """This rank's share of a global batch of ``global_batch`` x
+    ``seq_len`` on ``mesh``, in the reference's layout
+    (``dist.sharding.batch_layout``, ``kind``):
 
-    def __init__(self, mesh, regime: str, n_micro: int, seq_len: int):
+    * ``"rows"``: each data rank owns its rows of the shard-major layout
+      ``[dp, n_micro, mbs]``;
+    * ``"sequence"`` (the batch does not divide the data axes, its
+      sequence does): each data rank owns its sequence columns of every
+      row, and the model's attention runs over the data axes' group
+      (``dist.context.cp_attention_impl(axes=)``);
+    * ``"replicated"``: every data rank runs the whole batch.
+
+    With ``gather`` (the staged loss, which takes rows or all of them,
+    and the audio family, whose cross-attention has no sequence shard)
+    the rank computes on its rows where the batch divides the data axes,
+    else on the whole batch, every leaf of its block gathered to that
+    (the reference's rule may split a leaf whose dim 1 is not the
+    sequence, such as whisper's frames).
+
+    In the cp regime each [B, S] leaf is split over ``seq`` as well where
+    the data axes leave its dim 1 free (a ``"sequence"`` batch is
+    replicated over ``seq``), and :data:`IMAGE_SLOT_KEYS` keep only their
+    rows split.  :meth:`block` cuts a rank's block from the global batch on
+    the host; the steps take that block.  :meth:`weights` gives each
+    micro-batch's share of the mask total over every data (and sequence)
+    rank, so that the weighted masked means sum to the global one in every
+    layout, and :meth:`means` the metric means over those ranks.
+    ``input_specs``: the global batch's leaves (tensors, or shapes as
+    tuples) by key.  ``global_batch=None``: rows of pre-microbatched
+    batches only (:meth:`rows`, the MLLM and multi-teacher steps)."""
+
+    def __init__(self, mesh, regime: str, n_micro: int, seq_len: int,
+                 global_batch: Optional[int] = None,
+                 input_specs: Optional[dict] = None, *,
+                 gather: bool = False):
         self.mesh, self.regime, self.n_micro = mesh, regime, n_micro
         self.seq_len = seq_len
         self.dp_ax = shd.dp_axes(mesh)
@@ -572,19 +633,51 @@ class DataLayout:
         self.rank = 0
         for a in self.dp_ax:
             self.rank = self.rank * sizes[a] + coord[a]
-        self.cp = sizes.get(shd.AXIS_SEQ, 1)
-        self.seq_idx = coord.get(shd.AXIS_SEQ, 0)
+        self.kind = ("rows" if global_batch is None else
+                     shd.batch_layout(mesh, global_batch, seq_len))
+        self.gather = gather
+        #: the axes the model's sequence is split over while it computes
+        self.seq_ax = (self.dp_ax if self.kind == "sequence" and not
+                       gather else (shd.AXIS_SEQ,) if regime == "cp"
+                       else ())
+        self.global_batch = global_batch
+        self.specs: dict = {}
+        for k, x in (input_specs or {}).items():
+            self.spec(k, getattr(x, "shape", x))
 
-    def columns(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's sequence columns of a batch leaf (cp regime)."""
-        if x.dim() < 2 or x.shape[1] != self.seq_len:
-            raise ValueError(
-                f"the cp regime splits dim 1 of every batch leaf over "
-                f"{self.cp} sequence ranks; a leaf of shape "
-                f"{tuple(x.shape)} has no sequence dim of length "
-                f"{self.seq_len}")
-        n = self.seq_len // self.cp
-        return x[:, self.seq_idx * n:(self.seq_idx + 1) * n]
+    def spec(self, key: str, shape) -> "shd.PartitionSpec":
+        """The spec of batch leaf ``key`` of global ``shape``
+        (:func:`batch_leaf_spec`)."""
+        if key not in self.specs:
+            self.specs[key] = batch_leaf_spec(self.mesh, self.kind, key,
+                                              shape)
+        return self.specs[key]
+
+    def block(self, batch: dict) -> dict:
+        """This rank's block of the global ``batch`` (on the host, before
+        it moves to the device), each leaf a tensor of its own that keeps
+        no reference to the global one."""
+        return {k: shd.shard(v, self.spec(k, v.shape), self.mesh).clone()
+                for k, v in batch.items()}
+
+    def local(self, block: dict) -> dict:
+        """The batch this rank computes with from its block: the block
+        itself, or with ``gather`` its rows or the whole batch."""
+        tok = block["tokens"]
+        if self.global_batch is not None and "tokens" in self.specs:
+            want = tuple(shd.shard(torch.empty(
+                (self.global_batch, self.seq_len), device="meta"),
+                self.specs["tokens"], self.mesh).shape)
+            if tuple(tok.shape[:2]) != want:
+                raise ValueError(
+                    f"the step takes this rank's block of the batch, tokens "
+                    f"{want}, not {tuple(tok.shape)}: cut it with "
+                    "step.block(global_batch)")
+        if not self.gather:
+            return block
+        want = shd.P(self.dp_ax if self.kind == "rows" else None)
+        return {k: shd.reshard(v, self.specs[k], want, self.mesh)
+                for k, v in block.items()}
 
     def rows(self, m: int) -> tuple:
         """(first row, count) of this rank's rows of a microbatch of ``m``
@@ -595,14 +688,9 @@ class DataLayout:
         n = m // self.dp_total
         return self.rank * n, n
 
-    def microbatches(self, batch: dict) -> list:
-        """This rank's micro-batches of the global ``batch``."""
-        local = tree_map(lambda x: x.reshape((self.dp_total, -1)
-                                             + x.shape[1:])[self.rank],
-                         batch)
-        if self.regime == "cp":
-            local = {k: v if k in IMAGE_SLOT_KEYS else self.columns(v)
-                     for k, v in local.items()}
+    def microbatches(self, block: dict) -> list:
+        """This rank's micro-batches of its ``block``."""
+        local = self.local(block)
         return [local] if self.n_micro == 1 else _split_microbatches(
             local, self.n_micro)
 
@@ -624,6 +712,25 @@ class DataLayout:
         return {k: v / self.n_micro for k, v in zip(keys, packed.unbind(0))}
 
 
+def batch_leaf_spec(mesh, kind: str, key: str, shape) -> "shd.PartitionSpec":
+    """The spec of the batch leaf ``key`` of global ``shape`` in a batch
+    laid out as ``kind`` (``dist.sharding.batch_layout``): the
+    reference's ``data_shardings`` rule, except that
+    :data:`IMAGE_SLOT_KEYS` keep only their rows split."""
+    if key in IMAGE_SLOT_KEYS:
+        return shd.P(shd.dp_axes(mesh) if kind == "rows" else None)
+    return shd.data_shardings(mesh, tuple(shape))
+
+
+def microbatch_rows(lay: DataLayout, batch: dict, keys) -> dict:
+    """This rank's block of a pre-microbatched global batch ``[n_mb, m,
+    ...]``: its rows of each micro-batch for ``keys`` (the reference's
+    ``P(None, dp)``, :meth:`DataLayout.rows`), every other leaf whole."""
+    lo, n = lay.rows(batch["tokens"].shape[1])
+    return {k: v[:, lo:lo + n].clone() if k in keys else v
+            for k, v in batch.items()}
+
+
 def build_sharded_step(model: Model, parallel: ParallelConfig,
                        shape: ShapeConfig, mesh, *, lr_schedule=None,
                        opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()):
@@ -634,9 +741,11 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
 
     ``params`` and ``opt_state`` are this rank's blocks under
     ``step.shardings["params"]`` and ``["opt"]`` (``dist.sharding
-    .shard_tree``); ``batch`` is the global batch, the same on every rank.
-    With compression, ``step.shardings["ef_init"](params)`` gives the zero
-    residual.  Every rank must call the step: it runs collectives."""
+    .shard_tree``); ``batch`` is this rank's block of the global batch,
+    ``step.block(global_batch)`` (:class:`DataLayout`; its specs are
+    ``step.shardings["batch"]``).  With compression,
+    ``step.shardings["ef_init"](params)`` gives the zero residual.  Every
+    rank must call the step: it runs collectives."""
     cfg = model.cfg
     regime, dp_ax, dp_total = _check_sharded(cfg, parallel, shape, mesh)
     compress = parallel.grad_compress or "none"
@@ -645,7 +754,9 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
     specs = model.specs()
     rules = shd.rules_for(cfg, mesh)
     data_group = mesh.get_group(dp_ax[0]) if compress != "none" else None
-    lay = DataLayout(mesh, regime, n_micro, shape.seq_len)
+    lay = DataLayout(mesh, regime, n_micro, shape.seq_len,
+                     shape.global_batch, model.input_specs(shape),
+                     gather=regime == "pp" or cfg.family == "audio")
     if regime == "pp":
         pp_loss, _ = pl.build_pp_loss(cfg, mesh, n_micro,
                                       remat=parallel.remat,
@@ -653,7 +764,8 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
         c_specs = pp_loss.specs
     else:
         model_ctx, c_specs = model_context(cfg, specs, mesh, regime,
-                                           parallel)
+                                           parallel, seq_ax=lay.seq_ax,
+                                           vocab=True)
 
         def loss_fn(p, mb):
             with model_ctx():
@@ -673,11 +785,14 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
         def step(params, opt_state, batch, step_idx):
             lists = blocks.lists(params)
             local = blocks.compute(params, lists)
+            rows = lay.kind == "rows"
             loss, grads = pp_loss.value_and_grad(
-                tree_unflatten(params, local), batch, reduce=False)
+                tree_unflatten(params, local), lay.local(batch),
+                reduce=False, sharded=rows)
             del local
             with torch.no_grad():
-                g_opt = [shd.reduce_to(g, o, mesh, pp_loss.grad_axes(c),
+                g_opt = [shd.reduce_to(g, o, mesh,
+                                       pp_loss.grad_axes(c, data=rows),
                                        have=c) for g, o, c in
                          zip(tree_leaves(grads), lists[1], lists[2])]
             del grads
@@ -729,7 +844,9 @@ def build_sharded_step(model: Model, parallel: ParallelConfig,
                         tree_like(params, specs))
 
     step.mesh = mesh
-    step.shardings = {"params": blocks.p_specs, "opt": blocks.o_specs}
+    step.block = lay.block
+    step.shardings = {"params": blocks.p_specs, "opt": blocks.o_specs,
+                      "batch": lay.specs}
     if compress != "none":
         step.shardings["ef_init"] = ef_init
     step._in_place = (1,)

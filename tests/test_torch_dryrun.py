@@ -14,11 +14,10 @@ C0).  Checks:
 * ``params``, ``active_params``, ``head_pad``, ``vocab_pad``,
   ``model_flops``, ``tokens`` and ``skipped`` are equal;
 * ``argument_size_in_bytes`` differs by exactly the leaves named in
-  :func:`_named_difference`: the port's train step takes the global batch
-  (the same on every rank) with int64 tokens and labels, where the
-  reference's takes this device's block with int32 ones and an int32 step
-  index; the decode step's token block is int64; the prefill's tokens
-  too;
+  :func:`_named_difference`: both train steps take this device's block of
+  the batch, the port's with int64 tokens and labels where the
+  reference's are int32, and the reference's takes an int32 step index;
+  the decode step's token block is int64; the prefill's tokens too;
 * the per-device FLOPs are within 25 % of the JAX ``hlo.flops_per_device``
   (each ratio printed), also on two cells whose ``model`` axis exceeds
   the KV heads (granite-3-8b's 2 at 2 x 4, granite-20b's 1 at 4 x 2),
@@ -142,9 +141,9 @@ def _named_difference(arch: str, shape: str, mesh: str) -> int:
     for d in (int(x) for x in mesh.split(",")[:-1]):
         dp *= d
     if s.kind == "train":
-        # global batch (int64 tokens, labels; f32 mask) against this
-        # device's block (int32 tokens, labels; f32 mask) and a step index
-        port = B * S * (8 + 8 + 4)
+        # this device's block (int64 tokens, labels; f32 mask) against the
+        # same block (int32 tokens, labels; f32 mask) and a step index
+        port = B // dp * S * (8 + 8 + 4)
         ref = B // dp * S * (4 + 4 + 4) + 4
         return port - ref
     if s.kind == "decode":
@@ -247,8 +246,9 @@ def test_production_mesh_records_in_one_process(records):
                for s, b in zip(tree_leaves(specs), blocks))
     parts = rec["memory"]["argument_parts"]
     assert parts["params"] == want, (parts, want)
-    # the global batch: 256 x 4096 int64 tokens and labels, f32 mask
-    assert parts["batch"] == 256 * 4096 * (8 + 8 + 4)
+    # this rank's block: 256 / 16 rows x 4096 of int64 tokens and labels
+    # and the f32 mask
+    assert parts["batch"] == 256 // 16 * 4096 * (8 + 8 + 4)
     assert set(rec["families"]) == {"all-gather", "all-reduce",
                                     "reduce-scatter"}
     assert rec["hlo"]["flops_per_device"] > 0

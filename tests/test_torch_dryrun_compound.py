@@ -15,9 +15,9 @@ fail, ROADMAP C0).  Checks:
 * the per-device FLOPs are within 25 % of the JAX ``hlo.flops_per_device``
   (each ratio printed);
 * ``argument_size_in_bytes`` differs by exactly the leaves
-  :func:`_named_difference` names: the port's steps take the global batch
-  (int64 tokens, labels, image positions and indices) where the
-  reference's take this device's block (int32), its step index is a
+  :func:`_named_difference` names: both sides' steps take this device's
+  block of the batch, the port's with int64 tokens, labels, image
+  positions and indices where the reference's are int32, its step index is a
   Python int where the reference's distillation step takes an int32 (the
   MLLM and multi-teacher steps' constant schedule leaves it unused, and
   XLA drops it), and the multi-teacher step takes the teachers' whole
@@ -123,15 +123,14 @@ def _named_difference(workload: str) -> int:
     B, S, mbs = 8, 128, 8
     n_mb = B // mbs
     if workload == "distill":
-        # global batch (int64 tokens, labels; f32 mask) against this
-        # device's block (int32) and an int32 step index
-        return B * S * (8 + 8 + 4) - (B // DP * S * (4 + 4 + 4) + 4)
+        # this device's block (int64 tokens, labels; f32 mask) against the
+        # same block (int32) and an int32 step index
+        return B // DP * S * (8 + 8 + 4) - (B // DP * S * (4 + 4 + 4) + 4)
     rows, local = n_mb * mbs, n_mb * mbs // DP
-    lm = rows * S * (8 + 8 + 4) - local * S * (4 + 4 + 4)
+    lm = local * S * (8 + 8 + 4) - local * S * (4 + 4 + 4)
     if workload == "mllm":
-        K, P, pd = 8, 32, 32
-        return (lm + rows * K * (8 + 4) - local * K * (4 + 4)
-                + (rows - local) * P * pd * 2     # bf16 patches
+        K = 8
+        return (lm + local * K * (8 + 4) - local * K * (4 + 4)
                 + rows * (8 - 4))                 # vis_idx int64, replicated
     cfg = reduce_config(get_config("granite-3-8b"))
     unembed = cfg.d_model * cfg.padded_vocab // TP * 2    # bf16 block

@@ -67,8 +67,7 @@ def _train_program(arch, over, par, seq=32, gb=8, rank=0):
         opt = dryrun.fake_blocks(adamw.state_specs(model.param_shapes()),
                                  step.shardings["opt"], sizes)
         inputs = model.input_specs(shape)
-        batch = dryrun.fake_blocks(inputs, tree_map(lambda x: (), inputs),
-                                   sizes)
+        batch = dryrun.fake_blocks(inputs, step.shardings["batch"], sizes)
         args = (params, opt, batch, 0)
         if par.grad_compress != "none":
             args += (step.shardings["ef_init"](params),)

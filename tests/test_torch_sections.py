@@ -141,7 +141,7 @@ def test_one_rank_runs_both_sections_and_builds_their_step(world1):
             p = shd.shard_tree(full, sh["params"], rt.mesh("student"))
             o = adamw.init(shd.shard_tree(full, sh["opt"].master,
                                           rt.mesh("student")))
-            p, o, m = step(p, o, batch, 0)
+            p, o, m = step(p, o, step.block(batch), 0)
             outs.append((m["loss"], tree_leaves(p)))
         assert torch.equal(outs[0][0], outs[1][0])
         for a, b in zip(outs[0][1], outs[1][1]):

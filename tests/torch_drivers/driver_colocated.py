@@ -11,7 +11,12 @@
   ranks, one step each, then the multi-teacher step at tp 2 on the same
   ranks;
 * ``world1``: each of the three on a one-rank mesh against its meshless
-  step, two steps each, compared bit for bit here.
+  step, two steps each, compared bit for bit here;
+* ``distill_b1``: the distillation step at dp 2 on 2 ranks with a global
+  batch of one row (``distill_b1/batch/<key>``), its sequence laid out
+  over the data ranks.
+
+Each mesh step takes this rank's block of the batch (``step.block``).
 
 ``IN.npz`` holds the full parameter trees (``<case>/params/<tree>/<path>``,
 float32) and the batches (``<case>/batch/<key>``); rank 0 writes
@@ -43,6 +48,8 @@ from repro_torch.optim import adamw, schedules  # noqa: E402
 
 #: distillation: global batch, sequence, rows a micro-batch, the mesh
 D_B, D_S, D_MBS, D_PAR = 8, 16, 2, ParallelConfig(dp=2, tp=2, mbs=2)
+#: the distillation step at one row on 2 data ranks
+D1_B, D1_PAR = 1, ParallelConfig(dp=2)
 #: MLLM and multi-teacher: global batch, sequence, microbatch rows
 B, S, MBS = 8, 32, 4
 #: the image rows and the specialist's routed rows, in dispatch order: in
@@ -151,14 +158,16 @@ def full(blocks, specs, mesh) -> dict:
 # --------------------------------------------------------------------------- #
 # the steps
 # --------------------------------------------------------------------------- #
-def distill_step(arrays, mesh):
+def distill_step(arrays, mesh, par=None, gb: int = D_B,
+                 prefix: str = "distill/batch/"):
     """-> (step, the student's blocks, opt, the teacher's blocks, batch)
     on ``mesh``, or the meshless step and full trees with ``mesh`` None."""
     t_cfg, s_cfg = distill_cfgs()
-    par = D_PAR if mesh is not None and shd.mesh_shape(mesh)["data"] > 1 \
-        else ParallelConfig(mbs=D_MBS)
+    if par is None:
+        par = (D_PAR if mesh is not None and shd.mesh_shape(mesh)["data"] > 1
+               else ParallelConfig(mbs=D_MBS))
     step = dw.build_colocated_step(
-        t_cfg, s_cfg, ShapeConfig("d", "train", D_S, D_B), par, mesh=mesh,
+        t_cfg, s_cfg, ShapeConfig("d", "train", D_S, gb), par, mesh=mesh,
         lr_schedule=lr_fn, opt_cfg=OPT)
     pt = params(arrays, "distill/params/teacher/", tf.lm_specs(t_cfg))
     ps = params(arrays, "distill/params/student/", tf.lm_specs(s_cfg))
@@ -168,7 +177,7 @@ def distill_step(arrays, mesh):
     else:
         pt = shd.shard_tree(pt, step.shardings["teacher"], mesh)
         ps = shd.shard_tree(ps, step.shardings["student"], mesh)
-    return step, ps, opt, pt, batch(arrays, "distill/batch/")
+    return step, ps, opt, pt, feed(step, batch(arrays, prefix))
 
 
 def mllm_step(arrays, mesh):
@@ -180,7 +189,7 @@ def mllm_step(arrays, mesh):
     opt = opt_state(p, step, "opt", mesh)
     if mesh is not None:
         p = shd.shard_tree(p, step.shardings["params"], mesh)
-    return step, p, opt, mllm_batch(arrays)[0]
+    return step, p, opt, feed(step, mllm_batch(arrays)[0])
 
 
 def mt_step(arrays, mesh):
@@ -199,7 +208,13 @@ def mt_step(arrays, mesh):
         pa = shd.shard_tree(pa, step.shardings["teacher_a"], mesh)
         pb = shd.shard_tree(pb, step.shardings["teacher_b"], mesh)
         ps = shd.shard_tree(ps, step.shardings["student"], mesh)
-    return step, ps, opt, pa, pb, w_a, w_b, mt_batch(arrays)[0]
+    return step, ps, opt, pa, pb, w_a, w_b, feed(step, mt_batch(arrays)[0])
+
+
+def feed(step, b: dict) -> dict:
+    """What the step takes of the global batch ``b``: this rank's block on
+    a mesh, else all of it."""
+    return step.block(b) if hasattr(step, "block") else b
 
 
 def _record(out: dict, name: str, met: dict, tree) -> None:
@@ -280,7 +295,20 @@ def case_world1(rank, world, arrays, out):
     np.savez(f"{out}.{rank}.npz", **res)
 
 
-CASES = {"distill": case_distill, "dp2": case_dp2, "world1": case_world1}
+def case_distill_b1(rank, world, arrays, out):
+    mesh = shd.section_mesh(range(world), D1_PAR)
+    step, ps, opt, pt, b = distill_step(arrays, mesh, D1_PAR, D1_B,
+                                        "distill_b1/batch/")
+    ps, opt, met = step(ps, opt, pt, b, 0)
+    res = {}
+    _record(res, "distill_b1", met,
+            full(ps, step.shardings["student"], mesh))
+    if rank == 0:
+        np.savez(f"{out}.{rank}.npz", **res)
+
+
+CASES = {"distill": case_distill, "dp2": case_dp2, "world1": case_world1,
+         "distill_b1": case_distill_b1}
 
 
 def _main(rank, world, case, in_path, out):

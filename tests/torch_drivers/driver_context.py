@@ -9,10 +9,12 @@ WORLD)`` and runs every mode of :data:`ATTN_CASES` for its world size,
 forward and the gradients of ``sum(o ** 2)``; rank 0 writes the gathered
 ``<case>/{o,dq,dk,dv}``.
 
-``step``: the cases of :data:`STEP_CASES` for this world size, each from
-``<case>/params/<path>`` (float32, cast to the parameters' dtypes) and
-one global batch ``<case>/batch/<key>``:
-one sharded train step at its ``ParallelConfig``; rank 0 writes
+``step`` / ``layout``: the cases of :data:`STEP_CASES` /
+:data:`LAYOUT_CASES` for this world size, each from ``<case>/params/
+<path>`` (float32, cast to the parameters' dtypes) and one global batch
+``<case>/batch/<key>``, of which each rank takes its block
+(``step.block``): one sharded train step at its ``ParallelConfig``;
+rank 0 writes
 ``<case>/{loss,grad_norm}`` and the gathered ``<case>/params/<path>``.
 A case whose name ends in ``_planted`` splices each shard's image slots
 without the shard's shift (every shard reads the global positions as its
@@ -29,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from dist_util import flat, nest, spawn
+from driver_pipeline import logit_width
 from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.types import ParallelConfig, ShapeConfig
@@ -71,6 +74,17 @@ STEP_CASES = {
         ("pix_d2cp2_planted", "pixtral-12b", {}, dict(dp=2, cp=2, mbs=2))],
 }
 STEP_GB, STEP_S = 8, 16
+
+#: (name, arch, config overrides, ParallelConfig knobs, (global batch,
+#: sequence)): a batch of 1 at (dp 2, cp 2), its sequence over the data
+#: ranks and replicated over seq, as the reference lays it out; the tied
+#: vocabulary split over the model ranks at cp x tp
+LAYOUT_CASES = {
+    4: [("seq_b1_d2cp2", "granite-3-8b", dict(num_layers=4),
+         dict(dp=2, cp=2), (1, 16)),
+        ("vp_q_cp2t2", "qwen1.5-0.5b", {}, dict(cp=2, tp=2, mbs=8),
+         (8, 16))],
+}
 # tests/drivers/driver_train_step_dist.py:32-36
 STEP_OPT = adamw.AdamWConfig(eps=1e-3)
 STEP_LR = functools.partial(schedules.constant, peak_lr=1e-3)
@@ -109,8 +123,9 @@ def _cast(tree, specs):
     return tree.to(specs.dtype)
 
 
-def case_step(rank, world, arrays, out):
-    for name, arch, over, knobs in STEP_CASES[world]:
+def case_step(rank, world, arrays, out, cases=STEP_CASES):
+    for name, arch, over, knobs, *shape in cases[world]:
+        gb, seq = shape[0] if shape else (STEP_GB, STEP_S)
         cfg = get_reduced(arch).replace(dtype="float32", **over)
         params = _cast(params_from_numpy(nest(arrays, f"{name}/params/"),
                                          device="cpu"), model_specs(cfg))
@@ -118,26 +133,32 @@ def case_step(rank, world, arrays, out):
         par = ParallelConfig(**knobs)
         mesh = shd.section_mesh(range(world), par)
         step = step_mod.build_train_step(
-            model, par, ShapeConfig("t", "train", STEP_S, STEP_GB),
+            model, par, ShapeConfig("t", "train", seq, gb),
             mesh=mesh, lr_schedule=STEP_LR, opt_cfg=STEP_OPT)
         sh = step.shardings
         p = shd.shard_tree(model.param_tree(), sh["params"], mesh)
         opt = adamw.init(shd.shard_tree(model.param_tree(),
                                         sh["opt"].master, mesh))
-        batch = {k: torch.from_numpy(v)
-                 for k, v in nest(arrays, f"{name}/batch/").items()}
+        batch = step.block({k: torch.from_numpy(v) for k, v in
+                            nest(arrays, f"{name}/batch/").items()})
         offset = tf._slot_offset
         if name.endswith("_planted"):
             tf._slot_offset = lambda shard_len, device: 0
         try:
-            p, opt, met = step(p, opt, batch, 0)
+            with logit_width() as width:
+                p, opt, met = step(p, opt, batch, 0)
         finally:
             tf._slot_offset = offset
         new = shd.gather_tree(p, tree_like(p, sh["params"]), mesh)
         if rank == 0:
+            out[f"{name}/logit_width"] = np.array(width)
             out[f"{name}/loss"] = np.array([float(met["loss"])])
             out[f"{name}/grad_norm"] = np.array([float(met["grad_norm"])])
             out.update(flat(new, f"{name}/params/"))
+
+
+def case_layout(rank, world, arrays, out):
+    case_step(rank, world, arrays, out, LAYOUT_CASES)
 
 
 def work(rank, world, case, in_path, out_path):

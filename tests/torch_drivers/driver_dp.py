@@ -10,7 +10,9 @@ reduced config of ``arch`` with ``over`` applied, its parameters from
 parameter dtypes when ``spec_dtypes``) and one global batch a step
 (``<name>/batch<i>/<key>``).  Every rank builds the same model and a
 ``section_mesh`` over all ranks with ``ParallelConfig(dp=WORLD, mbs,
-zero_opt)``, runs the steps and gathers the final parameters and master
+zero_opt)``, runs the steps on its blocks of the batches (``step.block``:
+its rows, or its sequence columns where a batch does not divide the data
+ranks) and gathers the final parameters and master
 weights; the ranks' losses must agree.  Rank 0 writes ``<name>/loss``,
 ``<name>/grad_norm``, ``<name>/params/<path>`` and
 ``<name>/master/<path>`` to ``OUT.npz``.  Prints ``DRIVER_OK dp``.
@@ -63,8 +65,8 @@ def run_case(case: dict, arrays, mesh, world: int) -> dict:
     ef = sh["ef_init"](params) if compress else None
     losses, gnorms = [], []
     for i in range(steps):
-        batch = {k: torch.from_numpy(v) for k, v in
-                 nest(arrays, f"{name}/batch{i}/").items()}
+        batch = step.block({k: torch.from_numpy(v) for k, v in
+                            nest(arrays, f"{name}/batch{i}/").items()})
         if compress:
             params, opt, met, ef = step(params, opt, batch, i, ef)
         else:

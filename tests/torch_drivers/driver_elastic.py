@@ -88,7 +88,7 @@ def save(rank, world, ckdir, in_path, full_path):
     full = model.param_tree()
     params = shd.shard_tree(full, sh["params"], mesh)
     opt = adamw.init(shd.shard_tree(full, sh["opt"].master, mesh))
-    params, opt, _ = step(params, opt, batch, 0)
+    params, opt, _ = step(params, opt, step.block(batch), 0)
     state = {"params": params, "opt": opt}
     Checkpointer(ckdir, async_save=False).save(1, state, shardings=sh,
                                                mesh=mesh)

@@ -12,18 +12,23 @@ axes over the first ranks of the world (the others skip the case), runs
 writes ``<case>/{loss,fwd_loss,info}`` and the gathered
 ``<case>/grads/<path>``.
 
-``pp_step`` / ``tp_step``: the cases of :data:`PP_STEP_CASES` /
-:data:`TP_STEP_CASES`, one sharded train step each at its
-``ParallelConfig`` on ``section_mesh``; rank 0 writes ``<case>/{loss,
-grad_norm}`` and the gathered ``<case>/params/<path>``.  A case whose name
-ends in ``_planted`` runs with the fault :data:`PLANTED` names, which the
-bounds must catch: every gradient leaf the model axis does not split
-summed over ``model`` as well, or each repeated KV head's gradient taken
-from one of its copies instead of their sum.
+``pp_step`` / ``tp_step`` / ``layout``: the cases of
+:data:`PP_STEP_CASES` / :data:`TP_STEP_CASES` / :data:`LAYOUT_CASES`, one
+sharded train step each at its ``ParallelConfig`` on ``section_mesh``
+over the first ranks of the world, fed each rank's block of the global
+batch (``step.block``); rank 0 writes ``<case>/{loss, grad_norm}`` and the
+gathered ``<case>/params/<path>``.  A case whose name ends in
+``_planted`` runs with the fault :data:`PLANTED` names, which the bounds
+must catch: every gradient leaf the model axis does not split summed over
+``model`` as well, each repeated KV head's gradient taken from one of its
+copies instead of their sum, one data rank's rows counted twice in the
+replicated layout, or the first vocabulary slice left out of the
+vocab-parallel log-sum-exp.
 
 Prints ``DRIVER_OK pipeline CASE``.  Imports no ``jax`` and nothing of
 ``repro``.
 """
+import contextlib
 import functools
 import json
 import sys
@@ -39,6 +44,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.types import ParallelConfig, ShapeConfig
 from repro_torch.dist import pipeline as pl
 from repro_torch.dist import sharding as shd
+from repro_torch.models import transformer as tf
 from repro_torch.models.common import tree_like
 from repro_torch.models.model import build_model, model_specs
 from repro_torch.optim import adamw, schedules
@@ -93,6 +99,26 @@ TP_STEP_CASES = [
      dict(dp=2, tp=4, mbs=2)),
 ]
 STEP_GB, STEP_S = 8, 16
+
+#: (name, arch, config overrides, ParallelConfig knobs, (global batch,
+#: sequence)): the batch layouts the reference keeps legal (a batch of 3
+#: on 2 data ranks with an odd sequence, replicated, here on 2 of the 4
+#: ranks, also for whisper, whose frames the reference's rule splits over
+#: the data ranks all the same; the pipeline at a batch of 1, its
+#: sequence over the data ranks gathered to run replicated), the tied
+#: vocabulary split over 4 model ranks with 3 padded rows, and the
+#: planted faults of both
+LAYOUT_CASES = [
+    ("rep_b3_d2", "qwen1.5-0.5b", {}, dict(dp=2, mbs=4), (3, 15)),
+    ("rep_b3_d2_planted", "qwen1.5-0.5b", {}, dict(dp=2, mbs=4), (3, 15)),
+    ("whisper_b3_d2", "whisper-small", {}, dict(dp=2, mbs=4), (3, 15)),
+    ("pp_b1_d2p2", "granite-3-8b", dict(num_layers=4), dict(dp=2, pp=2),
+     (1, 16)),
+    ("vp_q_t4", "qwen1.5-0.5b", dict(vocab_size=509, vocab_pad=3),
+     dict(tp=4, mbs=8), (8, 16)),
+    ("vp_q_t4_planted", "qwen1.5-0.5b", dict(vocab_size=509, vocab_pad=3),
+     dict(tp=4, mbs=8), (8, 16)),
+]
 # tests/drivers/driver_train_step_dist.py:32-36
 STEP_OPT = adamw.AdamWConfig(eps=1e-3)
 STEP_LR = functools.partial(schedules.constant, peak_lr=1e-3)
@@ -159,10 +185,36 @@ def _one_copy(x, d, times):
     return x.unflatten(d, (-1, times)).select(d + 1, 0)
 
 
+def _twice_on_rank0(weights):
+    """``DataLayout.weights`` planted wrong: data rank 0's micro-batches
+    counted twice."""
+    def planted(self, mbs):
+        w = weights(self, mbs)
+        return w * 2 if self.rank == 0 else w
+    return planted
+
+
+def _without_first_slice(partials):
+    """``dist.pipeline.vocab_partials`` planted wrong: the slice at offset
+    0 adds nothing to the exponential sums."""
+    def planted(logits, labels, off, mx):
+        ex, se, gold, col, mine = partials(logits, labels, off, mx)
+        return ex, se * (off != 0), gold, col, mine
+    return planted
+
+
 def _plant(name):
     """Install case ``name``'s planted fault (:data:`PLANTED`) -> a
     function that removes it."""
     fault = PLANTED.get(name)
+    if fault == "rows_twice":
+        original = step_mod.DataLayout.weights
+        step_mod.DataLayout.weights = _twice_on_rank0(original)
+        return lambda: setattr(step_mod.DataLayout, "weights", original)
+    if fault == "lse_slice":
+        original = pl.vocab_partials
+        pl.vocab_partials = _without_first_slice(original)
+        return lambda: setattr(pl, "vocab_partials", original)
     if fault == "model_sum":
         original = step_mod.reduce_grads
         step_mod.reduce_grads = _unsplit_over_model_fault(original)
@@ -175,11 +227,13 @@ def _plant(name):
 
 
 #: the planted cases' faults
-PLANTED = {"g_d2t2_planted": "model_sum", "g_d2t4_planted": "kv_one_copy"}
+PLANTED = {"g_d2t2_planted": "model_sum", "g_d2t4_planted": "kv_one_copy",
+           "rep_b3_d2_planted": "rows_twice", "vp_q_t4_planted": "lse_slice"}
 
 
 def _step_cases(rank, world, arrays, out, cases):
-    for name, arch, over, knobs in cases:
+    for name, arch, over, knobs, *shape in cases:
+        gb, seq = shape[0] if shape else (STEP_GB, STEP_S)
         cfg = get_reduced(arch).replace(dtype="float32", **over)
         params = _params(arrays, name, cfg)
         model = build_model(cfg, params, device="cpu")
@@ -188,23 +242,42 @@ def _step_cases(rank, world, arrays, out, cases):
         if rank >= par.devices:
             continue
         step = step_mod.build_train_step(
-            model, par, ShapeConfig("t", "train", STEP_S, STEP_GB),
+            model, par, ShapeConfig("t", "train", seq, gb),
             mesh=mesh, lr_schedule=STEP_LR, opt_cfg=STEP_OPT)
         sh = step.shardings
         p = shd.shard_tree(model.param_tree(), sh["params"], mesh)
         opt = adamw.init(shd.shard_tree(model.param_tree(),
                                         sh["opt"].master, mesh))
-        batch = _batch(arrays, name)
+        batch = step.block(_batch(arrays, name))
         undo = _plant(name)
         try:
-            p, opt, met = step(p, opt, batch, 0)
+            with logit_width() as width:
+                p, opt, met = step(p, opt, batch, 0)
         finally:
             undo()
         new = shd.gather_tree(p, tree_like(p, sh["params"]), mesh)
         if rank == 0:
+            out[f"{name}/logit_width"] = np.array(width)
             out[f"{name}/loss"] = np.array([float(met["loss"])])
             out[f"{name}/grad_norm"] = np.array([float(met["grad_norm"])])
             out.update(flat(new, f"{name}/params/"))
+
+
+@contextlib.contextmanager
+def logit_width():
+    """Record, in the list it yields, the widest logit tensor
+    ``models.transformer.unembed`` forms meanwhile."""
+    original, widest = tf.unembed, [0]
+
+    def recording(*args, **kw):
+        logits = original(*args, **kw)
+        widest[0] = max(widest[0], logits.shape[-1])
+        return logits
+    tf.unembed = recording
+    try:
+        yield widest
+    finally:
+        tf.unembed = original
 
 
 def case_pp_step(rank, world, arrays, out):
@@ -213,6 +286,10 @@ def case_pp_step(rank, world, arrays, out):
 
 def case_tp_step(rank, world, arrays, out):
     _step_cases(rank, world, arrays, out, TP_STEP_CASES)
+
+
+def case_layout(rank, world, arrays, out):
+    _step_cases(rank, world, arrays, out, LAYOUT_CASES)
 
 
 def work(rank, world, case, in_path, out_path):
