@@ -7,12 +7,12 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it builds the port's
 CUDA kernels from the sources in this checkout.  Phases:
 
 1. Card and build: the card's name and power limit from ``nvidia-smi``;
-   ``kernels/csrc/flash_fwd.cu``, ``distill_kl_fwd.cu`` and ``ssd_fwd.cu``
-   built by one ``nvcc`` each, started together; the counts of ``HGMMA``
-   (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
-   flash, KL and SSD libraries, each of which must have both: their bf16
-   paths run on the tensor cores from TMA-fed shared memory, their float32
-   paths on the CUDA cores.
+   ``kernels/csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``distill_kl_fwd.cu``
+   and ``ssd_fwd.cu`` built by one ``nvcc`` each, started together; the
+   counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+   the SASS of the flash forward and backward, KL and SSD libraries, each
+   of which must have both: their bf16 paths run on the tensor cores from
+   TMA-fed shared memory, their float32 paths on the CUDA cores.
 2. The flash kernel against its plain version (``kernels/ref.py``) on the
    card, over a sweep of shapes, masks and dtypes (bf16 through the
    tensor-core path, float32 through the CUDA-core path), and at the
@@ -21,11 +21,16 @@ CUDA kernels from the sources in this checkout.  Phases:
    an MLLM microbatch's in the ViT (non-causal, 4096 patches) and in the
    pixtral-12b-width LM, each held within a limit scaled to its output
    that a planted fault (o * 0.9) must fail, and where the kernel, the plain
-   version and PyTorch's ``scaled_dot_product_attention`` are timed (and,
-   at the training shapes, the plain blockwise backward).  Then
-   its gradients: autograd through ``ops.flash_attention[_lse]`` (kernel
-   forward, blockwise backward) against autograd through the plain
-   version, over a sweep and at the training shape.
+   version and PyTorch's ``scaled_dot_product_attention`` are timed.  At
+   each training shape the backward kernel (``csrc/flash_bwd.cu``) too:
+   dq, dk and dv against its plain version (``ref.flash_bwd_ref``) row by
+   row, each query or key row within SHAPE_REL_TOL of its own scale, each
+   gradient's last 128-row tile zeroed as a planted fault failing that,
+   two calls equal bit for bit, and its time beside the plain version's
+   and SDPA's backward.  Then its gradients: autograd
+   through ``ops.flash_attention[_lse]`` (the forward and backward
+   kernels) against autograd through the plain version, over a sweep and
+   at the training shape.
 3. The distillation-KL kernel against its plain version over a sweep
    (ragged N and V, Ds != Dt, T in {1, 2}, f32 and bf16, with and without
    a mask, W contiguous and W as ``embed.T``), then at the main-path shape
@@ -315,9 +320,12 @@ CUDA kernels from the sources in this checkout.  Phases:
    every model rank (PRODUCTION_BEFORE).
 17. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash and SSD kernels' at each of their
-   main-path shapes under ``at``; the top-level times are granite's
-   serving prefill's and mamba2-130m's), then the ``{"ok": true, ...}``
-   line.  Each phase prints its wall time.
+   main-path shapes under ``at``, the flash backward's at each training
+   shape; the top-level times are granite's serving prefill's,
+   mamba2-130m's and qwen1.5-0.5b's training attention's), then the
+   ``{"ok": true, ...}`` line.  Every path that trains through attention
+   must have launched the flash backward, and no serving or forward-only
+   path may have.  Each phase prints its wall time.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero without a CUDA card, and when run from a
@@ -346,7 +354,7 @@ PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # the libraries whose bf16 path runs wgmma on TMA-fed shared memory, and the
 # SASS instructions that show it
-TENSOR_CORE_LIBS = ("flash_fwd", "distill_kl_fwd", "ssd_fwd")
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd", "distill_kl_fwd", "ssd_fwd")
 SASS_OPS = ("HGMMA", "UTMALDG")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
@@ -366,6 +374,19 @@ LSE_TOL = 1e-4
 # shape, the same card: the kernel 7.812e-3 (one bf16 ulp of a row's
 # largest output), the planted fault 1.096e-1.
 SHAPE_REL_TOL = 2.0 ** -5
+# The backward at the training shapes is held row by row to SHAPE_REL_TOL
+# (``_bwd_at``), a dq row's scale floored at this share of dq's largest
+# element: a causal shape's first query row sees one key, so its
+# dS = P (dP - delta) cancels to rounding noise on both sides (exactly 0
+# in the plain version), while a row that sees more keys has a dq of its
+# own.  dk and dv rows have no floor: no key's gradient cancels, and the
+# last keys' rows, far below the first keys', are held to their own
+# scale.  ``_bwd_at`` prints how many dq rows fall under the floor beside
+# how many query rows see one key, and each gradient's smallest row.
+BWD_ROW_FLOOR = 2.0 ** -10
+# rows a block of the backward owns (the dK/dV kernel's KV tile, the dQ
+# kernel's q tile): the planted faults zero the last such tile
+BWD_TILE = 128
 # tests/test_kernels_flash.py's sweep (B, S, T, H, KV, D), plus a ragged
 # length and a cross-attention case: S != T with T ragged (whisper's 1500
 # encoder frames)
@@ -483,7 +504,7 @@ def phase_build() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    builds = _build.build_all(["flash_fwd", "distill_kl_fwd", "ssd_fwd"])
+    builds = _build.build_all()            # every csrc source
     print(f"build: {time.perf_counter() - t0:.1f} s wall for "
           f"{len(builds)} sources in parallel")
     for name, built in builds.items():
@@ -525,13 +546,16 @@ def compare(o, lse, o_ref, lse_ref, vis, dtype) -> float:
     return err
 
 
-def row_rel_err(o, o_ref) -> float:
-    """Max over query rows (b, s, h) of max_d |o - o_ref| / max_d |o_ref|:
-    each row held to its own scale (a row with no visible key, 0 on both
-    sides, reads 0)."""
+def row_rel_err(o, o_ref, floor: float = 0.0) -> float:
+    """Max over rows (every index but the last axis's: a query row (b, s,
+    h) of o or dq, a key row (b, t, kv) of dk or dv) of max_d |o - o_ref|
+    / max_d |o_ref|: each row held to its own scale, or to ``floor`` where
+    that is larger (a row with no visible key, 0 on both sides, reads
+    0)."""
     ref = o_ref.float()
     num = (o.float() - ref).abs().amax(dim=-1)
-    return (num / ref.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+    den = ref.abs().amax(dim=-1).clamp_min(max(floor, 1e-30))
+    return (num / den).max().item()
 
 
 def plain_rows(q, k, v, *, rows: int, q_offset: int = 0, **kw):
@@ -612,7 +636,8 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
     SHAPE_REL_TOL of the output's scale and, row by row, of each query
     row's own scale, then timed beside the plain version and PyTorch's
     ``scaled_dot_product_attention``.  With ``bwd`` (a training shape) the
-    plain blockwise backward is timed too.  With ``rows`` the plain version
+    backward kernel is checked and timed there too (``_bwd_at``).  With
+    ``rows`` the plain version
     runs over that many query rows at a time (``plain_rows``).  With a
     window the kernel run without it must fail the same limit, and it is
     timed without it too (``nowindow_ms``: what skipping the tiles outside
@@ -690,13 +715,8 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
                - o.float())[:, vis].abs().max().item()
     library_ms = time_ms(library, iters=10)
     if bwd:
-        # the plain-PyTorch blockwise backward that training runs after the
-        # kernel's forward (ROADMAP B2), for the device-time account
         _, lse = fa.flash_fwd(q, k, v, **kw)
-        do = torch.randn_like(o)
-        out["plain_bwd_ms"] = time_ms(
-            lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw),
-            iters=3, warmup=1)
+        out["bwd"] = _bwd_at(rng, shape, q, k, v, o, lse, kw)
     # query-key pairs the mask lets through
     pairs = int(visible_mask(S, T, **kw, device=q.device).sum())
     flops = 4 * B * H * D * pairs
@@ -713,7 +733,7 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
           f"sdpa {library_ms:.3f} ms (|sdpa-kernel| {lib_err:.3e}), "
           f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB)"
-          + (f"; plain backward {out['plain_bwd_ms']:.3f} ms" if bwd else "")
+          + (f"; backward kernel {out['bwd']['ms']:.3f} ms" if bwd else "")
           + (f"; without the window {out['nowindow_ms']:.3f} ms"
              if window else ""))
     return {"shape": list(shape), "causal": causal, "window": window,
@@ -722,9 +742,102 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
             "bound_by": bound_by, "library_ms": library_ms, **out}
 
 
+def _bwd_at(rng, shape, q, k, v, o, lse, kw) -> dict:
+    """The backward kernel at one training shape (bf16): dq row by row, each
+    query row within SHAPE_REL_TOL of its own scale, and dk and dv each key
+    row within SHAPE_REL_TOL of its own (at a causal shape the first rows'
+    and keys' gradients are tens of times a typical row's, so a limit on
+    the largest element alone would pass most rows wrong).  A dq row's
+    scale is floored at BWD_ROW_FLOOR of dq's largest element: a query row
+    that sees one key has dS = P (dP - delta) = 0 in exact arithmetic, and
+    its dq is rounding noise on both sides.  Planted faults, each
+    gradient's last BWD_TILE rows zeroed (one block's rows in either
+    kernel), must fail the row limit; two calls are equal bit for bit (the
+    kernels use no atomics).  Then timed beside the plain version and the
+    backward of ``scaled_dot_product_attention`` (the yardstick,
+    ``library_ms``: PyTorch's fused attention, which the port never
+    calls).  The bound counts 10 D FLOP a visible pair and query head at
+    the bf16 peak, against q, k, v, o, do and lse read and dq, dk, dv
+    written once at the HBM rate."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_bwd_ref, visible_mask
+    B, S, T, H, KV, D = shape
+    do = _randn(rng, (B, S, H, D), torch.bfloat16)
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    errs, rows, planted, smallest = {}, {}, {}, {}
+    for name, g, w in zip(names, got, want):
+        check(bool(torch.isfinite(g).all()), f"flash_bwd {name} at {shape} "
+              "not finite")
+        errs[name] = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().amax(dim=-1)
+        top = scale.max().item()
+        floor = BWD_ROW_FLOOR * top if name == "dq" else 0.0
+        smallest[name] = scale.min().item() / top
+        if name == "dq":
+            under = int((scale < floor).sum())
+        del scale
+        rows[name] = row_rel_err(g, w, floor)
+        bad = g.clone()
+        bad[:, -BWD_TILE:] = 0
+        planted[name] = row_rel_err(bad, w, floor)
+        del bad
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    one_key = int((visible_mask(S, T, **kw, device=q.device).sum(dim=1)
+                   == 1).sum()) * B * H
+    print(f"  backward: {under} dq rows under the floor, {one_key} query "
+          "rows see one key; smallest row / largest " + ", ".join(
+              f"{n} {smallest[n]:.3e}" for n in names))
+    print(f"  backward row by row (limit {SHAPE_REL_TOL:.3e}): " + ", ".join(
+        f"{n} {rows[n]:.3e} (max|g-ref| {errs[n]:.3e}), planted last "
+        f"{BWD_TILE} rows zeroed {planted[n]:.3e}" for n in names)
+        + f"; two calls bitwise equal {bitwise}")
+    for n in names:
+        check(rows[n] <= SHAPE_REL_TOL, f"flash_bwd at {shape}: a row's "
+              f"max|{n}-ref| is {rows[n]:.3e} of its scale > "
+              f"{SHAPE_REL_TOL:.3e}")
+        check(planted[n] > SHAPE_REL_TOL, f"flash_bwd at {shape}: the row "
+              f"limit passes {n} with its last {BWD_TILE} rows zeroed "
+              f"({planted[n]:.3e})")
+    check(bitwise, f"flash_bwd at {shape}: two calls differ")
+    del got, again, want
+    ms = time_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw), iters=10)
+    plain_ms = time_ms(lambda: flash_bwd_ref(q, k, v, o, lse, do, **kw),
+                       iters=3, warmup=1)
+    leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    o_lib = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=kw["causal"], enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        o_lib, leaves, do_t, retain_graph=True), iters=10)
+    del o_lib, leaves
+    pairs = int(visible_mask(S, T, **kw, device=q.device).sum())
+    flops = 10 * B * H * D * pairs
+    nbytes = 2 * (4 * B * S * H * D + 4 * B * T * KV * D) + 4 * B * S * H
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"flash backward at {shape} bf16 "
+          f"{'causal' if kw['causal'] else 'non-causal'}: kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s counted), plain {plain_ms:.3f} "
+          f"ms, sdpa backward {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return {"max_abs_err": max(errs.values()), "errs": errs,
+            "row_errs": rows, "planted_tile_zeroed": planted,
+            "dq_rows_under_floor": under, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def flash_entry(at: dict) -> dict:
     """The flash kernel's line: the serving prefill shape's numbers at the
     top, each main-path shape's under ``at``, the worst error of all."""
+    at = {name: {k: v for k, v in a.items() if k != "bwd"}
+          for name, a in at.items()}
     return {"name": "flash_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:51",
@@ -735,22 +848,59 @@ def flash_entry(at: dict) -> dict:
             "at": at}
 
 
+def flash_bwd_entry(at: dict) -> dict:
+    """The backward kernel's line: qwen1.5-0.5b's training shape's numbers
+    at the top, each training shape's under ``at``, the worst error."""
+    at = {name: {"shape": a["shape"], "causal": a["causal"], **a["bwd"]}
+          for name, a in at.items() if "bwd" in a}
+    top = at["train_distill"]
+    return {"name": "flash_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:203",
+            "launches": None,
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "max_abs_err": max(a["max_abs_err"] for a in at.values()),
+            "at": at}
+
+
 def reset_counts() -> None:
     from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
     fa.flash_fwd.launches = 0
+    fa.flash_bwd.launches = 0
     dk.distill_kl_fwd.launches = 0
     ssd.ssd_fwd.launches = 0
 
 
 def read_counts() -> tuple[int, int, int]:
-    """(flash_fwd, distill_kl_fwd, ssd_fwd) launches since reset_counts."""
+    """(flash_fwd, distill_kl_fwd, ssd_fwd) launches since reset_counts;
+    the backward's are read beside them by ``note_bwd``."""
     from repro_torch.kernels import distill_kl as dk
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
     return (fa.flash_fwd.launches, dk.distill_kl_fwd.launches,
             ssd.ssd_fwd.launches)
+
+
+#: flash_bwd launches on each main path, keyed as main()'s ``paths``,
+#: read where the path's forward counts are read (``note_bwd``); main()
+#: checks them and puts them on the kernels line
+BWD_LAUNCHES: dict = {}
+
+
+def read_bwd() -> int:
+    """flash_bwd launches since reset_counts (one a backward call, its
+    three kernels launched together)."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_bwd.launches
+
+
+def note_bwd(path: str) -> int:
+    """Record read_bwd() as ``path``'s launches, and return it."""
+    BWD_LAUNCHES[path] = read_bwd()
+    return BWD_LAUNCHES[path]
 
 
 def phase_serve() -> int:
@@ -763,6 +913,7 @@ def phase_serve() -> int:
                           dtype="bfloat16", device="cuda", seed=0)
     wall = time.perf_counter() - t0
     launches, kl_launches, ssd_launches = read_counts()
+    note_bwd("serve")
     check(kl_launches == ssd_launches == 0,
           "serving granite launched the distill_kl or the SSD kernel")
     cfg = res.cfg
@@ -927,8 +1078,8 @@ def phase_flash_grads(rng) -> None:
     """Gradients through the kernel's autograd Functions against autograd
     through the plain version, with and without an lse cotangent, over a
     sweep and at the training shape."""
-    print("flash gradients: ops.flash_attention[_lse] (kernel forward, "
-          "blockwise backward) vs autograd through the plain version "
+    print("flash gradients: ops.flash_attention[_lse] (forward and "
+          "backward kernels) vs autograd through the plain version "
           f"(f32 tol {GRAD_TOL[torch.float32]:.0e}, bf16 tol "
           f"{GRAD_TOL[torch.bfloat16]:.0e})")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -1080,6 +1231,10 @@ def phase_train() -> int:
           f"steps x layers x 2 = {want}")
     check(kl_launches == ssd_launches == 0,
           "training qwen launched the distill_kl or the SSD kernel")
+    bwd = note_bwd("train")
+    check(bwd == TRAIN_STEPS * cfg.num_layers, f"flash_bwd launched {bwd} "
+          f"times in training, expected steps x layers = "
+          f"{TRAIN_STEPS * cfg.num_layers}")
     names = ("embed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
     changed = _changed_leaves(res.params,
                               build_model(cfg, device="cuda", seed=0)
@@ -1128,12 +1283,13 @@ def _kernel_report(prof, wall_ms: float, what: str) -> None:
     busy, per = _device_ms(prof)
     check(busy > 0, f"the profiler saw no device time in {what}")
     ranges = _range_ms(prof, (
-        ("flash backward (plain torch)",
+        ("flash backward (its kernels)",
          "evaluate_function: FlashAttentionBackward"),
         ("KL backward (plain torch)", "evaluate_function: DistillKLBackward"),
         ("SSD backward (plain torch)", "evaluate_function: SSDScanBackward"),
         ("AdamW update", "adamw.update")))
     kinds = {"flash forward kernel": lambda k: "flash_fwd_kernel" in k,
+             "flash backward kernels": lambda k: "flash_bwd_" in k,
              "distill_kl kernels": lambda k: "distill_kl_" in k,
              "SSD forward kernels": lambda k: "ssd_" in k,
              "GEMMs": lambda k: any(x in k.lower() for x in
@@ -1199,6 +1355,7 @@ def phase_distill() -> tuple[int, int]:
               f"{times[-1] * 1e3:.1f} ms")
     launches, kl_launches, ssd_launches = read_counts()
     check(ssd_launches == 0, "distillation launched the SSD kernel")
+    note_bwd("distill")
     peak = torch.cuda.max_memory_allocated() / 2**30
     warm = float(np.mean(times[1:]))
     print(f"distill {cfg.name} teacher seed 1 -> student seed 0, batch "
@@ -1368,6 +1525,7 @@ def phase_checkpoint() -> int:
         b2 = train_mod.run(TRAIN_ARCH, ckpt_dir=str(ckdir), ckpt_every=1,
                            batches=_lm_stream(vocab, CKPT_STOP), **common)
         launches_b = read_counts()
+        note_bwd("resume")
         ck2 = b2.checkpointer
         resume_s = ck2.last_restore_s
         ra, rb = a.result, b2.result
@@ -1570,6 +1728,7 @@ def phase_dp() -> int:
         reset_counts()
         sharded = train_mod.run(TRAIN_ARCH, mesh=mesh, **common)
         launches = read_counts()
+        bwd = note_bwd("dp")
         parts["sharded run"], t = time.perf_counter() - t, time.perf_counter()
         rp, rs = plain.result, sharded.result
         L = plain.cfg.num_layers
@@ -1577,6 +1736,8 @@ def phase_dp() -> int:
         check(launches == launches_plain == (want, 0, 0),
               f"(flash, KL, SSD) launched {launches} sharded and "
               f"{launches_plain} plain, expected ({want}, 0, 0)")
+        check(bwd == want // 2, f"flash_bwd launched {bwd} times sharded, "
+              f"expected {want // 2}")
         print(f"dp: losses plain {rp.losses}, sharded {rs.losses}")
         check(rs.losses == rp.losses, "the sharded step's losses differ "
               "from the single-device step's")
@@ -1982,6 +2143,7 @@ def phase_distill_runtime() -> tuple[int, int, dict]:
             crt.submit_iteration(b, i, consts=consts)
         ms = crt.drain()
         counts_c = read_counts()
+        note_bwd("distill_runtime")
         ends = [m["execution"].t0 + max(e.end for e in
                                         m["execution"].timeline)
                 for m in ms]
@@ -2120,8 +2282,11 @@ def _scaled_first_accumulated(factor: float):
 def _rebuilds_reserved(builds: int = 4) -> list[int]:
     """The card's reserved bytes after each of ``builds`` device-carved
     ``DistillRuntime``s (qwen1.5-0.5b reduced, float32, both sections on
-    the card), each built, run one iteration and shut down, with the
-    caches emptied after."""
+    the card), each built, run one iteration, shut down and dropped, with
+    the caches emptied after.  Dropped: a runtime still referenced keeps
+    its installed state, whose blocks sit in one more or one fewer small
+    segment as its streams' timing falls, and the count would read that
+    placement rather than what a shut-down runtime leaves behind."""
     from repro_torch.configs import get_reduced
     from repro_torch.core.types import ParallelConfig
     from repro_torch.data.synthetic import lm_batches
@@ -2139,6 +2304,7 @@ def _rebuilds_reserved(builds: int = 4) -> list[int]:
             drt.train_iteration(pt, ps, opt, batch, 0,
                                 w_t=drt.teacher_unembed(pt))
             del pt, ps, opt
+        del drt
         free()
         out.append(torch.cuda.memory_reserved(dev))
     return out
@@ -2218,6 +2384,7 @@ def phase_sections() -> tuple[int, int]:
                     float(m["loss"])
                     times.append((time.perf_counter() - t0) * 1e3)
             counts, wire = read_counts(), gcomp.wire_counts()
+            bwd = read_bwd()
             full = tree_leaves(drt.runtime.state()[0]["student"])
             prof = None
             if trace:
@@ -2231,7 +2398,7 @@ def phase_sections() -> tuple[int, int]:
                 rep = None
         per_it = {k: v / RT_ITERS for k, v in sorted(calls.items())}
         return (mets, full, float(np.mean(times[1:])), counts, wire, per_it,
-                rep)
+                rep, bwd)
 
     parts = {}
     t = time.perf_counter()
@@ -2271,6 +2438,9 @@ def phase_sections() -> tuple[int, int]:
     want = (RT_ITERS * L * 3, RT_ITERS, 0)
     check(got[3] == ref[3] == want, f"(flash, KL, SSD) launched {got[3]} on "
           f"meshes and {ref[3]} device-carved, expected {want}")
+    BWD_LAUNCHES["sections"] = got[7]
+    check(got[7] == ref[7], f"flash_bwd launched {got[7]} times on "
+          f"meshes and {ref[7]} device-carved")
     check(got[5].get("all_gather", 0) > 0
           and got[5].get("reduce_scatter", 0) > 0
           and got[5].get("all_reduce", 0) > 0,
@@ -2600,6 +2770,8 @@ def phase_cp(rng) -> int:
                     ms = (time.perf_counter() - t0) * 1e3
                     if i == 0:
                         launches = read_counts()[0]
+                        if with_impl:
+                            note_bwd("cp")
             out[with_impl] = (losses, ms, launches)
             del model, step, p, opt
             free()
@@ -2764,6 +2936,7 @@ def phase_multi_teacher() -> tuple[int, int]:
             plans.append(plan)
             _section_report(m["execution"], crt.rt.queue)
         flash, kl, ssd = read_counts()
+        note_bwd("multi_teacher")
     peak = torch.cuda.max_memory_allocated() / 2**30
     # per microbatch: teacher_a's forward (L), the student's forward and its
     # remat recompute (2L), and teacher_b's forward (L) on its active
@@ -3040,6 +3213,7 @@ def phase_mllm() -> int:
             rt.submit_iteration(batches[i], i, plan=plans[i])
         ms = rt.drain()
         counts_c = read_counts()
+        note_bwd("mllm")
         prev = t_start
         for i, m in enumerate(ms):
             end = m["execution"].t0 + max(e.end for e in
@@ -3396,6 +3570,7 @@ def phase_mamba_train() -> int:
                         seq=MAMBA_S, dtype="bfloat16", device="cuda", seed=0,
                         log_every=1)
     flash, kl, launches = read_counts()
+    note_bwd("mamba_train")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(run.summary())
     print(f"train {MAMBA} peak device memory {peak:.2f} GiB; loop "
@@ -3428,6 +3603,7 @@ def phase_mamba_serve(rng) -> int:
     res = serve_mod.serve(MAMBA, batch=MAMBA_B, prompt_len=MAMBA_S, gen=32,
                           dtype="bfloat16", device="cuda", seed=0)
     flash, kl, launches = read_counts()
+    note_bwd("mamba_serve")
     cfg = res.cfg
     print(res.summary())
     print(f"serve {MAMBA} peak device memory "
@@ -3654,6 +3830,7 @@ def phase_moe_serve(rng) -> int:
     reset_counts()
     res = serve_mod.generate(model, prompts, MIXTRAL_GEN)
     launches, kl_launches, ssd_launches = read_counts()
+    note_bwd("moe_serve")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print("cold " + res.summary())
     print(f"serve {cfg.name} peak device memory {peak:.2f} GiB")
@@ -3791,6 +3968,7 @@ def phase_moe_train() -> int:
               f"{met['ce']:.4f} aux {met['aux']:.4f} gnorm "
               f"{met['grad_norm']:.3f} {times[-1] * 1e3:.1f} ms")
     launches, kl_launches, ssd_launches = read_counts()
+    note_bwd("moe_train")
     peak, retries = _peak()
     warm = float(np.mean(times[1:]))
     print(f"train {cfg.name}: {cfg.num_layers} of 48 layers at full width, "
@@ -3998,6 +4176,7 @@ def phase_whisper_train() -> int:
                      batches=batches, num_steps=WHISPER_STEPS, log_every=1,
                      log_fn=lambda m: print(f"train {cfg.name} {m}"))
     launches, kl_launches, ssd_launches = read_counts()
+    note_bwd("whisper_train")
     peak, retries = _peak()
     times = res.step_times
     warm = float(np.mean(times[1:]))
@@ -4056,6 +4235,7 @@ def phase_whisper_serve(rng) -> int:
     reset_counts()
     res = serve_mod.generate(model, prompts, WHISPER_GEN, frames=frames)
     launches, kl_launches, ssd_launches = read_counts()
+    note_bwd("whisper_serve")
     print("cold " + res.summary())
     print(f"serve {cfg.name} ({cfg.frontend_frames} frames) peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -4220,6 +4400,7 @@ def phase_jamba_serve(rng) -> tuple[int, int]:
     reset_counts()
     res = serve_mod.generate(model, prompts, JAMBA_GEN)
     launches, kl_launches, ssd_launches = read_counts()
+    note_bwd("jamba_serve")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print("cold " + res.summary())
     print(f"serve {cfg.name} peak device memory {peak:.2f} GiB")
@@ -4472,6 +4653,7 @@ def phase_pp(rng) -> int:
         l_pp, g_pp = staged(loss_fn, params, batch)
         torch.cuda.synchronize()
         n_pp = read_counts()[0]
+        note_bwd("pp")
         l_pl, g_pl = plain(model, params, batch)
         rel = abs(l_pp.item() - l_pl.item()) / abs(l_pl.item())
         gap, leaf, noise = leaf_gaps(g_pp, g_pl, names)
@@ -4655,6 +4837,7 @@ def phase_tp_repeat(rng) -> int:
         gvs.append(gv.float())
     torch.cuda.synchronize()
     launches = read_counts()[0]
+    note_bwd("tp_repeat")
     print(f"tp-repeat: {ARCH} attention sub-layer, bf16, {B} x {S}, tp {tp}: "
           f"{tp} shares of {h} query heads on {kv} KV head (repeat {rep}), "
           f"flash launched {launches} times")
@@ -4735,6 +4918,7 @@ def phase_vocab_parallel(rng) -> int:
     check(launches == cfg.num_layers,
           f"flash launched {launches} times in a {cfg.num_layers}-layer "
           "forward")
+    note_bwd("vocab_parallel")
     labels = batch["labels"]
     embed = p["embed"].detach()
 
@@ -5031,6 +5215,7 @@ def phase_serve_mesh() -> tuple[int, int]:
         (logits, cache), mesh_peak, mesh_s = _step_bytes(pstep,
                                                          (params, batch))
         launches = read_counts()
+        note_bwd("serve_mesh")
         check(launches == (cfg.num_layers, 0, 0),
               f"the mesh prefill launched (flash, KL, SSD) {launches}, "
               f"expected ({cfg.num_layers}, 0, 0)")
@@ -5110,6 +5295,9 @@ def _fake_matches_launch() -> None:
         "ssd_fwd": (torch.ops.repro_torch.ssd_fwd,
                     (x, dt, A, Bm, Bm, A, True))}
     del ssd
+    o, lse = torch.ops.repro_torch.flash_fwd(q, k, k, None, True, 0, 0.125, 0)
+    cases["flash_bwd"] = (torch.ops.repro_torch.flash_bwd,
+                          (q, k, k, o, lse, o, lse, None, True, 0, 0.125, 0))
     for name, (op, args) in cases.items():
         real = op(*args)
         with FakeTensorMode() as mode:
@@ -5274,6 +5462,7 @@ def _mesh_distill() -> tuple:
             times.append((time.perf_counter() - t) * 1e3)
             mets.append(_host(met))
         launches = read_counts()
+        note_bwd(f"distill_{name}")
         runs[name] = (mets, _host(ps), launches, times)
         del step, pt, ps, opt, met
         free()
@@ -5352,6 +5541,7 @@ def _mesh_mllm() -> int:
             times.append((time.perf_counter() - t) * 1e3)
             mets.append(_host(met))
         launches = read_counts()
+        note_bwd(f"mllm_{name}")
         runs[name] = (mets, _host(params), launches, times, _peak()[0])
         del step, params, opt, met
         free()
@@ -5574,23 +5764,35 @@ def main() -> int:
     timed(phase_jamba_consistency, rng)
     free()
     timed(phase_jamba_grad_consistency, rng)
-    paths = (f"serve {ARCH}", f"train {TRAIN_ARCH}",
-             f"resume {TRAIN_ARCH}", f"dp {TRAIN_ARCH} world 1",
-             f"distill {TRAIN_ARCH}",
-             f"train {MAMBA}", f"serve {MAMBA}",
-             f"distill-runtime {TRAIN_ARCH}",
-             f"distill-sections {TRAIN_ARCH} world 1",
-             f"cp {TRAIN_ARCH} world 1",
-             f"pp {TRAIN_ARCH} world 1",
-             f"tp-repeat {ARCH} attention, tp {TP_REPEAT} shares",
-             f"vocab-parallel {TRAIN_ARCH} forward, tp {VP_TP} CE shares",
-             f"serve-mesh {ARCH} world 1",
-             f"distill-mesh {TRAIN_ARCH} world 1",
-             "mllm-mesh pixtral-12b-width world 1",
-             f"multi-teacher {TRAIN_ARCH}",
-             "mllm pixtral-12b-width", f"serve {MIXTRAL} {MIXTRAL_LAYERS}L",
-             f"train {MOONSHOT} {MOONSHOT_LAYERS}L", f"train {WHISPER}",
-             f"serve {WHISPER}", f"serve {JAMBA} {JAMBA_LAYERS}L")
+    # the main paths of the kernels line, keyed as ``note_bwd`` records
+    # them: (label, whether it trains through attention and so must launch
+    # the flash backward; every other path must launch it no time)
+    paths = {
+        "serve": (f"serve {ARCH}", False),
+        "train": (f"train {TRAIN_ARCH}", True),
+        "resume": (f"resume {TRAIN_ARCH}", True),
+        "dp": (f"dp {TRAIN_ARCH} world 1", True),
+        "distill": (f"distill {TRAIN_ARCH}", True),
+        "mamba_train": (f"train {MAMBA}", False),
+        "mamba_serve": (f"serve {MAMBA}", False),
+        "distill_runtime": (f"distill-runtime {TRAIN_ARCH}", True),
+        "sections": (f"distill-sections {TRAIN_ARCH} world 1", True),
+        "cp": (f"cp {TRAIN_ARCH} world 1", True),
+        "pp": (f"pp {TRAIN_ARCH} world 1", True),
+        "tp_repeat": (f"tp-repeat {ARCH} attention, tp {TP_REPEAT} shares",
+                      True),
+        "vocab_parallel": (f"vocab-parallel {TRAIN_ARCH} forward, tp {VP_TP} "
+                           "CE shares", False),
+        "serve_mesh": (f"serve-mesh {ARCH} world 1", False),
+        "distill_mesh": (f"distill-mesh {TRAIN_ARCH} world 1", True),
+        "mllm_mesh": ("mllm-mesh pixtral-12b-width world 1", True),
+        "multi_teacher": (f"multi-teacher {TRAIN_ARCH}", True),
+        "mllm": ("mllm pixtral-12b-width", True),
+        "moe_serve": (f"serve {MIXTRAL} {MIXTRAL_LAYERS}L", False),
+        "moe_train": (f"train {MOONSHOT} {MOONSHOT_LAYERS}L", True),
+        "whisper_train": (f"train {WHISPER}", True),
+        "whisper_serve": (f"serve {WHISPER}", False),
+        "jamba_serve": (f"serve {JAMBA} {JAMBA_LAYERS}L", False)}
     per_path = {
         "flash": (serve_launches, train_launches, resume_launches,
                   dp_launches, distill_launches, 0, 0, rt_launches,
@@ -5606,15 +5808,23 @@ def main() -> int:
                mt_kl_launches, 0, 0, 0, 0, 0, 0),
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
                 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                jamba_ssd_launches)}
+                jamba_ssd_launches),
+        "flash_bwd": tuple(BWD_LAUNCHES[key] for key in paths)}
+    for key, (label, trains) in paths.items():
+        n = BWD_LAUNCHES[key]
+        check(n > 0 if trains else n == 0,
+              f"{label}: flash_bwd launched {n} times")
+    labels = [label for label, _ in paths.values()]
     flash = flash_entry(flash_at)
-    for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd)):
-        check(len(per_path[name]) == len(paths),
-              f"{name}: {len(per_path[name])} counts for {len(paths)} paths")
+    flash_bwd = flash_bwd_entry(flash_at)
+    for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd),
+                        ("flash_bwd", flash_bwd)):
+        check(len(per_path[name]) == len(labels),
+              f"{name}: {len(per_path[name])} counts for {len(labels)} paths")
         entry["launches"] = sum(per_path[name])
-        entry["launches_per_path"] = dict(zip(paths, per_path[name]))
+        entry["launches_per_path"] = dict(zip(labels, per_path[name]))
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [flash, kl, ssd]}))
+    print(json.dumps({"kernels": [flash, kl, ssd, flash_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,8 @@ at the repository root (listed in ``.gitignore``).  The library's name
 carries a hash of the source, of every ``csrc/*.cuh`` header it includes
 (``#include "..."``, followed through headers) and of the flags, so an
 edited source or header is rebuilt and a built one is reused.
-``build_all`` runs ``build`` for several sources on threads, so their
-``nvcc`` runs overlap.  ``build`` is safe to call from several threads at
+``build_all`` runs ``build`` for several sources (by default every one of
+:data:`SOURCES`) on threads, so their ``nvcc`` runs overlap.  ``build`` is safe to call from several threads at
 once (the compound runtime's section workers do): one lock per source
 name lets one thread compile and load it while the others wait for that
 ``Built``.  :func:`count_launch` bumps a wrapper's launch counter exactly
@@ -29,6 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+#: the port's kernel sources, ``csrc/<name>.cu``
+SOURCES = ("flash_fwd", "flash_bwd", "distill_kl_fwd", "ssd_fwd")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -117,7 +119,7 @@ def _build(name: str) -> Built:
                  log_path.read_text() if log_path.exists() else "")
 
 
-def build_all(names) -> dict[str, Built]:
+def build_all(names=SOURCES) -> dict[str, Built]:
     """``build`` each name on a thread of its own, so each source's ``nvcc``
     starts at once; raises the first failure after all have ended."""
     names = list(names)

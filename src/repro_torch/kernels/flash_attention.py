@@ -1,33 +1,34 @@
-"""Flash attention on the card: the CUDA forward's wrapper and the
-autograd Functions around it.
+"""Flash attention on the card: the CUDA forward's and backward's wrappers
+and the autograd Functions around them.
 
-The kernel (``csrc/flash_fwd.cu``) replaces the TPU kernel
-``repro/kernels/flash_attention.py::_fwd_kernel``; its source says what
-bounds it on an H100 and what its design does about that.  bf16 inputs go
-to its tensor-core path (wgmma on TMA-fed shared memory), which needs
-what :mod:`repro_torch.kernels.tma` checks; float32 inputs to its
-CUDA-core path.
+The forward kernel (``csrc/flash_fwd.cu``) replaces the TPU kernel
+``repro/kernels/flash_attention.py::_fwd_kernel``, the backward kernels
+(``csrc/flash_bwd.cu``) its backward rule (``_bwd_vjp`` and
+``_bwd_lse_vjp``, which run ``repro/kernels/ref.py::_flash_bwd_core``);
+each source says what bounds it on an H100 and what its design does
+about that.  bf16 inputs go to their tensor-core paths (wgmma on TMA-fed
+shared memory), which need what :mod:`repro_torch.kernels.tma` checks;
+float32 inputs to their CUDA-core paths.
 :func:`flash_fwd` checks what it is given and calls the CUDA-only op
 ``repro_torch::flash_fwd`` (``torch.library.custom_op``), whose
 implementation allocates ``o`` and ``lse``, launches on the current stream
 and raises if the launch was refused; it counts its launches in
-``flash_fwd.launches``.  The op's fake function allocates the same
-outputs without a launch, so a dry-run on fake tensors
-(``launch.dryrun``) traces the kernel route and counts the kernel's own
-outputs, and its flop formula is the count ``PERF.md``'s bound uses.
+``flash_fwd.launches``.  :func:`flash_bwd` does the same for
+``repro_torch::flash_bwd`` (dq, dk, dv and a float32 delta scratch; three
+kernels a launch, counted once in ``flash_bwd.launches``).  Each op's fake
+function allocates the same outputs without a launch, so a dry-run on
+fake tensors (``launch.dryrun``) traces the kernel route and counts the
+kernels' own outputs, and its flop formula is the count ``PERF.md``'s
+bound uses.
 
 :class:`FlashAttention` (-> o) and :class:`FlashAttentionLse`
-(-> (o, lse)) give the kernel a gradient.  Their backward,
-:func:`flash_bwd`, is a port of ``repro/kernels/ref.py::_flash_bwd_core``
-in torch ops: the JAX package computes this backward in jnp outside any
-Pallas kernel (``repro/kernels/flash_attention.py:203-235``), so plain
-PyTorch here is its counterpart, not a fallback.  A hand-written backward
-kernel is later work (ROADMAP.md, B2).
+(-> (o, lse)) give the kernel a gradient through :func:`flash_bwd`.
 
-The plain version of the forward is
-:func:`repro_torch.kernels.ref.flash_attention_ref`;
-:mod:`repro_torch.kernels.ops` routes CPU tensors there and CUDA tensors
-through the Functions here.
+The plain versions are :func:`repro_torch.kernels.ref.flash_attention_ref`
+and :func:`repro_torch.kernels.ref.flash_bwd_ref`;
+:mod:`repro_torch.kernels.ops` routes CPU tensors to the former and CUDA
+tensors through the Functions here, and :func:`flash_bwd` sends CPU
+tensors to the latter.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from typing import Optional
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.tma import check_tma
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -45,29 +46,33 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 9
+                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
-def _lib() -> ctypes.CDLL:
-    built = _build.build("flash_fwd")
-    lib = built.lib
-    if lib.flash_fwd.argtypes is None:
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        lib.flash_fwd.argtypes = _ARGTYPES    # last: other threads test it
+def _lib(name: str = "flash_fwd", argtypes=_ARGTYPES) -> ctypes.CDLL:
+    lib = _build.build(name).lib
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        fn.argtypes = argtypes    # last: other threads test it
     return lib
 
 
-def _check(q, k, v, kv_positions):
+def _check(q, k, v, kv_positions, name="flash_fwd",
+           plain="flash_attention_ref"):
     if not all(x.is_cuda or x.is_meta for x in (q, k, v)):
-        raise ValueError("flash_fwd takes CUDA (or a dry-run's meta) "
-                         "tensors; CPU tensors go to "
-                         "kernels.ref.flash_attention_ref")
+        raise ValueError(f"{name} takes CUDA (or a dry-run's meta) "
+                         f"tensors; CPU tensors go to kernels.ref.{plain}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16 q/k/v of one "
+        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q [B,S,H,D] and k, v [B,T,KV,D], got "
@@ -178,96 +183,151 @@ def visible_pairs(S: int, T: int, causal: bool, window: int,
     return total
 
 
+def _head_pairs(q_shape, k_shape, kv_positions_shape, causal, window,
+                q_offset) -> int:
+    """B H D times the visible pairs; explicit key positions count every
+    pair."""
+    B, S, H, D = q_shape
+    T = k_shape[1]
+    pairs = (S * T if kv_positions_shape is not None
+             else visible_pairs(S, T, causal, window, q_offset))
+    return B * H * D * pairs
+
+
 @register_flop_formula(torch.ops.repro_torch.flash_fwd)
 def _flash_fwd_flops(q_shape, k_shape, v_shape, kv_positions_shape, causal,
                      window, scale, q_offset, *args, out_shape=None,
                      **kwargs) -> int:
     """4 B H D per visible pair (q k^T and p v), the count ``PERF.md``'s
     bound column uses; explicit key positions count every pair."""
-    B, S, H, D = q_shape
-    T = k_shape[1]
-    pairs = (S * T if kv_positions_shape is not None
-             else visible_pairs(S, T, causal, window, q_offset))
-    return 4 * B * H * D * pairs
+    return 4 * _head_pairs(q_shape, k_shape, kv_positions_shape, causal,
+                           window, q_offset)
 
 
 flash_fwd.launches = 0     # type: ignore[attr-defined]
 
 
 # --------------------------------------------------------------------------- #
-# Backward (blockwise recompute) and the autograd Functions
+# Backward: the CUDA kernels' wrapper and op, and the autograd Functions
 # --------------------------------------------------------------------------- #
-BWD_BLOCK = 512
+def _check_bwd(q, k, v, o, lse, dout, dlse, kv_positions):
+    """What the backward's op takes: ``_check``'s q/k/v, o and do of q's
+    shape and dtype, lse (and dlse) float32 [B,S,H], all contiguous but
+    q/k/v."""
+    _check(q, k, v, kv_positions, "flash_bwd", "flash_bwd_ref")
+    B, S, H, _ = q.shape
+    for name, x, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("do", dout, q.shape, q.dtype),
+                                  ("lse", lse, (B, S, H), torch.float32),
+                                  ("dlse", dlse, (B, S, H), torch.float32)):
+        if x is None and name == "dlse":
+            continue
+        if (x.shape != shape or x.dtype != dtype or x.device != q.device
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"flash_bwd: {name} must be a contiguous {dtype} tensor of "
+                f"shape {tuple(shape)} on q's device, got {x.dtype} "
+                f"{tuple(x.shape)} strides {x.stride()} on {x.device}")
 
 
 def flash_bwd(q, k, v, o, lse, do, dlse=None, *, causal: bool = True,
               window: int = 0, scale: Optional[float] = None,
-              q_offset: int = 0, kv_positions: Optional[torch.Tensor] = None,
-              block: int = BWD_BLOCK):
-    """Blockwise-recompute flash backward -> (dq, dk, dv) in the inputs'
-    dtypes; port of ``repro/kernels/ref.py::_flash_bwd_core``.
+              q_offset: int = 0, kv_positions: Optional[torch.Tensor] = None):
+    """The backward of :func:`flash_fwd` -> (dq, dk, dv) in q's dtype;
+    ``do`` is o's cotangent, ``dlse`` lse's (None when only o was used).
 
-    float32 throughout.  ``delta = sum(do * o) - dlse`` per row (``dlse``
-    is the cotangent of lse, None when only o was used); per (q block,
-    kv block) the probabilities are recomputed from lse with the
-    difference-based masks, ``ds = p (dp - delta) scale``, and dk/dv are
-    summed over the G query heads of each KV head.  Masked probabilities
-    are exactly 0, so rows with no visible key give zero gradient
-    (ROADMAP.md, C1).  Blocks that no row can see are skipped when the key
-    positions are implicit."""
+    CUDA (and a dry-run's meta) tensors go to the op
+    ``repro_torch::flash_bwd``, which launches ``csrc/flash_bwd.cu``; CPU
+    tensors to the plain version, ``kernels.ref.flash_bwd_ref``.  ``do``
+    and ``dlse`` are made contiguous (and ``dlse`` float32) only where they
+    are not."""
+    if not (q.is_cuda or q.is_meta):
+        return ref.flash_bwd_ref(q, k, v, o, lse, do, dlse, causal=causal,
+                                 window=window, scale=scale,
+                                 q_offset=q_offset, kv_positions=kv_positions)
+    if not do.is_contiguous():
+        do = do.contiguous()
+    if dlse is not None and (dlse.dtype != torch.float32
+                             or not dlse.is_contiguous()):
+        dlse = dlse.float().contiguous()
+    _check_bwd(q, k, v, o, lse, do, dlse, kv_positions)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do, dlse,
+                                           kv_positions, bool(causal),
+                                           int(window), float(scale),
+                                           int(q_offset))
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+           "Tensor dout, Tensor? dlse, Tensor? kv_positions, bool causal, "
+           "int window, float scale, int q_offset) "
+           "-> (Tensor, Tensor, Tensor)")
+def _flash_bwd_op(q, k, v, o, lse, dout, dlse, kv_positions, causal, window,
+                  scale, q_offset):
+    """The launch: the inputs checked (TMA's preconditions on bf16 q, k, v
+    and do), dq/dk/dv and the f32 delta scratch allocated, the three
+    kernels on the current stream, one count in ``flash_bwd.launches``."""
+    _check_bwd(q, k, v, o, lse, dout, dlse, kv_positions)
+    if q.dtype == torch.bfloat16:        # the tensor-core kernels' TMA
+        for name, x in (("q", q), ("k", k), ("v", v), ("do", dout)):
+            check_tma(name, x)
     B, S, H, D = q.shape
-    _, T, KV, _ = k.shape
-    G = H // KV
-    scale = scale if scale is not None else D ** -0.5
-    dev = q.device
+    T, KV = k.shape[1], k.shape[2]
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, T, KV, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, T, KV, D), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:    # no pair: zero gradients
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    lib = _lib("flash_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(),
+            dlse.data_ptr() if dlse is not None else None,
+            kv_positions.data_ptr() if kv_positions is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            B, S, T, H, KV, D,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            float(scale), int(bool(causal)), int(window), int(q_offset),
+            _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError("flash_bwd launch failed: "
+                           + lib.flash_bwd_error_string(err).decode())
+    _build.count_launch(flash_bwd)
+    return dq, dk, dv
 
-    def heads_first(x):                        # [B,S,H,.] -> [B,KV,G,S,.]
-        return x.float().reshape(B, S, KV, G, -1).permute(0, 2, 3, 1, 4)
 
-    qf, dof = heads_first(q), heads_first(do)
-    kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # [B,KV,1,T,D]
-    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
-    delta = (do.float() * o.float()).sum(-1)                # [B,S,H]
-    if dlse is not None:
-        delta = delta - dlse.float()
-    lse_r = heads_first(lse[..., None])                     # [B,KV,G,S,1]
-    delta_r = heads_first(delta[..., None])
-    dq = torch.zeros_like(qf)
-    dk = torch.zeros((B, KV, T, D), dtype=torch.float32, device=dev)
-    dv = torch.zeros_like(dk)
-    kv_pos = (kv_positions.to(device=dev, dtype=torch.int64)
-              if kv_positions is not None else None)
-    for q0 in range(0, S, block):
-        q1 = min(q0 + block, S)
-        q_pos = torch.arange(q0, q1, device=dev) + q_offset
-        for k0 in range(0, T, block):
-            k1 = min(k0 + block, T)
-            if kv_pos is None:
-                if causal and k0 > q1 - 1 + q_offset:
-                    continue
-                if window > 0 and q0 + q_offset - (k1 - 1) >= window:
-                    continue
-                kp = torch.arange(k0, k1, device=dev)
-            else:
-                kp = kv_pos[k0:k1]
-            diff = q_pos[:, None] - kp[None, :]
-            vis = torch.ones_like(diff, dtype=torch.bool)
-            if causal:
-                vis &= diff >= 0
-            if window > 0:
-                vis &= diff < window
-            qb, dob = qf[:, :, :, q0:q1], dof[:, :, :, q0:q1]
-            kb, vb = kf[:, :, :, k0:k1], vf[:, :, :, k0:k1]
-            s = (qb * scale) @ kb.transpose(-1, -2)          # [B,KV,G,bq,bk]
-            p = torch.exp(s - lse_r[:, :, :, q0:q1]).masked_fill(~vis, 0.0)
-            dp = dob @ vb.transpose(-1, -2)
-            ds = p * (dp - delta_r[:, :, :, q0:q1]) * scale
-            dq[:, :, :, q0:q1] += ds @ kb
-            dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qb).sum(2)
-            dv[:, :, k0:k1] += (p.transpose(-1, -2) @ dob).sum(2)
-    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
-    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
-            dv.permute(0, 2, 1, 3).to(v.dtype))
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, dout, dlse, kv_positions, causal,
+                    window, scale, q_offset):
+    """dq, dk, dv as the launch allocates them, without launching (the
+    delta scratch lives inside the launch and is not an output)."""
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty(k.shape, dtype=k.dtype, device=q.device),
+            torch.empty(v.shape, dtype=v.dtype, device=q.device))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape,
+                     do_shape, dlse_shape, kv_positions_shape, causal,
+                     window, scale, q_offset, *args, out_shape=None,
+                     **kwargs) -> int:
+    """10 B H D per visible pair (the five products s = q k^T, dp = do
+    v^T, dq = ds k, dk = ds^T q, dv = p^T do): the same pairs as the
+    forward's count, 2.5 times it, and the count ``PERF.md``'s bound
+    uses.  The kernels recompute s and dp for dq (seven products a pair);
+    the bound counts the work, not the recompute."""
+    return 10 * _head_pairs(q_shape, k_shape, kv_positions_shape, causal,
+                            window, q_offset)
+
+
+flash_bwd.launches = 0     # type: ignore[attr-defined]
 
 
 def _save(ctx, q, k, v, o, lse, kv_positions, causal, window, scale,
@@ -285,8 +345,8 @@ def _grads(ctx, do, dlse):
 
 
 class FlashAttention(torch.autograd.Function):
-    """o = flash attention of (q, k, v): the CUDA forward, the blockwise
-    backward :func:`flash_bwd`."""
+    """o = flash attention of (q, k, v): the CUDA forward and backward
+    (:func:`flash_fwd`, :func:`flash_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_positions, causal, window, scale, q_offset):

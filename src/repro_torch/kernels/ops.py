@@ -5,11 +5,13 @@ the plain version in :mod:`repro_torch.kernels.ref`.  There is no
 environment switch and no fallback: a CUDA tensor never reaches the plain
 version through here.  Meta tensors (a dry-run's fake tensors,
 :mod:`repro_torch.launch.dryrun`) take the kernel's route too, where the
-kernel's op (``repro_torch::flash_fwd``, ...) gives its shape function's
-outputs and launches nothing.  On the card, attention goes through the autograd
-Functions of :mod:`repro_torch.kernels.flash_attention`, so a CUDA q/k/v
-that requires grad gets its gradient; on the CPU autograd differentiates
-the plain version.  (The JAX package's ``repro/kernels/ops.py`` picks
+kernel's op (``repro_torch::flash_fwd``, ``::flash_bwd``, ...) gives its
+shape function's outputs and launches nothing.  On the card, attention
+goes through the autograd Functions of
+:mod:`repro_torch.kernels.flash_attention`, whose backward is the CUDA
+kernel of ``csrc/flash_bwd.cu``, so a CUDA q/k/v that requires grad gets
+its gradient from hand-written kernels both ways; on the CPU autograd
+differentiates the plain version.  (The JAX package's ``repro/kernels/ops.py`` picks
 its tier with an ``impl`` argument; the port has one kernel per device.)
 """
 from __future__ import annotations

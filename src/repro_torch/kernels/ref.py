@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
 ``flash_attention_ref`` is the plain version of ``csrc/flash_fwd.cu``,
+``flash_bwd_ref`` (the blockwise-recompute backward, float32 block
+products in a Python loop) that of ``csrc/flash_bwd.cu``,
 ``distill_kl_stats_ref`` that of ``csrc/distill_kl_fwd.cu`` and
 ``ssd_scan_ref`` that of ``csrc/ssd_fwd.cu``; ``distill_kl_reference``
 (the full-materialisation KL) and ``ssd_reference`` (the sequential SSD
@@ -84,6 +86,84 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = (m + torch.log(l))[..., 0]                     # [B, KV, G, S]
     return (o.reshape(B, S, H, D).to(q.dtype),
             lse.permute(0, 3, 1, 2).reshape(B, S, H))
+
+
+# --------------------------------------------------------------------------- #
+# Flash attention backward
+# --------------------------------------------------------------------------- #
+BWD_BLOCK = 512
+
+
+def flash_bwd_ref(q, k, v, o, lse, do, dlse=None, *, causal: bool = True,
+                  window: int = 0, scale: Optional[float] = None,
+                  q_offset: int = 0,
+                  kv_positions: Optional[torch.Tensor] = None,
+                  block: int = BWD_BLOCK):
+    """Blockwise-recompute flash backward -> (dq, dk, dv) in the inputs'
+    dtypes; port of ``repro/kernels/ref.py::_flash_bwd_core`` and the
+    plain version of ``csrc/flash_bwd.cu``.
+
+    float32 throughout.  ``delta = sum(do * o) - dlse`` per row (``dlse``
+    is the cotangent of lse, None when only o was used); per (q block,
+    kv block) the probabilities are recomputed from lse with the
+    difference-based masks, ``ds = p (dp - delta) scale``, and dk/dv are
+    summed over the G query heads of each KV head.  Masked probabilities
+    are exactly 0, so rows with no visible key give zero gradient
+    (ROADMAP.md, C1).  Blocks that no row can see are skipped when the key
+    positions are implicit."""
+    B, S, H, D = q.shape
+    _, T, KV, _ = k.shape
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+
+    def heads_first(x):                        # [B,S,H,.] -> [B,KV,G,S,.]
+        return x.float().reshape(B, S, KV, G, -1).permute(0, 2, 3, 1, 4)
+
+    qf, dof = heads_first(q), heads_first(do)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # [B,KV,1,T,D]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    delta = (do.float() * o.float()).sum(-1)                # [B,S,H]
+    if dlse is not None:
+        delta = delta - dlse.float()
+    lse_r = heads_first(lse[..., None])                     # [B,KV,G,S,1]
+    delta_r = heads_first(delta[..., None])
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, KV, T, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    kv_pos = (kv_positions.to(device=dev, dtype=torch.int64)
+              if kv_positions is not None else None)
+    for q0 in range(0, S, block):
+        q1 = min(q0 + block, S)
+        q_pos = torch.arange(q0, q1, device=dev) + q_offset
+        for k0 in range(0, T, block):
+            k1 = min(k0 + block, T)
+            if kv_pos is None:
+                if causal and k0 > q1 - 1 + q_offset:
+                    continue
+                if window > 0 and q0 + q_offset - (k1 - 1) >= window:
+                    continue
+                kp = torch.arange(k0, k1, device=dev)
+            else:
+                kp = kv_pos[k0:k1]
+            diff = q_pos[:, None] - kp[None, :]
+            vis = torch.ones_like(diff, dtype=torch.bool)
+            if causal:
+                vis &= diff >= 0
+            if window > 0:
+                vis &= diff < window
+            qb, dob = qf[:, :, :, q0:q1], dof[:, :, :, q0:q1]
+            kb, vb = kf[:, :, :, k0:k1], vf[:, :, :, k0:k1]
+            s = (qb * scale) @ kb.transpose(-1, -2)          # [B,KV,G,bq,bk]
+            p = torch.exp(s - lse_r[:, :, :, q0:q1]).masked_fill(~vis, 0.0)
+            dp = dob @ vb.transpose(-1, -2)
+            ds = p * (dp - delta_r[:, :, :, q0:q1]) * scale
+            dq[:, :, :, q0:q1] += ds @ kb
+            dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qb).sum(2)
+            dv[:, :, k0:k1] += (p.transpose(-1, -2) @ dob).sum(2)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 # --------------------------------------------------------------------------- #

@@ -17,8 +17,8 @@ builders,
 ``train.step.build_train_step(..., mesh=)``, ``build_prefill_step`` or
 ``build_decode_step``, and runs one step under
 :class:`~repro_torch.roofline.record.StepRecorder`.  On these tensors
-the hand-written kernels' ops (``repro_torch::flash_fwd``, ``::ssd_fwd``)
-give their shape functions' outputs, so the step traces the route the
+the hand-written kernels' ops (``repro_torch::flash_fwd``,
+``::flash_bwd``, ``::ssd_fwd``) give their shape functions' outputs, so the step traces the route the
 card runs and counts the kernels' own outputs.
 
 The record has the reference's keys: ``params``, ``active_params``,
@@ -288,7 +288,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
 
 def _analytic_kernel_io(cfg, shape, n_dev: int, *, kl=()) -> float:
     """Per-device bytes the flash/SSD kernels move: q/k/v reads and the o
-    write, forward plus recompute and backward (about 3x the forward), per
+    write, forward plus recompute and backward (about 3x the forward; the
+    flash backward is the ``repro_torch::flash_bwd`` kernel op), per
     attention layer per token on this device (the reference's).  ``kl``:
     the distillation-KL kernel's calls on this device, each ``(calls,
     tokens, d_s, d_t, vocab)``: a call reads the [tokens, d_s] and

@@ -16,8 +16,9 @@ dispatches:
   with the ring model's wire bytes (``roofline.analysis._ring_wire``);
 * every operation in PyTorch's flop registry (``torch.utils.flop_counter``:
   ``mm``, ``addmm``, ``bmm``, ``baddbmm``, convolutions and the port's
-  kernel ops ``repro_torch::flash_fwd``, ``::distill_kl_fwd`` and
-  ``::ssd_fwd``, which register their own counts) as a matmul-class op
+  kernel ops ``repro_torch::flash_fwd``, ``::flash_bwd``,
+  ``::distill_kl_fwd`` and ``::ssd_fwd``, which register their own
+  counts) as a matmul-class op
   with its output's last dim and FLOPs, and so are ``matmul`` and
   two-operand ``einsum``, which reach the mode whole under inference mode;
 * an element count of every pointwise operation (one FLOP an output

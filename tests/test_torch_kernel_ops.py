@@ -1,12 +1,13 @@
-"""The three hand-written kernels as ``torch.library`` custom ops
-(``repro_torch::flash_fwd``, ``::distill_kl_fwd``, ``::ssd_fwd``), on the
-CPU: an op called with CPU tensors raises (it is registered for CUDA only;
-the plain versions are reached through ``kernels.ops``); each op's shape
-function gives the shapes, dtypes and strides of the plain version's
-outputs (``chip_smoke.py`` holds them to a real launch's on the card); a
-meta tensor (a dry-run's) goes down the kernel route through ``ops`` and
-launches nothing; the flop formulas are the counts ``PERF.md``'s bound
-column uses."""
+"""The hand-written kernels as ``torch.library`` custom ops
+(``repro_torch::flash_fwd``, ``::flash_bwd``, ``::distill_kl_fwd``,
+``::ssd_fwd``), on the CPU: an op called with CPU tensors raises (it is
+registered for CUDA only; the plain versions are reached through
+``kernels.ops`` and, for the backward, ``flash_attention.flash_bwd``);
+each op's shape function gives the shapes, dtypes and strides of the
+plain version's outputs (``chip_smoke.py`` holds them to a real launch's
+on the card); a meta tensor (a dry-run's) goes down the kernel route
+through ``ops``, forward and backward, and launches nothing; the flop
+formulas are the counts ``PERF.md``'s bound column uses."""
 import numpy as np
 import pytest
 
@@ -40,6 +41,11 @@ def test_ops_refuse_cpu_tensors(flash_inputs):
     q, k, v = flash_inputs
     with pytest.raises(NotImplementedError):
         torch.ops.repro_torch.flash_fwd(q, k, v, None, True, 0, 0.25, 16)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=True, q_offset=16)
+    o, lse = o.contiguous(), lse.contiguous()
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, o, lse, None, True,
+                                        0, 0.25, 16)
     h, w = torch.zeros(4, 8), torch.zeros(8, 16)
     with pytest.raises(NotImplementedError):
         torch.ops.repro_torch.distill_kl_fwd(h, w, h, w, 1.0)
@@ -57,6 +63,16 @@ def test_flash_shape_function_matches_plain_version(flash_inputs):
                                              True, 0, 0.25, 16)
     _same_layout(o, o_ref.contiguous())
     _same_layout(lse, lse_ref.contiguous())
+    # the backward's: dq, dk, dv as the plain version gives them
+    want = ref.flash_bwd_ref(q, k, v, o_ref, lse_ref, o_ref, lse_ref,
+                             causal=True, q_offset=16)
+    got = torch.ops.repro_torch.flash_bwd(
+        *map(_meta, (q, k, v, o_ref.contiguous(), lse_ref.contiguous(),
+                     o_ref.contiguous(), lse_ref.contiguous())),
+        None, True, 0, 0.25, 16)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        _same_layout(g, w.contiguous())
 
 
 def test_kl_shape_function_matches_plain_version():
@@ -90,11 +106,18 @@ def test_ssd_shape_function_matches_plain_version():
 
 
 def test_meta_tensors_take_the_kernel_route_without_a_launch(flash_inputs):
-    q, k, v = map(_meta, flash_inputs)
-    before = (fa.flash_fwd.launches, ssd.ssd_fwd.launches)
+    q, k, v = (_meta(x).requires_grad_() for x in flash_inputs)
+    before = (fa.flash_fwd.launches, fa.flash_bwd.launches,
+              ssd.ssd_fwd.launches)
     o = ops.flash_attention(q, k, v, causal=True)
     assert o.device.type == "meta" and o.shape == q.shape
-    assert (fa.flash_fwd.launches, ssd.ssd_fwd.launches) == before
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    grads = torch.autograd.grad(o.sum(), (q, k, v))
+    for g, x in zip(grads, (q, k, v)):
+        assert g.device.type == "meta"
+        assert (g.shape, g.dtype) == (x.shape, x.dtype)
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches,
+            ssd.ssd_fwd.launches) == before
 
 
 def test_flop_formulas_are_the_bound_counts():
@@ -106,6 +129,17 @@ def test_flop_formulas_are_the_bound_counts():
     pairs = int(ref.visible_mask(S, T, causal=True, window=8,
                                  q_offset=16).sum())
     assert fc.get_total_flops() == 4 * B * H * D * pairs
+    lse = torch.empty((B, S, H), device="meta")
+    with FlopCounterMode(display=False) as fc:
+        torch.ops.repro_torch.flash_bwd(q, k, k, q, lse, q, None, None, True,
+                                        8, 0.25, 16)
+    assert fc.get_total_flops() == 10 * B * H * D * pairs
+    with FlopCounterMode(display=False) as fc:   # explicit key positions
+        torch.ops.repro_torch.flash_bwd(
+            q, k, k, q, lse, q, lse,
+            torch.empty((T,), dtype=torch.int32, device="meta"), True, 8,
+            0.25, 16)
+    assert fc.get_total_flops() == 10 * B * H * D * S * T
     N, Ds, Dt, V = 12, 8, 6, 50
     with FlopCounterMode(display=False) as fc:
         torch.ops.repro_torch.distill_kl_fwd(

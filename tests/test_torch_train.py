@@ -1,6 +1,7 @@
 """The port's training half against the JAX package, on the CPU in float32.
 
-* the blockwise flash backward (``kernels.flash_attention.flash_bwd``)
+* the blockwise flash backward (``kernels.ref.flash_bwd_ref``, the plain
+  version of ``csrc/flash_bwd.cu``)
   against ``jax.vjp`` of ``repro.kernels.ref.flash_attention_jnp_lse``,
   with a nonzero lse cotangent, over ``tests/test_kernels_flash.py``'s
   sweep, and the autograd Functions' wiring with the plain forward standing
@@ -118,8 +119,8 @@ def test_flash_bwd_matches_jax_vjp(shape, causal, window):
     want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     o, lse = ref.flash_attention_ref(tq, tk, tv, **kw)
-    got = fa.flash_bwd(tq, tk, tv, o, lse, torch.from_numpy(do),
-                       torch.from_numpy(dlse), block=48, **kw)
+    got = ref.flash_bwd_ref(tq, tk, tv, o, lse, torch.from_numpy(do),
+                            torch.from_numpy(dlse), block=48, **kw)
     for g, w in zip(got, want):
         _close(g, w, dict(atol=1e-4, rtol=1e-4))
 
@@ -141,9 +142,9 @@ def test_flash_bwd_kv_positions_and_q_offset(with_lse):
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     tpos = torch.from_numpy(pos)
     o, lse = ref.flash_attention_ref(tq, tk, tv, kv_positions=tpos, **kw)
-    got = fa.flash_bwd(tq, tk, tv, o, lse, torch.from_numpy(do),
-                       torch.from_numpy(dlse) if with_lse else None,
-                       kv_positions=tpos, block=32, **kw)
+    got = ref.flash_bwd_ref(tq, tk, tv, o, lse, torch.from_numpy(do),
+                            torch.from_numpy(dlse) if with_lse else None,
+                            kv_positions=tpos, block=32, **kw)
     for g, w in zip(got, want):
         _close(g, w, dict(atol=1e-4, rtol=1e-4))
 
