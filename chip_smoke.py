@@ -7,11 +7,12 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); it builds the port's
 CUDA kernels from the sources in this checkout.  Phases:
 
 1. Card and build: the card's name and power limit from ``nvidia-smi``;
-   ``kernels/csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``distill_kl_fwd.cu``
-   and ``ssd_fwd.cu`` built by one ``nvcc`` each, started together; the
-   counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
-   the SASS of the flash forward and backward, KL and SSD libraries, each
-   of which must have both: their bf16 paths run on the tensor cores from
+   ``kernels/csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``distill_kl_fwd.cu``,
+   ``distill_kl_bwd.cu`` and ``ssd_fwd.cu`` built by one ``nvcc`` each,
+   started together; the counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   load) instructions in the SASS of the flash forward and backward, KL
+   forward and backward and SSD libraries, each of which must have both:
+   their bf16 paths run on the tensor cores from
    TMA-fed shared memory, their float32 paths on the CUDA cores.
 2. The flash kernel against its plain version (``kernels/ref.py``) on the
    card, over a sweep of shapes, masks and dtypes (bf16 through the
@@ -33,9 +34,19 @@ CUDA kernels from the sources in this checkout.  Phases:
    at the training shape.
 3. The distillation-KL kernel against its plain version over a sweep
    (ragged N and V, Ds != Dt, T in {1, 2}, f32 and bf16, with and without
-   a mask, W contiguous and W as ``embed.T``), then at the main-path shape
-   (N = 8192, D = 1024, V = 151936, bf16), where the kernel, the plain
-   version and the materialised form in PyTorch calls are timed.
+   a mask, W contiguous and W as ``embed.T``), then at the main-path
+   shapes (N = 8192 and 4096, D = 1024, V = 151936, bf16), where the
+   kernel, the plain version and the materialised form in PyTorch calls
+   are timed.  At each of these shapes the backward too
+   (``csrc/distill_kl_bwd.cu``, the logit gradients a vocabulary chunk at
+   a time, and its two cuBLAS products, through the op
+   ``repro_torch::distill_kl_bwd``): both sides' dh and dW against
+   ``ref.distill_kl_bwd_ref``, each row of dh and each vocabulary column
+   of dW within KL_BWD_TOL of its own scale, the last chunk's dW zeroed
+   and its part of dh dropped as planted faults that must fail, two calls
+   equal bit for bit; at the main-path shapes its time on the student
+   side (split into the dz kernels and the products) beside the plain
+   version's, autograd's through the materialised form and the bound.
 4. Serving: ``launch.serve.serve`` runs granite-3-8b at full width in bf16
    (random weights from a seed), batch 4, prompt 2048, 32 generated
    tokens; the flash kernel must be launched once per layer in prefill.
@@ -75,7 +86,8 @@ CUDA kernels from the sources in this checkout.  Phases:
 6. Distillation: ``distill.workload.build_colocated_step``, teacher
    qwen1.5-0.5b (seed 1, frozen) and student qwen1.5-0.5b (seed 0) at full
    width in bf16, batch 4 x seq 2048, alpha 0.5, T 2, 3 steps; the KL
-   kernel launched once per step; one warm step traced.  Then one
+   kernel and its backward launched once per step; one warm step traced.
+   Then one
    distillation step's gradients at full width (2 layers, float32) on the
    kernels against the same step on CPU copies, which take the plain
    versions.
@@ -321,11 +333,14 @@ CUDA kernels from the sources in this checkout.  Phases:
 17. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash and SSD kernels' at each of their
    main-path shapes under ``at``, the flash backward's at each training
-   shape; the top-level times are granite's serving prefill's,
-   mamba2-130m's and qwen1.5-0.5b's training attention's), then the
-   ``{"ok": true, ...}`` line.  Every path that trains through attention
-   must have launched the flash backward, and no serving or forward-only
-   path may have.  Each phase prints its wall time.
+   shape, the KL backward's at N = 8192 and 4096; the top-level times are
+   granite's serving prefill's, mamba2-130m's, qwen1.5-0.5b's training
+   attention's and its distillation step's KL), then the ``{"ok": true,
+   ...}`` line.  Every path that trains through attention must have
+   launched the flash backward, and no serving or forward-only path may
+   have; every path's KL backward launches must equal its KL forward
+   launches (some on each distillation path, none elsewhere).  Each phase
+   prints its wall time.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero without a CUDA card, and when run from a
@@ -354,7 +369,8 @@ PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # the libraries whose bf16 path runs wgmma on TMA-fed shared memory, and the
 # SASS instructions that show it
-TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd", "distill_kl_fwd", "ssd_fwd")
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd", "distill_kl_fwd",
+                    "distill_kl_bwd", "ssd_fwd")
 SASS_OPS = ("HGMMA", "UTMALDG")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
@@ -415,6 +431,16 @@ KL_SWEEP = [(200, 64, 96, 1000, torch.float32, 1.0, "rows", False),
             (1000, 1024, 1024, 4099, torch.bfloat16, 1.0, "embed_t", False),
             (129, 96, 160, 2000, torch.float32, 1.0, "rows", True),
             (77, 1024, 512, 30000, torch.bfloat16, 2.0, "rows", False)]
+# The KL backward (``csrc/distill_kl_bwd.cu`` and its products) against
+# ``ref.distill_kl_bwd_ref``, one row of dh and one vocabulary column of
+# dW at a time, each held to its own scale (max |ref| of the row or
+# column): bf16 within SHAPE_REL_TOL (the kernel rounds dz to bf16, both
+# sides round dW to bf16), float32 (TF32 off) within 1e-4 (sums in other
+# orders over up to 151936 columns or 8192 tokens).  A row or column
+# whose scale is 0 (a masked token's dh) reads 0 on both sides.  Planted
+# faults, the last vocabulary chunk's dW columns zeroed and its
+# contribution to dh dropped, must fail the limit.
+KL_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: SHAPE_REL_TOL}
 TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_B, TRAIN_S = 4, 2048
 TRAIN_STEPS = 4
@@ -871,6 +897,7 @@ def reset_counts() -> None:
     fa.flash_fwd.launches = 0
     fa.flash_bwd.launches = 0
     dk.distill_kl_fwd.launches = 0
+    dk.distill_kl_bwd.launches = 0
     ssd.ssd_fwd.launches = 0
 
 
@@ -884,10 +911,11 @@ def read_counts() -> tuple[int, int, int]:
             ssd.ssd_fwd.launches)
 
 
-#: flash_bwd launches on each main path, keyed as main()'s ``paths``,
-#: read where the path's forward counts are read (``note_bwd``); main()
-#: checks them and puts them on the kernels line
+#: flash_bwd and distill_kl_bwd launches on each main path, keyed as
+#: main()'s ``paths``, read where the path's forward counts are read
+#: (``note_bwd``); main() checks them and puts them on the kernels line
 BWD_LAUNCHES: dict = {}
+KL_BWD_LAUNCHES: dict = {}
 
 
 def read_bwd() -> int:
@@ -897,9 +925,18 @@ def read_bwd() -> int:
     return fa.flash_bwd.launches
 
 
+def read_kl_bwd() -> int:
+    """distill_kl_bwd launches since reset_counts (one a backward call, its
+    chunks' kernels and products together)."""
+    from repro_torch.kernels import distill_kl as dk
+    return dk.distill_kl_bwd.launches
+
+
 def note_bwd(path: str) -> int:
-    """Record read_bwd() as ``path``'s launches, and return it."""
+    """Record read_bwd() and read_kl_bwd() as ``path``'s launches, and
+    return the former."""
     BWD_LAUNCHES[path] = read_bwd()
+    KL_BWD_LAUNCHES[path] = read_kl_bwd()
     return BWD_LAUNCHES[path]
 
 
@@ -1130,6 +1167,77 @@ def phase_kl_sweep(rng) -> None:
         check(max(errs) <= KL_TOL and kl_err <= KL_TOL,
               f"distill_kl disagrees with its plain version: {errs}, "
               f"{kl_err}")
+        _kl_bwd_at(h_s, w_s, h_t, w_t, T, mask)
+
+
+def _kl_tok_w(mask, N: int, T: float) -> torch.Tensor:
+    """``DistillKL.backward``'s token weight at the cotangent g = 1."""
+    if mask is None:
+        return torch.full((N,), 1.0 / N / T, device="cuda")
+    w = mask.float()
+    return w / w.sum().clamp_min(1.0) / T
+
+
+def _kl_bwd_at(h_s, w_s, h_t, w_t, T: float, mask=None) -> dict:
+    """The KL backward (``distill_kl.distill_kl_bwd``: the dz kernel and its
+    products) at one shape, student and teacher sides, against
+    ``ref.distill_kl_bwd_ref`` on the kernel forward's statistics: each
+    row of dh and each vocabulary column of dW within KL_BWD_TOL of its
+    own scale.  Planted faults in the last vocabulary chunk (the columns
+    of the op's last dz launch): dW's columns there zeroed, and dh without
+    that chunk's part (the plain version's over those columns), must fail
+    the limit.  Two calls are equal bit for bit (no atomics)."""
+    from repro_torch.kernels import distill_kl as dk
+    from repro_torch.kernels.ref import distill_kl_bwd_ref
+    N, V = h_s.shape[0], w_s.shape[1]
+    dtype = h_s.dtype
+    stats = dk.distill_kl_fwd(h_s, w_s, h_t, w_t, T)
+    tok_w = _kl_tok_w(mask, N, T)
+    needs = (True,) * 4
+    got = dk.distill_kl_bwd(h_s, w_s, h_t, w_t, *stats, tok_w, T,
+                            needs=needs)
+    again = dk.distill_kl_bwd(h_s, w_s, h_t, w_t, *stats, tok_w, T,
+                              needs=needs)
+    want = distill_kl_bwd_ref(h_s, w_s, h_t, w_t, *stats, tok_w, T,
+                              needs=needs)
+    vc = dk.chunk_cols(N, V, dtype, sides=2)
+    v_last = (V - 1) // vc * vc
+    last = distill_kl_bwd_ref(h_s, w_s[:, v_last:], h_t, w_t[:, v_last:],
+                              *stats, tok_w, T,
+                              needs=(True, False, True, False))
+    torch.cuda.synchronize()
+    names = ("dh_s", "dw_s", "dh_t", "dw_t")
+    rows, planted, errs = {}, {}, {}
+    for name, g, w, part in zip(names, got, want,
+                                (last[0], None, last[2], None)):
+        check(bool(torch.isfinite(g).all()), f"distill_kl_bwd {name} at "
+              f"N={N} V={V} not finite")
+        errs[name] = (g.float() - w.float()).abs().max().item()
+        if part is not None:          # dh: one row a token
+            rows[name] = row_rel_err(g, w)
+            planted[name] = row_rel_err(g.float() - part.float(), w)
+        else:                         # dW: one row a vocabulary column
+            rows[name] = row_rel_err(g.T, w.T)
+            bad = g.clone()
+            bad[:, v_last:] = 0
+            planted[name] = row_rel_err(bad.T, w.T)
+            del bad
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    tol = KL_BWD_TOL[dtype]
+    print(f"    backward (both sides, {-(-V // vc)} chunk(s) of {vc}) row "
+          f"by row (limit {tol:.3e}): " + ", ".join(
+              f"{n} {rows[n]:.3e} (max|g-ref| {errs[n]:.3e}), planted "
+              f"{planted[n]:.3e}" for n in names)
+          + f"; two calls bitwise equal {bitwise}")
+    for n in names:
+        check(rows[n] <= tol, f"distill_kl_bwd at N={N} V={V}: a row of "
+              f"{n} is {rows[n]:.3e} of its scale off > {tol:.3e}")
+        check(planted[n] > tol, f"distill_kl_bwd at N={N} V={V}: the limit "
+              f"passes {n} with the last chunk's part planted away "
+              f"({planted[n]:.3e})")
+    check(bitwise, f"distill_kl_bwd at N={N} V={V}: two calls differ")
+    return {"max_abs_err": max(errs.values()), "errs": errs,
+            "row_errs": rows, "planted_last_chunk": planted}
 
 
 def phase_kl_main(rng, N: int) -> dict:
@@ -1152,7 +1260,7 @@ def phase_kl_main(rng, N: int) -> dict:
     plain_ms = time_ms(lambda: distill_kl_stats_ref(h_s, w_s, h_t, w_t, T),
                        iters=3, warmup=1)
 
-    def library():
+    def library(h_s=h_s, w_s=w_s):
         # the materialised form: both [N, V] logits in bf16, then f32
         ls = torch.log_softmax((h_s @ w_s).float() / T, dim=-1)
         lt = torch.log_softmax((h_t @ w_t).float() / T, dim=-1)
@@ -1160,6 +1268,7 @@ def phase_kl_main(rng, N: int) -> dict:
 
     lib_err = abs(library().item() - kl)
     library_ms = time_ms(library, iters=3, warmup=1)
+    bwd = _kl_bwd_main(h_s, w_s, h_t, w_t, T, got, library)
     flops = 2 * N * V * (D + D)
     nbytes = 2 * (2 * N * D + 2 * D * V) + 4 * 4 * N
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -1175,17 +1284,101 @@ def phase_kl_main(rng, N: int) -> dict:
     return {"N": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "bwd": bwd}
+
+
+def _kl_bwd_main(h_s, w_s, h_t, w_t, T: float, stats, library) -> dict:
+    """The backward at a main-path shape: checked as in the sweep (both
+    sides), then timed on the student side, as the distillation paths run
+    it (their teachers are detached): the whole op, its dz kernels alone
+    and its products alone, the plain version, and autograd through the
+    materialised form (``library``'s, for h_s and W_s).  The bound counts
+    2 N V (Ds + Dt) + 4 N V Ds FLOP at the bf16 peak against h, W, the
+    statistics and the token weight read and dh_s and dW_s written once."""
+    from repro_torch.kernels import distill_kl as dk
+    from repro_torch.kernels.ref import distill_kl_bwd_ref
+    N, Ds = h_s.shape
+    Dt, V = w_t.shape
+    out = _kl_bwd_at(h_s, w_s, h_t, w_t, T)
+    tok_w = _kl_tok_w(None, N, T)
+    needs = (True, True, False, False)
+    vc = dk.chunk_cols(N, V, h_s.dtype)
+    dz = torch.empty((N, vc), dtype=h_s.dtype, device="cuda")
+    dh = torch.zeros((N, Ds), dtype=torch.float32, device="cuda")
+    dw = torch.empty_like(w_s)
+    chunks = [(v0, min(vc, V - v0)) for v0 in range(0, V, vc)]
+
+    def dz_only():
+        for v0, n in chunks:
+            dk.launch_dz(h_s, w_s, h_t, w_t, stats, tok_w, dz, None, v0, n,
+                         1.0 / T)
+
+    def products():
+        for v0, n in chunks:
+            dk._products(h_s, w_s, dz[:, :n], dh, dw, v0, n)
+
+    ms = time_ms(lambda: dk.distill_kl_bwd(h_s, w_s, h_t, w_t, *stats,
+                                           tok_w, T, needs=needs), iters=5)
+    dz_ms = time_ms(dz_only, iters=5)
+    products_ms = time_ms(products, iters=5)
+    plain_ms = time_ms(lambda: distill_kl_bwd_ref(
+        h_s, w_s, h_t, w_t, *stats, tok_w, T, needs=needs), iters=2,
+        warmup=1)
+    del dz, dh, dw
+    leaves = [x.detach().requires_grad_() for x in (h_s, w_s)]
+    kl_lib = library(*leaves)
+    library_ms = time_ms(lambda: torch.autograd.grad(kl_lib, leaves,
+                                                     retain_graph=True),
+                         iters=3, warmup=1)
+    del kl_lib, leaves
+    flops = 2 * N * V * (Ds + Dt) + 4 * N * V * Ds
+    nbytes = 2 * (N * Ds + Ds * V + N * Dt + Dt * V) + 5 * 4 * N \
+        + 2 * (N * Ds + Ds * V)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"distill_kl backward N={N} D={Ds} V={V} {str(h_s.dtype)[6:]} "
+          f"embed.T T={T}, the student side: kernel and products "
+          f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s counted; dz kernels "
+          f"{dz_ms:.3f} ms, products "
+          f"{products_ms:.3f} ms, {len(chunks)} chunks of {vc} columns, "
+          f"buffer {N * vc * h_s.element_size() / 2**20:.0f} MiB), plain "
+          f"{plain_ms:.3f} ms, autograd through the materialised form "
+          f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
+    return {**out, "ms": ms, "dz_ms": dz_ms, "products_ms": products_ms,
+            "chunk_cols": vc,
+            "chunk_buffer_bytes": N * vc * h_s.element_size(),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
 def kl_entry(at: dict) -> dict:
     """The KL kernel's line: the distillation step's numbers at the top,
     each main-path shape's under ``at``, the worst error of all."""
+    at = {name: {k: v for k, v in a.items() if k != "bwd"}
+          for name, a in at.items()}
     return {"name": "distill_kl_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/distill_kl_fwd.cu",
             "replaces": "src/repro/kernels/distill_kl_pallas.py:34",
             "launches": None,
             **{k: v for k, v in at["train_distill"].items() if k != "N"},
+            "max_abs_err": max(a["max_abs_err"] for a in at.values()),
+            "at": at}
+
+
+def kl_bwd_entry(at: dict) -> dict:
+    """The KL backward's line: the distillation step's shape's numbers at
+    the top, each main-path shape's under ``at``, the worst error."""
+    at = {name: {"N": a["N"], **a["bwd"]} for name, a in at.items()}
+    top = at["train_distill"]
+    return {"name": "distill_kl_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/distill_kl_bwd.cu",
+            "replaces": "src/repro/kernels/distill_kl.py:98",
+            "launches": None,
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
             "max_abs_err": max(a["max_abs_err"] for a in at.values()),
             "at": at}
 
@@ -1285,7 +1478,8 @@ def _kernel_report(prof, wall_ms: float, what: str) -> None:
     ranges = _range_ms(prof, (
         ("flash backward (its kernels)",
          "evaluate_function: FlashAttentionBackward"),
-        ("KL backward (plain torch)", "evaluate_function: DistillKLBackward"),
+        ("KL backward (its kernel and products)",
+         "evaluate_function: DistillKLBackward"),
         ("SSD backward (plain torch)", "evaluate_function: SSDScanBackward"),
         ("AdamW update", "adamw.update")))
     kinds = {"flash forward kernel": lambda k: "flash_fwd_kernel" in k,
@@ -1988,6 +2182,52 @@ def _worker_streams(rt) -> dict:
     return {n: v for (n, _), v in res.results.items()}
 
 
+def _log_parentless(prof, n: int = 6) -> None:
+    """ROADMAP.md C15's next step, when the affinity pass reports a traced
+    iteration: the launch calls with no operator above them (the kind C15
+    saw filed under the main thread), grouped by thread and stream, and
+    for the first of each group the ``n`` events before and after it on
+    its thread and the innermost events of other threads that hold its
+    start."""
+    from repro_torch.analysis import affinity
+    events = list(prof.events())
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    calls = {e.id: e for e in cpu if affinity._LAUNCH.match(e.name)}
+    groups: dict = {}
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation):
+            continue
+        call = calls.get(e.id)
+        if call is not None and call.cpu_parent is None:
+            groups.setdefault((call.thread, e.device_resource_id),
+                              []).append((call, e))
+
+    def line(e, mark=" "):
+        parent = e.cpu_parent.name[:40] if e.cpu_parent else None
+        return (f"   {mark} {e.time_range.start:.1f} us +"
+                f"{e.time_range.elapsed_us():.1f} thread {e.thread} "
+                f"{e.name[:60]} (parent {parent}, forward thread "
+                f"{getattr(e, 'fwd_thread', 0)})")
+
+    for (thread, sid), pairs in sorted(groups.items()):
+        call, kernel = pairs[0]
+        print(f"C15: {len(pairs)} launches with no operator above them, "
+              f"thread {thread} -> stream {sid}; first {call.name} -> "
+              f"{kernel.name[:60]}")
+        mine = sorted((e for e in cpu if e.thread == thread),
+                      key=lambda e: e.time_range.start)
+        i = next(j for j, e in enumerate(mine) if e is call)
+        for e in mine[max(0, i - n):i + n + 1]:
+            print(line(e, ">" if e is call else " "))
+        t = call.time_range.start
+        held = [e for e in cpu if e.thread != thread
+                and e.time_range.start <= t < e.time_range.end]
+        for e in sorted(held, key=lambda e: e.time_range.elapsed_us())[:n]:
+            print(line(e, "|"))
+
+
 def _affinity_ok(rep, what: str) -> None:
     print(rep.render())
     check(rep.ok, f"affinity: {what}")
@@ -2384,7 +2624,7 @@ def phase_sections() -> tuple[int, int]:
                     float(m["loss"])
                     times.append((time.perf_counter() - t0) * 1e3)
             counts, wire = read_counts(), gcomp.wire_counts()
-            bwd = read_bwd()
+            bwd = (read_bwd(), read_kl_bwd())
             full = tree_leaves(drt.runtime.state()[0]["student"])
             prof = None
             if trace:
@@ -2394,6 +2634,8 @@ def phase_sections() -> tuple[int, int]:
                     drt.train_iteration(pt, ps, opt, batches[RT_ITERS],
                                         RT_ITERS, w_t=w_t)
                 rep = affinity.check_profile(prof, drt.runtime)
+                if not rep.ok:
+                    _log_parentless(prof)
             else:
                 rep = None
         per_it = {k: v / RT_ITERS for k, v in sorted(calls.items())}
@@ -2438,9 +2680,9 @@ def phase_sections() -> tuple[int, int]:
     want = (RT_ITERS * L * 3, RT_ITERS, 0)
     check(got[3] == ref[3] == want, f"(flash, KL, SSD) launched {got[3]} on "
           f"meshes and {ref[3]} device-carved, expected {want}")
-    BWD_LAUNCHES["sections"] = got[7]
-    check(got[7] == ref[7], f"flash_bwd launched {got[7]} times on "
-          f"meshes and {ref[7]} device-carved")
+    BWD_LAUNCHES["sections"], KL_BWD_LAUNCHES["sections"] = got[7]
+    check(got[7] == ref[7], f"(flash_bwd, distill_kl_bwd) launched {got[7]} "
+          f"on meshes and {ref[7]} device-carved")
     check(got[5].get("all_gather", 0) > 0
           and got[5].get("reduce_scatter", 0) > 0
           and got[5].get("all_reduce", 0) > 0,
@@ -5298,6 +5540,12 @@ def _fake_matches_launch() -> None:
     o, lse = torch.ops.repro_torch.flash_fwd(q, k, k, None, True, 0, 0.125, 0)
     cases["flash_bwd"] = (torch.ops.repro_torch.flash_bwd,
                           (q, k, k, o, lse, o, lse, None, True, 0, 0.125, 0))
+    stats = torch.ops.repro_torch.distill_kl_fwd(h, w, h, w, 1.0)
+    tok_w = torch.full((512,), 1.0 / 512, device="cuda")
+    dz = torch.empty((1, 512, 1024), dtype=bf, device="cuda")
+    cases["distill_kl_bwd"] = (torch.ops.repro_torch.distill_kl_bwd,
+                               (h, w, h, w, *stats, tok_w, dz, 1.0, True,
+                                True, False, False))
     for name, (op, args) in cases.items():
         real = op(*args)
         with FakeTensorMode() as mode:
@@ -5602,9 +5850,11 @@ def phase_dryrun_compound(procs: dict) -> tuple:
           f"{rec['record_s']:.1f} s; kernel ops {rec['hlo']['kernel_ops']})")
     check(abs(ratio - 1) <= DRYRUN_MEM_TOL,
           f"the compound prediction is off by {ratio - 1:+.1%}")
-    check(rec["hlo"]["kernel_ops"].get("repro_torch.distill_kl_fwd") == 1,
-          f"the recorded distill step's kernel ops {rec['hlo']['kernel_ops']}"
-          " hold no KL launch")
+    ops = rec["hlo"]["kernel_ops"]
+    check(ops.get("repro_torch.distill_kl_fwd") == 1
+          and ops.get("repro_torch.distill_kl_bwd") == 1,
+          f"the recorded distill step's kernel ops {ops} do not hold one KL "
+          "launch and one KL backward")
     _report_compound_production(procs)
     return distill, mllm
 
@@ -5627,8 +5877,10 @@ def _report_compound_production(procs: dict) -> None:
               and r["hlo"]["collective_bytes_per_device"],
               f"the production {name} cell recorded no work or no "
               "collectives")
-        check((r["hlo"]["kernel_ops"].get("repro_torch.distill_kl_fwd", 0)
-               > 0) == (name != "mllm"),
+        kops = r["hlo"]["kernel_ops"]
+        n_kl = kops.get("repro_torch.distill_kl_fwd", 0)
+        check((n_kl > 0) == (name != "mllm")
+              and kops.get("repro_torch.distill_kl_bwd", 0) == n_kl,
               f"the production {name} cell's kernel ops "
               f"{r['hlo']['kernel_ops']}")
         if name in PRODUCTION_BEFORE:
@@ -5674,9 +5926,10 @@ def main() -> int:
                 for name, (shape, kw) in flash_shapes.items()}
     timed(phase_flash_grads, rng)
     timed(phase_kl_sweep, rng)
-    kl = kl_entry({
+    kl_at = {
         "train_distill": timed(phase_kl_main, rng, TRAIN_B * TRAIN_S),
-        "multi_teacher": timed(phase_kl_main, rng, MT_MBS * TRAIN_S)})
+        "multi_teacher": timed(phase_kl_main, rng, MT_MBS * TRAIN_S)}
+    kl, kl_bwd = kl_entry(kl_at), kl_bwd_entry(kl_at)
     timed(phase_ssd_sweep, rng)
     ssd = ssd_entry({"mamba": timed(phase_ssd_shape, rng, SSD_MAIN),
                      "jamba_serve": timed(phase_ssd_shape, rng, SSD_JAMBA)})
@@ -5809,22 +6062,34 @@ def main() -> int:
         "ssd": (0, 0, 0, 0, 0, mamba_train_launches, mamba_serve_launches,
                 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
                 jamba_ssd_launches),
-        "flash_bwd": tuple(BWD_LAUNCHES[key] for key in paths)}
+        "flash_bwd": tuple(BWD_LAUNCHES[key] for key in paths),
+        "kl_bwd": tuple(KL_BWD_LAUNCHES[key] for key in paths)}
     for key, (label, trains) in paths.items():
         n = BWD_LAUNCHES[key]
         check(n > 0 if trains else n == 0,
               f"{label}: flash_bwd launched {n} times")
+    # every KL forward of a path is differentiated: its backward's launches
+    # equal its forward's, so some on each distillation path and none
+    # elsewhere
+    for label, fwd, bwd in zip((label for label, _ in paths.values()),
+                               per_path["kl"], per_path["kl_bwd"]):
+        check(bwd == fwd, f"{label}: distill_kl_bwd launched {bwd} times "
+              f"for {fwd} forward launches")
+    check(all(n > 0 for key, n in zip(paths, per_path["kl_bwd"])
+              if key in ("distill", "distill_runtime", "sections",
+                         "distill_mesh", "multi_teacher")),
+          f"a distillation path launched no KL backward: {KL_BWD_LAUNCHES}")
     labels = [label for label, _ in paths.values()]
     flash = flash_entry(flash_at)
     flash_bwd = flash_bwd_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd),
-                        ("flash_bwd", flash_bwd)):
+                        ("flash_bwd", flash_bwd), ("kl_bwd", kl_bwd)):
         check(len(per_path[name]) == len(labels),
               f"{name}: {len(per_path[name])} counts for {len(labels)} paths")
         entry["launches"] = sum(per_path[name])
         entry["launches_per_path"] = dict(zip(labels, per_path[name]))
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [flash, kl, ssd, flash_bwd]}))
+    print(json.dumps({"kernels": [flash, kl, ssd, flash_bwd, kl_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,11 @@ goes through the autograd Functions of
 :mod:`repro_torch.kernels.flash_attention`, whose backward is the CUDA
 kernel of ``csrc/flash_bwd.cu``, so a CUDA q/k/v that requires grad gets
 its gradient from hand-written kernels both ways; on the CPU autograd
-differentiates the plain version.  (The JAX package's ``repro/kernels/ops.py`` picks
+differentiates the plain version.  The distillation KL goes through
+:class:`~repro_torch.kernels.distill_kl.DistillKL` on both devices, with
+the statistics and gradient functions of the tensors' route (the kernels
+of ``csrc/distill_kl_fwd.cu`` and ``csrc/distill_kl_bwd.cu``, or their
+plain versions).  (The JAX package's ``repro/kernels/ops.py`` picks
 its tier with an ``impl`` argument; the port has one kernel per device.)
 """
 from __future__ import annotations
@@ -83,16 +87,18 @@ def distill_kl(h_s: torch.Tensor, w_s: torch.Tensor, h_t: torch.Tensor,
     """Chunked-vocab KL(p_t || p_s), masked token mean, from hidden states
     h [N, D] and unembeddings w [D, V]; never forms the [N, V] logits.
 
-    The per-token statistics come from the CUDA kernel for CUDA tensors
-    and from ``ref.distill_kl_stats_ref`` for CPU tensors; both go through
-    the same :class:`~repro_torch.kernels.distill_kl.DistillKL` Function,
-    whose backward is chunked by ``block_v``."""
+    The per-token statistics and the gradients come from the CUDA kernels
+    for CUDA tensors (``distill_kl_fwd``, ``distill_kl_bwd``) and from
+    ``ref.distill_kl_stats_ref`` and ``ref.distill_kl_bwd_ref``, chunked by
+    ``block_v``, for CPU tensors; both go through the same
+    :class:`~repro_torch.kernels.distill_kl.DistillKL` Function."""
     if kernel_route(h_s):
-        stats = dk.distill_kl_fwd
+        stats, grads = dk.distill_kl_fwd, dk.distill_kl_bwd
     else:
         stats = functools.partial(ref.distill_kl_stats_ref, block_v=block_v)
+        grads = functools.partial(ref.distill_kl_bwd_ref, block_v=block_v)
     return dk.DistillKL.apply(h_s, w_s, h_t, w_t, mask, float(temperature),
-                              int(block_v), stats)
+                              stats, grads)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

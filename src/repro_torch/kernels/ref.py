@@ -3,7 +3,9 @@
 ``flash_attention_ref`` is the plain version of ``csrc/flash_fwd.cu``,
 ``flash_bwd_ref`` (the blockwise-recompute backward, float32 block
 products in a Python loop) that of ``csrc/flash_bwd.cu``,
-``distill_kl_stats_ref`` that of ``csrc/distill_kl_fwd.cu`` and
+``distill_kl_stats_ref`` that of ``csrc/distill_kl_fwd.cu``,
+``distill_kl_bwd_ref`` (the KL's gradients, float32 block products in a
+Python loop) that of ``csrc/distill_kl_bwd.cu`` with its products and
 ``ssd_scan_ref`` that of ``csrc/ssd_fwd.cu``; ``distill_kl_reference``
 (the full-materialisation KL) and ``ssd_reference`` (the sequential SSD
 scan) are oracles, for tests only.
@@ -205,6 +207,54 @@ def distill_kl_stats_ref(h_s: torch.Tensor, w_s: torch.Tensor,
     lt = lt.clamp_min(1e-30)
     return (ms + torch.log(ls.clamp_min(1e-30)), mt + torch.log(lt),
             ut / lt, us / lt)
+
+
+def distill_kl_bwd_ref(h_s, w_s, h_t, w_t, lse_s, lse_t, e_t, e_s, tok_w,
+                       T: float = 1.0, *, needs=(True, True, True, True),
+                       block_v: int = 2048):
+    """The analytic second pass of the KL, chunked over the vocabulary ->
+    (dh_s, dw_s, dh_t, dw_t), None where ``needs`` (one flag an input)
+    says no; port of ``repro/kernels/distill_kl.py::_distill_kl_bwd`` and
+    the plain version of ``csrc/distill_kl_bwd.cu`` with its products.
+
+    ``dz_s = (p_s - p_t) w``, ``dz_t = p_t ((z_t - e_t) - (z_s - e_s)) w``,
+    ``dh = dz W^T``, ``dW = h^T dz`` with ``tok_w`` [N] float32 the token
+    weight w (``mask / max(sum mask, 1) g / T``) and (lse_s, lse_t, e_t,
+    e_s) the forward's statistics.  Products are ``torch.matmul`` on
+    float32 blocks.  W is cast one vocabulary block at a time, never whole:
+    at qwen1.5-0.5b's vocabulary a float32 copy of both W would take about
+    1.2 GB.  dh is cast to h's dtype at the end, each block of dW to W's
+    dtype as it is written (``empty_like`` keeps W's strides), as the JAX
+    package casts the whole float32 gradient at the end."""
+    need_hs, need_ws, need_ht, need_wt = needs
+    V = w_s.shape[1]
+    bv = block_v
+    tok_w = tok_w[:, None]
+    hs, ht = h_s.float(), h_t.float()
+    dhs = torch.zeros_like(hs) if need_hs else None
+    dht = torch.zeros_like(ht) if need_ht else None
+    dws = torch.empty_like(w_s) if need_ws else None
+    dwt = torch.empty_like(w_t) if need_wt else None
+    for v0 in range(0, V, bv):
+        v1 = min(v0 + bv, V)
+        wsb, wtb = w_s[:, v0:v1].float(), w_t[:, v0:v1].float()
+        zs = (hs @ wsb) / T
+        zt = (ht @ wtb) / T
+        pt = torch.exp(zt - lse_t[:, None])
+        if need_hs or need_ws:
+            dzs = (torch.exp(zs - lse_s[:, None]) - pt) * tok_w
+            if need_hs:
+                dhs += dzs @ wsb.T
+            if need_ws:
+                dws[:, v0:v1] = hs.T @ dzs
+        if need_ht or need_wt:
+            dzt = pt * ((zt - e_t[:, None]) - (zs - e_s[:, None])) * tok_w
+            if need_ht:
+                dht += dzt @ wtb.T
+            if need_wt:
+                dwt[:, v0:v1] = ht.T @ dzt
+    return (None if dhs is None else dhs.to(h_s.dtype), dws,
+            None if dht is None else dht.to(h_t.dtype), dwt)
 
 
 def distill_kl_reference(h_s, w_s, h_t, w_t, *, mask=None,

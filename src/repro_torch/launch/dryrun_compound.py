@@ -24,8 +24,8 @@ blocks of every argument as fake tensors on the ``meta`` device (of the
 batch, the block ``step.block`` cuts, as the step takes it), and records
 one call
 (``roofline.record``).  The hand-written kernels' ops,
-``repro_torch::flash_fwd`` and ``::distill_kl_fwd``, give their shape
-functions' outputs there.
+``repro_torch::flash_fwd``, ``::flash_bwd``, ``::distill_kl_fwd`` and
+``::distill_kl_bwd``, give their shape functions' outputs there.
 
 The record has the reference's keys: ``workload``, ``mesh``, ``memory``
 (XLA's four fields, the port's ``peak_bytes`` and ``argument_parts``),
@@ -33,8 +33,9 @@ The record has the reference's keys: ``workload``, ``mesh``, ``memory``
 reference's formulas) and ``useful_flops_ratio``, with ``n_microbatches``,
 ``mbs``, ``image_tokens`` and ``vit_patches`` where the reference has
 them; ``record_s`` in place of ``compile_s``; and the port's ``devices``,
-``kernel_adjusted_memory_s`` and ``hlo["kernel_ops"]`` (each kernel op's
-recorded calls).  File names are the reference's.
+``kernel_adjusted_memory_s``, ``hlo["kernel_ops"]`` (each kernel op's
+recorded calls) and ``hlo["kernel_flops"]`` (their FLOPs, by the ops'
+flop formulas).  File names are the reference's.
 
 Usage:
   python -m repro_torch.launch.dryrun_compound \\
@@ -108,6 +109,10 @@ def _analyze(step, args, parts: dict, rec: dict, model_flops: float,
     del out
     rec["record_s"] = time.time() - t0
     stats.memory["argument_parts"] = {k: _nbytes(v) for k, v in parts.items()}
+    kernels = [d for d in stats.dots if d.op.startswith("repro_torch.")]
+    kernel_flops = collections.Counter()
+    for d in kernels:
+        kernel_flops[d.op] += d.flops
     rec["memory"] = stats.memory
     rec["hlo"] = {
         "flops_per_device": stats.flops,
@@ -117,8 +122,8 @@ def _analyze(step, args, parts: dict, rec: dict, model_flops: float,
         "wire_bytes_by_dtype": wire_bytes_by_dtype(stats),
         "transcendental_per_device": stats.transcendental,
         "ops": stats.ops,
-        "kernel_ops": dict(collections.Counter(
-            d.op for d in stats.dots if d.op.startswith("repro_torch.")))}
+        "kernel_ops": dict(collections.Counter(d.op for d in kernels)),
+        "kernel_flops": dict(kernel_flops)}
     rec["roofline"] = roofline_terms(stats, hw=H100)
     rec["kernel_adjusted_memory_s"] = (
         max(stats.hbm_bytes - stats.kernel_bytes, 0.0) + kernel_io

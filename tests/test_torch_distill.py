@@ -1,7 +1,9 @@
 """The port's distillation against the JAX package, on the CPU in float32.
 
 * ``distill_kl_stats_ref`` (the plain version of the CUDA kernel) against
-  ``repro.kernels.distill_kl._fwd_pass``, and the ``DistillKL`` Function's
+  ``repro.kernels.distill_kl._fwd_pass``, ``distill_kl_bwd_ref`` (the
+  plain version of the backward kernel) against its ``_distill_kl_bwd``
+  for each side, and the ``DistillKL`` Function's
   value and gradients against ``distill_kl_chunked_jnp`` and the
   full-materialisation oracle, over ``tests/test_kernels_distill_kl.py``'s
   parameters;
@@ -115,6 +117,45 @@ def test_distill_kl_value_and_grads_match_jax(N, Ds, Dt, V, T, masked):
     _close(kl, oracle, KL_TOL)
     for g, w in zip(grads, g_j):
         _close(g, w, dict(atol=1e-6, rtol=1e-5))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bwd(N, Ds, Dt, V, T, masked, g):
+    """The JAX forward's statistics and ``_distill_kl_bwd``'s four
+    gradients at cotangent ``g`` on ``_kl_inputs(..., seed=1)``, as numpy
+    (once for both sides)."""
+    jx = tuple(jnp.asarray(x) for x in _kl_inputs(N, Ds, Dt, V, seed=1))
+    mask = jnp.asarray(np.arange(N) % 3 != 0) if masked else None
+    _, res = jdk._distill_kl_fwd(*jx, mask, T, 32)
+    grads = jdk._distill_kl_bwd(T, 32, res, jnp.float32(g))[:4]
+    return ([np.array(r) for r in res[5:]],
+            [np.array(x) for x in grads])
+
+
+@pytest.mark.parametrize("N,Ds,Dt,V", KL_CASES)
+@pytest.mark.parametrize("T", [1.0, 2.0])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("side", ["student", "teacher"])
+def test_bwd_ref_matches_jax_distill_kl_bwd(N, Ds, Dt, V, T, masked, side):
+    """``ref.distill_kl_bwd_ref`` (the plain version of the backward
+    kernel and its products) against the JAX rule ``_distill_kl_bwd`` on
+    the same residuals and cotangent, one side's gradients at a time."""
+    xs = _kl_inputs(N, Ds, Dt, V, seed=1)
+    mask = (np.arange(N) % 3 != 0) if masked else None
+    g = 1.7
+    stats, want = _jax_bwd(N, Ds, Dt, V, T, masked, g)
+    stats = [torch.from_numpy(x) for x in stats]
+    tok_w = (torch.from_numpy(mask).float() if masked
+             else torch.ones(N, dtype=torch.float32))
+    tok_w = tok_w / tok_w.sum().clamp_min(1.0) * g / T
+    needs = (side == "student",) * 2 + (side == "teacher",) * 2
+    got = ref.distill_kl_bwd_ref(*(torch.from_numpy(x) for x in xs), *stats,
+                                 tok_w, T, needs=needs, block_v=40)
+    for need, gt, w in zip(needs, got, want):
+        if need:
+            _close(gt, w, dict(atol=1e-6, rtol=1e-5))
+        else:
+            assert gt is None
 
 
 def test_distill_kl_reference_matches_jax():

@@ -25,7 +25,9 @@ fail, ROADMAP C0).  Checks:
   step reads ``w_a``/``w_b``);
 * the KL kernel's op ``repro_torch::distill_kl_fwd`` is among the
   distill and multi-teacher records' ops (once a micro-batch and KL term),
-  flash's among all three;
+  and so is its backward's, ``::distill_kl_bwd``, as often and with twice
+  the forward's FLOPs (its flop formula at Ds = Dt); flash's among all
+  three;
 * ``--cp 2`` on a mesh whose model axis is 2 records the distillation
   step at cp x tp (each model rank's heads under ``cp_attention`` over
   its sequence group), and an MLLM batch that is not a multiple of
@@ -179,6 +181,22 @@ def test_kernel_ops_on_the_path(records, workload, kl):
     print(workload, ops)
     assert ops.get("repro_torch.distill_kl_fwd", 0) == kl
     assert ops.get("repro_torch.flash_fwd", 0) > 0
+
+
+@pytest.mark.parametrize("workload,kl", [("distill", 2), ("mllm", 0),
+                                         ("multi_teacher", 2)])
+def test_kl_backward_op_on_the_path(records, workload, kl):
+    """The KL's backward kernel op ``repro_torch::distill_kl_bwd`` runs
+    once for each forward (the student's gradients; the teachers are
+    detached), with its flop formula's count: 2 N V (Ds + Dt) + 4 N V Ds,
+    twice the forward's where Ds = Dt (granite-3-8b on both sides)."""
+    _, p = _rec(records, "torch", workload)
+    ops, flops = p["hlo"]["kernel_ops"], p["hlo"]["kernel_flops"]
+    assert ops.get("repro_torch.distill_kl_bwd", 0) == kl
+    if kl:
+        fwd = flops["repro_torch.distill_kl_fwd"]
+        assert fwd > 0
+        assert flops["repro_torch.distill_kl_bwd"] == 2 * fwd
 
 
 def test_cp_with_a_model_axis_is_refused(records):

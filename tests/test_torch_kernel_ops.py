@@ -1,8 +1,10 @@
 """The hand-written kernels as ``torch.library`` custom ops
 (``repro_torch::flash_fwd``, ``::flash_bwd``, ``::distill_kl_fwd``,
-``::ssd_fwd``), on the CPU: an op called with CPU tensors raises (it is
-registered for CUDA only; the plain versions are reached through
-``kernels.ops`` and, for the backward, ``flash_attention.flash_bwd``);
+``::distill_kl_bwd``, ``::ssd_fwd``), on the CPU: an op called with CPU
+tensors raises (it is registered for CUDA only; the plain versions are
+reached through ``kernels.ops`` and, for the backward,
+``flash_attention.flash_bwd``; the KL's backward on CPU tensors never
+reaches its op or its wrapper);
 each op's shape function gives the shapes, dtypes and strides of the
 plain version's outputs (``chip_smoke.py`` holds them to a real launch's
 on the card); a meta tensor (a dry-run's) goes down the kernel route
@@ -90,6 +92,86 @@ def test_kl_shape_function_matches_plain_version():
         assert (g.shape, g.dtype) == (w.shape, w.dtype)
 
 
+def _kl_case(embed_t=False):
+    rng = np.random.default_rng(3)
+    N, Ds, Dt, V = 12, 8, 6, 50
+    h_s, h_t = (torch.from_numpy(rng.standard_normal((N, d),
+                                                     dtype=np.float32))
+                for d in (Ds, Dt))
+    w_s, w_t = (torch.from_numpy(rng.standard_normal(
+        (V, d) if embed_t else (d, V), dtype=np.float32))
+        for d in (Ds, Dt))
+    if embed_t:                      # a tied embedding seen as [D, V]
+        w_s, w_t = w_s.T, w_t.T
+    return h_s, w_s, h_t, w_t
+
+
+def test_kl_bwd_cpu_tensors_never_reach_the_op(monkeypatch):
+    """CPU tensors: the KL's gradients come from the plain version, and
+    neither the wrapper nor the op is called; both refuse CPU tensors."""
+    h_s, w_s, h_t, w_t = _kl_case()
+    stats = ref.distill_kl_stats_ref(h_s, w_s, h_t, w_t, 2.0)
+    tok_w = torch.full((12,), 1.0 / 24)
+    with pytest.raises(ValueError, match="distill_kl_bwd_ref"):
+        dk.distill_kl_bwd(h_s, w_s, h_t, w_t, *stats, tok_w, 2.0)
+    dz = torch.empty((1, 12, 128))
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.distill_kl_bwd(h_s, w_s, h_t, w_t, *stats,
+                                             tok_w, dz, 0.5, True, True,
+                                             False, False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached distill_kl_bwd")
+
+    monkeypatch.setattr(dk, "distill_kl_bwd", refuse)
+    leaves = [x.clone().requires_grad_() for x in (h_s, w_s)]
+    kl = ops.distill_kl(*leaves, h_t, w_t, temperature=2.0)
+    got = torch.autograd.grad(kl, leaves)
+    want = ref.distill_kl_bwd_ref(h_s, w_s, h_t, w_t, *stats, tok_w, 2.0,
+                                  needs=(True, True, False, False))
+    for g, w in zip(got, want[:2]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("embed_t", [False, True])
+def test_kl_bwd_shape_function_matches_plain_version(embed_t):
+    """The op's fake outputs (dh float32, dW like W, an output not asked
+    for empty) against the plain version's, and meta tensors through
+    ``ops.distill_kl``'s backward: meta gradients in the inputs' dtypes
+    and W's strides, no launch."""
+    xs = _kl_case(embed_t)
+    stats = ref.distill_kl_stats_ref(*xs, 1.0)
+    tok_w = torch.full((12,), 1.0 / 12)
+    want = ref.distill_kl_bwd_ref(*xs, *stats, tok_w, 1.0)
+    dz = torch.empty((2, 12, 128), device="meta")
+    got = torch.ops.repro_torch.distill_kl_bwd(
+        *map(_meta, (*xs, *stats, tok_w)), dz, 1.0, True, True, False, True)
+    _same_layout(got[0], want[0])
+    _same_layout(got[1], want[1])
+    assert got[2].numel() == 0
+    _same_layout(got[3], want[3])
+    before = (dk.distill_kl_fwd.launches, dk.distill_kl_bwd.launches)
+    leaves = [_meta(x).requires_grad_() for x in xs[:2]]
+    kl = ops.distill_kl(*leaves, *map(_meta, xs[2:]), temperature=2.0)
+    assert type(kl.grad_fn).__name__ == "DistillKLBackward"
+    grads = torch.autograd.grad(kl, leaves)
+    for g, x in zip(grads, xs[:2]):
+        assert g.device.type == "meta"
+        _same_layout(g, x)
+    assert (dk.distill_kl_fwd.launches, dk.distill_kl_bwd.launches) == before
+
+
+def test_kl_chunk_columns_fill_the_buffer_cap():
+    """32768 columns at N = 8192 in bf16 (the buffer at its 512 MiB cap,
+    five chunks over qwen's 151936), multiples of 128, no wider than V."""
+    assert dk.chunk_cols(8192, 151936, torch.bfloat16) == 32768
+    assert dk.chunk_cols(4096, 151936, torch.bfloat16) == 65536
+    assert dk.chunk_cols(8192, 151936, torch.bfloat16, sides=2) == 16384
+    assert dk.chunk_cols(8192, 151936, torch.float32) == 16384
+    assert dk.chunk_cols(333, 5003, torch.bfloat16) == 5120
+    assert dk.chunk_cols(10 ** 7, 151936, torch.bfloat16) == 128
+
+
 def test_ssd_shape_function_matches_plain_version():
     rng = np.random.default_rng(2)
     b, s, h, p, n = 2, 70, 3, 8, 4
@@ -161,3 +243,22 @@ def test_flop_formulas_are_the_bound_counts():
     assert fc.get_total_flops() == (2 * b * nc * Q * Q * n
                                     + 2 * b * h * nc * Q * Q * p
                                     + 4 * b * h * s * p * n)
+
+
+@pytest.mark.parametrize("needs", [(True, True, False, False),
+                                   (True, False, False, False),
+                                   (True, True, True, True)])
+def test_kl_bwd_flop_formula_is_the_bound_count(needs):
+    """2 N V (Ds + Dt) for the recomputed logits, 2 N V D for each of dh
+    and dW asked for: 2 N V (Ds + Dt) + 4 N V Ds on the student side."""
+    N, Ds, Dt, V = 12, 8, 6, 50
+    m = lambda *sh: torch.empty(sh, device="meta")  # noqa: E731
+    with FlopCounterMode(display=False) as fc:
+        torch.ops.repro_torch.distill_kl_bwd(
+            m(N, Ds), m(Ds, V), m(N, Dt), m(Dt, V), *(m(N) for _ in range(5)),
+            m(1 + needs[2], N, 128), 1.0, *needs)
+    want = 2 * N * V * (Ds + Dt + (needs[0] + needs[1]) * Ds
+                        + (needs[2] + needs[3]) * Dt)
+    assert fc.get_total_flops() == want
+    if needs == (True, True, False, False):
+        assert want == 2 * N * V * (Ds + Dt) + 4 * N * V * Ds
