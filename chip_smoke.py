@@ -8,8 +8,8 @@ CUDA kernels from the sources in this checkout.  Phases:
 
 1. Card and build: the card's name and power limit from ``nvidia-smi``;
    ``kernels/csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``distill_kl_fwd.cu``,
-   ``distill_kl_bwd.cu`` and ``ssd_fwd.cu`` built by one ``nvcc`` each,
-   started together; the counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   ``distill_kl_bwd.cu``, ``ssd_fwd.cu`` and ``ssd_bwd.cu`` built by one
+   ``nvcc`` each, started together; the counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
    load) instructions in the SASS of the flash forward and backward, KL
    forward and backward and SSD libraries, each of which must have both:
    their bf16 paths run on the tensor cores from
@@ -98,14 +98,24 @@ CUDA kernels from the sources in this checkout.  Phases:
    cores with TMA or threads' loads for bf16) and 1024 chunks (bf16, the
    final state), then at mamba2-130m's shape (b=4, s=4096, h=24, p=64,
    n=128, bf16, by TMA), where the kernel and the plain version are timed
-   and its kernels' device times traced.  Its
-   gradients: autograd through ``ops.ssd_scan`` (kernel forward,
-   ``ssd_chunked`` backward) against autograd through the sequential
-   ``ssd_reference``, over a sweep and in ROADMAP C3's case (chunk 128,
-   A = -1), where every gradient must be finite.
+   and its kernels' device times traced.  The backward kernel
+   (``csrc/ssd_bwd.cu``, the op ``repro_torch::ssd_bwd``) against its
+   plain version (``ref.ssd_bwd_ref``) over a sweep (f32 and bf16, ragged,
+   with and without the final state's gradient, x/B/C as strided slices):
+   f32 within SSD_BWD_TOL of each leaf's largest element, bf16 dx, dB and
+   dC row by row within SHAPE_REL_TOL of each row's own scale, two calls
+   bit for bit, and planted faults (the final state's gradient dropped,
+   the last chunk's rows zeroed) failing that; then at mamba2-130m's
+   shape, where the backward, its kernels (traced), the plain version,
+   autograd through ``ssd_chunked`` at chunk 128 (the backward before this
+   kernel) and the bound are timed.  Its gradients: autograd through
+   ``ops.ssd_scan`` (the forward and backward kernels) against autograd
+   through the sequential ``ssd_reference``, over a sweep, in ROADMAP
+   C3's case (chunk 128, A = -1) and at A = -4, where cum passes 88.7
+   inside one 64-token chunk; every gradient must be finite.
 8. mamba2-130m at full width in bf16: ``launch.train.run``, batch 4 x seq
-   4096, 4 steps (SSD kernel launched twice per layer and step, flash
-   never), one warm step traced; ``launch.serve.serve``, batch 4, prompt
+   4096, 4 steps (SSD kernel launched twice per layer and step, its
+   backward kernel once, flash never), one warm step traced; ``launch.serve.serve``, batch 4, prompt
    4096, 32 tokens (SSD launched once per layer in prefill, never in
    decode), then timed warm.  Prefill of S-2 tokens and 2 decode steps
    against ``forward`` (4 layers, float32), and one train step's
@@ -333,13 +343,16 @@ CUDA kernels from the sources in this checkout.  Phases:
 17. A ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths, error and times (the flash and SSD kernels' at each of their
    main-path shapes under ``at``, the flash backward's at each training
-   shape, the KL backward's at N = 8192 and 4096; the top-level times are
+   shape, the KL backward's at N = 8192 and 4096, the SSD backward's at
+   mamba2-130m's; the top-level times are
    granite's serving prefill's, mamba2-130m's, qwen1.5-0.5b's training
    attention's and its distillation step's KL), then the ``{"ok": true,
    ...}`` line.  Every path that trains through attention must have
    launched the flash backward, and no serving or forward-only path may
    have; every path's KL backward launches must equal its KL forward
-   launches (some on each distillation path, none elsewhere).  Each phase
+   launches (some on each distillation path, none elsewhere); the SSD
+   backward must be launched steps x layers times training mamba2-130m
+   and no time on any other path.  Each phase
    prints its wall time.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -477,6 +490,18 @@ SSD_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 SSD_GRAD_SWEEP = [((2, 64, 3, 8, 16), 16), ((2, 64, 3, 8, 16), 128),
                   ((1, 128, 2, 16, 8), 32), ((2, 48, 4, 8, 4), 16),
                   ((1, 200, 2, 16, 8), 64), ((1, 200, 4, 64, 16), 64)]
+# The SSD backward (``csrc/ssd_bwd.cu``) against ``ref.ssd_bwd_ref``: both
+# sides f32 arithmetic from the same inputs, sums in other orders.  Each
+# f32 output within 1e-4 of its leaf's largest element; a bf16 dx, dB or
+# dC row (dx over p, dB and dC over n) within SHAPE_REL_TOL of its own
+# scale, as the KL backward's rows (both sides round once to bf16).
+# (shape, A): a constant A = -0.05 keeps ~0.1 of a chunk's state past the
+# next chunk, so the carries between chunks weigh in the gradients; None
+# draws A = -exp(N(0,1)) as the forward's sweep does
+SSD_BWD_TOL = 1e-4
+SSD_BWD_SWEEP = [((2, 64, 3, 8, 16), None), ((1, 200, 2, 16, 8), -0.05),
+                 ((2, 48, 4, 8, 4), None), ((1, 130, 3, 80, 72), -0.05),
+                 ((2, 4094, 4, 64, 128), -0.05), ((1, 200, 4, 64, 16), None)]
 MAMBA = "mamba2-130m"
 MAMBA_B, MAMBA_S = 4, 4096
 
@@ -899,6 +924,7 @@ def reset_counts() -> None:
     dk.distill_kl_fwd.launches = 0
     dk.distill_kl_bwd.launches = 0
     ssd.ssd_fwd.launches = 0
+    ssd.ssd_bwd.launches = 0
 
 
 def read_counts() -> tuple[int, int, int]:
@@ -916,6 +942,7 @@ def read_counts() -> tuple[int, int, int]:
 #: (``note_bwd``); main() checks them and puts them on the kernels line
 BWD_LAUNCHES: dict = {}
 KL_BWD_LAUNCHES: dict = {}
+SSD_BWD_LAUNCHES: dict = {}
 
 
 def read_bwd() -> int:
@@ -932,11 +959,19 @@ def read_kl_bwd() -> int:
     return dk.distill_kl_bwd.launches
 
 
+def read_ssd_bwd() -> int:
+    """ssd_bwd launches since reset_counts (one a backward call, its four
+    kernels launched together)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    return ssd.ssd_bwd.launches
+
+
 def note_bwd(path: str) -> int:
-    """Record read_bwd() and read_kl_bwd() as ``path``'s launches, and
-    return the former."""
+    """Record read_bwd(), read_kl_bwd() and read_ssd_bwd() as ``path``'s
+    launches, and return the first."""
     BWD_LAUNCHES[path] = read_bwd()
     KL_BWD_LAUNCHES[path] = read_kl_bwd()
+    SSD_BWD_LAUNCHES[path] = read_ssd_bwd()
     return BWD_LAUNCHES[path]
 
 
@@ -1480,12 +1515,14 @@ def _kernel_report(prof, wall_ms: float, what: str) -> None:
          "evaluate_function: FlashAttentionBackward"),
         ("KL backward (its kernel and products)",
          "evaluate_function: DistillKLBackward"),
-        ("SSD backward (plain torch)", "evaluate_function: SSDScanBackward"),
+        ("SSD backward (its kernels)", "evaluate_function: SSDScanBackward"),
         ("AdamW update", "adamw.update")))
     kinds = {"flash forward kernel": lambda k: "flash_fwd_kernel" in k,
              "flash backward kernels": lambda k: "flash_bwd_" in k,
              "distill_kl kernels": lambda k: "distill_kl_" in k,
-             "SSD forward kernels": lambda k: "ssd_" in k,
+             "SSD forward kernels": lambda k: ("ssd_" in k
+                                               and "ssd_bwd" not in k),
+             "SSD backward kernels": lambda k: "ssd_bwd" in k,
              "GEMMs": lambda k: any(x in k.lower() for x in
                                     ("gemm", "xmma", "cutlass", "nvjet"))}
     print(f"traced {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
@@ -2624,7 +2661,7 @@ def phase_sections() -> tuple[int, int]:
                     float(m["loss"])
                     times.append((time.perf_counter() - t0) * 1e3)
             counts, wire = read_counts(), gcomp.wire_counts()
-            bwd = (read_bwd(), read_kl_bwd())
+            bwd = (read_bwd(), read_kl_bwd(), read_ssd_bwd())
             full = tree_leaves(drt.runtime.state()[0]["student"])
             prof = None
             if trace:
@@ -2680,9 +2717,10 @@ def phase_sections() -> tuple[int, int]:
     want = (RT_ITERS * L * 3, RT_ITERS, 0)
     check(got[3] == ref[3] == want, f"(flash, KL, SSD) launched {got[3]} on "
           f"meshes and {ref[3]} device-carved, expected {want}")
-    BWD_LAUNCHES["sections"], KL_BWD_LAUNCHES["sections"] = got[7]
-    check(got[7] == ref[7], f"(flash_bwd, distill_kl_bwd) launched {got[7]} "
-          f"on meshes and {ref[7]} device-carved")
+    (BWD_LAUNCHES["sections"], KL_BWD_LAUNCHES["sections"],
+     SSD_BWD_LAUNCHES["sections"]) = got[7]
+    check(got[7] == ref[7], f"(flash_bwd, distill_kl_bwd, ssd_bwd) launched "
+          f"{got[7]} on meshes and {ref[7]} device-carved")
     check(got[5].get("all_gather", 0) > 0
           and got[5].get("reduce_scatter", 0) > 0
           and got[5].get("all_reduce", 0) > 0,
@@ -3673,9 +3711,10 @@ def phase_ssd_sweep(rng) -> None:
         ssd_case(rng, shape, torch.bfloat16, True, packed=True)
 
 
-def _ssd_split(fn, iters: int) -> dict:
+def _ssd_split(fn, iters: int, key: str = "ssd_") -> dict:
     """Device ms a call of ``fn`` by the name of each SSD kernel it
-    launches, from ``torch.profiler`` over ``iters`` warm calls."""
+    launches (each kernel whose name holds ``key``), from
+    ``torch.profiler`` over ``iters`` warm calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -3684,7 +3723,7 @@ def _ssd_split(fn, iters: int) -> dict:
             fn()
         torch.cuda.synchronize()
     _, per = _device_ms(prof)
-    split = {k: v / iters for k, v in per.items() if "ssd_" in k}
+    split = {k: v / iters for k, v in per.items() if key in k}
     check(bool(split), "the profiler saw no SSD kernel")
     return split
 
@@ -3754,6 +3793,157 @@ def ssd_entry(at: dict) -> dict:
             "at": at}
 
 
+def _ssd_bwd_errs(got, want, dtype) -> dict:
+    """Each leaf's error as the SSD backward is held: f32 outputs as max
+    |g - ref| / max |ref| of the leaf, bf16 ones (dx, dB, dC) row by row
+    (``row_rel_err``: dx's rows over p, dB's and dC's over n)."""
+    errs = {}
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        if g.dtype == torch.bfloat16:
+            errs[name] = row_rel_err(g, w)
+        else:
+            errs[name] = ((g.float() - w.float()).abs().max()
+                          / w.float().abs().max().clamp_min(1e-30)).item()
+    return errs
+
+
+def _ssd_bwd_limit(name: str, dtype) -> float:
+    return (SHAPE_REL_TOL if dtype == torch.bfloat16
+            and name in ("dx", "dB", "dC") else SSD_BWD_TOL)
+
+
+def _ssd_bwd_at(rng, shape, dtype, with_state, packed, A=None) -> float:
+    """The SSD backward (``ssd_scan.ssd_bwd``) at one shape against
+    ``ref.ssd_bwd_ref``: every output finite and within its limit, two
+    calls equal bit for bit; planted faults, the final state's gradient
+    dropped (the dH carried into the last chunk) and the last chunk's rows
+    of dx, dB and dC zeroed, must miss the limits.  Returns the largest
+    max |g - ref| over the outputs."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_bwd_ref
+    b, s, h, p, n = shape
+    x, dt, A_, B, C, D = _ssd_inputs(rng, *shape, dtype, packed, A=A)
+    gy = _randn(rng, (b, s, h, p), dtype)
+    gs = _randn(rng, (b, h, p, n), torch.float32) if with_state else None
+    got = ssd.ssd_bwd(x, dt, A_, B, C, D, gy, gs)
+    again = ssd.ssd_bwd(x, dt, A_, B, C, D, gy, gs)
+    want = ssd_bwd_ref(x, dt, A_, B, C, D, gy, gs)
+    torch.cuda.synchronize()
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    for name, g in zip(names, got):
+        check(bool(torch.isfinite(g).all()), f"ssd_bwd {name} at {shape} "
+              f"{dtype} not finite")
+    errs = _ssd_bwd_errs(got, want, dtype)
+    bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+    planted_errs = {}
+    if with_state:
+        no_state = ssd.ssd_bwd(x, dt, A_, B, C, D, gy, None)
+        e = _ssd_bwd_errs(no_state, want, dtype)
+        planted_errs["gstate dropped"] = max(
+            e[k] / _ssd_bwd_limit(k, dtype) for k in names)
+    t_last = (s - 1) // ssd.CHUNK * ssd.CHUNK
+    bad = [g.clone() for g in got]
+    for i in (0, 3, 4):                   # dx, dB, dC
+        bad[i][:, t_last:] = 0
+    e = _ssd_bwd_errs(bad, want, dtype)
+    planted_errs["last chunk zeroed"] = max(
+        e[k] / _ssd_bwd_limit(k, dtype) for k in names)
+    max_abs = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    print(f"  ssd_bwd {shape} {str(dtype)[6:]} gstate={with_state} "
+          f"packed={packed} A={'exp' if A is None else A}: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (max|g-ref| {max_abs:.3e}); bitwise {bitwise}"
+          + "".join(f"; planted {k}: {v:.1f}x the limit"
+                    for k, v in planted_errs.items()))
+    for k, v in errs.items():
+        lim = _ssd_bwd_limit(k, dtype)
+        check(v <= lim, f"ssd_bwd {k} at {shape} {dtype}: {v:.3e} > {lim}")
+    check(bitwise, f"ssd_bwd at {shape} {dtype}: two calls differ")
+    for k, v in planted_errs.items():
+        check(v > 1, f"ssd_bwd at {shape} {dtype}: the limits pass the "
+              f"planted fault '{k}'")
+    return max_abs
+
+
+def phase_ssd_bwd_sweep(rng) -> None:
+    print(f"SSD backward kernel vs ref.ssd_bwd_ref (f32 outputs within "
+          f"{SSD_BWD_TOL:.0e} of the leaf's largest element, bf16 dx/dB/dC "
+          f"rows within {SHAPE_REL_TOL:.3e} of their own scale)")
+    for i, (shape, A) in enumerate(SSD_BWD_SWEEP):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_state in (False, True):
+                _ssd_bwd_at(rng, shape, dtype, with_state,
+                            packed=i % 2 == 1, A=A)
+
+
+def phase_ssd_bwd_main(rng, shape) -> dict:
+    """The backward at mamba2-130m's training shape (bf16, x, B and C
+    sliced from one tensor as the model passes them, no final state's
+    gradient, as training runs it): checked as in the sweep, then timed
+    beside its kernels (traced), the plain version, and autograd through
+    ``ssd_chunked`` at chunk 128 recomputed from the inputs, which is what
+    the backward ran before this kernel; no single PyTorch call computes
+    this backward, so that takes ``library_ms``'s place.  The bound
+    counts the op's flop formula at the bf16 peak against x, gy, dx, B,
+    C, dB, dC, dt, ddt, A, D, dA and dD moved once."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_bwd_ref
+    b, s, h, p, n = shape
+    max_abs = _ssd_bwd_at(rng, shape, torch.bfloat16, False, packed=True)
+    x, dt, A, B, C, D = _ssd_inputs(rng, *shape, torch.bfloat16, packed=True)
+    gy = _randn(rng, (b, s, h, p), torch.bfloat16)
+    args = (x, dt, A, B, C, D, gy)
+    ms = time_ms(lambda: ssd.ssd_bwd(*args), iters=10)
+    split = _ssd_split(lambda: ssd.ssd_bwd(*args), iters=5, key="ssd_bwd")
+    plain_ms = time_ms(lambda: ssd_bwd_ref(*args), iters=2, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in args[:6]]
+
+    def autograd_plain():
+        y = ssd.ssd_chunked(*leaves, chunk=128)
+        return torch.autograd.grad(y, leaves, gy)
+
+    library_ms = time_ms(autograd_plain, iters=2, warmup=1)
+    del leaves
+    Q, nc = ssd.CHUNK, -(-s // ssd.CHUNK)
+    flops = (10 * b * h * nc * Q * p * n + 2 * b * nc * Q * Q * n
+             + 4 * b * h * nc * Q * Q * (p + n))
+    nbytes = (3 * 2 * b * s * h * p + 4 * 2 * b * s * n + 2 * 4 * b * s * h
+              + 4 * 4 * h)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    n_cum, n_work = ssd.bwd_scratch(b, s, h, p, n)
+    print(f"ssd_bwd main shape {shape} bf16: kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s counted, {nbytes / ms / 1e6:.1f}"
+          f" GB/s), plain {plain_ms:.3f} ms, autograd through ssd_chunked at "
+          f"chunk 128 (recomputed) {library_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB); scratch {8 * n_cum / 1e6:.1f} MB cum + "
+          f"{4 * n_work / 1e6:.1f} MB states, dH and partials")
+    for name, k_ms in split.items():
+        print(f"  ssd_bwd split: {k_ms:.4f} ms ({100 * k_ms / ms:.1f}% of "
+              f"the event-timed call)  {name[:90]}")
+    print(f"  ssd_bwd split: {sum(split.values()):.4f} ms in {len(split)} "
+          "kernels (torch.profiler, device time a call)")
+    return {"shape": list(shape), "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library": "autograd through ssd_chunked at chunk 128",
+            "split_ms": split}
+
+
+def ssd_bwd_entry(at: dict) -> dict:
+    """The SSD backward's line: mamba2-130m's training shape's numbers."""
+    return {"name": "ssd_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_pallas.py:114",
+            "launches": None,
+            **{k: v for k, v in at["mamba_train"].items() if k != "shape"},
+            "at": at}
+
+
 def _ssd_grad_case(rng, shape, chunk, dtype, A=None) -> float:
     """Worst per-leaf gradient error of ops.ssd_scan on CUDA tensors
     against autograd through the sequential oracle; every gradient must
@@ -3783,8 +3973,8 @@ def _ssd_grad_case(rng, shape, chunk, dtype, A=None) -> float:
 
 
 def phase_ssd_grads(rng) -> None:
-    print("SSD gradients: ops.ssd_scan (kernel forward, ssd_chunked "
-          "backward) vs autograd through ssd_reference (max |dg| / max|g| "
+    print("SSD gradients: ops.ssd_scan (the forward and backward "
+          "kernels) vs autograd through ssd_reference (max |dg| / max|g| "
           f"per leaf, f32 tol {SSD_GRAD_TOL[torch.float32]:.0e}, bf16 tol "
           f"{SSD_GRAD_TOL[torch.bfloat16]:.0e})")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -3799,6 +3989,12 @@ def phase_ssd_grads(rng) -> None:
     err = _ssd_grad_case(rng, (1, 256, 2, 8, 16), 128, torch.float32, A=-1.0)
     print(f"  C3 case (1, 256, 2, 8, 16) chunk 128 A=-1 f32: all gradients "
           f"finite, worst {err:.3e}")
+    # and at the kernels' own 64-token chunk: A = -4, so cum passes 88.7
+    # inside one chunk and exp(cum_i - cum_j) above the diagonal would
+    # overflow
+    err = _ssd_grad_case(rng, (1, 200, 2, 8, 16), 64, torch.float32, A=-4.0)
+    print(f"  C3 case (1, 200, 2, 8, 16) A=-4 f32: all gradients finite, "
+          f"worst {err:.3e}")
 
 
 def phase_mamba_train() -> int:
@@ -3813,6 +4009,7 @@ def phase_mamba_train() -> int:
                         log_every=1)
     flash, kl, launches = read_counts()
     note_bwd("mamba_train")
+    bwd_launches = read_ssd_bwd()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(run.summary())
     print(f"train {MAMBA} peak device memory {peak:.2f} GiB; loop "
@@ -3824,6 +4021,9 @@ def phase_mamba_train() -> int:
     check(launches == run.ssd_launches == want,
           f"SSD launched {launches} times in training, expected steps x "
           f"layers x 2 = {want}")
+    check(bwd_launches == TRAIN_STEPS * cfg.num_layers,
+          f"the SSD backward launched {bwd_launches} times in training, "
+          f"expected steps x layers = {TRAIN_STEPS * cfg.num_layers}")
     check(flash == kl == 0, "training mamba launched flash or distill_kl")
     changed = _changed_leaves(res.params,
                               build_model(cfg, device="cuda", seed=0)
@@ -5536,7 +5736,13 @@ def _fake_matches_launch() -> None:
                            (h, w, h, w, 1.0)),
         "ssd_fwd": (torch.ops.repro_torch.ssd_fwd,
                     (x, dt, A, Bm, Bm, A, True))}
-    del ssd
+    n_cum, n_work = ssd.bwd_scratch(2, 128, 4, 64, 16)
+    cases["ssd_bwd"] = (torch.ops.repro_torch.ssd_bwd,
+                        (x, dt, A, Bm, Bm, A, _randn(rng, x.shape, bf),
+                         _randn(rng, (2, 4, 64, 16), torch.float32),
+                         torch.empty(n_cum, dtype=torch.float64,
+                                     device="cuda"),
+                         torch.empty(n_work, device="cuda")))
     o, lse = torch.ops.repro_torch.flash_fwd(q, k, k, None, True, 0, 0.125, 0)
     cases["flash_bwd"] = (torch.ops.repro_torch.flash_bwd,
                           (q, k, k, o, lse, o, lse, None, True, 0, 0.125, 0))
@@ -5933,6 +6139,9 @@ def main() -> int:
     timed(phase_ssd_sweep, rng)
     ssd = ssd_entry({"mamba": timed(phase_ssd_shape, rng, SSD_MAIN),
                      "jamba_serve": timed(phase_ssd_shape, rng, SSD_JAMBA)})
+    timed(phase_ssd_bwd_sweep, rng)
+    ssd_bwd = ssd_bwd_entry({"mamba_train": timed(phase_ssd_bwd_main, rng,
+                                                  SSD_MAIN)})
     timed(phase_ssd_grads, rng)
     free()
     serve_launches = timed(phase_serve)
@@ -6063,7 +6272,8 @@ def main() -> int:
                 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
                 jamba_ssd_launches),
         "flash_bwd": tuple(BWD_LAUNCHES[key] for key in paths),
-        "kl_bwd": tuple(KL_BWD_LAUNCHES[key] for key in paths)}
+        "kl_bwd": tuple(KL_BWD_LAUNCHES[key] for key in paths),
+        "ssd_bwd": tuple(SSD_BWD_LAUNCHES[key] for key in paths)}
     for key, (label, trains) in paths.items():
         n = BWD_LAUNCHES[key]
         check(n > 0 if trains else n == 0,
@@ -6079,17 +6289,28 @@ def main() -> int:
               if key in ("distill", "distill_runtime", "sections",
                          "distill_mesh", "multi_teacher")),
           f"a distillation path launched no KL backward: {KL_BWD_LAUNCHES}")
+    # the SSD backward: once a layer and step training mamba2-130m, no
+    # time on any other path (serving mamba and jamba included)
+    from repro_torch.configs import get_config
+    mamba_layers = get_config(MAMBA).num_layers
+    for key, (label, _) in paths.items():
+        n = SSD_BWD_LAUNCHES[key]
+        want = TRAIN_STEPS * mamba_layers if key == "mamba_train" else 0
+        check(n == want, f"{label}: ssd_bwd launched {n} times, expected "
+              f"{want}")
     labels = [label for label, _ in paths.values()]
     flash = flash_entry(flash_at)
     flash_bwd = flash_bwd_entry(flash_at)
     for name, entry in (("flash", flash), ("kl", kl), ("ssd", ssd),
-                        ("flash_bwd", flash_bwd), ("kl_bwd", kl_bwd)):
+                        ("flash_bwd", flash_bwd), ("kl_bwd", kl_bwd),
+                        ("ssd_bwd", ssd_bwd)):
         check(len(per_path[name]) == len(labels),
               f"{name}: {len(per_path[name])} counts for {len(labels)} paths")
         entry["launches"] = sum(per_path[name])
         entry["launches_per_path"] = dict(zip(labels, per_path[name]))
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [flash, kl, ssd, flash_bwd, kl_bwd]}))
+    print(json.dumps({"kernels": [flash, kl, ssd, flash_bwd, kl_bwd,
+                                  ssd_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: the port's kernel sources, ``csrc/<name>.cu``
 SOURCES = ("flash_fwd", "flash_bwd", "distill_kl_fwd", "distill_kl_bwd",
-           "ssd_fwd")
+           "ssd_fwd", "ssd_bwd")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

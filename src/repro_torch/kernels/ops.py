@@ -15,7 +15,11 @@ differentiates the plain version.  The distillation KL goes through
 :class:`~repro_torch.kernels.distill_kl.DistillKL` on both devices, with
 the statistics and gradient functions of the tensors' route (the kernels
 of ``csrc/distill_kl_fwd.cu`` and ``csrc/distill_kl_bwd.cu``, or their
-plain versions).  (The JAX package's ``repro/kernels/ops.py`` picks
+plain versions).  The SSD scan goes through
+:class:`~repro_torch.kernels.ssd_scan.SSDScan` on the card, with the
+forward and backward kernels of ``csrc/ssd_fwd.cu`` and
+``csrc/ssd_bwd.cu``; on the CPU autograd differentiates ``ssd_chunked``.
+(The JAX package's ``repro/kernels/ops.py`` picks
 its tier with an ``impl`` argument; the port has one kernel per device.)
 """
 from __future__ import annotations
@@ -109,11 +113,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     :mod:`repro_torch.kernels.ssd_scan`.
 
     CUDA tensors go through :class:`~repro_torch.kernels.ssd_scan.SSDScan`
-    with the kernel's forward (its fixed 64-token chunk) and a backward
-    recomputed by ``ssd_chunked`` at ``chunk``; CPU tensors go to
-    ``ssd_chunked`` at ``chunk``, which autograd differentiates."""
+    with the forward and backward kernels (``ssd_fwd``, ``ssd_bwd``), both
+    at their fixed 64-token chunk, so ``chunk`` does not apply; CPU
+    tensors go to ``ssd_chunked`` at ``chunk``, which autograd
+    differentiates."""
     if kernel_route(x):
-        return ssd.SSDScan.apply(x, dt, A, B, C, D, int(chunk),
-                                 bool(return_state), ssd.ssd_fwd)
+        return ssd.SSDScan.apply(x, dt, A, B, C, D, bool(return_state),
+                                 ssd.ssd_fwd, ssd.ssd_bwd)
     return ssd.ssd_chunked(x, dt, A, B, C, D, chunk=chunk,
                            return_state=return_state)

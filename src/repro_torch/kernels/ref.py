@@ -6,7 +6,9 @@ products in a Python loop) that of ``csrc/flash_bwd.cu``,
 ``distill_kl_stats_ref`` that of ``csrc/distill_kl_fwd.cu``,
 ``distill_kl_bwd_ref`` (the KL's gradients, float32 block products in a
 Python loop) that of ``csrc/distill_kl_bwd.cu`` with its products and
-``ssd_scan_ref`` that of ``csrc/ssd_fwd.cu``; ``distill_kl_reference``
+``ssd_scan_ref`` that of ``csrc/ssd_fwd.cu`` and ``ssd_bwd_ref`` (the
+scan's gradients, chunk by chunk) that of ``csrc/ssd_bwd.cu``;
+``distill_kl_reference``
 (the full-materialisation KL) and ``ssd_reference`` (the sequential SSD
 scan) are oracles, for tests only.
 
@@ -314,3 +316,109 @@ def ssd_scan_ref(x, dt, A, B, C, D, *, return_state: bool = False):
                                     return_state=True)
     y = y[:, :s]
     return (y, state) if return_state else y
+
+
+def ssd_bwd_ref(x, dt, A, B, C, D, gy, gstate=None):
+    """The plain version of ``csrc/ssd_bwd.cu``: the VJP of the scan
+    (``ssd_pallas.py::_bwd``, ``jax.vjp`` through ``ssd_chunked_jnp``) in
+    the kernel's own decomposition, 64-token chunks (``ssd_scan.CHUNK``)
+    with the ragged tail padded as :func:`ssd_scan_ref` pads it.
+
+    Per chunk, with cum = cumsum(A dt), L_ij = exp(cum_i - cum_j) for
+    i >= j (masked before the ``exp``, ROADMAP.md C3), S = C B^T and G_ij =
+    gy_i . x_j, H the state entering the chunk and dH the gradient of the
+    one leaving it:
+
+    * the entering states by a loop over chunks, the leaving states'
+      gradients by a reverse loop from ``gstate`` (or 0): dH_prev =
+      exp(cum_end) dH + sum_i exp(cum_i) gy_i (x) C_i;
+    * dx_j = dt_j [sum_i S_ij L_ij gy_i + exp(cum_end - cum_j) dH B_j]
+      + D gy_j;
+    * dC_i = sum_j dS_ij B_j + exp(cum_i) gy_i^T H and dB_j = sum_i dS_ij
+      C_i + exp(cum_end - cum_j) dt_j x_j^T dH, dS_ij = G_ij L_ij dt_j,
+      summed over the heads;
+    * ddt_j = sum_i S_ij L_ij G_ij + q_j + A rcs_j, q_j = exp(cum_end -
+      cum_j) x_j . (dH B_j), rcs the reverse cumsum over the chunk of
+      d(cum); dA = sum dt rcs and dD = sum gy . x.
+
+    x [b, s, h, p], dt [b, s, h], A [h], B and C [b, s, n], D [h], gy like
+    x, gstate [b, h, p, n] or None -> (dx, ddt, dA, dB, dC, dD): dx, dB and
+    dC in x's dtype, the others float32.  Products in float32; differences
+    of cum, d(cum) and the sums of dA and dD in float64."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    Q = ssd_scan.CHUNK
+    pad = -s % Q
+    nc = (s + pad) // Q
+
+    def chunked(t, *tail):
+        t = torch.nn.functional.pad(t.float(),
+                                    (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(b, nc, Q, *tail)
+
+    xf, gyf = chunked(x, h, p), chunked(gy, h, p)       # [b, c, Q, h, p]
+    dtf = chunked(dt, h)                                 # [b, c, Q, h]
+    Bf, Cf = chunked(B, n), chunked(C, n)                # [b, c, Q, n]
+    Af = A.float()
+    cum64 = torch.cumsum(Af.double() * dtf.double(), dim=2)
+    cum = cum64.float()
+    diff = (cum64[:, :, :, None, :] - cum64[:, :, None, :, :]).float()
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(diff.masked_fill(~tri[:, :, None], float("-inf")))
+    decay_end = torch.exp((cum64[:, :, -1:, :] - cum64).float())  # [b,c,Q,h]
+    decay_chunk = torch.exp(cum[:, :, -1, :])[..., None, None]    # [b,c,h,1,1]
+
+    S_c = torch.einsum("bcjhp,bcjn->bchpn",
+                       (decay_end * dtf)[..., None] * xf, Bf)
+    G_c = torch.einsum("bcihp,bcin->bchpn",
+                       torch.exp(cum)[..., None] * gyf, Cf)
+    H = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(H)
+        H = H * decay_chunk[:, c] + S_c[:, c]
+    dH = (torch.zeros_like(H) if gstate is None else gstate.float())
+    leaving = [dH] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = dH
+        dH = dH * decay_chunk[:, c] + G_c[:, c]
+    Hin = torch.stack(entering, dim=1)                   # [b, c, h, p, n]
+    dHo = torch.stack(leaving, dim=1)
+
+    S = torch.einsum("bcin,bcjn->bcij", Cf, Bf)[..., None]    # [b,c,i,j,1]
+    G = torch.einsum("bcihp,bcjhp->bcijh", gyf, xf)
+    W = S * L
+    P = W * G
+    dS = G * L * dtf[:, :, None]
+    BdH = torch.einsum("bcjn,bchpn->bcjhp", Bf, dHo)
+    dx = dtf[..., None] * (torch.einsum("bcijh,bcihp->bcjhp", W, gyf)
+                           + decay_end[..., None] * BdH) \
+        + D.float()[:, None] * gyf
+    gyH = torch.einsum("bcihp,bchpn->bcihn", gyf, Hin)
+    dC = (torch.einsum("bcijh,bcjn->bcin", dS, Bf)
+          + torch.einsum("bcih,bcihn->bcin", torch.exp(cum), gyH))
+    xdH = torch.einsum("bcjhp,bchpn->bcjhn", xf, dHo)
+    dB = (torch.einsum("bcijh,bcin->bcjn", dS, Cf)
+          + torch.einsum("bcjh,bcjhn->bcjn", decay_end * dtf, xdH))
+    q = decay_end * (xf * BdH).sum(-1)                   # [b, c, Q, h]
+    e = torch.exp(cum) * torch.einsum("bcin,bcihn->bcih", Cf, gyH)
+    col_p = P.sum(dim=2)                                 # over i: [b,c,j,h]
+    row_m = (P * dtf[:, :, None]).sum(dim=3)             # over j: [b,c,i,h]
+    # d(cum) and its reverse cumsum in float64: its terms reach ~1e3 at
+    # mamba2-130m's widths and cancel, and dA sums dt rcs over every token
+    dtd = dtf.double()
+    dcum = (row_m.double() - dtd * col_p + e - dtd * q)
+    end = (torch.exp(cum[:, :, -1]) * (dHo * Hin).sum((-2, -1))
+           + (dtf * q).sum(2))                           # [b, c, h]
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + end[:, :, None]],
+                     dim=2)
+    rcs = dcum.flip(2).cumsum(2).flip(2)
+    ddt = (col_p + q + Af * rcs).float()
+    dA = (dtd * rcs).sum((0, 1, 2)).float()
+    dD = (gyf.double() * xf.double()).sum((0, 1, 2, 4)).float()
+
+    def unchunk(t, dtype):
+        return t.reshape(b, nc * Q, *t.shape[3:])[:, :s].to(dtype)
+
+    return (unchunk(dx, x.dtype), unchunk(ddt, torch.float32), dA,
+            unchunk(dB, B.dtype), unchunk(dC, C.dtype), dD)

@@ -1,5 +1,6 @@
 """Mamba-2 SSD (state-space duality) scan: the chunked algorithm, the
-single-token recurrence, and the CUDA forward with its autograd Function.
+single-token recurrence, and the CUDA forward and backward with their
+autograd Function.
 
 Counterpart of ``repro/kernels/ssd_scan.py`` and
 ``repro/kernels/ssd_pallas.py``.  Shapes: x [b, s, h, p], dt [b, s, h]
@@ -26,10 +27,16 @@ Counterpart of ``repro/kernels/ssd_scan.py`` and
   dry-run on fake tensors.  It counts its launches in
   ``ssd_fwd.launches``; :func:`tma_route` is its choice of how
   bf16 tiles are loaded and :func:`scratch` its scratch sizes.
-* :class:`SSDScan` gives a forward a gradient: its backward recomputes
-  through :func:`ssd_chunked` and returns the VJP, as
-  ``ssd_pallas.py::_bwd`` does through ``ssd_chunked_jnp``.  A hand-written
-  backward kernel is later work (ROADMAP.md, B4).
+* :func:`ssd_bwd` is the wrapper of ``csrc/ssd_bwd.cu``, which replaces
+  the backward rule ``ssd_pallas.py::_bwd`` (``jax.vjp`` through
+  ``ssd_chunked_jnp``): the CUDA-only op ``repro_torch::ssd_bwd`` writes
+  dx, ddt, dA, dB, dC and dD from the saved inputs, gy and the final
+  state's gradient, into scratch that the wrapper allocates
+  (:func:`bwd_scratch`), so that a dry-run counts it.  It counts its
+  launches in ``ssd_bwd.launches``.
+* :class:`SSDScan` gives a forward a gradient: its backward calls the
+  backward function it was handed beside the forward (on the card
+  :func:`ssd_fwd` and :func:`ssd_bwd`, both hand-written kernels).
 """
 from __future__ import annotations
 
@@ -48,6 +55,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
 
 
 # --------------------------------------------------------------------------- #
@@ -121,15 +130,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(x, dt, A, B, C, D):
+def _check(x, dt, A, B, C, D, name="ssd_fwd", plain="ssd_scan.ssd_chunked"):
     xs = (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C), ("D", D))
     if not all(t.is_cuda or t.is_meta for _, t in xs):
-        raise ValueError("ssd_fwd takes CUDA (or a dry-run's meta) tensors; "
-                         "CPU tensors go to kernels.ssd_scan.ssd_chunked")
+        raise ValueError(f"{name} takes CUDA (or a dry-run's meta) tensors; "
+                         f"CPU tensors go to kernels.{plain}")
     if len({t.device for _, t in xs}) != 1:
         raise ValueError("x, dt, A, B, C, D on different devices")
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
-        raise TypeError(f"ssd_fwd takes float32 or bfloat16 x, B, C of one "
+        raise TypeError(f"{name} takes float32 or bfloat16 x, B, C of one "
                         f"dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
     if any(t.dtype != torch.float32 for t in (dt, A, D)):
         raise TypeError(f"dt, A and D must be float32, got {dt.dtype}, "
@@ -262,39 +271,188 @@ ssd_fwd.launches = 0     # type: ignore[attr-defined]
 
 
 # --------------------------------------------------------------------------- #
+# the CUDA backward
+# --------------------------------------------------------------------------- #
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.build("ssd_bwd").lib
+    if lib.ssd_bwd.argtypes is None:
+        lib.ssd_bwd.restype = ctypes.c_int
+        lib.ssd_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_bwd_error_string.restype = ctypes.c_char_p
+        lib.ssd_bwd.argtypes = _BWD_ARGTYPES    # last: other threads test it
+    return lib
+
+
+def bwd_scratch(b: int, s: int, h: int, p: int, n: int) -> tuple[int, int]:
+    """Elements of the backward's two scratch buffers: cum (float64, [b,
+    h, nc, 64]) and work (float32): the states entering each chunk and the
+    gradients of the states leaving them, [b, h, nc, p, n] each, then the
+    [2, b, nc, h] partials of dA and dD."""
+    nc = -(-s // CHUNK)
+    return b * h * nc * CHUNK, 2 * b * h * nc * p * n + 2 * b * nc * h
+
+
+def _check_bwd(x, dt, A, B, C, D, gy, gstate):
+    """``_check``'s inputs, gy like x (contiguous) and gstate [b, h, p, n]
+    float32 (contiguous) or None."""
+    _check(x, dt, A, B, C, D, "ssd_bwd", "ref.ssd_bwd_ref")
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if (gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device
+            or not gy.is_contiguous()):
+        raise ValueError(f"ssd_bwd: gy must be a contiguous {x.dtype} "
+                         f"tensor of shape {tuple(x.shape)} on x's device, "
+                         f"got {gy.dtype} {tuple(gy.shape)} strides "
+                         f"{gy.stride()} on {gy.device}")
+    if gstate is not None and (
+            gstate.shape != (b, h, p, n) or gstate.dtype != torch.float32
+            or gstate.device != x.device or not gstate.is_contiguous()):
+        raise ValueError(f"ssd_bwd: gstate must be a contiguous float32 "
+                         f"tensor of shape {(b, h, p, n)} on x's device, got "
+                         f"{gstate.dtype} {tuple(gstate.shape)} on "
+                         f"{gstate.device}")
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+            gy: torch.Tensor, gstate: Optional[torch.Tensor] = None):
+    """The SSD scan's gradients on one CUDA device -> (dx, ddt, dA, dB, dC,
+    dD): dx, dB and dC in x's dtype, ddt, dA and dD float32.  ``gy`` is
+    y's gradient, ``gstate`` the final state's (None: zero).  x, dt, B and
+    C are read through their strides; gy and gstate are made contiguous.
+    The arithmetic is float32 on the CUDA cores for both dtypes.
+
+    CUDA (and a dry-run's meta) tensors only: it allocates the scratch
+    (:func:`bwd_scratch`) and calls the op ``repro_torch::ssd_bwd``.  CPU
+    tensors go to the plain version, ``kernels.ref.ssd_bwd_ref``.  A call
+    that autograd would record raises: the result carries no gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, D, gy, gstate)):
+        raise RuntimeError(
+            "ssd_bwd has no gradient of its own: it is the backward of "
+            "kernels.ops.ssd_scan (the SSDScan Function)")
+    gy = gy.contiguous()
+    if gstate is not None:
+        gstate = gstate.float().contiguous()
+    _check_bwd(x, dt, A, B, C, D, gy, gstate)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    n_cum, n_work = bwd_scratch(b, s, h, p, n)
+    cum = torch.empty(n_cum, dtype=torch.float64, device=x.device)
+    work = torch.empty(n_work, dtype=torch.float32, device=x.device)
+    return tuple(torch.ops.repro_torch.ssd_bwd(x, dt, A, B, C, D, gy, gstate,
+                                               cum, work))
+
+
+@torch.library.custom_op(
+    "repro_torch::ssd_bwd", mutates_args=("cum", "work"), device_types="cuda",
+    schema="(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor D, "
+           "Tensor gy, Tensor? gstate, Tensor(a!) cum, Tensor(b!) work) -> "
+           "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _ssd_bwd_op(x, dt, A, B, C, D, gy, gstate, cum, work):
+    """The launch: the inputs and the scratch checked, the six gradients
+    allocated, the four kernels on the current stream, one count in
+    ``ssd_bwd.launches``."""
+    _check_bwd(x, dt, A, B, C, D, gy, gstate)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    n_cum, n_work = bwd_scratch(b, s, h, p, n)
+    if (cum.dtype != torch.float64 or cum.numel() < n_cum
+            or work.dtype != torch.float32 or work.numel() < n_work
+            or not (cum.is_contiguous() and work.is_contiguous())):
+        raise ValueError(f"ssd_bwd: scratch must be contiguous float64 "
+                         f"[{n_cum}] and float32 [{n_work}], got {cum.dtype} "
+                         f"{tuple(cum.shape)} and {work.dtype} "
+                         f"{tuple(work.shape)}")
+    dx, ddt, dA, dB, dC, dD = _bwd_outputs(x, B)
+    lib = _bwd_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), gy.data_ptr(),
+            None if gstate is None else gstate.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dD.data_ptr(), cum.data_ptr(), work.data_ptr(), b, s, h, p, n,
+            x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
+            dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+            _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError("ssd_bwd launch failed: "
+                           + lib.ssd_bwd_error_string(err).decode())
+    _build.count_launch(ssd_bwd)
+    return dx, ddt, dA, dB, dC, dD
+
+
+def _bwd_outputs(x, B):
+    """(dx, ddt, dA, dB, dC, dD) as the launch allocates them: contiguous,
+    dx, dB and dC in x's dtype, the others float32."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    return (empty((b, s, h, p), x.dtype), empty((b, s, h), torch.float32),
+            empty((h,), torch.float32), empty((b, s, n), x.dtype),
+            empty((b, s, n), x.dtype), empty((h,), torch.float32))
+
+
+@_ssd_bwd_op.register_fake
+def _ssd_bwd_fake(x, dt, A, B, C, D, gy, gstate, cum, work):
+    """The outputs the launch allocates, without launching (the scratch is
+    the wrapper's, so a dry-run has counted it already)."""
+    return _bwd_outputs(x, B)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd)
+def _ssd_bwd_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, D_shape,
+                   gy_shape, gstate_shape, cum_shape, work_shape, *args,
+                   out_shape=None, **kwargs) -> int:
+    """The products the kernels run: the chunk states S_c and G_c and the
+    three dH and H products (gy H, x dH, B dH^T), 10 Q p n a (b, h, chunk);
+    C B^T once per (b, chunk); G, W^T gy, dS B and dS^T C, 4 Q^2 (p + n)
+    a (b, h, chunk): ``PERF.md``'s bound count."""
+    b, s, h, p = x_shape
+    n = B_shape[-1]
+    nc, Q = -(-s // CHUNK), CHUNK
+    return (10 * b * h * nc * Q * p * n + 2 * b * nc * Q * Q * n
+            + 4 * b * h * nc * Q * Q * (p + n))
+
+
+ssd_bwd.launches = 0     # type: ignore[attr-defined]
+
+
+# --------------------------------------------------------------------------- #
 # autograd
 # --------------------------------------------------------------------------- #
 class SSDScan(torch.autograd.Function):
     """y (and the final state) of the SSD scan.
 
-    ``apply(x, dt, A, B, C, D, chunk, return_state, forward)`` where
-    ``forward(x, dt, A, B, C, D, return_state=...)`` is the CUDA kernel's
-    wrapper on the card or a plain version in the tests.  The backward
-    recomputes :func:`ssd_chunked` at ``chunk`` under autograd and returns
-    its VJP."""
+    ``apply(x, dt, A, B, C, D, return_state, forward, backward)`` where
+    ``forward(x, dt, A, B, C, D, return_state=...)`` and ``backward(x, dt,
+    A, B, C, D, gy, gstate)`` -> (dx, ddt, dA, dB, dC, dD) are the CUDA
+    kernels' wrappers on the card (:func:`ssd_fwd`, :func:`ssd_bwd`) or
+    plain versions in the tests."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, D, chunk, return_state,
-                forward: Callable):
+    def forward(ctx, x, dt, A, B, C, D, return_state, forward: Callable,
+                backward: Callable):
         out = forward(x, dt, A, B, C, D, return_state=return_state)
         ctx.save_for_backward(x, dt, A, B, C, D)
-        ctx.chunk, ctx.return_state = chunk, return_state
+        ctx.return_state, ctx.backward = return_state, backward
         return out
 
     @staticmethod
     def backward(ctx, gy, gstate=None):
-        saved = ctx.saved_tensors
+        """The gradients the inputs ask for (``needs_input_grad``), from
+        the backward function on the saved inputs, gy and (with
+        ``return_state``) the final state's gradient."""
         need = ctx.needs_input_grad[:6]
-        ins = [t.detach().requires_grad_(nd) for t, nd in zip(saved, need)]
-        wrt = [t for t, nd in zip(ins, need) if nd]
-        if not wrt:
+        if not any(need):
             return (None,) * 9
-        with torch.enable_grad():
-            y, state = ssd_chunked(*ins, chunk=ctx.chunk, return_state=True)
-            outs, gouts = [y], [gy]
-            if gstate is not None:
-                outs.append(state)
-                gouts.append(gstate)
-            grads = iter(torch.autograd.grad(outs, wrt, gouts))
-        return (*(next(grads) if nd else None for nd in need), None, None,
-                None)
+        grads = ctx.backward(*ctx.saved_tensors, gy,
+                             gstate if ctx.return_state else None)
+        return (*(g if nd else None for g, nd in zip(grads, need)), None,
+                None, None)

@@ -18,8 +18,9 @@ builders,
 ``build_decode_step``, and runs one step under
 :class:`~repro_torch.roofline.record.StepRecorder`.  On these tensors
 the hand-written kernels' ops (``repro_torch::flash_fwd``,
-``::flash_bwd``, ``::ssd_fwd``) give their shape functions' outputs, so the step traces the route the
-card runs and counts the kernels' own outputs.
+``::flash_bwd``, ``::ssd_fwd``, ``::ssd_bwd``) give their shape
+functions' outputs, so the step traces the route the card runs and
+counts the kernels' own outputs.
 
 The record has the reference's keys: ``params``, ``active_params``,
 ``head_pad``, ``vocab_pad``, ``memory`` (``argument_size_in_bytes``,

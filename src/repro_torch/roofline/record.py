@@ -17,8 +17,8 @@ dispatches:
 * every operation in PyTorch's flop registry (``torch.utils.flop_counter``:
   ``mm``, ``addmm``, ``bmm``, ``baddbmm``, convolutions and the port's
   kernel ops ``repro_torch::flash_fwd``, ``::flash_bwd``,
-  ``::distill_kl_fwd`` and ``::ssd_fwd``, which register their own
-  counts) as a matmul-class op
+  ``::distill_kl_fwd``, ``::ssd_fwd`` and ``::ssd_bwd``, which register
+  their own counts) as a matmul-class op
   with its output's last dim and FLOPs, and so are ``matmul`` and
   two-operand ``einsum``, which reach the mode whole under inference mode;
 * an element count of every pointwise operation (one FLOP an output

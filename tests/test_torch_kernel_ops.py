@@ -1,10 +1,12 @@
 """The hand-written kernels as ``torch.library`` custom ops
 (``repro_torch::flash_fwd``, ``::flash_bwd``, ``::distill_kl_fwd``,
-``::distill_kl_bwd``, ``::ssd_fwd``), on the CPU: an op called with CPU
+``::distill_kl_bwd``, ``::ssd_fwd``, ``::ssd_bwd``), on the CPU: an op
+called with CPU
 tensors raises (it is registered for CUDA only; the plain versions are
 reached through ``kernels.ops`` and, for the backward,
 ``flash_attention.flash_bwd``; the KL's backward on CPU tensors never
-reaches its op or its wrapper);
+reaches its op or its wrapper, and the SSD scan's backward on CPU
+tensors is autograd through ``ssd_chunked``);
 each op's shape function gives the shapes, dtypes and strides of the
 plain version's outputs (``chip_smoke.py`` holds them to a real launch's
 on the card); a meta tensor (a dry-run's) goes down the kernel route
@@ -15,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.kernels import distill_kl as dk  # noqa: E402
@@ -262,3 +265,119 @@ def test_kl_bwd_flop_formula_is_the_bound_count(needs):
     assert fc.get_total_flops() == want
     if needs == (True, True, False, False):
         assert want == 2 * N * V * (Ds + Dt) + 4 * N * V * Ds
+
+
+class _Calls(TorchDispatchMode):
+    """The ops dispatched under it, by name, with the shapes and dtypes of
+    the ``empty`` allocations among them."""
+
+    def __init__(self):
+        super().__init__()
+        self.names, self.empties = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.names.append(str(func))
+        if func is torch.ops.aten.empty.memory_format:
+            self.empties.append((tuple(args[0]), kwargs.get("dtype")))
+        return out
+
+
+def _ssd_case(b=2, s=70, h=3, p=8, n=4, dtype=torch.float32):
+    rng = np.random.default_rng(4)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(  # noqa: E731
+        sh, dtype=np.float32))
+    x, B, C = (f(*sh).to(dtype) for sh in ((b, s, h, p), (b, s, n),
+                                          (b, s, n)))
+    return (x, f(b, s, h).abs(), -f(h).abs(), B, C, f(h),
+            f(b, s, h, p).to(dtype), f(b, h, p, n))
+
+
+def test_ssd_bwd_op_is_registered_and_refuses_cpu_tensors():
+    """The op exists for CUDA only; the wrapper refuses CPU tensors (they
+    go to ``ref.ssd_bwd_ref``) and a call that autograd would record."""
+    assert hasattr(torch.ops.repro_torch, "ssd_bwd")
+    x, dt, A, B, C, D, gy, gs = _ssd_case()
+    n_cum, n_work = ssd.bwd_scratch(2, 70, 3, 8, 4)
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.ssd_bwd(
+            x, dt, A, B, C, D, gy, gs,
+            torch.empty(n_cum, dtype=torch.float64), torch.empty(n_work))
+    with pytest.raises(ValueError, match="ssd_bwd_ref"):
+        ssd.ssd_bwd(x, dt, A, B, C, D, gy, gs)
+    with pytest.raises(RuntimeError, match="ops.ssd_scan"):
+        ssd.ssd_bwd(x.clone().requires_grad_(), dt, A, B, C, D, gy, gs)
+    with torch.no_grad():                    # refused for its device then
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd.ssd_bwd(x.clone().requires_grad_(), dt, A, B, C, D, gy, gs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_bwd_shape_function_allocates_outputs_and_scratch(dtype,
+                                                              with_state):
+    """On meta tensors the wrapper allocates the scratch of
+    ``bwd_scratch`` (float64 cum, float32 work: the states entering and
+    the gradients leaving each chunk, the dA/dD partials) and the op's fake
+    function the six gradients, laid out as the plain version's: dx, dB, dC
+    in x's dtype, ddt, dA, dD float32.  Nothing is launched."""
+    x, dt, A, B, C, D, gy, gs = _ssd_case(dtype=dtype)
+    want = ref.ssd_bwd_ref(x, dt, A, B, C, D, gy, gs if with_state else None)
+    before = ssd.ssd_bwd.launches
+    with _Calls() as calls:
+        got = ssd.ssd_bwd(*map(_meta, (x, dt, A, B, C, D, gy)),
+                          _meta(gs) if with_state else None)
+    assert ssd.ssd_bwd.launches == before
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g.device.type == "meta"
+        _same_layout(g, w.contiguous())
+    n_cum, n_work = ssd.bwd_scratch(2, 70, 3, 8, 4)
+    nc = -(-70 // ssd.CHUNK)
+    assert (n_cum, n_work) == (2 * 3 * nc * ssd.CHUNK,
+                               2 * 2 * 3 * nc * 8 * 4 + 2 * 2 * nc * 3)
+    assert ((n_cum,), torch.float64) in calls.empties
+    assert ((n_work,), torch.float32) in calls.empties
+    assert calls.names.count("repro_torch.ssd_bwd.default") == 1
+
+
+def test_ssd_bwd_flop_formula_is_the_bound_count():
+    """10 Q p n a (b, h, chunk) for the chunk states, G_c and the H and dH
+    products, 2 Q^2 n a (b, chunk) for C B^T, 4 Q^2 (p + n) a (b, h,
+    chunk) for G, W^T gy, dS B and dS^T C; ~52 GFLOP at mamba2-130m's
+    (4, 4096, 24, 64, 128)."""
+    def flops(b, s, h, p, n):
+        m = lambda *sh: torch.empty(sh, device="meta")  # noqa: E731
+        with FlopCounterMode(display=False) as fc:
+            torch.ops.repro_torch.ssd_bwd(
+                m(b, s, h, p), m(b, s, h), m(h), m(b, s, n), m(b, s, n),
+                m(h), m(b, s, h, p), None,
+                torch.empty((1,), dtype=torch.float64, device="meta"), m(1))
+        return fc.get_total_flops()
+
+    b, s, h, p, n = 2, 70, 3, 8, 4
+    nc, Q = -(-s // ssd.CHUNK), ssd.CHUNK
+    assert flops(b, s, h, p, n) == (10 * b * h * nc * Q * p * n
+                                    + 2 * b * nc * Q * Q * n
+                                    + 4 * b * h * nc * Q * Q * (p + n))
+    assert 51e9 < flops(4, 4096, 24, 64, 128) < 53e9
+
+
+def test_ssd_meta_backward_records_the_kernel_op_without_a_launch():
+    """Meta tensors through ``ops.ssd_scan``'s backward: the op
+    ``repro_torch::ssd_bwd`` is what autograd runs (no ``ssd_chunked``
+    recompute, whose einsums would show), the gradients are meta tensors
+    in each leaf's dtype, and no kernel is launched."""
+    x, dt, A, B, C, D, gy, gs = _ssd_case(dtype=torch.bfloat16)
+    leaves = [_meta(t).requires_grad_() for t in (x, dt, A, B, C, D)]
+    before = (ssd.ssd_fwd.launches, ssd.ssd_bwd.launches)
+    y, state = ops.ssd_scan(*leaves, return_state=True)
+    assert type(y.grad_fn).__name__ == "SSDScanBackward"
+    with _Calls() as calls:
+        grads = torch.autograd.grad((y, state), leaves, (_meta(gy), _meta(gs)))
+    assert "repro_torch.ssd_bwd.default" in calls.names
+    assert not any("einsum" in n or "cumsum" in n for n in calls.names)
+    for g, leaf in zip(grads, leaves):
+        assert g.device.type == "meta"
+        assert (g.shape, g.dtype) == (leaf.shape, leaf.dtype)
+    assert (ssd.ssd_fwd.launches, ssd.ssd_bwd.launches) == before

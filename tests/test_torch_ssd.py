@@ -7,12 +7,16 @@
   scan; the initial-state continuation;
 * the kernel's plain version ``ssd_scan_ref`` (fixed 64-token chunk, final
   state) against ``ssd_chunked_jnp(..., return_state=True)``;
-* :class:`SSDScan` with the plain forward standing in for the CUDA one:
-  its gradients against ``jax.grad`` through ``ssd_scan_pallas`` in
-  interpret mode;
+* the backward kernel's plain version ``ssd_bwd_ref`` (the same 64-token
+  chunks) against ``jax.grad`` through ``ssd_scan_pallas`` in interpret
+  mode, and with a state cotangent against ``jax.vjp`` of
+  ``ssd_chunked_jnp(..., return_state=True)``;
+* :class:`SSDScan` with the plain forward and ``ssd_bwd_ref`` standing in
+  for the CUDA ones: its gradients against the same JAX gradients;
 * ROADMAP.md C3: at chunk 128 with the model's init (A = -1) the JAX
   chunked gradients are non-finite; the port's are finite and equal
-  ``jax.grad`` through the sequential oracle.
+  ``jax.grad`` through the sequential oracle; and at the kernel's chunk
+  with A = -4 (cum passes 88.7 inside 64 tokens) ``ssd_bwd_ref``'s are.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -125,19 +129,77 @@ def _plain_forward(x, dt, A, B, C, D, *, return_state):
     return ref.ssd_scan_ref(x, dt, A, B, C, D, return_state=return_state)
 
 
+def _jax_grads(arrs, g, chunk, gstate=None):
+    """The JAX package's gradients of sum(y g) (+ sum(state gstate)): through
+    ``ssd_scan_pallas`` in interpret mode (its custom_vjp rule), or with a
+    state cotangent through ``jax.vjp`` of ``ssd_chunked_jnp``."""
+    j = [jnp.asarray(a) for a in arrs]
+    if gstate is None:
+        return jax.grad(lambda *a: jnp.sum(ssd_scan_pallas(
+            *a, chunk=chunk, interpret=True) * g),
+            argnums=tuple(range(6)))(*j)
+    _, vjp = jax.vjp(lambda *a: jssd.ssd_chunked_jnp(
+        *a, chunk=chunk, return_state=True), *j)
+    return vjp((jnp.asarray(g), jnp.asarray(gstate)))
+
+
+def _cotangents(arrs, seed=2):
+    rng = np.random.default_rng(seed)
+    b, s, h, p = arrs[0].shape
+    n = arrs[3].shape[-1]
+    return (rng.standard_normal((b, s, h, p), dtype=np.float32),
+            rng.standard_normal((b, h, p, n), dtype=np.float32))
+
+
+@pytest.mark.parametrize("b,s,h,p,n", SWEEP + [(1, 200, 2, 8, 8)])
+def test_bwd_plain_version_matches_jax_pallas(b, s, h, p, n):
+    """``ssd_bwd_ref`` at the kernel's 64-token chunk against the Pallas
+    custom_vjp's gradients (``ssd_chunked_jnp`` at chunk 16, where its
+    upper triangle stays finite)."""
+    arrs = _inputs(b, s, h, p, n)
+    g, _ = _cotangents(arrs)
+    want = _jax_grads(arrs, g, 16)
+    got = ref.ssd_bwd_ref(*(torch.from_numpy(a) for a in arrs),
+                          torch.from_numpy(g))
+    for gp, gj in zip(got, want):
+        _close(gp, gj, GRAD_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n", [SWEEP[0], (1, 200, 2, 8, 8)])
+def test_bwd_plain_version_with_state_cotangent_matches_jax(b, s, h, p, n):
+    arrs = _inputs(b, s, h, p, n)
+    g, gs = _cotangents(arrs)
+    want = _jax_grads(arrs, g, 16, gstate=gs)
+    got = ref.ssd_bwd_ref(*(torch.from_numpy(a) for a in arrs),
+                          torch.from_numpy(g), torch.from_numpy(gs))
+    for gp, gj in zip(got, want):
+        _close(gp, gj, GRAD_TOL)
+
+
 @pytest.mark.parametrize("chunk", [8, 16])
 def test_function_gradients_match_jax_pallas(chunk):
     """test_kernels_ssd.py::test_pallas_grads with every input's gradient
-    and the Function's forward in the kernel's place."""
+    and the Function's forward and backward in the kernels' places."""
     arrs = _inputs(1, 32, 2, 8, 8)
-    j, t = _both(arrs)
-    g = np.random.default_rng(2).standard_normal(arrs[0].shape,
-                                                 dtype=np.float32)
-    want = jax.grad(lambda *a: jnp.sum(ssd_scan_pallas(
-        *a, chunk=chunk, interpret=True) * g), argnums=tuple(range(6)))(*j)
+    t = [torch.from_numpy(a) for a in arrs]
+    g, _ = _cotangents(arrs)
+    want = _jax_grads(arrs, g, chunk)
     leaves = [x.requires_grad_() for x in t]
-    y = ssd.SSDScan.apply(*leaves, chunk, False, _plain_forward)
+    y = ssd.SSDScan.apply(*leaves, False, _plain_forward, ref.ssd_bwd_ref)
     got = torch.autograd.grad((y * torch.from_numpy(g)).sum(), leaves)
+    for gp, gj in zip(got, want):
+        _close(gp, gj, GRAD_TOL)
+
+
+def test_function_with_state_cotangent_matches_jax():
+    arrs = _inputs(2, 100, 2, 8, 4)
+    g, gs = _cotangents(arrs)
+    want = _jax_grads(arrs, g, 4, gstate=gs)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    y, state = ssd.SSDScan.apply(*leaves, True, _plain_forward,
+                                 ref.ssd_bwd_ref)
+    got = torch.autograd.grad((y * torch.from_numpy(g)).sum()
+                              + (state * torch.from_numpy(gs)).sum(), leaves)
     for gp, gj in zip(got, want):
         _close(gp, gj, GRAD_TOL)
 
@@ -150,7 +212,8 @@ def test_function_state_cotangent_and_partial_grads():
     gs = torch.randn(2, 2, 8, 4, generator=torch.Generator().manual_seed(1))
     for leaf in (x, B):
         leaf.requires_grad_()
-    y, state = ssd.SSDScan.apply(x, dt, A, B, C, D, 16, True, _plain_forward)
+    y, state = ssd.SSDScan.apply(x, dt, A, B, C, D, True, _plain_forward,
+                                 ref.ssd_bwd_ref)
     got = torch.autograd.grad((y * gy).sum() + (state * gs).sum(), [x, B])
     y_r, state_r = ssd.ssd_chunked(x, dt, A, B, C, D, chunk=16,
                                    return_state=True)
@@ -162,11 +225,14 @@ def test_function_state_cotangent_and_partial_grads():
 
 def test_cpu_ops_take_the_plain_version_and_the_wrapper_refuses():
     t = [torch.from_numpy(a) for a in _inputs(1, 40, 2, 8, 4)]
-    before = ssd.ssd_fwd.launches
-    y, state = ops.ssd_scan(*t, chunk=8, return_state=True)
+    before = (ssd.ssd_fwd.launches, ssd.ssd_bwd.launches)
+    leaves = [x.clone().requires_grad_() for x in t]
+    y, state = ops.ssd_scan(*leaves, chunk=8, return_state=True)
     y_r, state_r = ssd.ssd_chunked(*t, chunk=8, return_state=True)
     assert torch.equal(y, y_r) and torch.equal(state, state_r)
-    assert ssd.ssd_fwd.launches == before
+    assert "SSDScan" not in type(y.grad_fn).__name__
+    torch.autograd.grad(y.sum() + state.sum(), leaves)
+    assert (ssd.ssd_fwd.launches, ssd.ssd_bwd.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         ssd.ssd_fwd(*t)
     x = t[0].clone().requires_grad_()
@@ -195,7 +261,8 @@ def test_c3_jax_chunked_grads_are_nan_where_the_port_is_finite():
     assert all(bool(jnp.isfinite(x).all()) for x in want)
     leaves = [x.requires_grad_() for x in t]
     for y in (ssd.ssd_chunked(*leaves, chunk=128),
-              ssd.SSDScan.apply(*leaves, 128, False, _plain_forward)):
+              ssd.SSDScan.apply(*leaves, False, _plain_forward,
+                                ref.ssd_bwd_ref)):
         _close(y, jssd.ssd_chunked_jnp(*j, chunk=128))
         got = torch.autograd.grad((y * torch.from_numpy(g)).sum(), leaves)
         for gp, gj in zip(got, want):
@@ -203,3 +270,23 @@ def test_c3_jax_chunked_grads_are_nan_where_the_port_is_finite():
             # relative to the gradient's scale: dA sums 256 * 8 terms
             scale = float(jnp.abs(gj).max())
             _close(gp, gj, dict(atol=2e-3 * max(scale, 1.0), rtol=2e-3))
+
+
+def test_c3_kernel_chunk_plain_backward_is_finite_at_a_minus_4():
+    """C3 at the kernel's 64-token chunk: A = -4, dt = softplus(N(0,1)), so
+    cum passes 88.7 within a chunk and exp(cum_i - cum_j) above the
+    diagonal would overflow.  ``ssd_bwd_ref`` masks before the exp (as
+    ``csrc/ssd_bwd.cu`` does): every gradient finite, equal to ``jax.grad``
+    through the sequential oracle ``repro.kernels.ref.ssd_reference``."""
+    arrs = _inputs(1, 100, 2, 8, 16, seed=0, A=-4.0)
+    assert float(np.sum(-arrs[2][0] * arrs[1][0, :64, 0])) > 88.7
+    j = [jnp.asarray(a) for a in arrs]
+    g, _ = _cotangents(arrs, seed=3)
+    want = jax.grad(lambda *a: jnp.sum(jref.ssd_reference(*a) * g),
+                    argnums=tuple(range(6)))(*j)
+    got = ref.ssd_bwd_ref(*(torch.from_numpy(a) for a in arrs),
+                          torch.from_numpy(g))
+    for gp, gj in zip(got, want):
+        assert bool(torch.isfinite(gp).all())
+        scale = float(jnp.abs(gj).max())
+        _close(gp, gj, dict(atol=2e-3 * max(scale, 1.0), rtol=2e-3))
