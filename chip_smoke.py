@@ -793,6 +793,29 @@ def phase_flash_shape(rng, shape, causal: bool = True, bwd: bool = True,
             "bound_by": bound_by, "library_ms": library_ms, **out}
 
 
+#: the flash backward's three kernels, each launched once a call
+FLASH_BWD_PARTS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def flash_bwd_parts(split: dict) -> dict:
+    """``_kernel_split``'s ms by kernel name summed into the backward's
+    three parts, keyed ``delta``, ``dkdv`` and ``dq``."""
+    return {part.removeprefix("flash_bwd_"): sum(
+        t for name, t in split.items() if part in name)
+        for part in FLASH_BWD_PARTS}
+
+
+def sdpa_backward(q, k, v, do, causal: bool):
+    """A call of the backward of ``scaled_dot_product_attention`` (the
+    flash backward's library yardstick) on [B, S, H, D] inputs: its forward
+    runs once here, each call computes dq, dk and dv."""
+    leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=causal, enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, leaves, do_t, retain_graph=True)
+
+
 def _bwd_at(rng, shape, q, k, v, o, lse, kw) -> dict:
     """The backward kernel at one training shape (bf16): dq row by row, each
     query row within SHAPE_REL_TOL of its own scale, and dk and dv each key
@@ -809,7 +832,8 @@ def _bwd_at(rng, shape, q, k, v, o, lse, kw) -> dict:
     ``library_ms``: PyTorch's fused attention, which the port never
     calls).  The bound counts 10 D FLOP a visible pair and query head at
     the bf16 peak, against q, k, v, o, do and lse read and dq, dk, dv
-    written once at the HBM rate."""
+    written once at the HBM rate; its delta, dK/dV and dQ kernels are
+    traced apart (``kernels``), each beside its share of the bound."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_bwd_ref, visible_mask
     B, S, T, H, KV, D = shape
@@ -858,13 +882,7 @@ def _bwd_at(rng, shape, q, k, v, o, lse, kw) -> dict:
     ms = time_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw), iters=10)
     plain_ms = time_ms(lambda: flash_bwd_ref(q, k, v, o, lse, do, **kw),
                        iters=3, warmup=1)
-    leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
-    o_lib = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, is_causal=kw["causal"], enable_gqa=True)
-    do_t = do.transpose(1, 2)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        o_lib, leaves, do_t, retain_graph=True), iters=10)
-    del o_lib, leaves
+    library_ms = time_ms(sdpa_backward(q, k, v, do, kw["causal"]), iters=10)
     pairs = int(visible_mask(S, T, **kw, device=q.device).sum())
     flops = 10 * B * H * D * pairs
     nbytes = 2 * (4 * B * S * H * D + 4 * B * T * KV * D) + 4 * B * S * H
@@ -872,16 +890,33 @@ def _bwd_at(rng, shape, q, k, v, o, lse, kw) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    # the three kernels apart, traced over a few calls, each beside its
+    # share of the bound: delta reads o and do once and writes delta; dK/dV
+    # does 8 D of the 10 D FLOP a pair; dQ does 2 D of work, and recomputes
+    # S and dP (4 D more) where a fused kernel would not
+    split = flash_bwd_parts(_kernel_split(
+        lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw), iters=5,
+        key="flash_bwd_", once=FLASH_BWD_PARTS))
+    shares = {"delta": (2 * 2 * B * S * H * D + 4 * B * S * H)
+              / HBM_BYTES_PER_S * 1e3, "dkdv": 0.8 * t_ops, "dq": 0.2 * t_ops}
+    kernels = {part: {"ms": split[part], "bound_ms": share}
+               for part, share in shares.items()}
+    kernels["dq"]["bound_with_recompute_ms"] = 0.6 * t_ops
     print(f"flash backward at {shape} bf16 "
           f"{'causal' if kw['causal'] else 'non-causal'}: kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s counted), plain {plain_ms:.3f} "
           f"ms, sdpa backward {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    print("  its kernels (traced): " + ", ".join(
+        f"{part} {x['ms']:.4f} ms (bound share {x['bound_ms']:.4f}"
+        + (f", {x['bound_with_recompute_ms']:.4f} with the recompute"
+           if part == "dq" else "") + ")" for part, x in kernels.items()))
     return {"max_abs_err": max(errs.values()), "errs": errs,
             "row_errs": rows, "planted_tile_zeroed": planted,
             "dq_rows_under_floor": under, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "kernels": kernels}
 
 
 def flash_entry(at: dict) -> dict:
@@ -1475,25 +1510,36 @@ def phase_train() -> int:
     return launches
 
 
-def phase_train_trace(arch: str = TRAIN_ARCH, B: int = TRAIN_B,
-                      S: int = TRAIN_S) -> None:
-    """One warm train step of a main path's model and shapes, traced."""
-    from torch.profiler import ProfilerActivity, profile
+def lm_train_setup(arch: str = TRAIN_ARCH, B: int = TRAIN_B,
+                   S: int = TRAIN_S):
+    """(cfg, model, step, batches): a main path's LM training at batch
+    B x S in one microbatch, bf16, lr 1e-4, through
+    ``train.step.build_train_step`` fed by ``lm_batches(seed=0)`` on the
+    card."""
     from repro_torch.core.types import ParallelConfig, ShapeConfig
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.launch.serve import resolve_config
     from repro_torch.models.model import build_model
-    from repro_torch.optim import adamw, schedules
+    from repro_torch.optim import schedules
     from repro_torch.train import step as step_mod
     cfg = resolve_config(arch, dtype="bfloat16")
     model = build_model(cfg, device="cuda", seed=0)
     step = step_mod.build_train_step(
         model, ParallelConfig(mbs=B), ShapeConfig("train", "train", S, B),
         lr_schedule=functools.partial(schedules.constant, peak_lr=1e-4))
-    params = model.param_tree()
-    opt = adamw.init(params)
     batches = lm_batches(batch=B, seq_len=S, vocab=cfg.vocab_size, seed=0,
                          device="cuda")
+    return cfg, model, step, batches
+
+
+def phase_train_trace(arch: str = TRAIN_ARCH, B: int = TRAIN_B,
+                      S: int = TRAIN_S) -> None:
+    """One warm train step of a main path's model and shapes, traced."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.optim import adamw
+    cfg, model, step, batches = lm_train_setup(arch, B, S)
+    params = model.param_tree()
+    opt = adamw.init(params)
     params, opt, met = step(params, opt, next(batches), 0)     # warm-up
     float(met["loss"])
     batch = next(batches)
@@ -3343,6 +3389,41 @@ def _masters(opts) -> dict:
     return {"vit": _host(opts["vit"].master), "lm": _host(opts["lm"].master)}
 
 
+def mllm_setup(dev):
+    """(vit_cfg, lm_cfg, kw) of the MLLM phases: the ViT's MLLM_VIT_LAYERS
+    layers feeding pixtral-12b's width at MLLM_LM_LAYERS layers, and
+    ``MLLMRuntime``'s keywords (both sections on ``dev``, batch MLLM_B x
+    MLLM_S in microbatches of MLLM_MBS, lr 1e-4), which
+    ``mllm.workload.build_colocated_step`` shares through ``lr_schedule``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import ParallelConfig
+    from repro_torch.models import vlm
+    from repro_torch.optim import schedules
+    lm_cfg = get_config("pixtral-12b").replace(num_layers=MLLM_LM_LAYERS)
+    vit_cfg = vlm.vit_config(num_layers=MLLM_VIT_LAYERS,
+                             out_dim=lm_cfg.vision_dim)
+    kw = dict(vit_parallel=ParallelConfig(), lm_parallel=ParallelConfig(),
+              global_batch=MLLM_B, seq_len=MLLM_S, mbs=MLLM_MBS,
+              devices=[dev, dev],
+              lr_schedule=functools.partial(schedules.constant,
+                                            peak_lr=1e-4))
+    return vit_cfg, lm_cfg, kw
+
+
+def mllm_batches(vit_cfg, lm_cfg, ratio: float, seed: int, n: int) -> list:
+    """The first ``n`` host batches of ``vlm_batches(seed=)`` at the MLLM
+    phases' shape, ``ratio`` of the samples with an image."""
+    from repro_torch.data.synthetic import vlm_batches
+    from repro_torch.models import vlm
+    gen = vlm_batches(batch=MLLM_B, seq_len=MLLM_S, vocab=lm_cfg.vocab_size,
+                      vision_ratio=ratio,
+                      image_tokens=lm_cfg.max_image_tokens,
+                      patch_dim=vit_cfg.frontend_dim,
+                      downsample=vlm.downsample_factor(vit_cfg),
+                      seed=seed, device="cpu")
+    return [next(gen) for _ in range(n)]
+
+
 def phase_mllm() -> int:
     """MLLM training through ``MLLMRuntime``: the ViT section and the LM
     section (pixtral-12b width, 2 layers) each on its own worker thread
@@ -3356,37 +3437,19 @@ def phase_mllm() -> int:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.analysis import affinity
     from repro_torch.analysis.donation import AliasedStateError
-    from repro_torch.configs import get_config
-    from repro_torch.core.types import ParallelConfig
-    from repro_torch.data.synthetic import vlm_batches
     from repro_torch.mllm import workload as mw
     from repro_torch.models import vlm
     from repro_torch.models.common import tree_leaves, tree_map
-    from repro_torch.optim import adamw, schedules
+    from repro_torch.optim import adamw
     dev = torch.device("cuda", 0)
-    lm_cfg = get_config("pixtral-12b").replace(num_layers=MLLM_LM_LAYERS)
-    vit_cfg = vlm.vit_config(num_layers=MLLM_VIT_LAYERS,
-                             out_dim=lm_cfg.vision_dim)
+    vit_cfg, lm_cfg, kw = mllm_setup(dev)
+    lr = kw["lr_schedule"]
     Lv, Ll = vit_cfg.num_layers, lm_cfg.num_layers
     n_mb = MLLM_B // MLLM_MBS
     toks = MLLM_B * MLLM_S
-    lr = functools.partial(schedules.constant, peak_lr=1e-4)
-    kw = dict(vit_parallel=ParallelConfig(), lm_parallel=ParallelConfig(),
-              global_batch=MLLM_B, seq_len=MLLM_S, mbs=MLLM_MBS,
-              devices=[dev, dev], lr_schedule=lr)
     card_ = card()
-
-    def data(ratio, seed, n):
-        gen = vlm_batches(batch=MLLM_B, seq_len=MLLM_S,
-                          vocab=lm_cfg.vocab_size, vision_ratio=ratio,
-                          image_tokens=lm_cfg.max_image_tokens,
-                          patch_dim=vit_cfg.frontend_dim,
-                          downsample=vlm.downsample_factor(vit_cfg),
-                          seed=seed, device="cpu")
-        return [next(gen) for _ in range(n)]
-
-    batches = data(MLLM_RATIO, 0, MLLM_ITERS + 1)
-    (text,) = data(0.0, 1, 1)
+    batches = mllm_batches(vit_cfg, lm_cfg, MLLM_RATIO, 0, MLLM_ITERS + 1)
+    (text,) = mllm_batches(vit_cfg, lm_cfg, 0.0, 1, 1)
     init = _host(mw.init_compound_params(vit_cfg, lm_cfg, seed=0,
                                          device=dev))
     free()
@@ -3711,21 +3774,36 @@ def phase_ssd_sweep(rng) -> None:
         ssd_case(rng, shape, torch.bfloat16, True, packed=True)
 
 
-def _ssd_split(fn, iters: int, key: str = "ssd_") -> dict:
-    """Device ms a call of ``fn`` by the name of each SSD kernel it
-    launches (each kernel whose name holds ``key``), from
-    ``torch.profiler`` over ``iters`` warm calls."""
+def _kernel_split(fn, iters: int, key: str = "ssd_", once=()) -> dict:
+    """Device ms a call of ``fn`` by the name of each kernel it launches
+    whose name holds ``key``, from ``torch.profiler`` over ``iters`` warm
+    calls: a kernel's summed time over the calls.  A kernel whose name
+    holds one of ``once`` launches once a call and reads its mean time a
+    launch, and the trace is taken again, three times at most, while it
+    lacks one of them: on the H100, CUPTI has dropped records in a process
+    that traced many times (one trace summed the flash backward's three
+    kernels to half the time CUDA events gave its calls, another held
+    none of its kernels)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    _, per = _device_ms(prof)
-    split = {k: v / iters for k, v in per.items() if key in k}
-    check(bool(split), "the profiler saw no SSD kernel")
-    return split
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen: dict = {}
+        for evt in prof.events():
+            if _kernel_event(evt) and key in evt.name:
+                n, us = seen.get(evt.name, (0, 0.0))
+                seen[evt.name] = (n + 1, us + evt.time_range.elapsed_us())
+        missing = [p for p in once if not any(p in name for name in seen)]
+        if seen and not missing:
+            break
+    check(bool(seen) and not missing, f"the profiler saw no kernel named "
+          f"*{key}*" + (f" with {missing} in its name" if missing else ""))
+    return {name: us / 1e3 / (n if any(p in name for p in once) else iters)
+            for name, (n, us) in seen.items()}
 
 
 def phase_ssd_shape(rng, shape) -> dict:
@@ -3749,7 +3827,7 @@ def phase_ssd_shape(rng, shape) -> dict:
     check(rel <= SSD_TOL[torch.bfloat16] and serr <= SSD_STATE_TOL,
           f"SSD at {shape}: y {rel:.3e}, state {serr:.3e}")
     ms = time_ms(lambda: ssd.ssd_fwd(x, dt, A, B, C, D), iters=20)
-    split = _ssd_split(lambda: ssd.ssd_fwd(x, dt, A, B, C, D), iters=10)
+    split = _kernel_split(lambda: ssd.ssd_fwd(x, dt, A, B, C, D), iters=10)
     plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C, D), iters=3,
                        warmup=1)
     Q, nc = ssd.CHUNK, -(-s // ssd.CHUNK)
@@ -3895,7 +3973,7 @@ def phase_ssd_bwd_main(rng, shape) -> dict:
     gy = _randn(rng, (b, s, h, p), torch.bfloat16)
     args = (x, dt, A, B, C, D, gy)
     ms = time_ms(lambda: ssd.ssd_bwd(*args), iters=10)
-    split = _ssd_split(lambda: ssd.ssd_bwd(*args), iters=5, key="ssd_bwd")
+    split = _kernel_split(lambda: ssd.ssd_bwd(*args), iters=5, key="ssd_bwd")
     plain_ms = time_ms(lambda: ssd_bwd_ref(*args), iters=2, warmup=1)
     leaves = [t.detach().requires_grad_() for t in args[:6]]
 
@@ -4584,27 +4662,20 @@ def _audio_batch(rng, cfg, B, S, device="cuda"):
                              torch.float32, device)}
 
 
-def phase_whisper_train() -> int:
-    """whisper-small training through ``train.step.build_train_step`` and
-    ``train.loop.train`` fed by ``audio_batches`` (bf16, batch 32 x 448
-    tokens and 1500 frames, microbatches of 16, lr 1e-4, 4 steps), then one
-    warm step traced; returns flash launches of the 4 steps."""
-    from torch.profiler import ProfilerActivity, profile
+def whisper_train_setup():
+    """(cfg, model, step, batches): whisper-small's training at batch
+    WHISPER_B x WHISPER_S tokens over its frames, microbatches of
+    WHISPER_MBS, bf16, lr 1e-4, through ``train.step.build_train_step`` fed
+    by ``audio_batches(seed=0)`` on the card."""
     from repro_torch.configs import get_config
     from repro_torch.core.types import ParallelConfig, ShapeConfig
     from repro_torch.data.synthetic import audio_batches
-    from repro_torch.models.common import tree_leaves
     from repro_torch.models.model import build_model
-    from repro_torch.optim import adamw, schedules
-    from repro_torch.train import loop
+    from repro_torch.optim import schedules
     from repro_torch.train import step as step_mod
     cfg = get_config(WHISPER).replace(dtype="bfloat16")
     B, S = WHISPER_B, WHISPER_S
-    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device="cuda", seed=0)
-    params = model.param_tree()
-    init = _host(params)
-    n_params = sum(x.numel() for x in tree_leaves(params))
     step = step_mod.build_train_step(
         model, ParallelConfig(mbs=WHISPER_MBS),
         ShapeConfig("train", "train", S, B),
@@ -4613,6 +4684,24 @@ def phase_whisper_train() -> int:
                             frames=cfg.frontend_frames,
                             frame_dim=cfg.frontend_dim, seed=0,
                             device="cuda")
+    return cfg, model, step, batches
+
+
+def phase_whisper_train() -> int:
+    """whisper-small training through ``train.step.build_train_step`` and
+    ``train.loop.train`` fed by ``audio_batches`` (bf16, batch 32 x 448
+    tokens and 1500 frames, microbatches of 16, lr 1e-4, 4 steps), then one
+    warm step traced; returns flash launches of the 4 steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    B, S = WHISPER_B, WHISPER_S
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, step, batches = whisper_train_setup()
+    params = model.param_tree()
+    init = _host(params)
+    n_params = sum(x.numel() for x in tree_leaves(params))
     reset_counts()
     res = loop.train(step, params=params, opt_state=adamw.init(params),
                      batches=batches, num_steps=WHISPER_STEPS, log_every=1,

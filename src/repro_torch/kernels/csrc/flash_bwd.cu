@@ -28,8 +28,9 @@
 // card's ~295 FLOP/byte ridge: the bound is arithmetic, 0.087 ms at the
 // bf16 tensor-core peak.  Three kernels, launched in order on one stream:
 //
-// (a) flash_bwd_delta_kernel: delta per (b, s, h) row in f32, one warp a
-//     row, four rows a warp.
+// (a) delta per (b, s, h) row in f32: flash_bwd_delta_kernel_x8 for bf16,
+//     16-byte loads, D / 8 threads a row; flash_bwd_delta_kernel for
+//     float32, one warp a row, four rows a warp.
 // (b) dK/dV: one block per (b, KV head, 128-row KV tile).  The block loops
 //     over the G query heads of its group and, for each, over the q tiles
 //     that can see its KV tile; it recomputes S^T = K Q^T, P^T =
@@ -48,26 +49,33 @@
 //     and a producer warpgroup, which gives its registers to the consumers
 //     (setmaxnreg 40 / 232) and whose first warp issues every load;
 //   * the tile the block owns (K and V in (b), Q and dO in (c)) is loaded
-//     once, and the streamed tiles (Q and dO of 64 rows in (b), K and V of
-//     64 rows in (c)) come through a ring of stages, each by TMA with the
-//     128B/64B/32B swizzle set by the head dim (D = 8 is padded to 16 by
-//     TMA's zero fill), completing on per-stage mbarriers; consumers
-//     release a stage on another.  The producer also stages each q tile's
-//     lse (as -lse log2 e) and delta beside it in (b), and the KV tile's
-//     positions;
+//     once, and the streamed tiles (Q and dO of 64 rows in (b); K and V of
+//     128 rows in (c) at D <= 64, of 64 at D = 128) come through a ring of
+//     up to four stages, both tiles of a stage by TMA onto one mbarrier,
+//     with the 128B/64B/32B swizzle set by the head dim (D = 8 is padded
+//     to 16 by TMA's zero fill); consumers release a stage on another.
+//     The producer also stages each q tile's lse (as -lse log2 e) and
+//     delta beside it in (b), loaded before it waits for the stage, and
+//     the KV tile's positions;
 //   * S^T, dP^T (and S, dP) are wgmma m64nNk16 with both operands K-major
-//     in shared memory (ss); dV, dK (and dQ) take P^T, dS^T (dS) from
-//     registers, the f32 accumulator rounded to bf16, with the streamed or
-//     owned tile MN-major (the transpose bit): the forward's P V pattern;
-//   * p = exp2(s * scale log2 e - lse log2 e) as one FFMA;
+//     in shared memory (ss), issued back to back after one wait for the
+//     stage; dV, dK (and dQ) take P^T, dS^T (dS) from registers, the f32
+//     accumulator rounded to bf16, with the streamed or owned tile
+//     MN-major (the transpose bit): the forward's P V pattern;
+//   * p = 2^(s * scale log2 e - lse log2 e): one FFMA and ex2.approx.ftz
+//     (exp2f adds a slow path for subnormal results to every element); a
+//     tile that every pair sees wholly runs a loop with no mask, the
+//     others one with it;
 //   * the producer skips a tile no row can see and marks the tiles that
-//     every pair sees wholly, whose probabilities then need no mask; an
-//     end marker closes the consumers' loop.
-//   A simple schedule: each step issues S and dP, waits for S to compute
-//   P while dP runs, then issues dV and dK (or dQ) and waits for them
-//   before it releases the stage.  No ping-pong, no persistent grid.
-//   At D = 128 kernel (b) holds 2 x 64 accumulator registers a thread for
-//   dK and dV beside the 2 x 32 of S^T and dP^T (64-row q tiles).
+//     every pair sees wholly; an end marker closes the consumers' loop;
+//     with a causal mask the grid starts the heaviest tiles (dK/dV's first
+//     KV tiles, dQ's last q tiles) of every head and batch first.
+//   A step issues S and dP, computes P while dP runs, then issues dV and dK
+//   (or dQ) and waits for them before it releases the stage.  Measured on
+//   an H100 and left out (PERF.md): the two warpgroups taking turns
+//   through named barriers, 128-row q tiles in (b), the next tile's S and
+//   dP issued before this tile's dV and dK, and P and dS through shared
+//   memory as wgmma's A operand; each was slower than this schedule.
 // f32 -> CUDA-core kernels (no TF32, the precision of the f32 checks):
 //   64 x 64 tiles staged through shared memory as the forward's f32 path,
 //   each thread a 4 x 4 block of S and dP and a 4 x D/16 block of the
@@ -90,11 +98,6 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // Whether query position qp may attend key position kp.
 __device__ __forceinline__ bool sees(int qp, int kp, int causal, int window) {
   return (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
@@ -114,7 +117,6 @@ struct DeltaArgs {
   int D;
 };
 
-template <typename T>
 __global__ void __launch_bounds__(DELTA_THREADS)
     flash_bwd_delta_kernel(const DeltaArgs a) {
   const int lane = threadIdx.x % 32;
@@ -124,16 +126,41 @@ __global__ void __launch_bounds__(DELTA_THREADS)
   for (int i = 0; i < DELTA_ROWS_PER_WARP; ++i) {
     const long long row = first + i;
     if (row >= a.rows) break;                 // warp-uniform
-    const T* o = static_cast<const T*>(a.o) + row * a.D;
-    const T* d = static_cast<const T*>(a.dout) + row * a.D;
+    const float* o = static_cast<const float*>(a.o) + row * a.D;
+    const float* d = static_cast<const float*>(a.dout) + row * a.D;
     float s = 0.f;
     for (int j = lane; j < a.D; j += 32)
-      s = fmaf(to_float(o[j]), to_float(d[j]), s);
+      s = fmaf(o[j], d[j], s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) a.delta[row] = s - (a.dlse != nullptr ? a.dlse[row] : 0.f);
   }
+}
+
+// bf16 (o and do 16-byte aligned): a thread reads 8 elements (16 bytes)
+// of each, the D / 8 threads of a row are neighbours in one warp and sum
+// over shuffles.
+__global__ void __launch_bounds__(DELTA_THREADS)
+    flash_bwd_delta_kernel_x8(const DeltaArgs a) {
+  const int per = a.D / 8;                      // threads a row: 1 .. 16
+  const long long chunk =
+      static_cast<long long>(blockIdx.x) * DELTA_THREADS + threadIdx.x;
+  const long long row = chunk / per;
+  float s = 0.f;
+  if (row < a.rows) {
+    const uint4 ov = static_cast<const uint4*>(a.o)[chunk];
+    const uint4 dv = static_cast<const uint4*>(a.dout)[chunk];
+    const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&ov);
+    const __nv_bfloat16* y = reinterpret_cast<const __nv_bfloat16*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      s = fmaf(__bfloat162float(x[i]), __bfloat162float(y[i]), s);
+  }
+  for (int off = per / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < a.rows && chunk % per == 0)
+    a.delta[row] = s - (a.dlse != nullptr ? a.dlse[row] : 0.f);
 }
 
 // ------------------------------------------------------ f32, CUDA cores
@@ -457,10 +484,17 @@ constexpr int NTHREADS = NCONS + 128; // and a producer warpgroup
 constexpr int PROD_REGS = 40;         // 128 x 40 + 256 x 232 <= 65536
 constexpr int CONS_REGS = 232;
 constexpr int OWN = 128;              // rows of the tile a block owns
-constexpr int STREAM = 64;            // rows of a streamed tile
+
+// Rows of a streamed tile for head dim D, in the dK/dV kernel and in the
+// dQ kernel.
+template <int D>
+struct Stream {
+  static constexpr int DKDV = 64;
+  static constexpr int DQ = D <= 64 ? 128 : 64;
+};
 
 struct Args {
-  // (b): q/do boxes of STREAM rows, k/v boxes of OWN rows; (c) the reverse
+  // (b): q/do boxes of streamed rows, k/v boxes of OWN rows; (c) the reverse
   hopper::TensorMap qmap, omap, kmap, vmap;   // 4-d: (d, row, head, batch)
   const int* kv_pos;
   const float* lse;
@@ -473,31 +507,38 @@ struct Args {
   int causal, window, q_offset;
 };
 
-// Shared-memory geometry for head dim D: an owned tile of OWN rows (two,
-// K and V or Q and dO) and a ring of STAGES pairs of streamed tiles of
-// STREAM rows.  A tile is CB column blocks of SW bytes a row; every block
-// starts on a 1024-byte boundary.
+// Head-dim geometry: the padded head dim, its swizzle and column blocks.
 template <int D>
-struct Geo {
+struct Dim {
   static constexpr int DP = D < 16 ? 16 : D;              // padded head dim
   static constexpr int SW = 2 * DP < 128 ? 2 * DP : 128;  // swizzle bytes
   static constexpr int CB = 2 * DP / SW;                  // column blocks
+};
+
+// Shared-memory geometry for head dim D and streamed tiles of STR rows: an
+// owned tile of OWN rows (two, K and V or Q and dO) and a ring of STAGES
+// stages of two streamed tiles.  A tile is CB column blocks of SW bytes a
+// row; every block starts on a 1024-byte boundary.
+template <int D, int STR>
+struct Geo : Dim<D> {
+  using Dim<D>::SW;
+  using Dim<D>::CB;
   static constexpr int OWN_BLOCK = OWN * SW;
   static constexpr int OWN_BYTES = CB * OWN_BLOCK;
-  static constexpr int STR_BLOCK = STREAM * SW;
+  static constexpr int STR_BLOCK = STR * SW;
   static constexpr int STR_BYTES = CB * STR_BLOCK;
-  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int STAGES = 4;
   static constexpr int OFF_OWN2 = OWN_BYTES;
   static constexpr int OFF_STR = 2 * OWN_BYTES;              // first stream
   static constexpr int OFF_STR2 = OFF_STR + STAGES * STR_BYTES;
-  static constexpr int OFF_LSE = OFF_STR2 + STAGES * STR_BYTES;  // [ST][64]
-  static constexpr int OFF_DELTA = OFF_LSE + STAGES * STREAM * 4;
-  static constexpr int OFF_POS = OFF_DELTA + STAGES * STREAM * 4;
-  static constexpr int POS_INTS = STAGES * STREAM > OWN ? STAGES * STREAM : OWN;
+  static constexpr int OFF_LSE = OFF_STR2 + STAGES * STR_BYTES;  // [ST][STR]
+  static constexpr int OFF_DELTA = OFF_LSE + STAGES * STR * 4;
+  static constexpr int OFF_POS = OFF_DELTA + STAGES * STR * 4;
+  static constexpr int POS_INTS = STAGES * STR > OWN ? STAGES * STR : OWN;
   static constexpr int OFF_INFO = OFF_POS + POS_INTS * 4;       // [ST][4]
   static constexpr int OFF_BAR = OFF_INFO + STAGES * 16;
-  // own_full, then full, full2 and empty for each stage
-  static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 3 * STAGES);
+  // own_full, then full and empty for each stage
+  static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);
   static_assert(SMEM <= 232448, "the ring does not fit in shared memory");
 };
 
@@ -520,7 +561,7 @@ __device__ __forceinline__ void issue_dot(float (&acc)[N / 2], uint32_t a_addr,
                                           int a_block, uint32_t b_addr,
                                           int b_block) {
   using namespace hopper;
-  using G = Geo<D>;
+  using G = Dim<D>;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < G::DP / 16; ++kk) {
@@ -536,11 +577,11 @@ __device__ __forceinline__ void issue_dot(float (&acc)[N / 2], uint32_t a_addr,
 // tile at x_addr read MN-major (column blocks x_block bytes apart).
 // Issued, not committed.
 template <int D, int N>
-__device__ __forceinline__ void issue_acc(float (&acc)[Geo<D>::DP / 2],
+__device__ __forceinline__ void issue_acc(float (&acc)[Dim<D>::DP / 2],
                                           const uint32_t (&pf)[N / 16][4],
                                           uint32_t x_addr, int x_block) {
   using namespace hopper;
-  using G = Geo<D>;
+  using G = Dim<D>;
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
     Wgmma<G::DP>::template rs<1>(
@@ -580,9 +621,9 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_bwd_dkdv_kernel_tc(const __grid_constant__ Args a) {
   using namespace hopper;
-  using G = Geo<D>;
+  constexpr int BM = Stream<D>::DKDV;
+  using G = Geo<D, BM>;
   constexpr int DP = G::DP, SW = G::SW, STAGES = G::STAGES;
-  constexpr int BM = STREAM;
   extern __shared__ float smem[];
   const uint32_t s0 = smem_addr(smem);
   char* base = reinterpret_cast<char*>(smem) + ((1024 - (s0 & 1023)) & 1023);
@@ -595,22 +636,23 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   int* Pos = reinterpret_cast<int*>(base + G::OFF_POS);      // [OWN]
   int* Info = reinterpret_cast<int*>(base + G::OFF_INFO);    // tile, masked
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + G::OFF_BAR);
-  uint64_t* q_full = kv_full + 1;
-  uint64_t* o_full = q_full + STAGES;
-  uint64_t* empty = o_full + STAGES;
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  // causal: the grid's slowest index is the KV tile, so the first tiles
+  // (which the most q tiles see) start first; else the tiles of one head
+  // are neighbours and share its q tiles in L2
+  const int kvh = a.causal ? blockIdx.x : blockIdx.y;
+  const int b = a.causal ? blockIdx.y : blockIdx.z;
   const int Gq = a.H / a.KV;
-  const int k0 = blockIdx.x * OWN;
+  const int k0 = (a.causal ? blockIdx.z : blockIdx.x) * OWN;
   const int ncols = min(OWN, a.T - k0);
 
   if (tid == 0) {
     mbar_init(kv_full, 1);
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&q_full[st], 1);
-      mbar_init(&o_full[st], 1);
+      mbar_init(&full[st], 1);
       mbar_init(&empty[st], NCONS / 32);   // lane 0 of each consumer warp
     }
     fence_barrier_init();
@@ -655,17 +697,26 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           masked = nrows < BM || ncols < OWN || (a.causal && hi > q_lo) ||
                    (a.window > 0 && q_hi - lo >= a.window);
         }
+        // the tile's lse and delta rows (strided by H) are loaded before
+        // the wait for its stage, so their latency runs under it
+        const int h = kvh * Gq + g;
+        float nl[BM / 32], dl[BM / 32];
+#pragma unroll
+        for (int j = 0; j < BM / 32; ++j) {
+          const int r = lane + 32 * j;
+          const bool in = !end && q0 + r < a.S;
+          const long long row =
+              (static_cast<long long>(b) * a.S + q0 + r) * a.H + h;
+          nl[j] = in ? -a.lse[row] * LOG2E : 0.f;
+          dl[j] = in ? a.delta[row] : 0.f;
+        }
         const int st = it % STAGES;
         mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
-        const int h = kvh * Gq + g;
-        if (!end)
-          for (int r = lane; r < BM; r += 32) {
-            const bool in = q0 + r < a.S;
-            const long long row =
-                (static_cast<long long>(b) * a.S + q0 + r) * a.H + h;
-            Lse[st * BM + r] = in ? -a.lse[row] * LOG2E : 0.f;
-            Dl[st * BM + r] = in ? a.delta[row] : 0.f;
-          }
+#pragma unroll
+        for (int j = 0; j < BM / 32; ++j) {
+          Lse[st * BM + lane + 32 * j] = nl[j];
+          Dl[st * BM + lane + 32 * j] = dl[j];
+        }
         if (lane == 0) {
           Info[4 * st] = end ? -1 : t;
           Info[4 * st + 1] = masked;
@@ -673,16 +724,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         __syncwarp();
         if (lane == 0) {
           if (end) {
-            mbar_arrive(&q_full[st]);
+            mbar_arrive(&full[st]);
           } else {
-            mbar_arrive_expect_tx(&q_full[st], G::STR_BYTES);
-            for (int c = 0; c < G::CB; ++c)
+            mbar_arrive_expect_tx(&full[st], 2 * G::STR_BYTES);
+            for (int c = 0; c < G::CB; ++c) {
               tma_load_4d(Qs + st * G::STR_BYTES + c * G::STR_BLOCK, &a.qmap,
-                          &q_full[st], c * (SW / 2), q0, h, b);
-            mbar_arrive_expect_tx(&o_full[st], G::STR_BYTES);
-            for (int c = 0; c < G::CB; ++c)
+                          &full[st], c * (SW / 2), q0, h, b);
               tma_load_4d(Os + st * G::STR_BYTES + c * G::STR_BLOCK, &a.omap,
-                          &o_full[st], c * (SW / 2), q0, h, b);
+                          &full[st], c * (SW / 2), q0, h, b);
+            }
           }
         }
         ++it;
@@ -703,7 +753,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int it = 0;; ++it) {
       const int st = it % STAGES;
       const uint32_t parity = (it / STAGES) & 1;
-      mbar_wait(&q_full[st], parity);
+      // one wait for Q and dO: a wait loop between the two products
+      // makes ptxas wait for the first inside it
+      mbar_wait(&full[st], parity);
       const int t = Info[4 * st];
       if (t < 0) break;
       const bool masked = Info[4 * st + 1] != 0;
@@ -711,24 +763,30 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const uint32_t o_addr = smem_addr(Os + st * G::STR_BYTES);
       float s[BM / 2], dp[BM / 2];
       issue_dot<D, BM>(s, k_addr, G::OWN_BLOCK, q_addr, G::STR_BLOCK);
-      mbar_wait(&o_full[st], parity);
       issue_dot<D, BM>(dp, v_addr, G::OWN_BLOCK, o_addr, G::STR_BLOCK);
       wgmma_wait<1>();                 // S^T is done; dP^T may still run
       fence_regs(s);
       const float* nlse = Lse + st * BM;
       const float* delta = Dl + st * BM;
       const int q_lo = a.q_offset + t * BM;
+      // a tile that every pair sees takes the loop without the mask: a
+      // test inside one unrolled loop is kept for every element
+      if (masked) {
 #pragma unroll
-      for (int i = 0; i < BM / 2; ++i) {
-        const int c = 8 * (i / 4) + 2 * (l % 4) + i % 2;     // q in the tile
-        const int r = row0 + 8 * ((i / 2) % 2);              // KV row
-        bool ok = true;
-        if (masked) {
+        for (int i = 0; i < BM / 2; ++i) {
+          const int c = 8 * (i / 4) + 2 * (l % 4) + i % 2;   // q in the tile
+          const int r = row0 + 8 * ((i / 2) % 2);            // KV row
           const int kp = a.kv_pos != nullptr ? Pos[r] : k0 + r;
-          ok = t * BM + c < a.S && r < ncols &&
-               sees(q_lo + c, kp, a.causal, a.window);
+          const bool ok = t * BM + c < a.S && r < ncols &&
+                          sees(q_lo + c, kp, a.causal, a.window);
+          s[i] = ok ? exp2_ftz(fmaf(s[i], a.scale_log2, nlse[c])) : 0.f;
         }
-        s[i] = ok ? exp2f(fmaf(s[i], a.scale_log2, nlse[c])) : 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) {
+          const int c = 8 * (i / 4) + 2 * (l % 4) + i % 2;
+          s[i] = exp2_ftz(fmaf(s[i], a.scale_log2, nlse[c]));
+        }
       }
       wgmma_wait<0>();
       fence_regs(dp);
@@ -775,9 +833,9 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_bwd_dq_kernel_tc(const __grid_constant__ Args a) {
   using namespace hopper;
-  using G = Geo<D>;
+  constexpr int BN = Stream<D>::DQ;
+  using G = Geo<D, BN>;
   constexpr int DP = G::DP, SW = G::SW, STAGES = G::STAGES;
-  constexpr int BN = STREAM;
   extern __shared__ float smem[];
   const uint32_t s0 = smem_addr(smem);
   char* base = reinterpret_cast<char*>(smem) + ((1024 - (s0 & 1023)) & 1023);
@@ -788,14 +846,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   int* Pos = reinterpret_cast<int*>(base + G::OFF_POS);      // [ST][BN]
   int* Info = reinterpret_cast<int*>(base + G::OFF_INFO);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + G::OFF_BAR);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + STAGES;
-  uint64_t* empty = v_full + STAGES;
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
-  const int iq = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // heavy causal tiles (the last) first, over every head and batch as the
+  // dK/dV kernel
+  const int iq = a.causal ? gridDim.z - 1 - blockIdx.z
+                          : gridDim.x - 1 - blockIdx.x;
+  const int h = a.causal ? blockIdx.x : blockIdx.y;
+  const int b = a.causal ? blockIdx.y : blockIdx.z;
   const int kvh = h / (a.H / a.KV);
   const int q0 = iq * OWN;
   const int nrows = min(OWN, a.S - q0);
@@ -805,8 +865,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (tid == 0) {
     mbar_init(q_full, 1);
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&k_full[st], 1);
-      mbar_init(&v_full[st], 1);
+      mbar_init(&full[st], 1);
       mbar_init(&empty[st], NCONS / 32);
     }
     fence_barrier_init();
@@ -857,16 +916,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       __syncwarp();
       if (lane == 0) {
         if (end) {
-          mbar_arrive(&k_full[st]);
+          mbar_arrive(&full[st]);
         } else {
-          mbar_arrive_expect_tx(&k_full[st], G::STR_BYTES);
-          for (int c = 0; c < G::CB; ++c)
+          mbar_arrive_expect_tx(&full[st], 2 * G::STR_BYTES);
+          for (int c = 0; c < G::CB; ++c) {
             tma_load_4d(Ks + st * G::STR_BYTES + c * G::STR_BLOCK, &a.kmap,
-                        &k_full[st], c * (SW / 2), k0, kvh, b);
-          mbar_arrive_expect_tx(&v_full[st], G::STR_BYTES);
-          for (int c = 0; c < G::CB; ++c)
+                        &full[st], c * (SW / 2), k0, kvh, b);
             tma_load_4d(Vs + st * G::STR_BYTES + c * G::STR_BLOCK, &a.vmap,
-                        &v_full[st], c * (SW / 2), k0, kvh, b);
+                        &full[st], c * (SW / 2), k0, kvh, b);
+          }
         }
       }
       ++it;
@@ -894,7 +952,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int it = 0;; ++it) {
       const int st = it % STAGES;
       const uint32_t parity = (it / STAGES) & 1;
-      mbar_wait(&k_full[st], parity);
+      mbar_wait(&full[st], parity);    // K and V, as the dK/dV kernel
       const int t = Info[4 * st];
       if (t < 0) break;
       const bool masked = Info[4 * st + 1] != 0;
@@ -903,21 +961,23 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const uint32_t v_addr = smem_addr(Vs + st * G::STR_BYTES);
       float s[BN / 2], dp[BN / 2];
       issue_dot<D, BN>(s, q_addr, G::OWN_BLOCK, k_addr, G::STR_BLOCK);
-      mbar_wait(&v_full[st], parity);
       issue_dot<D, BN>(dp, o_addr, G::OWN_BLOCK, v_addr, G::STR_BLOCK);
       wgmma_wait<1>();                 // S is done; dP may still run
       fence_regs(s);
+      if (masked) {
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int r = (i / 2) % 2;
-        const int c = 8 * (i / 4) + 2 * (l % 4) + i % 2;   // key in the tile
-        bool ok = true;
-        if (masked) {
+        for (int i = 0; i < BN / 2; ++i) {
+          const int r = (i / 2) % 2;
+          const int c = 8 * (i / 4) + 2 * (l % 4) + i % 2;   // key in the tile
           const int kp = a.kv_pos != nullptr ? Pos[st * BN + c] : k0 + c;
-          ok = k0 + c < a.T &&
-               sees(q_lo + row0 + 8 * r, kp, a.causal, a.window);
+          const bool ok = k0 + c < a.T &&
+                          sees(q_lo + row0 + 8 * r, kp, a.causal, a.window);
+          s[i] = ok ? exp2_ftz(fmaf(s[i], a.scale_log2, nlse[r])) : 0.f;
         }
-        s[i] = ok ? exp2f(fmaf(s[i], a.scale_log2, nlse[r])) : 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          s[i] = exp2_ftz(fmaf(s[i], a.scale_log2, nlse[(i / 2) % 2]));
       }
       wgmma_wait<0>();
       fence_regs(dp);
@@ -960,7 +1020,7 @@ template <int D>
 cudaError_t make_map(hopper::TensorMap* map, const void* x, int B, int rows,
                      int heads, long long sb, long long ss, long long sh,
                      int box_rows) {
-  using G = Geo<D>;
+  using G = Dim<D>;
   const uint32_t box[4] = {G::SW / 2, uint32_t(box_rows), 1, 1};
   const uint64_t dims[4] = {uint64_t(D), uint64_t(rows), uint64_t(heads),
                             uint64_t(B)};
@@ -975,16 +1035,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    long long q_ss, long long q_sh, long long k_sb,
                    long long k_ss, long long k_sh, long long v_sb,
                    long long v_ss, long long v_sh, cudaStream_t stream) {
-  using G = Geo<D>;
+  constexpr int BM = Stream<D>::DKDV, BN = Stream<D>::DQ;
+  constexpr int SMEM_KV = Geo<D, BM>::SMEM, SMEM_Q = Geo<D, BN>::SMEM;
   const int S = a.S, T = a.T, H = a.H, KV = a.KV;
   const long long o_ss = static_cast<long long>(H) * D;
   const long long o_sb = static_cast<long long>(S) * o_ss;
   cudaError_t err;
   // (b): Q and dO streamed, K and V owned
   Args kv = a;
-  if ((err = make_map<D>(&kv.qmap, q, B, S, H, q_sb, q_ss, q_sh, STREAM)) !=
+  if ((err = make_map<D>(&kv.qmap, q, B, S, H, q_sb, q_ss, q_sh, BM)) !=
           cudaSuccess ||
-      (err = make_map<D>(&kv.omap, dout, B, S, H, o_sb, o_ss, D, STREAM)) !=
+      (err = make_map<D>(&kv.omap, dout, B, S, H, o_sb, o_ss, D, BM)) !=
           cudaSuccess ||
       (err = make_map<D>(&kv.kmap, k, B, T, KV, k_sb, k_ss, k_sh, OWN)) !=
           cudaSuccess ||
@@ -997,37 +1058,45 @@ cudaError_t launch(const void* q, const void* k, const void* v,
           cudaSuccess ||
       (err = make_map<D>(&qa.omap, dout, B, S, H, o_sb, o_ss, D, OWN)) !=
           cudaSuccess ||
-      (err = make_map<D>(&qa.kmap, k, B, T, KV, k_sb, k_ss, k_sh, STREAM)) !=
+      (err = make_map<D>(&qa.kmap, k, B, T, KV, k_sb, k_ss, k_sh, BN)) !=
           cudaSuccess ||
-      (err = make_map<D>(&qa.vmap, v, B, T, KV, v_sb, v_ss, v_sh, STREAM)) !=
+      (err = make_map<D>(&qa.vmap, v, B, T, KV, v_sb, v_ss, v_sh, BN)) !=
           cudaSuccess)
     return err;
   auto dkdv = flash_bwd_dkdv_kernel_tc<D>;
   auto dqk = flash_bwd_dq_kernel_tc<D>;
   if ((err = cudaFuncSetAttribute(
-           dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM)) !=
+           dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_KV)) !=
           cudaSuccess ||
       (err = cudaFuncSetAttribute(
-           dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM)) !=
+           dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_Q)) !=
           cudaSuccess)
     return err;
-  const dim3 grid_kv((T + OWN - 1) / OWN, KV, B);
-  dkdv<<<grid_kv, NTHREADS, G::SMEM, stream>>>(kv);
+  const unsigned nkv = (T + OWN - 1) / OWN, nq = (S + OWN - 1) / OWN;
+  const dim3 grid_kv = a.causal ? dim3(KV, B, nkv) : dim3(nkv, KV, B);
+  dkdv<<<grid_kv, NTHREADS, SMEM_KV, stream>>>(kv);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 grid_q((S + OWN - 1) / OWN, H, B);
-  dqk<<<grid_q, NTHREADS, G::SMEM, stream>>>(qa);
+  const dim3 grid_q = a.causal ? dim3(H, B, nq) : dim3(nq, H, B);
+  dqk<<<grid_q, NTHREADS, SMEM_Q, stream>>>(qa);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-template <typename T>
-cudaError_t launch_delta(const DeltaArgs& d, cudaStream_t stream) {
-  auto kernel = flash_bwd_delta_kernel<T>;
+// bf16 takes the x8 kernel (o and do are 16-byte aligned, as the wrapper
+// checks for TMA), float32 the scalar one.
+cudaError_t launch_delta(const DeltaArgs& d, int dtype, cudaStream_t stream) {
+  if (dtype == 1) {
+    const long long chunks = d.rows * (d.D / 8);
+    const dim3 grid(
+        static_cast<unsigned>((chunks + DELTA_THREADS - 1) / DELTA_THREADS));
+    flash_bwd_delta_kernel_x8<<<grid, DELTA_THREADS, 0, stream>>>(d);
+    return cudaGetLastError();
+  }
   const dim3 grid(
       static_cast<unsigned>((d.rows + DELTA_ROWS_PER_BLOCK - 1) /
                             DELTA_ROWS_PER_BLOCK));
-  kernel<<<grid, DELTA_THREADS, 0, stream>>>(d);
+  flash_bwd_delta_kernel<<<grid, DELTA_THREADS, 0, stream>>>(d);
   return cudaGetLastError();
 }
 
@@ -1036,8 +1105,9 @@ cudaError_t launch_delta(const DeltaArgs& d, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32 (the CUDA-core kernels), 1 = bfloat16 (the
-// tensor-core kernels, which read q, k, v and do through TMA: 16-byte-aligned
-// bases, strides in 16-byte multiples, checked by the Python wrapper).
+// tensor-core kernels, which read q, k, v and do through TMA, and the delta
+// kernel's 16-byte loads of o and do: 16-byte-aligned bases, strides in
+// 16-byte multiples, checked by the Python wrapper).
 // q/k/v strides are in elements; o, do, lse, dlse (nullable) are
 // contiguous; dq, dk, dv (q's dtype) and delta (f32 [B,S,H] scratch) are
 // written contiguous.  B, S, T >= 1.  Launches the three kernels on the
@@ -1057,8 +1127,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o,
     return cudaErrorInvalidValue;
   const DeltaArgs d{o, dout, dlse, delta,
                     static_cast<long long>(B) * S * H, D};
-  cudaError_t err = dtype == 0 ? launch_delta<float>(d, s)
-                               : launch_delta<__nv_bfloat16>(d, s);
+  cudaError_t err = launch_delta(d, dtype, s);
   if (err != cudaSuccess) return err;
   if (dtype == 0) {
     f32::Args a{static_cast<const float*>(q),

@@ -12,6 +12,7 @@
 //     from shared memory (K-major) or from registers, and B K-major or
 //     MN-major (the transpose bit);
 //   * the proxy fence that lets wgmma read a tile that threads wrote;
+//   * 2^x on the special-function unit with subnormal results flushed;
 //   * setmaxnreg, to move registers from a producer warpgroup to the
 //     consumers.
 // No CuTe or CUTLASS type appears here: tests/torch_cuda_emu.py replaces
@@ -187,6 +188,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const TensorMap* map,
 // itself, before the barrier arrival that releases it to a wgmma.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: about 2 ulp, results
+// below 2^-126 flushed to 0), without exp2f's slow path for them.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Shared-memory matrix descriptor: start address, leading and stride byte

@@ -266,12 +266,12 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, *, causal: bool = True,
            "-> (Tensor, Tensor, Tensor)")
 def _flash_bwd_op(q, k, v, o, lse, dout, dlse, kv_positions, causal, window,
                   scale, q_offset):
-    """The launch: the inputs checked (TMA's preconditions on bf16 q, k, v
-    and do), dq/dk/dv and the f32 delta scratch allocated, the three
+    """The launch: the inputs checked (TMA's preconditions on bf16 q, k, v,
+    o and do), dq/dk/dv and the f32 delta scratch allocated, the three
     kernels on the current stream, one count in ``flash_bwd.launches``."""
     _check_bwd(q, k, v, o, lse, dout, dlse, kv_positions)
-    if q.dtype == torch.bfloat16:        # the tensor-core kernels' TMA
-        for name, x in (("q", q), ("k", k), ("v", v), ("do", dout)):
+    if q.dtype == torch.bfloat16:        # TMA, and the delta's 16-byte loads
+        for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", dout)):
             check_tma(name, x)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]

@@ -65,6 +65,16 @@ CASES = [
     ((1, 64, 128, 2, 1, 16), torch.bfloat16, True, 0, 0, "future", True),
     ((2, 130, 130, 2, 1, 128), torch.bfloat16, True, 0, 0, "strided", True),
     ((1, 64, 64, 6, 3, 8), torch.bfloat16, False, 0, 0, None, True),
+    # several streamed tiles a block (64 q rows in dK/dV, 128 KV rows in dQ
+    # at D <= 64 and 64 at D = 128), with the masked and unmasked softmax
+    # loops in one block: ragged ends past 128, causal and not, a window
+    # and q_offset that straddle a 128-row tile, G = 3 over several tiles,
+    # D = 128 over three and four tiles
+    ((1, 300, 260, 2, 1, 64), torch.bfloat16, True, 0, 0, None, True),
+    ((1, 290, 200, 2, 2, 32), torch.bfloat16, False, 0, 0, None, False),
+    ((1, 260, 300, 2, 1, 64), torch.bfloat16, True, 100, 40, None, True),
+    ((1, 256, 264, 6, 2, 32), torch.bfloat16, True, 0, 0, None, True),
+    ((1, 200, 300, 2, 1, 128), torch.bfloat16, False, 0, 0, None, True),
 ]
 
 

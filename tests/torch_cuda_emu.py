@@ -151,7 +151,15 @@ inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
 
 template <typename K>
 cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// A launch's emulated fault, kept until cudaGetLastError reads it: the
+// source's launch statement drops emu_launch's return value, and the C
+// entry points report cudaGetLastError's.
+inline cudaError_t g_last_error = cudaSuccess;
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t err = g_last_error;
+  g_last_error = cudaSuccess;
+  return err;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 template <typename K, typename A>
@@ -185,6 +193,7 @@ cudaError_t emu_launch(K kernel, dim3 grid, int nthreads, size_t smem_bytes,
           });
         for (auto& th : threads) th.join();
       }
+  if (g_fault) g_last_error = cudaErrorEmulatedFault;
   return g_fault ? cudaErrorEmulatedFault : cudaSuccess;
 }
 """
@@ -231,6 +240,7 @@ HOPPER_CUH = r"""// CPU stand-in for src/repro_torch/kernels/csrc/hopper.cuh, wi
 //     swizzle) with PTX's fragment layouts, and all meet again.  The
 //     products are exact in f32 and summed over k in order; fence, commit
 //     and wait are no-ops, as the result exists once the call returns;
+//   * exp2_ftz is std::exp2 with subnormals flushed to zero;
 //   * the proxy fence is a no-op: the CPU has one view of memory;
 //   * setmaxnreg is a no-op: registers are not modelled.
 #pragma once
@@ -387,6 +397,13 @@ inline uint64_t smem_desc(uint32_t addr, int swizzle, uint32_t lbo,
 }
 
 inline void fence_proxy_async() {}
+
+// ex2.approx.ftz: 2^x in f32 with subnormal inputs and results flushed
+inline float exp2_ftz(float x) {
+  if (std::fabs(x) < 1.17549435e-38f) x = 0.f;
+  const float y = std::exp2(x);
+  return y < 1.17549435e-38f ? 0.f : y;
+}
 
 template <int R>
 inline void setmaxnreg_dec() {}
