@@ -11,9 +11,11 @@ CUDA kernels from the sources in this checkout.  Phases:
    ``distill_kl_bwd.cu``, ``ssd_fwd.cu`` and ``ssd_bwd.cu`` built by one
    ``nvcc`` each, started together; the counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
    load) instructions in the SASS of the flash forward and backward, KL
-   forward and backward and SSD libraries, each of which must have both:
-   their bf16 paths run on the tensor cores from
-   TMA-fed shared memory, their float32 paths on the CUDA cores.
+   forward and backward and SSD forward and backward libraries, each of
+   which must have both: their bf16 paths run on the tensor cores from
+   TMA-fed shared memory, their float32 paths on the CUDA cores; and the
+   bytes ``ptxas -v`` spills in the SSD backward's tensor-core kernels,
+   printed (its gradient kernel spills at n = 128; not yet a check).
 2. The flash kernel against its plain version (``kernels/ref.py``) on the
    card, over a sweep of shapes, masks and dtypes (bf16 through the
    tensor-core path, float32 through the CUDA-core path), and at the
@@ -100,8 +102,11 @@ CUDA kernels from the sources in this checkout.  Phases:
    n=128, bf16, by TMA), where the kernel and the plain version are timed
    and its kernels' device times traced.  The backward kernel
    (``csrc/ssd_bwd.cu``, the op ``repro_torch::ssd_bwd``) against its
-   plain version (``ref.ssd_bwd_ref``) over a sweep (f32 and bf16, ragged,
-   with and without the final state's gradient, x/B/C as strided slices):
+   plain version (``ref.ssd_bwd_ref``) over a sweep (f32 on the CUDA cores
+   and bf16 on the tensor cores, each bf16 case printing its route, TMA or
+   threads' loads; ragged, a partial group of heads, with and without the
+   final state's gradient, x/B/C as strided slices; the threads' route
+   against TMA's bit for bit):
    f32 within SSD_BWD_TOL of each leaf's largest element, bf16 dx, dB and
    dC row by row within SHAPE_REL_TOL of each row's own scale, two calls
    bit for bit, and planted faults (the final state's gradient dropped,
@@ -383,7 +388,9 @@ HBM_BYTES_PER_S = 3.35e12
 # the libraries whose bf16 path runs wgmma on TMA-fed shared memory, and the
 # SASS instructions that show it
 TENSOR_CORE_LIBS = ("flash_fwd", "flash_bwd", "distill_kl_fwd",
-                    "distill_kl_bwd", "ssd_fwd")
+                    "distill_kl_bwd", "ssd_fwd", "ssd_bwd")
+# the libraries whose tensor-core kernels' (``*_tc``) spills are printed
+SPILL_REPORT_LIBS = ("ssd_bwd",)
 SASS_OPS = ("HGMMA", "UTMALDG")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
@@ -501,7 +508,12 @@ SSD_GRAD_SWEEP = [((2, 64, 3, 8, 16), 16), ((2, 64, 3, 8, 16), 128),
 SSD_BWD_TOL = 1e-4
 SSD_BWD_SWEEP = [((2, 64, 3, 8, 16), None), ((1, 200, 2, 16, 8), -0.05),
                  ((2, 48, 4, 8, 4), None), ((1, 130, 3, 80, 72), -0.05),
-                 ((2, 4094, 4, 64, 128), -0.05), ((1, 200, 4, 64, 16), None)]
+                 ((2, 4094, 4, 64, 128), -0.05), ((1, 200, 4, 64, 16), None),
+                 ((2, 700, 26, 64, 128), -0.05)]
+# (shape, A) at which the bf16 backward also runs with gy moved off TMA's
+# 16-byte alignment, so that every tile loads by threads: its outputs must
+# equal TMA's bit for bit
+SSD_BWD_ROUTE = ((1, 200, 4, 64, 16), None)
 MAMBA = "mamba2-130m"
 MAMBA_B, MAMBA_S = 4, 4096
 
@@ -549,6 +561,22 @@ def sass_counts(lib: Path) -> dict:
             for op in SASS_OPS}
 
 
+def tc_spills(log: str) -> dict:
+    """Spill bytes (stores + loads) of each tensor-core kernel (an entry
+    function with ``_tc`` in its name) in an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+        elif "spill stores" in line and name and "_tc" in name:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name] = nums[1] + nums[2]    # stack, stores, loads
+            name = None
+    check(bool(out), "no tensor-core kernel in the ptxas log")
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     print(f"card: {card()}")
@@ -574,6 +602,11 @@ def phase_build() -> None:
                                           for k, v in counts.items()))
         check(all(counts.values()),
               f"{name}'s SASS lacks one of {SASS_OPS}: {counts}")
+    for name in SPILL_REPORT_LIBS:
+        spills = tc_spills(builds[name].log)
+        print(f"spills {name} (tensor-core kernels, bytes stored + loaded): "
+              + ", ".join(f"{k.split('2tc')[-1][:40]} {v}"
+                          for k, v in spills.items()))
     # the float32 plain versions must not round through TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -995,8 +1028,8 @@ def read_kl_bwd() -> int:
 
 
 def read_ssd_bwd() -> int:
-    """ssd_bwd launches since reset_counts (one a backward call, its four
-    kernels launched together)."""
+    """ssd_bwd launches since reset_counts (one a backward call, its
+    kernels launched together: three for bf16, four for float32)."""
     from repro_torch.kernels import ssd_scan as ssd
     return ssd.ssd_bwd.launches
 
@@ -3928,7 +3961,9 @@ def _ssd_bwd_at(rng, shape, dtype, with_state, packed, A=None) -> float:
         e[k] / _ssd_bwd_limit(k, dtype) for k in names)
     max_abs = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
-    print(f"  ssd_bwd {shape} {str(dtype)[6:]} gstate={with_state} "
+    route = ("" if dtype != torch.bfloat16 else " by TMA"
+             if ssd.tma_route(x, B, C, gy) else " by threads")
+    print(f"  ssd_bwd {shape} {str(dtype)[6:]}{route} gstate={with_state} "
           f"packed={packed} A={'exp' if A is None else A}: " + ", ".join(
               f"{k} {v:.2e}" for k, v in errs.items())
           + f" (max|g-ref| {max_abs:.3e}); bitwise {bitwise}"
@@ -3953,6 +3988,29 @@ def phase_ssd_bwd_sweep(rng) -> None:
             for with_state in (False, True):
                 _ssd_bwd_at(rng, shape, dtype, with_state,
                             packed=i % 2 == 1, A=A)
+    _ssd_bwd_routes(rng, *SSD_BWD_ROUTE)
+
+
+def _ssd_bwd_routes(rng, shape, A) -> None:
+    """The bf16 backward with x, B and C sliced from one tensor (by TMA),
+    then with gy copied to a base 2 bytes past 16-byte alignment, which TMA
+    refuses, so that every tile loads by threads: the same bits."""
+    from repro_torch.kernels import ssd_scan as ssd
+    b, s, h, p, n = shape
+    x, dt, A_, B, C, D = _ssd_inputs(rng, *shape, torch.bfloat16, True, A=A)
+    gy = _randn(rng, (b, s, h, p), torch.bfloat16)
+    gs = _randn(rng, (b, h, p, n), torch.float32)
+    off = torch.empty(gy.numel() + 1, dtype=gy.dtype, device=gy.device)
+    gy_off = off[1:].view(gy.shape)
+    gy_off.copy_(gy)
+    check(ssd.tma_route(x, B, C, gy) and not ssd.tma_route(x, B, C, gy_off),
+          "the route case does not split TMA from threads")
+    by_tma = ssd.ssd_bwd(x, dt, A_, B, C, D, gy, gs)
+    by_threads = ssd.ssd_bwd(x, dt, A_, B, C, D, gy_off, gs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip(by_tma, by_threads))
+    print(f"  ssd_bwd {shape} bf16 by TMA against by threads: bitwise {same}")
+    check(same, f"ssd_bwd at {shape}: the threads' route differs from TMA's")
 
 
 def phase_ssd_bwd_main(rng, shape) -> dict:
@@ -3992,7 +4050,7 @@ def phase_ssd_bwd_main(rng, shape) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    n_cum, n_work = ssd.bwd_scratch(b, s, h, p, n)
+    n_cum, n_work = ssd.bwd_scratch(b, s, h, p, n, torch.bfloat16)
     print(f"ssd_bwd main shape {shape} bf16: kernel {ms:.3f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s counted, {nbytes / ms / 1e6:.1f}"
           f" GB/s), plain {plain_ms:.3f} ms, autograd through ssd_chunked at "
@@ -5825,7 +5883,7 @@ def _fake_matches_launch() -> None:
                            (h, w, h, w, 1.0)),
         "ssd_fwd": (torch.ops.repro_torch.ssd_fwd,
                     (x, dt, A, Bm, Bm, A, True))}
-    n_cum, n_work = ssd.bwd_scratch(2, 128, 4, 64, 16)
+    n_cum, n_work = ssd.bwd_scratch(2, 128, 4, 64, 16, bf)
     cases["ssd_bwd"] = (torch.ops.repro_torch.ssd_bwd,
                         (x, dt, A, Bm, Bm, A, _randn(rng, x.shape, bf),
                          _randn(rng, (2, 4, 64, 16), torch.float32),

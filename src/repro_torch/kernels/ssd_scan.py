@@ -32,8 +32,9 @@ Counterpart of ``repro/kernels/ssd_scan.py`` and
   ``ssd_chunked_jnp``): the CUDA-only op ``repro_torch::ssd_bwd`` writes
   dx, ddt, dA, dB, dC and dD from the saved inputs, gy and the final
   state's gradient, into scratch that the wrapper allocates
-  (:func:`bwd_scratch`), so that a dry-run counts it.  It counts its
-  launches in ``ssd_bwd.launches``.
+  (:func:`bwd_scratch`), so that a dry-run counts it; bf16 on the tensor
+  cores, x, gy, B and C by TMA where :func:`tma_route` allows, float32 on
+  the CUDA cores.  It counts its launches in ``ssd_bwd.launches``.
 * :class:`SSDScan` gives a forward a gradient: its backward calls the
   backward function it was handed beside the forward (on the card
   :func:`ssd_fwd` and :func:`ssd_bwd`, both hand-written kernels).
@@ -56,7 +57,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
-                 + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p])
+BWD_GROUP = 8               # heads a block of the bf16 backward's gradients
 
 
 # --------------------------------------------------------------------------- #
@@ -163,11 +166,12 @@ def _check(x, dt, A, B, C, D, name="ssd_fwd", plain="ssd_scan.ssd_chunked"):
         raise ValueError("A and D must be contiguous")
 
 
-def tma_route(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> bool:
-    """Whether the bf16 kernels read x, B and C by TMA (all three meet its
-    preconditions, ``kernels/tma.py``) or load their tiles by threads."""
+def tma_route(*tensors: torch.Tensor) -> bool:
+    """Whether the bf16 kernels read their tiles of these tensors (the
+    forward's x, B and C; the backward's also gy) by TMA (all meet its
+    preconditions, ``kernels/tma.py``) or load them by threads."""
     return all(tma_violation(t.shape, t.stride(), t.data_ptr(),
-                             t.element_size()) is None for t in (x, B, C))
+                             t.element_size()) is None for t in tensors)
 
 
 def scratch(b: int, s: int, h: int, p: int, n: int,
@@ -283,13 +287,24 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def bwd_scratch(b: int, s: int, h: int, p: int, n: int) -> tuple[int, int]:
-    """Elements of the backward's two scratch buffers: cum (float64, [b,
-    h, nc, 64]) and work (float32): the states entering each chunk and the
-    gradients of the states leaving them, [b, h, nc, p, n] each, then the
-    [2, b, nc, h] partials of dA and dD."""
+def bwd_scratch(b: int, s: int, h: int, p: int, n: int,
+                dtype: torch.dtype) -> tuple[int, int]:
+    """Elements of the backward's two scratch buffers, cum (float64) and
+    work (float32).  Float32 inputs keep cum [b, h, nc, 64] and in work the
+    states entering each chunk and the gradients of the states leaving
+    them, [b, h, nc, p, n] each, then the [2, b, nc, h] partials of dA and
+    dD.  bf16 inputs need no cum and keep in work the same states as bf16
+    hi and lo parts, [b, h, nc, 2, PP, NP] each (p and n rounded up to 64
+    or 128), the f32 partials of dB and dC of each group of
+    :data:`BWD_GROUP` heads, [groups, b, s, n] each, then the partials of
+    dA and dD."""
     nc = -(-s // CHUNK)
-    return b * h * nc * CHUNK, 2 * b * h * nc * p * n + 2 * b * nc * h
+    if dtype == torch.float32:
+        return b * h * nc * CHUNK, 2 * b * h * nc * p * n + 2 * b * nc * h
+    pp, np_ = (64 if p <= 64 else 128), (64 if n <= 64 else 128)
+    groups = -(-h // BWD_GROUP)
+    return 0, (2 * b * h * nc * pp * np_ + 2 * groups * b * s * n
+               + 2 * b * nc * h)
 
 
 def _check_bwd(x, dt, A, B, C, D, gy, gstate):
@@ -320,7 +335,9 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dD): dx, dB and dC in x's dtype, ddt, dA and dD float32.  ``gy`` is
     y's gradient, ``gstate`` the final state's (None: zero).  x, dt, B and
     C are read through their strides; gy and gstate are made contiguous.
-    The arithmetic is float32 on the CUDA cores for both dtypes.
+    bf16 runs on the tensor cores, x, gy, B and C by TMA where
+    :func:`tma_route` allows and by threads elsewhere; float32 on the CUDA
+    cores.
 
     CUDA (and a dry-run's meta) tensors only: it allocates the scratch
     (:func:`bwd_scratch`) and calls the op ``repro_torch::ssd_bwd``.  CPU
@@ -338,7 +355,7 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check_bwd(x, dt, A, B, C, D, gy, gstate)
     b, s, h, p = x.shape
     n = B.shape[-1]
-    n_cum, n_work = bwd_scratch(b, s, h, p, n)
+    n_cum, n_work = bwd_scratch(b, s, h, p, n, x.dtype)
     cum = torch.empty(n_cum, dtype=torch.float64, device=x.device)
     work = torch.empty(n_work, dtype=torch.float32, device=x.device)
     return tuple(torch.ops.repro_torch.ssd_bwd(x, dt, A, B, C, D, gy, gstate,
@@ -352,12 +369,12 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
 def _ssd_bwd_op(x, dt, A, B, C, D, gy, gstate, cum, work):
     """The launch: the inputs and the scratch checked, the six gradients
-    allocated, the four kernels on the current stream, one count in
-    ``ssd_bwd.launches``."""
+    allocated, x/gy/B/C's route chosen, the kernels on the current stream,
+    one count in ``ssd_bwd.launches``."""
     _check_bwd(x, dt, A, B, C, D, gy, gstate)
     b, s, h, p = x.shape
     n = B.shape[-1]
-    n_cum, n_work = bwd_scratch(b, s, h, p, n)
+    n_cum, n_work = bwd_scratch(b, s, h, p, n, x.dtype)
     if (cum.dtype != torch.float64 or cum.numel() < n_cum
             or work.dtype != torch.float32 or work.numel() < n_work
             or not (cum.is_contiguous() and work.is_contiguous())):
@@ -366,6 +383,7 @@ def _ssd_bwd_op(x, dt, A, B, C, D, gy, gstate, cum, work):
                          f"{tuple(cum.shape)} and {work.dtype} "
                          f"{tuple(work.shape)}")
     dx, ddt, dA, dB, dC, dD = _bwd_outputs(x, B)
+    tma = x.dtype == torch.bfloat16 and tma_route(x, B, C, gy)
     lib = _bwd_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -377,7 +395,7 @@ def _ssd_bwd_op(x, dt, A, B, C, D, gy, gstate, cum, work):
             dD.data_ptr(), cum.data_ptr(), work.data_ptr(), b, s, h, p, n,
             x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
             dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-            _DTYPES[x.dtype], stream)
+            _DTYPES[x.dtype], int(tma), stream)
     if err != 0:
         raise RuntimeError("ssd_bwd launch failed: "
                            + lib.ssd_bwd_error_string(err).decode())

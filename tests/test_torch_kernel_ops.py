@@ -298,7 +298,7 @@ def test_ssd_bwd_op_is_registered_and_refuses_cpu_tensors():
     go to ``ref.ssd_bwd_ref``) and a call that autograd would record."""
     assert hasattr(torch.ops.repro_torch, "ssd_bwd")
     x, dt, A, B, C, D, gy, gs = _ssd_case()
-    n_cum, n_work = ssd.bwd_scratch(2, 70, 3, 8, 4)
+    n_cum, n_work = ssd.bwd_scratch(2, 70, 3, 8, 4, torch.float32)
     with pytest.raises(NotImplementedError):
         torch.ops.repro_torch.ssd_bwd(
             x, dt, A, B, C, D, gy, gs,
@@ -318,9 +318,12 @@ def test_ssd_bwd_shape_function_allocates_outputs_and_scratch(dtype,
                                                               with_state):
     """On meta tensors the wrapper allocates the scratch of
     ``bwd_scratch`` (float64 cum, float32 work: the states entering and
-    the gradients leaving each chunk, the dA/dD partials) and the op's fake
-    function the six gradients, laid out as the plain version's: dx, dB, dC
-    in x's dtype, ddt, dA, dD float32.  Nothing is launched."""
+    the gradients leaving each chunk, in float32 for float32 inputs and as
+    bf16 hi and lo parts of p and n padded to 64 for bf16 ones, whose work
+    also holds the head groups' dB/dC partials; the dA/dD partials) and
+    the op's fake function the six gradients, laid out as the plain
+    version's: dx, dB, dC in x's dtype, ddt, dA, dD float32.  Nothing is
+    launched."""
     x, dt, A, B, C, D, gy, gs = _ssd_case(dtype=dtype)
     want = ref.ssd_bwd_ref(x, dt, A, B, C, D, gy, gs if with_state else None)
     before = ssd.ssd_bwd.launches
@@ -332,10 +335,14 @@ def test_ssd_bwd_shape_function_allocates_outputs_and_scratch(dtype,
     for g, w in zip(got, want):
         assert g.device.type == "meta"
         _same_layout(g, w.contiguous())
-    n_cum, n_work = ssd.bwd_scratch(2, 70, 3, 8, 4)
+    n_cum, n_work = ssd.bwd_scratch(2, 70, 3, 8, 4, dtype)
     nc = -(-70 // ssd.CHUNK)
-    assert (n_cum, n_work) == (2 * 3 * nc * ssd.CHUNK,
-                               2 * 2 * 3 * nc * 8 * 4 + 2 * 2 * nc * 3)
+    if dtype == torch.float32:
+        assert (n_cum, n_work) == (2 * 3 * nc * ssd.CHUNK,
+                                   2 * 2 * 3 * nc * 8 * 4 + 2 * 2 * nc * 3)
+    else:   # one group of 3 heads
+        assert (n_cum, n_work) == (0, 2 * 2 * 3 * nc * 64 * 64
+                                   + 2 * 1 * 2 * 70 * 4 + 2 * 2 * nc * 3)
     assert ((n_cum,), torch.float64) in calls.empties
     assert ((n_work,), torch.float32) in calls.empties
     assert calls.names.count("repro_torch.ssd_bwd.default") == 1

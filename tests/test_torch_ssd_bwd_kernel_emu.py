@@ -1,22 +1,32 @@
 """The CUDA SSD backward kernel's source, run on the CPU.
 
 ``src/repro_torch/kernels/csrc/ssd_bwd.cu`` is compiled with ``g++``
-against the stand-in CUDA headers of ``tests/torch_cuda_emu.py`` and
-called with CPU tensors through the wrapper's own C signature, with the
-scratch sizes of ``ssd_scan.bwd_scratch``.  Its four kernels (the chunk
-states and G_c, the forward and reverse passes over the chunks, the
-chunks' gradients with every head of a (chunk, b) in one block, the sums
-of the dA and dD partials) are held, output by output, against the plain
-version ``ref.ssd_bwd_ref``: float32 and bf16; lengths below, at and above
-one 64-token chunk and ragged; p and n below and above one 64-wide tile;
+against the stand-in CUDA headers of ``tests/torch_cuda_emu.py`` (its
+``hopper.cuh`` stand-in included) and called with CPU tensors through the
+wrapper's own C signature, with the scratch sizes of
+``ssd_scan.bwd_scratch``.  float32 cases run its four CUDA-core kernels
+(the chunk states and G_c, the forward and reverse passes over the chunks,
+the chunks' gradients with every head of a (chunk, b) in one block, the
+sums of the dA and dD partials), bf16 cases its three tensor-core kernels
+(the two walks over the chunks with the carry in a wgmma accumulator; the
+chunks' gradients for a group of heads, over a ring of stages; the sums of
+the groups' dB/dC and the dA/dD partials).  Each output is held against
+the plain version ``ref.ssd_bwd_ref``: lengths below, at and above one
+64-token chunk and ragged; p and n below and above one 64-wide tile
+(padded to 64 or 128 on the tensor cores, jamba's n = 16 too);
+mamba2-130m's p and n; more chunks than the state kernel's ring holds;
+more heads than the gradient kernel's ring, a whole and a partial group;
 with and without the final state's gradient; x, B and C as strided slices
-of one tensor (as the model passes them).  Two calls give the same bits,
-and a source with a planted fault fails the comparison: the reverse pass
-started from zero instead of gstate (the dH carried into the last chunk),
-or the carry into chunk 0 (the last one the reverse pass reaches) dropped.
+of one tensor (as the model passes them); tensors that TMA refuses (loaded
+by threads), and the threads' route against TMA's.  Two calls give the
+same bits, and a source with a planted fault fails the comparison: the
+reverse pass started from zero instead of gstate (the dH carried into the
+last chunk), the carry into chunk 0 (the last one the reverse pass
+reaches) dropped, or (tensor cores) the lo part of every dH dropped.
 """
 import contextlib
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -53,11 +63,19 @@ CASES = [
     (2, 40, 3, 8, 4, torch.float32, True, False, 1.0),     # below one chunk
     (1, 1030, 1, 8, 4, torch.float32, False, True, 0.02),  # 17 chunks: two
     #   batches of the pass's loads
-    (2, 48, 4, 8, 4, torch.bfloat16, True, True, 1.0),     # below one chunk
+    # bf16: the tensor-core kernels
+    (2, 48, 4, 8, 4, torch.bfloat16, True, True, 1.0),     # below one chunk;
+    #   C at byte 72 of a row: TMA refuses it, the tiles load by threads
     (1, 192, 2, 64, 128, torch.bfloat16, True, True, 0.02),  # mamba2-130m's
     #   p, n, packed as the model
-    (1, 130, 1, 80, 72, torch.bfloat16, False, False, 0.02),  # p, n past a
-    #   tile
+    (1, 130, 1, 80, 72, torch.bfloat16, False, False, 0.02),  # p, n padded
+    #   to 128
+    (1, 200, 4, 64, 16, torch.bfloat16, True, False, 0.02),  # jamba's p, n
+    #   (n padded to 64), packed as the model: B and C 32 bytes wide, by TMA
+    (1, 300, 1, 16, 8, torch.bfloat16, True, True, 0.02),  # 5 chunks
+    #   through the state kernel's ring of 4; ragged
+    (1, 40, 10, 8, 16, torch.bfloat16, False, True, 0.02),  # 10 heads: a
+    #   group of 8 through a ring of 2 stages, and one of 2
 ]
 
 
@@ -74,17 +92,30 @@ def _one_thread():
         torch.set_num_threads(n)
 
 
-def _build(tmp_path_factory, name, src=None):
-    lib = torch_cuda_emu.build("ssd_bwd", tmp_path_factory.mktemp(name),
-                               src)
+def _build(out, src=None):
+    lib = torch_cuda_emu.build("ssd_bwd", out, src)
     lib.ssd_bwd.argtypes = ssd._BWD_ARGTYPES
     lib.ssd_bwd.restype = ctypes.c_int
     return lib
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    return _build(tmp_path_factory, "ssd_bwd_emu")
+def libs(tmp_path_factory):
+    """The source and each planted fault's (``PLANTED``), compiled at
+    once: {"good": lib, fault: lib}."""
+    src = (torch_cuda_emu.CSRC / "ssd_bwd.cu").read_text()
+    srcs = {"good": None}
+    for fault, (line, planted, _) in PLANTED.items():
+        assert src.count(line) == 1, f"{line!r} is no longer in ssd_bwd.cu"
+        srcs[fault] = src.replace(line, planted)
+    outs = [tmp_path_factory.mktemp(f"ssd_bwd_{name}") for name in srcs]
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        return dict(zip(srcs, pool.map(_build, outs, srcs.values())))
+
+
+@pytest.fixture(scope="module")
+def lib(libs):
+    return libs["good"]
 
 
 def _inputs(b, s, h, p, n, dtype, packed, with_state, a=1.0, seed=0):
@@ -111,13 +142,16 @@ def _inputs(b, s, h, p, n, dtype, packed, with_state, a=1.0, seed=0):
     return x, dt, A, B, C, D, gy, gstate
 
 
-def _run(lib, x, dt, A, B, C, D, gy, gstate=None):
+def _run(lib, x, dt, A, B, C, D, gy, gstate=None, tma=None):
     """The C entry point as the op calls it, every output and the scratch
-    NaN-filled first."""
+    NaN-filled first; ``tma`` (bf16) defaults to the wrapper's choice,
+    ``ssd.tma_route``."""
     b, s, h, p = x.shape
     n = B.shape[-1]
-    n_cum, n_work = ssd.bwd_scratch(b, s, h, p, n)
-    cum = torch.full((n_cum,), float("nan"), dtype=torch.float64)
+    if tma is None:
+        tma = x.dtype == torch.bfloat16 and ssd.tma_route(x, B, C, gy)
+    n_cum, n_work = ssd.bwd_scratch(b, s, h, p, n, x.dtype)
+    cum = torch.full((max(n_cum, 1),), float("nan"), dtype=torch.float64)
     work = torch.full((n_work,), float("nan"))
     outs = [t.fill_(float("nan")) for t in ssd._bwd_outputs(x, B)]
     err = lib.ssd_bwd(
@@ -127,7 +161,7 @@ def _run(lib, x, dt, A, B, C, D, gy, gstate=None):
         *(t.data_ptr() for t in outs), cum.data_ptr(), work.data_ptr(),
         b, s, h, p, n, x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
         dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-        ssd._DTYPES[x.dtype], None)
+        ssd._DTYPES[x.dtype], int(tma), None)
     return err, outs
 
 
@@ -157,6 +191,25 @@ def test_kernel_source_matches_plain_version(lib, case):
     _assert_matches(got, _ref(*ins), case[5])
 
 
+def test_bf16_route_follows_the_tma_preconditions(lib):
+    """The wrapper loads x, gy, B and C by TMA exactly where every one of
+    them meets TMA's preconditions, and the threads' route gives the same
+    bits."""
+    packed = _inputs(1, 100, 2, 64, 32, torch.bfloat16, True, True, 0.02)
+    x, _, _, B, C, _, gy, _ = packed
+    assert ssd.tma_route(x, B, C, gy)
+    for case in ((2, 48, 4, 8, 4, torch.bfloat16, True, False),
+                 (2, 48, 4, 8, 4, torch.bfloat16, False, False)):
+        x, _, _, B, C, _, gy, _ = _inputs(*case)
+        assert not ssd.tma_route(x, B, C, gy)
+    err1, by_tma = _run(lib, *packed, tma=True)
+    err2, by_threads = _run(lib, *packed, tma=False)
+    assert err1 == err2 == 0
+    for name, u, v in zip(NAMES, by_tma, by_threads):
+        assert torch.equal(u, v), name
+    _assert_matches(by_threads, _ref(*packed), torch.bfloat16)
+
+
 def test_two_calls_give_the_same_bits(lib):
     ins = _inputs(1, 70, 1, 8, 4, torch.bfloat16, True, True, 0.02, seed=3)
     err1, first = _run(lib, *ins)
@@ -175,30 +228,32 @@ def test_bad_dims_are_refused(lib):
     assert _run(lib, x, dt, A, Bb, Bb, D, gy)[0] != 0
 
 
-# planted faults: (source line, its faulty replacement)
+# planted faults: (source line, its faulty replacement, the inputs' dtype:
+# float32 runs the CUDA-core kernels, bf16 the tensor-core ones)
 PLANTED = {
     "gstate_dropped": (
         "float dH = a.gstate != nullptr ? a.gstate[bh * pn + e] : 0.f;",
-        "float dH = 0.f;"),
+        "float dH = 0.f;", torch.float32),
     "carry_into_chunk0_dropped": (
         "dH = fmaf(dH, decay[c], G[k]);",
-        "dH = c == 1 ? G[k] : fmaf(dH, decay[c], G[k]);"),
+        "dH = c == 1 ? G[k] : fmaf(dH, decay[c], G[k]);", torch.float32),
+    "dH_lo_dropped": (
+        "split(H[i], H[i + 1], hi, lo);",
+        "split(H[i], H[i + 1], hi, lo);\n        if (rev) lo = 0u;",
+        torch.bfloat16),
 }
 
 
 @pytest.mark.parametrize("fault", sorted(PLANTED))
-def test_planted_fault_fails(tmp_path_factory, lib, fault):
-    src = (torch_cuda_emu.CSRC / "ssd_bwd.cu").read_text()
-    line, planted = PLANTED[fault]
-    assert src.count(line) == 1, f"{line!r} is no longer in ssd_bwd.cu"
-    bad = _build(tmp_path_factory, f"ssd_bwd_{fault}",
-                 src.replace(line, planted))
-    ins = _inputs(1, 70, 1, 8, 4, torch.float32, True, True, 0.02, seed=5)
+def test_planted_fault_fails(libs, lib, fault):
+    dtype = PLANTED[fault][2]
+    bad = libs[fault]
+    ins = _inputs(1, 70, 1, 8, 4, dtype, True, True, 0.02, seed=5)
     want = _ref(*ins)
     err, good = _run(lib, *ins)
     assert err == 0
-    _assert_matches(good, want, torch.float32)
+    _assert_matches(good, want, dtype)
     err, got = _run(bad, *ins)
     assert err == 0
     with pytest.raises(AssertionError):
-        _assert_matches(got, want, torch.float32)
+        _assert_matches(got, want, dtype)

@@ -34,7 +34,9 @@ CUDA_RUNTIME_H = r"""// CPU stand-in for the parts of the CUDA runtime that the 
 // one after another.  __syncthreads is a std::barrier over the block.  A
 // warp shuffle exchanges values through an array between two barriers of
 // its warp, which holds while all 32 lanes of the warp reach it (true of
-// shuffles in warp-uniform control flow); __syncwarp is that barrier.  The
+// shuffles in warp-uniform control flow); __syncwarp is that barrier.
+// Shuffles move 32- and 64-bit values (a double moves as one, as on the
+// card).  The
 // state of the Hopper stand-ins (mbarriers, warpgroup rendezvous) lives
 // here too and is reset for every block.  The test rewrites the kernel's
 // `extern __shared__` declaration and its `<<<...>>>` launch into
@@ -89,7 +91,7 @@ inline dim3 gridDim;
 inline std::barrier<>* g_bar = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_bar;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_group_bar;
-inline uint32_t g_shfl[1024];
+inline uint64_t g_shfl[1024];
 // the shared window: 1024-aligned, as the swizzle reads its address bits
 alignas(1024) inline float g_smem[1 << 16];
 
@@ -117,34 +119,46 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
 
 template <typename T>
 inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
-  static_assert(sizeof(T) == 4, "32-bit shuffles only");
-  std::memcpy(&g_shfl[threadIdx.x], &v, 4);
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "32- or 64-bit shuffles");
+  std::memcpy(&g_shfl[threadIdx.x], &v, sizeof(T));
   __syncwarp();
   T r;
-  std::memcpy(&r, &g_shfl[threadIdx.x ^ lane_mask], 4);
+  std::memcpy(&r, &g_shfl[threadIdx.x ^ lane_mask], sizeof(T));
   __syncwarp();
   return r;
 }
 
 template <typename T>
 inline T __shfl_sync(unsigned, T v, int src_lane) {
-  static_assert(sizeof(T) == 4, "32-bit shuffles only");
-  std::memcpy(&g_shfl[threadIdx.x], &v, 4);
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "32- or 64-bit shuffles");
+  std::memcpy(&g_shfl[threadIdx.x], &v, sizeof(T));
   __syncwarp();
   T r;
-  std::memcpy(&r, &g_shfl[threadIdx.x / 32 * 32 + src_lane % 32], 4);
+  std::memcpy(&r, &g_shfl[threadIdx.x / 32 * 32 + src_lane % 32], sizeof(T));
   __syncwarp();
   return r;
 }
 
 template <typename T>
 inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
-  static_assert(sizeof(T) == 4, "32-bit shuffles only");
-  std::memcpy(&g_shfl[threadIdx.x], &v, 4);
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "32- or 64-bit shuffles");
+  std::memcpy(&g_shfl[threadIdx.x], &v, sizeof(T));
   __syncwarp();
   T r = v;
   if (threadIdx.x % 32 >= delta)
-    std::memcpy(&r, &g_shfl[threadIdx.x - delta], 4);
+    std::memcpy(&r, &g_shfl[threadIdx.x - delta], sizeof(T));
+  __syncwarp();
+  return r;
+}
+
+template <typename T>
+inline T __shfl_down_sync(unsigned, T v, unsigned delta) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "32- or 64-bit shuffles");
+  std::memcpy(&g_shfl[threadIdx.x], &v, sizeof(T));
+  __syncwarp();
+  T r = v;
+  if (threadIdx.x % 32 + delta < 32)
+    std::memcpy(&r, &g_shfl[threadIdx.x + delta], sizeof(T));
   __syncwarp();
   return r;
 }
